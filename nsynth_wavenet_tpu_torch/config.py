@@ -1,0 +1,111 @@
+"""Typed teacher configuration (own copy of nsynth_wavenet_tpu/config.py's
+WavenetConfig).  Reference-schema JSONs (``configs/wavenet_*.json``) load
+unchanged."""
+
+import dataclasses
+import json
+from typing import Optional, Tuple
+
+DEFAULT_LR_SCHEDULE = (
+    (0, 2e-4),
+    (90000, 4e-4 / 3),
+    (120000, 6e-5),
+    (150000, 4e-5),
+    (180000, 2e-5),
+    (210000, 6e-6),
+    (240000, 2e-6),
+)
+
+
+def _tupleize(x):
+    if isinstance(x, (list, tuple)):
+        return tuple(_tupleize(v) for v in x)
+    return x
+
+
+@dataclasses.dataclass(frozen=True)
+class WavenetConfig:
+    """Teacher WaveNet hparams; field names and defaults as the reference."""
+
+    num_iters: int = 200000
+    wave_length: int = 7680
+    num_stages: int = 10
+    num_layers: int = 30
+    filter_length: int = 3
+    width: int = 512
+    skip_width: int = 256
+    deconv_width: int = 256
+    deconv_config: Tuple[Tuple[int, int], ...] = ((40, 10), (80, 20))
+    use_mu_law: bool = True
+    loss_type: str = "ce"  # ce | mol | gauss
+    mol_mix: int = 10
+    use_weight_norm: bool = False
+    double_gate_width: bool = True
+    use_resize_conv: bool = False
+    upsample_act: str = "tanh"
+    use_as_teacher: bool = False
+    dropout_inputs: bool = False
+    dropout_all: bool = False
+    dropout_rate: Optional[float] = None
+    lr_schedule: Tuple[Tuple[int, float], ...] = DEFAULT_LR_SCHEDULE
+    grad_clip: bool = False
+    detail_log: bool = False
+    compute_dtype: str = "bfloat16"
+    remat: bool = False
+
+    def __post_init__(self):
+        if self.dropout_inputs and self.dropout_all:
+            raise ValueError("dropout_inputs and dropout_all are exclusive")
+        if self.loss_type not in ("ce", "mol", "gauss"):
+            raise ValueError(f"unknown loss_type {self.loss_type!r}")
+
+    @property
+    def quant_chann(self) -> int:
+        return 2**8 if self.use_mu_law else 2**16
+
+    @property
+    def out_width(self) -> int:
+        if self.loss_type == "ce":
+            return self.quant_chann
+        if self.loss_type == "mol":
+            return self.mol_mix * 3
+        return 2
+
+    @property
+    def gate_width(self) -> int:
+        return 2 * self.width if self.double_gate_width else self.width
+
+    @property
+    def frame_shift(self) -> int:
+        out = 1
+        for _, s in self.deconv_config:
+            out *= s
+        return out
+
+    @property
+    def max_dilation(self) -> int:
+        return 2 ** (self.num_stages - 1)
+
+
+_WAVENET_FIELDS = {f.name for f in dataclasses.fields(WavenetConfig)}
+
+
+def wavenet_config_from_dict(d: dict, **overrides) -> WavenetConfig:
+    known = {k: _tupleize(v) for k, v in d.items() if k in _WAVENET_FIELDS}
+    unknown = {k for k in d if k not in _WAVENET_FIELDS and k != "use_input_noise"}
+    if unknown:
+        raise ValueError(f"Unknown config keys for WavenetConfig: {sorted(unknown)}")
+    known.update(overrides)
+    return WavenetConfig(**known)
+
+
+def load_config(path: str, **overrides) -> WavenetConfig:
+    """Load a reference-schema teacher JSON.  A golden ``meta.json`` (config
+    nested under "config") is accepted too."""
+    with open(path, "rt") as f:
+        d = json.load(f)
+    if "config" in d and isinstance(d["config"], dict):
+        d = d["config"]
+    if "num_iaf_layers" in d:
+        raise ValueError(f"{path} is a student config; the port serves the teacher only")
+    return wavenet_config_from_dict(d, **overrides)

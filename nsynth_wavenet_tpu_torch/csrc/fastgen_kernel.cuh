@@ -1,0 +1,82 @@
+// Shared declarations of the autoregressive generation kernels
+// (fastgen_kernel.cu) and their plain-C entry points, loaded with ctypes by
+// nsynth_wavenet_tpu_torch/ops/fastgen_kernel.py.  The Python side mirrors
+// FastgenArgs field for field (ctypes.Structure _FastgenArgs).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+enum HeadType { HEAD_CE = 0, HEAD_MOL = 1, HEAD_GAUSS = 2 };
+
+struct FastgenArgs {
+  // packed weights (ops/fastgen_kernel.py build_kernel_weights), bf16 matrices, f32 biases
+  const void* w_comb;   // [NL, 3W+DW, GW] bf16: dilated taps (t-2d, t-d, t) stacked over the mel-cond 1x1
+  const void* b_comb;   // [NL, GW] f32
+  const void* w_rs;     // [NL, m, W+S] bf16: res | skip 1x1
+  const void* b_rs;     // [NL, W+S] f32
+  const void* w_start;  // [3, W] f32 conv_start taps
+  const void* b_start;  // [W] f32
+  const void* w_skip0;  // [W, S] bf16
+  const void* b_skip0;  // [S] f32
+  const void* w_out1;   // [S+DW, S] bf16, out1 stacked over the out1 mel-cond
+  const void* b_out1;   // [S] f32
+  const void* w_out2;   // [S, out_pad] bf16, head columns padded to 16
+  const void* b_out2;   // [out_pad] f32 (padded logit lanes at -1e9)
+  // inputs
+  const void* enc;      // [L, B, DW] bf16 upsampled conditioning, offset-trimmed
+  const void* tf;       // [L, B] f32 teacher-forced feedback, or null
+  // state and scratch (allocated and zeroed by the wrapper)
+  void* lbuf;           // [sum(2d), B, W] bf16 ring buffers of every layer's input
+  void* l;              // [B, W] f32 residual stream
+  void* l_bf;           // [B, W] bf16 copy of l, the current-row operand of the gate product
+  void* s;              // [B, S] f32 skip sum
+  void* gate;           // [B, m] bf16 gated activation of the current layer
+  void* part;           // f32 partial tiles of the split-K gate product (fastgen_workspace)
+  void* counters;       // u32 per gate tile, zeroed; each reduction resets its own
+  void* xh;             // [3, B] f32 input taps x(t-2), x(t-1), x(t)
+  // outputs
+  void* audio;          // [L, B] f32
+  void* out_params;     // [L, B, out_pad] f32, or null
+  void* stream;         // cudaStream_t (PyTorch's current stream)
+  long long seed;
+  int device;
+  int B, L, W, GW, S, DW, NL, num_stages;
+  int out_pad, out_seg, head, use_mu_law, quant_chann, greedy;
+};
+
+// Philox4x32-10 (Salmon et al., SC'11), first output word.  Counter
+// (lane, batch row, t, draw), key (seed low word, seed high word).
+__host__ __device__ inline uint32_t philox_bits(uint32_t c0, uint32_t c1, uint32_t c2,
+                                                uint32_t c3, uint32_t k0, uint32_t k1) {
+  for (int r = 0; r < 10; ++r) {
+    if (r) {
+      k0 += 0x9E3779B9u;
+      k1 += 0xBB67AE85u;
+    }
+    const uint64_t p0 = (uint64_t)0xD2511F53u * c0;
+    const uint64_t p1 = (uint64_t)0xCD9E8D57u * c2;
+    const uint32_t hi0 = (uint32_t)(p0 >> 32), lo0 = (uint32_t)p0;
+    const uint32_t hi1 = (uint32_t)(p1 >> 32), lo1 = (uint32_t)p1;
+    c0 = hi1 ^ c1 ^ k0;
+    c1 = lo1;
+    c2 = hi0 ^ c3 ^ k1;
+    c3 = lo0;
+  }
+  return c0;
+}
+
+// Top 24 bits of an UNSIGNED word -> uniform on [1e-5, 1 - 1e-5].
+__host__ __device__ inline float uniform_from_bits(uint32_t bits) {
+  const float u = (float)(bits >> 8) * (1.0f / 16777216.0f);
+  return fminf(fmaxf(u, 1e-5f), 0.99999f);
+}
+
+extern "C" {
+int fastgen_generate(const FastgenArgs* args);
+void fastgen_workspace(int B, int W, int GW, int DW, long long* part_floats, long long* counters);
+int philox_uniform(float* out, int rows, int lanes, int t, int draw, long long seed,
+                   int device, void* stream);
+const char* fastgen_error_string(int code);
+}

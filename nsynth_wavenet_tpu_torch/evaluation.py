@@ -1,0 +1,85 @@
+"""Batch AR synthesis over files (counterpart of generate_wavenet in
+nsynth_wavenet_tpu/evaluation.py): wav or mel files -> mel batch on the host
+-> Fastgen.generate_cuda on the device -> gen_*.wav."""
+
+import glob
+import logging
+import os
+import time
+
+import numpy as np
+import torch
+
+from nsynth_wavenet_tpu_torch import config as config_lib
+from nsynth_wavenet_tpu_torch import weights
+from nsynth_wavenet_tpu_torch.data import wav_io
+from nsynth_wavenet_tpu_torch.ops import stft as stft_ops
+
+log = logging.getLogger(__name__)
+
+
+def discover_files(source_path: str):
+    """source_path: a .wav/.npy file or a directory of them; .wav preferred
+    when both exist."""
+    if os.path.isdir(source_path):
+        wavs = sorted(glob.glob(os.path.join(source_path, "*.wav")))
+        npys = sorted(glob.glob(os.path.join(source_path, "*.npy")))
+        files = wavs or npys
+    else:
+        files = [source_path]
+    if not files:
+        raise FileNotFoundError(f"no .wav/.npy inputs under {source_path}")
+    return files
+
+
+def load_mel_batch(files, sample_length: int = -1):
+    """Wavs (or [T, num_mel] .npy mels) -> zero-padded mel batch [B, T, num_mel].
+    sample_length > 0 truncates each wav."""
+    if os.path.splitext(files[0])[1] == ".npy":
+        mels = [np.load(f).astype(np.float32) for f in files]
+        out = np.zeros((len(mels), max(m.shape[0] for m in mels), mels[0].shape[1]), np.float32)
+        for i, m in enumerate(mels):
+            out[i, : m.shape[0]] = m
+        return out
+    waves = []
+    for f in files:
+        wav, _ = wav_io.read_wav(f, expect_sr=16000)
+        waves.append(wav[:sample_length] if sample_length > 0 else wav)
+    batch = np.zeros((len(waves), max(len(w) for w in waves)), np.float32)
+    for i, w in enumerate(waves):
+        batch[i, : len(w)] = w
+    return stft_ops.melspectrogram_np(batch)
+
+
+def generate_wavenet(source_path, params_npz, config_json, save_path, batch_size=8, seed=0,
+                     device="cuda", sample_length=-1):
+    """Teacher synthesis of every file under source_path with the weights of a
+    golden-format params.npz; writes gen_<name>.wav files and returns their
+    paths.  sample_length > 0 truncates the input wavs.  Any batch size runs
+    as it is: the CUDA kernel masks the rows past the batch in its tiles."""
+    from nsynth_wavenet_tpu_torch.models.fastgen import Fastgen
+    from nsynth_wavenet_tpu_torch.models.wavenet import Wavenet
+    from nsynth_wavenet_tpu_torch.ops import fastgen_kernel as fk
+
+    cfg = config_lib.load_config(config_json, use_as_teacher=True)
+    params = weights.load_npz(params_npz, device=device)
+    fg = Fastgen(Wavenet(cfg))
+    kw = fk.build_kernel_weights(cfg, params)
+    os.makedirs(save_path, exist_ok=True)
+    files = discover_files(source_path)
+    outputs = []
+    for i in range(0, len(files), batch_size):
+        chunk = files[i : i + batch_size]
+        mel = load_mel_batch(chunk, sample_length)
+        t0 = time.time()
+        audio = fg.generate_cuda(params, torch.from_numpy(mel).to(device), seed + i, kw=kw)
+        audio = audio.cpu().numpy()
+        dt = time.time() - t0
+        audio_sec = audio.size / 16000.0
+        log.info("fastgen batch of %d: %.2f audio-sec in %.2fs (Delay %.3f)",
+                 len(chunk), audio_sec, dt, dt / audio_sec)
+        for f, wav in zip(chunk, audio):
+            out = os.path.join(save_path, "gen_" + os.path.splitext(os.path.basename(f))[0] + ".wav")
+            wav_io.write_wav(out, wav)
+            outputs.append(out)
+    return outputs

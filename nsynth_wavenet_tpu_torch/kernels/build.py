@@ -1,0 +1,96 @@
+"""Build the hand-written CUDA kernels of ``csrc/`` and load them with ctypes.
+
+Each library is one ``nvcc`` call over one ``.cu`` file with a plain C
+interface (no PyTorch headers, so a build takes seconds), compiled for
+``sm_90a``.  The output lands in ``nsynth_wavenet_tpu_torch/_build/`` (listed
+in .gitignore) under a name that carries a hash of every source and of the
+flags, so an edited source is rebuilt on its next use.  Nothing is built or
+loaded at import time.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+PKG = Path(__file__).resolve().parent.parent
+CSRC = PKG / "csrc"
+BUILD_DIR = PKG / "_build"
+# library name -> its translation unit (headers in csrc/ are hashed with every unit)
+LIBRARIES = {"fastgen_kernel": "fastgen_kernel.cu"}
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_lock = threading.Lock()
+_loaded = {}
+
+
+def nvcc_path() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
+    return found
+
+
+def _digest(name: str) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu*")):
+        if p.suffix == ".cuh" or p.name == LIBRARIES[name]:
+            h.update(p.name.encode())
+            h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}-{_digest(name)}.so"
+
+
+def build_all(names=None):
+    """Compile every missing library, one nvcc per source, all at once.
+    Returns {name: (path, ptxas report)}; raises with nvcc's output on failure."""
+    names = list(LIBRARIES) if names is None else list(names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / LIBRARIES[name])]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True), tmp, out)
+    reports = {name: (library_path(name), "") for name in names}
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name} (exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, out)
+        reports[name] = (out, log)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return reports
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library ``name``, built first if needed."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            path = library_path(name)
+            if not path.exists():
+                build_all([name])
+            lib = ctypes.CDLL(str(path))
+            _loaded[name] = lib
+        return lib
+
