@@ -5,8 +5,9 @@
         --config tests/golden/tiny_mol/meta.json --save_path gen/
 
 --params is a golden-format params.npz (int8 '#q'/'#s' pairs allowed);
---config a teacher config JSON or a golden meta.json.  Runs on the first
-CUDA device unless --device cpu.
+--config a teacher config JSON or a golden meta.json (a student config is
+refused: eval_parallel_wavenet_torch.py serves the student).  Runs on the
+first CUDA device unless --device cpu.
 """
 
 import argparse

@@ -1,6 +1,6 @@
-"""Typed teacher configuration (own copy of nsynth_wavenet_tpu/config.py's
-WavenetConfig).  Reference-schema JSONs (``configs/wavenet_*.json``) load
-unchanged."""
+"""Typed teacher and student configurations (own copies of
+nsynth_wavenet_tpu/config.py's WavenetConfig and ParallelWavenetConfig).
+Reference-schema JSONs (``configs/*.json``) load unchanged."""
 
 import dataclasses
 import json
@@ -87,25 +87,101 @@ class WavenetConfig:
         return 2 ** (self.num_stages - 1)
 
 
-_WAVENET_FIELDS = {f.name for f in dataclasses.fields(WavenetConfig)}
+@dataclasses.dataclass(frozen=True)
+class ParallelWavenetConfig:
+    """IAF student hparams; field names and defaults as the reference.  The
+    loss and training fields are carried so that every student JSON loads;
+    the inference port reads only the model fields."""
+
+    num_iters: int = 400000
+    wave_length: int = 7680
+    num_stages: int = 10
+    num_iaf_layers: Tuple[int, ...] = (10, 10, 10, 30)
+    filter_length: int = 3
+    width: int = 64
+    deconv_width: int = 256
+    deconv_config: Tuple[Tuple[int, int], ...] = ((40, 10), (80, 20))
+    use_mu_law: bool = False
+    loss_type: str = "logistic"  # logistic | gauss
+    use_weight_norm: bool = False
+    use_resize_conv: bool = False
+    use_share_deconv: bool = False
+    use_teacher_deconv: bool = False
+    upsample_act: str = "tanh"
+    num_samples: int = 100
+    power_loss_factor: float = 0.0
+    contrastive_loss_factor: float = 0.0
+    lr_schedule: Tuple[Tuple[int, float], ...] = DEFAULT_LR_SCHEDULE
+    manual_final_init: bool = True
+    use_log_scale: bool = False
+    clip: bool = False
+    norm_feat: bool = False
+    use_priority_freq: bool = True
+    use_l1_loss: bool = False
+    spec_enhance_factor: int = 1  # 0 log | 1 abs | 2 pow | 3 combine
+    use_mel: bool = False
+    grad_clip: bool = False
+    detail_log: bool = False
+    kl_sigma_floor: float = 0.0
+    compute_dtype: str = "bfloat16"
+    remat_teacher: bool = False
+
+    def __post_init__(self):
+        if self.use_share_deconv and self.use_teacher_deconv:
+            raise ValueError("use_share_deconv and use_teacher_deconv are exclusive")
+        if self.loss_type not in ("logistic", "gauss"):
+            raise ValueError(f"unknown loss_type {self.loss_type!r}")
+
+    @property
+    def quant_chann(self) -> int:
+        return 2**8 if self.use_mu_law else 2**16
+
+    @property
+    def out_width(self) -> int:
+        return 2  # mean, scale
+
+    @property
+    def gate_width(self) -> int:
+        return self.width  # IAF flows never double the gate width
+
+    @property
+    def frame_shift(self) -> int:
+        out = 1
+        for _, s in self.deconv_config:
+            out *= s
+        return out
+
+    @property
+    def max_dilation(self) -> int:
+        return 2 ** (self.num_stages - 1)
+
+
+def _from_dict(cls, d: dict, **overrides):
+    fields = {f.name for f in dataclasses.fields(cls)}
+    known = {k: _tupleize(v) for k, v in d.items() if k in fields}
+    unknown = {k for k in d if k not in fields and k != "use_input_noise"}
+    if unknown:
+        raise ValueError(f"Unknown config keys for {cls.__name__}: {sorted(unknown)}")
+    known.update(overrides)
+    return cls(**known)
 
 
 def wavenet_config_from_dict(d: dict, **overrides) -> WavenetConfig:
-    known = {k: _tupleize(v) for k, v in d.items() if k in _WAVENET_FIELDS}
-    unknown = {k for k in d if k not in _WAVENET_FIELDS and k != "use_input_noise"}
-    if unknown:
-        raise ValueError(f"Unknown config keys for WavenetConfig: {sorted(unknown)}")
-    known.update(overrides)
-    return WavenetConfig(**known)
+    return _from_dict(WavenetConfig, d, **overrides)
 
 
-def load_config(path: str, **overrides) -> WavenetConfig:
-    """Load a reference-schema teacher JSON.  A golden ``meta.json`` (config
-    nested under "config") is accepted too."""
+def pwn_config_from_dict(d: dict, **overrides) -> ParallelWavenetConfig:
+    return _from_dict(ParallelWavenetConfig, d, **overrides)
+
+
+def load_config(path: str, **overrides):
+    """Load a reference-schema JSON: a dict with ``num_iaf_layers`` gives a
+    ParallelWavenetConfig (student), any other a WavenetConfig (teacher).  A
+    golden ``meta.json`` (config nested under "config") is accepted too."""
     with open(path, "rt") as f:
         d = json.load(f)
     if "config" in d and isinstance(d["config"], dict):
         d = d["config"]
     if "num_iaf_layers" in d:
-        raise ValueError(f"{path} is a student config; the port serves the teacher only")
+        return pwn_config_from_dict(d, **overrides)
     return wavenet_config_from_dict(d, **overrides)

@@ -1,7 +1,11 @@
-"""Batch AR synthesis over files (counterpart of generate_wavenet in
-nsynth_wavenet_tpu/evaluation.py): wav or mel files -> mel batch on the host
--> Fastgen.generate_cuda on the device -> gen_*.wav."""
+"""Batch synthesis over files (counterparts of generate_wavenet and
+generate_parallel_wavenet in nsynth_wavenet_tpu/evaluation.py): wav or mel
+files -> mel batch on the host -> Fastgen.generate_cuda (teacher) or
+parallelgen.synthesize_cuda / StudentStreamer (student) on the device ->
+gen_*.wav."""
 
+import contextlib
+import dataclasses
 import glob
 import logging
 import os
@@ -61,9 +65,12 @@ def generate_wavenet(source_path, params_npz, config_json, save_path, batch_size
     from nsynth_wavenet_tpu_torch.models.wavenet import Wavenet
     from nsynth_wavenet_tpu_torch.ops import fastgen_kernel as fk
 
-    cfg = config_lib.load_config(config_json, use_as_teacher=True)
+    cfg = config_lib.load_config(config_json)
+    if not isinstance(cfg, config_lib.WavenetConfig):
+        raise ValueError(f"{config_json} is a student config: use generate_parallel_wavenet "
+                         "(eval_parallel_wavenet_torch.py)")
     params = weights.load_npz(params_npz, device=device)
-    fg = Fastgen(Wavenet(cfg))
+    fg = Fastgen(Wavenet(dataclasses.replace(cfg, use_as_teacher=True)))
     kw = fk.build_kernel_weights(cfg, params)
     os.makedirs(save_path, exist_ok=True)
     files = discover_files(source_path)
@@ -78,8 +85,72 @@ def generate_wavenet(source_path, params_npz, config_json, save_path, batch_size
         audio_sec = audio.size / 16000.0
         log.info("fastgen batch of %d: %.2f audio-sec in %.2fs (Delay %.3f)",
                  len(chunk), audio_sec, dt, dt / audio_sec)
-        for f, wav in zip(chunk, audio):
-            out = os.path.join(save_path, "gen_" + os.path.splitext(os.path.basename(f))[0] + ".wav")
-            wav_io.write_wav(out, wav)
-            outputs.append(out)
+        outputs += _write_batch(save_path, chunk, audio)
+    return outputs
+
+
+def _write_batch(save_path, files, audio):
+    outputs = []
+    for f, wav in zip(files, audio):
+        out = os.path.join(save_path, "gen_" + os.path.splitext(os.path.basename(f))[0] + ".wav")
+        wav_io.write_wav(out, wav)
+        outputs.append(out)
+    return outputs
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    """Full-f32 convolutions and matmuls inside the block: cuDNN would run an
+    f32 model's convolutions in TF32 by default, which parts from the CPU
+    results by more than the parity tolerances."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def generate_parallel_wavenet(source_path, params_npz, config_json, save_path, batch_size=4,
+                              seed=0, device="cuda", sample_length=-1, streaming_chunk=None):
+    """One-shot student synthesis of every file under source_path with the
+    weights of a golden-format params.npz, through the fused serving path
+    (the flow trunks in the CUDA kernel on a CUDA device); writes
+    gen_<name>.wav files, logs the Delay metric per batch and returns the
+    paths.  streaming_chunk: stream the flows in chunks of that many samples
+    with carried dilation state (parallelgen.StudentStreamer), for a working
+    set that does not grow with the utterance.  Any batch size runs as it is."""
+    from nsynth_wavenet_tpu_torch.models import parallelgen
+    from nsynth_wavenet_tpu_torch.models.parallel_wavenet import ParallelWavenet
+
+    cfg = config_lib.load_config(config_json)
+    if not isinstance(cfg, config_lib.ParallelWavenetConfig):
+        raise ValueError(f"{config_json} is a teacher config: use generate_wavenet "
+                         "(eval_wavenet_torch.py)")
+    if torch.device(device).type == "cuda" and cfg.compute_dtype != "bfloat16":
+        raise NotImplementedError(
+            f"{config_json}: compute_dtype {cfg.compute_dtype!r}; the CUDA flow kernel serves "
+            "bfloat16 students only (an f32 student runs with device='cpu')")
+    params = weights.load_npz(params_npz, device=device)
+    pwn = ParallelWavenet(cfg)
+    streamer = parallelgen.StudentStreamer(pwn, chunk=streaming_chunk) if streaming_chunk else None
+    os.makedirs(save_path, exist_ok=True)
+    files = discover_files(source_path)
+    outputs = []
+    for i in range(0, len(files), batch_size):
+        chunk = files[i : i + batch_size]
+        mel = torch.from_numpy(load_mel_batch(chunk, sample_length)).to(device)
+        generator = torch.Generator().manual_seed(seed + i)
+        t0 = time.time()
+        with _no_tf32():
+            if streamer is not None:
+                audio = streamer.synthesize(params, mel, generator)
+            else:
+                audio = parallelgen.synthesize_cuda(pwn, params, mel, generator)
+        audio = audio.cpu().numpy()
+        dt = time.time() - t0
+        audio_sec = audio.size / 16000.0
+        log.info("parallelgen batch of %d: %.2f audio-sec in %.2fs (Delay %.3f)",
+                 len(chunk), audio_sec, dt, dt / audio_sec)
+        outputs += _write_batch(save_path, chunk, audio)
     return outputs

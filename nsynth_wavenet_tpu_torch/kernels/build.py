@@ -20,7 +20,7 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 # library name -> its translation unit (headers in csrc/ are hashed with every unit)
-LIBRARIES = {"fastgen_kernel": "fastgen_kernel.cu"}
+LIBRARIES = {"fastgen_kernel": "fastgen_kernel.cu", "flow_kernel": "flow_kernel.cu"}
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

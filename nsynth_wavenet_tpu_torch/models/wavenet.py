@@ -38,6 +38,15 @@ def apply_deconv_stack(params, mel, *, deconv_config, upsample_act, use_resize_c
     return h
 
 
+def init_deconv_stack(generator, deconv_config, num_mel, deconv_width, *, device="cuda"):
+    """{'up_1', 'up_2', ...} with N(0, 0.05) kernels drawn from ``generator``."""
+    params, in_ch = {}, num_mel
+    for i, (fl, _) in enumerate(deconv_config):
+        params[f"up_{i + 1}"] = conv_ops.conv1d_init(generator, in_ch, deconv_width, fl, device=device)
+        in_ch = deconv_width
+    return params
+
+
 class Wavenet:
     """Holds the config; every method is a function of (params, inputs)."""
 
@@ -56,10 +65,7 @@ class Wavenet:
         def conv(cin, cout, fl=1):
             return conv_ops.conv1d_init(g, cin, cout, fl, device=device)
 
-        deconv, in_ch = {}, num_mel
-        for i, (fl, _) in enumerate(cfg.deconv_config):
-            deconv[f"up_{i + 1}"] = conv(in_ch, cfg.deconv_width, fl)
-            in_ch = cfg.deconv_width
+        deconv = init_deconv_stack(g, cfg.deconv_config, num_mel, cfg.deconv_width, device=device)
         m = cfg.gate_width // 2
         return {
             "deconv": deconv,

@@ -35,10 +35,10 @@ def shift_right(x: torch.Tensor) -> torch.Tensor:
 
 
 def conv1d_init(generator, in_ch, out_ch, filter_length, *, device="cuda",
-                kernel_stddev=0.05):
+                kernel_stddev=0.05, bias_init=0.0):
     """{'w', 'b'} with w ~ N(0, kernel_stddev) drawn from ``generator``."""
     w = torch.randn((filter_length, in_ch, out_ch), generator=generator) * kernel_stddev
-    return {"w": w.to(device), "b": torch.zeros(out_ch, device=device)}
+    return {"w": w.to(device), "b": torch.full((out_ch,), bias_init, device=device)}
 
 
 def effective_kernel(params) -> torch.Tensor:

@@ -1,8 +1,9 @@
-"""Samplers of the three output heads (counterpart of the sampler half of
-nsynth_wavenet_tpu/ops/distributions.py).  Each returns int32 quantized
-samples in [-quant_chann/2, quant_chann/2).  Randomness comes from an
-explicit ``torch.Generator``; uniforms lie on the open interval
-[1e-5, 1 - 1e-5] like the reference's."""
+"""Samplers of the three output heads and the student's base noise
+(counterpart of the sampler half of nsynth_wavenet_tpu/ops/distributions.py).
+Each head sampler returns int32 quantized samples in
+[-quant_chann/2, quant_chann/2).  Randomness comes from an explicit
+``torch.Generator``; uniforms lie on the open interval [1e-5, 1 - 1e-5] like
+the reference's."""
 
 import torch
 
@@ -43,3 +44,13 @@ def gauss_sample(generator, gauss_params: torch.Tensor, quant_chann: int) -> tor
     z = torch.randn(mean.shape, generator=generator, device=generator.device).to(mean.device)
     x = torch.clamp(mean + std * z, -1.0, 1.0 - 2.0 / quant_chann)
     return sig.cast_quantize(x, quant_chann)
+
+
+def logistic_from_uniform(u: torch.Tensor) -> torch.Tensor:
+    """Inverse CDF of the standard logistic at uniforms u in (0, 1)."""
+    return torch.log(u) - torch.log(1.0 - u)
+
+
+def logistic_0_1(generator, shape, device) -> torch.Tensor:
+    """Standard logistic(0, 1) noise."""
+    return logistic_from_uniform(uniform_open(generator, shape, device))

@@ -1,4 +1,4 @@
-"""Carry teacher weights into the port.
+"""Carry teacher and student weights into the port.
 
 The port keeps the reference's parameter pytree: nested dicts (and a list
 under 'layers') of {'w', 'b'} or weight-normed {'v', 'g', 'b'} leaves with

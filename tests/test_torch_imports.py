@@ -22,9 +22,11 @@ def _port_modules():
 
 
 def test_port_and_chip_smoke_import_no_jax():
-    modules = _port_modules() + ["chip_smoke", "eval_wavenet_torch"]
+    modules = _port_modules() + ["chip_smoke", "eval_wavenet_torch", "eval_parallel_wavenet_torch"]
     assert "nsynth_wavenet_tpu_torch.ops.fastgen_kernel" in modules
     assert "nsynth_wavenet_tpu_torch.kernels.build" in modules
+    assert "nsynth_wavenet_tpu_torch.ops.flow_kernel" in modules
+    assert "nsynth_wavenet_tpu_torch.models.parallelgen" in modules
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"
