@@ -7,7 +7,10 @@
 --params is a golden-format params.npz (int8 '#q'/'#s' pairs allowed);
 --config a teacher config JSON or a golden meta.json (a student config is
 refused: eval_parallel_wavenet_torch.py serves the student).  Runs on the
-first CUDA device unless --device cpu.
+first CUDA device unless --device cpu.  --int8 --int8_static serves the W8A8
+mode (int8 weights, static activation scales calibrated on the first source
+wavs); --streaming_chunk N generates in kernel calls of N samples with the
+state carried.
 """
 
 import argparse
@@ -26,11 +29,21 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--sample_length", type=int, default=-1, help="truncate input wavs")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--streaming_chunk", type=int, default=0,
+                    help="chunk size in samples: chained kernel calls with carried state "
+                         "(0 = one call per utterance)")
+    ap.add_argument("--int8", action="store_true",
+                    help="int8 weights and activations (W8A8); needs --int8_static for now")
+    ap.add_argument("--int8_static", action="store_true",
+                    help="with --int8: static per-layer activation scales calibrated on the "
+                         "first source wavs (needs .wav inputs)")
     args = ap.parse_args()
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     for path in generate_wavenet(args.source_path, args.params, args.config, args.save_path,
                                  batch_size=args.batch_size, seed=args.seed, device=args.device,
-                                 sample_length=args.sample_length):
+                                 sample_length=args.sample_length,
+                                 streaming_chunk=args.streaming_chunk or None, int8=args.int8,
+                                 int8_static=args.int8_static):
         print(path)
 
 

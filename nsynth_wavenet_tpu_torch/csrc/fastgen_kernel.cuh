@@ -10,12 +10,22 @@
 
 enum HeadType { HEAD_CE = 0, HEAD_MOL = 1, HEAD_GAUSS = 2 };
 
+// Two modes share the struct.  bf16 (w8a8 == 0): bf16 layer matrices and bf16
+// ring rows.  W8A8 (w8a8 == 1; int8 weights, static activation and gate
+// scales): int8 layer matrices in the k4 layout, int8 ring rows, and the
+// scale arrays below; the head matrices are bf16 in both modes.
 struct FastgenArgs {
-  // packed weights (ops/fastgen_kernel.py build_kernel_weights), bf16 matrices, f32 biases
-  const void* w_comb;   // [NL, 3W+DW, GW] bf16: dilated taps (t-2d, t-d, t) stacked over the mel-cond 1x1
+  // packed weights (ops/fastgen_kernel.py build_kernel_weights), f32 biases
+  const void* w_comb;   // bf16 [NL, 3W+DW, GW]: dilated taps (t-2d, t-d, t) stacked over the mel-cond 1x1;
+                        // W8A8: int8 [NL, (3W+DW)/4, GW, 4], four consecutive k of a column in one word
   const void* b_comb;   // [NL, GW] f32
-  const void* w_rs;     // [NL, m, W+S] bf16: res | skip 1x1
+  const void* w_rs;     // bf16 [NL, m, W+S]: res | skip 1x1; W8A8: int8 [NL, m/4, W+S, 4]
   const void* b_rs;     // [NL, W+S] f32
+  // W8A8 only (null in bf16 mode)
+  const void* s_comb;     // [NL, GW] f32 per-column scales of w_comb
+  const void* s_main;     // [NL, GW] f32 (act_amax/127) * s_comb: dequantises the 3W part in one multiply
+  const void* s_rs;       // [NL, W+S] f32 per-column scales of w_rs, already divided by 127 (gate scale)
+  const void* s_act_inv;  // [NL] f32 127 / act_amax: quantises l entering layer i
   const void* w_start;  // [3, W] f32 conv_start taps
   const void* b_start;  // [W] f32
   const void* w_skip0;  // [W, S] bf16
@@ -27,15 +37,20 @@ struct FastgenArgs {
   // inputs
   const void* enc;      // [L, B, DW] bf16 upsampled conditioning, offset-trimmed
   const void* tf;       // [L, B] f32 teacher-forced feedback, or null
-  // state and scratch (allocated and zeroed by the wrapper)
-  void* lbuf;           // [sum(2d), B, W] bf16 ring buffers of every layer's input
-  void* l;              // [B, W] f32 residual stream
-  void* l_bf;           // [B, W] bf16 copy of l, the current-row operand of the gate product
-  void* s;              // [B, S] f32 skip sum
-  void* gate;           // [B, m] bf16 gated activation of the current layer
-  void* part;           // f32 partial tiles of the split-K gate product (fastgen_workspace)
-  void* counters;       // u32 per gate tile, zeroed; each reduction resets its own
+  // carried state (zeros for a fresh utterance, else the previous chunk's; updated in place)
+  void* lbuf;           // [sum(2d), B, W] ring buffers of every layer's input: bf16, W8A8 int8
+                        // (layer i's rows are quantised at layer i's scale)
   void* xh;             // [3, B] f32 input taps x(t-2), x(t-1), x(t)
+  // scratch (allocated by the wrapper; l, s, q_l are rebuilt from xh by the first launch)
+  void* l;              // [B, W] f32 residual stream
+  void* l_bf;           // [B, W] bf16 copy of l, the current-row operand of the gate product (bf16 mode)
+  void* q_l;            // [B, W] int8 l quantised at the current layer's scale (W8A8)
+  void* q_enc;          // [L, B, DW] int8 per-row quantised conditioning (W8A8, written by the pre-pass)
+  void* r_enc;          // [L, B] f32 its per-row scales
+  void* s;              // [B, S] f32 skip sum
+  void* gate;           // [B, m] gated activation of the current layer: bf16, W8A8 int8 round(gate * 127)
+  void* part;           // partial tiles of the split-K gate product (fastgen_workspace): f32, W8A8 int32
+  void* counters;       // u32 per gate tile, zeroed; each reduction resets its own
   // outputs
   void* audio;          // [L, B] f32
   void* out_params;     // [L, B, out_pad] f32, or null
@@ -44,6 +59,8 @@ struct FastgenArgs {
   int device;
   int B, L, W, GW, S, DW, NL, num_stages;
   int out_pad, out_seg, head, use_mu_law, quant_chann, greedy;
+  int t0;    // global index of the call's first step: ring phase and random counter run on t0 + t
+  int w8a8;  // 0 bf16 mode, 1 W8A8 static mode
 };
 
 // Philox4x32-10 (Salmon et al., SC'11), first output word.  Counter
@@ -75,7 +92,8 @@ __host__ __device__ inline float uniform_from_bits(uint32_t bits) {
 
 extern "C" {
 int fastgen_generate(const FastgenArgs* args);
-void fastgen_workspace(int B, int W, int GW, int DW, long long* part_floats, long long* counters);
+void fastgen_workspace(int B, int W, int GW, int DW, int w8a8, long long* part_words,
+                       long long* counters);
 int philox_uniform(float* out, int rows, int lanes, int t, int draw, long long seed,
                    int device, void* stream);
 const char* fastgen_error_string(int code);

@@ -1,6 +1,7 @@
 """Batch synthesis over files (counterparts of generate_wavenet and
 generate_parallel_wavenet in nsynth_wavenet_tpu/evaluation.py): wav or mel
-files -> mel batch on the host -> Fastgen.generate_cuda (teacher) or
+files -> mel batch on the host -> Fastgen.generate_cuda (teacher; bf16 or
+W8A8 with static scales calibrated on the sources, one-shot or streamed) or
 parallelgen.synthesize_cuda / StudentStreamer (student) on the device ->
 gen_*.wav."""
 
@@ -55,12 +56,27 @@ def load_mel_batch(files, sample_length: int = -1):
     return stft_ops.melspectrogram_np(batch)
 
 
+def _fixed_len(w, n):
+    """Pad or trim a 1-D wav to exactly n samples (calibration batches stack)."""
+    out = np.zeros(n, np.float32)
+    k = min(len(w), n)
+    out[:k] = w[:k]
+    return out
+
+
 def generate_wavenet(source_path, params_npz, config_json, save_path, batch_size=8, seed=0,
-                     device="cuda", sample_length=-1):
+                     device="cuda", sample_length=-1, streaming_chunk=None, int8=False,
+                     int8_static=False):
     """Teacher synthesis of every file under source_path with the weights of a
     golden-format params.npz; writes gen_<name>.wav files and returns their
     paths.  sample_length > 0 truncates the input wavs.  Any batch size runs
-    as it is: the CUDA kernel masks the rows past the batch in its tiles."""
+    as it is: the CUDA kernel masks the rows past the batch in its tiles.
+    streaming_chunk: generate in kernel calls of that many samples with the
+    state carried, so a call's buffers do not grow with the utterance.
+    int8 with int8_static: the W8A8 mode, int8 weights with static per-layer
+    activation scales calibrated on the first up to 8 .wav sources (each
+    fitted to 16 000 samples) and the fixed gate scale; it needs .wav sources.
+    int8 alone is the per-row W8A8 mode, which is not ported."""
     from nsynth_wavenet_tpu_torch.models.fastgen import Fastgen
     from nsynth_wavenet_tpu_torch.models.wavenet import Wavenet
     from nsynth_wavenet_tpu_torch.ops import fastgen_kernel as fk
@@ -70,16 +86,36 @@ def generate_wavenet(source_path, params_npz, config_json, save_path, batch_size
         raise ValueError(f"{config_json} is a student config: use generate_parallel_wavenet "
                          "(eval_parallel_wavenet_torch.py)")
     params = weights.load_npz(params_npz, device=device)
+    if int8_static and not int8:
+        raise ValueError("int8_static needs int8")
+    if int8 and not int8_static:
+        raise NotImplementedError(
+            "int8 without int8_static is the W8A8 mode with per-row activation scales, which is "
+            "not ported yet (ROADMAP.md Queue 2 item 1 (e)): pass int8_static as well")
     fg = Fastgen(Wavenet(dataclasses.replace(cfg, use_as_teacher=True)))
-    kw = fk.build_kernel_weights(cfg, params)
     os.makedirs(save_path, exist_ok=True)
     files = discover_files(source_path)
+    act_amax = None
+    if int8_static:
+        cal_files = [f for f in files if f.endswith(".wav")][:8]
+        if not cal_files:
+            raise ValueError("static activation scales need .wav sources to calibrate on")
+        cal_wav = np.stack([_fixed_len(wav_io.read_wav(f, expect_sr=16000)[0], 16000)
+                            for f in cal_files])
+        with _no_tf32():  # the calibration forward is f32, as the kernel's residual stream is
+            act_amax = fg.calibrate_act_amax(
+                params, torch.from_numpy(cal_wav).to(device),
+                torch.from_numpy(stft_ops.melspectrogram_np(cal_wav)).to(device))
+        log.info("calibrated static activation scales on %d wavs", len(cal_files))
+    kw = fk.build_kernel_weights(cfg, params, weight_dtype="int8" if int8 else "bf16",
+                                 act_amax=act_amax, gate_static=int8_static)
     outputs = []
     for i in range(0, len(files), batch_size):
         chunk = files[i : i + batch_size]
         mel = load_mel_batch(chunk, sample_length)
         t0 = time.time()
-        audio = fg.generate_cuda(params, torch.from_numpy(mel).to(device), seed + i, kw=kw)
+        audio = fg.generate_cuda(params, torch.from_numpy(mel).to(device), seed + i, kw=kw,
+                                 chunk=streaming_chunk or None)
         audio = audio.cpu().numpy()
         dt = time.time() - t0
         audio_sec = audio.size / 16000.0

@@ -7,16 +7,20 @@ t mod 2d holds the t-2d state and is overwritten with the t state, slot
 (t-d) mod 2d holds the t-d state), every layer's mel conditioning computed
 per step by one stacked matmul, samplers drawing from a torch.Generator.
 
+``Fastgen.generate_streaming`` chains that loop over chunks of the encoding
+with the state carried (init_carry, carry_in, return_carry).
+
 ``Fastgen.generate_cuda`` is the serving path: mel -> deconv on the device
--> the whole utterance in the CUDA kernel of ops/fastgen_kernel.py (the
-counterpart of generate_pallas, one-shot).
+-> the whole utterance in the CUDA kernels of ops/fastgen_kernel.py (the
+counterpart of generate_pallas): bf16 or W8A8 with static scales from
+``Fastgen.calibrate_act_amax``, one-shot or in chunks with carried state.
 """
 
 from typing import Optional
 
 import torch
 
-from nsynth_wavenet_tpu_torch.models.wavenet import Wavenet
+from nsynth_wavenet_tpu_torch.models.wavenet import Wavenet, condition_add
 from nsynth_wavenet_tpu_torch.ops import conv as conv_ops
 from nsynth_wavenet_tpu_torch.ops import distributions as dist
 from nsynth_wavenet_tpu_torch.ops import fastgen_kernel as fk
@@ -42,20 +46,41 @@ class Fastgen:
         self.model = model
         self.cfg = model.cfg
 
+    def init_carry(self, batch: int, generator: torch.Generator, device="cuda"):
+        """Fresh generation state: (zeroed ring buffers {"x", "layers"}, zero
+        previous sample, the generator as the carried random state, t = 0)."""
+        cfg = self.cfg
+        buffers = {
+            "x": torch.zeros((batch, 2, 1), device=device),
+            "layers": [torch.zeros((batch, 2 * 2 ** (i % cfg.num_stages), cfg.width), device=device)
+                       for i in range(cfg.num_layers)],
+        }
+        return (buffers, torch.zeros((batch,), device=device), generator, 0)
+
     @torch.no_grad()
-    def generate(self, params, mel, generator: torch.Generator,
+    def generate(self, params, mel, generator: Optional[torch.Generator] = None,
                  length: Optional[int] = None, *, teacher_force=None, cond_offset: int = 0,
-                 collect_out_params: bool = False):
+                 collect_out_params: bool = False, encoding=None, carry_in=None,
+                 return_carry: bool = False):
         """mel [B, T, num_mel] -> audio [B, L] (and out_params [B, L, out_width]).
 
         teacher_force [B, L]: feed these samples back instead of the model's
-        own.  cond_offset: start of the generated window in the upsampled
-        conditioning (training centre-trims, so (enc_len - L)//2 reproduces it).
+        own (as in the reference, step 0 of a call is fed zero).  cond_offset:
+        start of the generated window in the upsampled conditioning (training
+        centre-trims, so (enc_len - L)//2 reproduces it).
+        encoding / carry_in / return_carry: streaming.  Pass an already
+        upsampled encoding chunk [B, L, DW] instead of mel, and the carry of
+        the previous chunk (init_carry for the first); the carry's ring
+        buffers are updated in place and its generator goes on drawing, so
+        chained chunks equal one call bit for bit.  With return_carry the
+        result is (outputs, carry).
         """
         cfg, dtype = self.cfg, self.model.dtype
         width, gw = cfg.width, cfg.gate_width
         m, half = gw // 2, cfg.quant_chann // 2
-        encoding = self.model.deconv_stack(params, mel).float()
+        if encoding is None:
+            encoding = self.model.deconv_stack(params, mel)
+        encoding = encoding.float()
         B, enc_len = encoding.shape[:2]
         L = enc_len - cond_offset if length is None else length
         if L + cond_offset > enc_len:
@@ -75,9 +100,10 @@ class Fastgen:
         cond_b = torch.cat([c[1] for c in conds])
 
         dils = [2 ** (i % cfg.num_stages) for i in range(cfg.num_layers)]
-        xbuf = torch.zeros((B, 2, 1), device=dev)
-        lbufs = [torch.zeros((B, 2 * d, width), device=dev) for d in dils]
-        prev = torch.zeros((B,), device=dev)
+        if carry_in is None:
+            carry_in = self.init_carry(B, generator, dev)
+        buffers, prev, generator, t0 = carry_in
+        xbuf, lbufs = buffers["x"], buffers["layers"]
         audio = torch.empty((B, L), device=dev)
         outs = torch.empty((B, L, cfg.out_width), device=dev) if collect_out_params else None
 
@@ -89,15 +115,16 @@ class Fastgen:
             return s2d, sd
 
         for t in range(L):
+            tg = t + t0  # global step: the ring buffers' slot phase
             if teacher_force is not None:
                 prev = teacher_force[:, t - 1].float() if t > 0 else torch.zeros_like(prev)
             x_in = (sig.mu_law(prev) / float(half) if cfg.use_mu_law else prev)[:, None]
-            s2d, sd = read_write(xbuf, t, 1, x_in)
+            s2d, sd = read_write(xbuf, tg, 1, x_in)
             l = _mm(torch.cat([s2d, sd, x_in], 1), *start)
             s = _mm(l, *skip0)
             c_all = _mm(encoding[:, t + cond_offset], cond_w, cond_b)
             for i, (dil_w, rs_w) in enumerate(layers):
-                s2d, sd = read_write(lbufs[i], t, dils[i], l)
+                s2d, sd = read_write(lbufs[i], tg, dils[i], l)
                 d = _mm(torch.cat([s2d, sd, l], 1), *dil_w) + c_all[:, i * gw : (i + 1) * gw]
                 d = torch.sigmoid(d[:, :m]) * torch.tanh(d[:, m:])
                 rs = _mm(d, *rs_w)
@@ -115,27 +142,108 @@ class Fastgen:
                 q = dist.gauss_sample(generator, out, cfg.quant_chann)
             prev = sig.inv_mu_law(q) if cfg.use_mu_law else sig.inv_cast_quantize(q, cfg.quant_chann)
             audio[:, t] = prev
-        if collect_out_params:
-            return audio, outs
-        return audio
+        out = (audio, outs) if collect_out_params else audio
+        if return_carry:
+            return out, (buffers, prev, generator, t0 + L)
+        return out
+
+    @torch.no_grad()
+    def generate_streaming(self, params, mel, generator: torch.Generator,
+                           length: Optional[int] = None, *, chunk: int = 2000):
+        """The step loop over chunks of ``chunk`` samples with the generation
+        state carried (ring buffers, previous sample, generator, global step):
+        equal to ``generate`` bit for bit, with per-call buffers that do not
+        grow with the utterance.  The mel is upsampled once; the last chunk
+        runs at its own length (eager PyTorch has no per-shape compile, so
+        the reference's padding to whole chunks and its mel buckets have no
+        counterpart).  Returns audio [B, L]."""
+        encoding = self.model.deconv_stack(params, mel)
+        B, enc_len = encoding.shape[:2]
+        L = enc_len if length is None else length
+        if L > enc_len:
+            raise ValueError(f"length {L} exceeds conditioning length {enc_len}")
+        carry = self.init_carry(B, generator, encoding.device)
+        pieces = []
+        for c0 in range(0, L, chunk):
+            audio, carry = self.generate(params, None, encoding=encoding[:, c0 : min(c0 + chunk, L)],
+                                         carry_in=carry, return_carry=True)
+            pieces.append(audio)
+        return torch.cat(pieces, 1)
+
+    @torch.no_grad()
+    def calibrate_act_amax(self, params, wav, mel):
+        """Per-layer abs-max of the residual stream entering each dilated
+        layer, the quantity the W8A8 static mode quantises, from a
+        teacher-forced f32 forward over calibration audio: wav [B, L], mel
+        [B, T, num_mel] -> [num_layers] f32, for generate_cuda(act_amax=...).
+        A full-length f32 forward: calibrate on a small batch (8 rows of 1 s
+        is plenty), not the serving batch.  The deconv stack runs in the
+        model's compute dtype and its output is widened to f32."""
+        cfg = self.cfg
+        enc = self.model.encode_signal(wav)
+        mel_en = self.model.deconv_stack(params, mel).float()
+        l = conv_ops.shift_right(enc["wav_scaled"].float()[..., None])
+        l = conv_ops.conv1d(params["conv_start"], l, causal=True)
+        m = cfg.gate_width // 2
+        amax = []
+        for i, lp in enumerate(params["layers"]):
+            amax.append(l.abs().max())
+            d = conv_ops.conv1d(lp["dilated"], l, dilation=2 ** (i % cfg.num_stages), causal=True)
+            d = condition_add(d, conv_ops.conv1d(lp["mel_cond"], mel_en))
+            d = torch.sigmoid(d[:, :, :m]) * torch.tanh(d[:, :, m:])
+            l = l + conv_ops.conv1d(lp["res"], d)
+        return torch.stack(amax)
 
     @torch.no_grad()
     def generate_cuda(self, params, mel, seed: int, length: Optional[int] = None, *,
-                      cond_offset: int = 0, kw=None):
+                      cond_offset: int = 0, kw=None, weight_dtype: str = "bf16", act_amax=None,
+                      gate_static: bool = False, greedy: bool = False,
+                      chunk: Optional[int] = None, encoding=None):
         """Serving path: deconv on mel's device, then the whole utterance
-        through fastgen_kernel.generate (the CUDA kernel on a CUDA device).
-        Any batch size runs as it is: the kernel masks the rows past B in its
-        tiles.  cond_offset: start of the generated window in the upsampled
-        conditioning, as in generate.  kw: packed weights from
-        fastgen_kernel.build_kernel_weights, to pack once for many calls.
+        through fastgen_kernel.generate (the CUDA kernels on a CUDA device).
+        Any batch size runs as it is: the kernels mask the rows past B in
+        their tiles.  cond_offset: start of the generated window in the
+        upsampled conditioning, as in generate.
+
+        weight_dtype "int8" with act_amax (calibrate_act_amax) and
+        gate_static is the W8A8 static mode: int8 weights and ring rows, static
+        per-layer activation scales, the gate at the fixed scale 1/127.  int8
+        without act_amax, or without gate_static, is the per-row mode, which
+        is not ported: NotImplementedError.  kw: packed weights from
+        fastgen_kernel.build_kernel_weights, to pack once for many calls; it
+        then decides the mode, and weight_dtype, act_amax and gate_static are
+        not read.
+        chunk: generate in calls of ``chunk`` samples with the kernel state
+        carried, equal to the one-shot call bit for bit; the working buffers
+        of a call then do not grow with the utterance.  The kernels take any
+        length, so the last chunk runs at its own length and the encoding is
+        not padded.
+        encoding [B, T, DW]: an already upsampled conditioning to use instead
+        of mel.  The kernels are deterministic, so two calls on one encoding
+        agree bit for bit, chunked or not; cuDNN's transposed convolution is
+        not bit-stable between calls, so two calls on one mel need not.
         Returns audio [B, L] f32."""
-        encoding = self.model.deconv_stack(params, mel)
+        if kw is None:
+            if weight_dtype == "int8" and (act_amax is None or not gate_static):
+                raise NotImplementedError(
+                    "weight_dtype='int8' needs act_amax and gate_static=True (the W8A8 static "
+                    "mode); per-row activation and gate scales are not ported yet: ROADMAP.md "
+                    "Queue 2 item 1 (e)")
+            kw = fk.build_kernel_weights(self.cfg, params, weight_dtype=weight_dtype,
+                                         act_amax=act_amax, gate_static=gate_static)
+        if encoding is None:
+            encoding = self.model.deconv_stack(params, mel)
         enc_len = encoding.shape[1]
         L = enc_len - cond_offset if length is None else length
         if L + cond_offset > enc_len:
             raise ValueError(f"window {cond_offset}+{L} exceeds conditioning length {enc_len}")
         enc_t = encoding.transpose(0, 1)[cond_offset : cond_offset + L]
         enc_t = enc_t.to(torch.bfloat16).contiguous()
-        if kw is None:
-            kw = fk.build_kernel_weights(self.cfg, params)
-        return fk.generate(kw, enc_t, seed)
+        if chunk is None:
+            return fk.generate(kw, enc_t, seed, greedy=greedy)
+        state, pieces = None, []
+        for c0 in range(0, L, chunk):
+            audio, state = fk.generate(kw, enc_t[c0 : c0 + chunk], seed, greedy=greedy,
+                                       state=state, return_state=True)
+            pieces.append(audio)
+        return torch.cat(pieces, 1)

@@ -1,14 +1,35 @@
 """Whole-utterance autoregressive generation through the hand-written CUDA
-kernel ``csrc/fastgen_kernel.cu`` (port of the Pallas TPU kernel
-nsynth_wavenet_tpu/ops/fastgen_kernel.py make_generate_fn, bf16 weights).
+kernels of ``csrc/fastgen_kernel.cu``: the port of the Pallas TPU kernel
+nsynth_wavenet_tpu/ops/fastgen_kernel.py make_generate_fn in two of its modes,
+each one-shot or streamed in chunks with carried state.
 
-``generate`` is the wrapper: on CUDA tensors it launches the kernel (and
+* bf16 (reference branch :561-571, :605-615): bf16 matrices, f32
+  accumulation, f32 gate, bf16 operands rounded at the same places.
+* W8A8 static (weight_dtype=int8, act_scale="static", gate_scale="static";
+  reference branches :448-452, :474-475, :487-516, :582-592, :625-626,
+  :638-639): int8 ``w_comb`` and ``w_rs`` with per-column scales, the residual
+  stream quantised per layer with a calibrated scale (``act_amax``), int8 ring
+  rows, the conditioning quantised per row, int8 x int8 -> int32 products
+  dequantised by one multiply, the gate quantised with the fixed scale 1/127.
+* streaming (reference :416-427, :737-738, :840-879), either mode: the ring
+  and the three input taps come in and go out as ``state = (lbuf, xh, t0)``;
+  ring phase and random counter run on the global step ``t0 + t``, so chained
+  calls equal one call bit for bit.
+The per-row W8A8 modes (act_scale="row", gate_scale="row") and ``rs_dtype`` are
+not ported yet (ROADMAP.md Queue 2 item 1 (e), (f)).
+
+``generate`` is the wrapper: on CUDA tensors it launches the kernels (and
 raises if it cannot), on CPU tensors it runs ``generate_plain``, the plain
-PyTorch version with the same signature and the same arithmetic: bf16
-matrices, f32 accumulation, f32 gate, and bf16 operands rounded at the same
-places.  Random draws come from a Philox4x32-10 counter generator keyed by
-(seed, t, batch row, lane); ``philox_uniform_plain`` implements it in torch
-integer ops so kernel and plain version draw identical uniforms.
+PyTorch version with the same signature and the same arithmetic.  Random
+draws come from a Philox4x32-10 counter generator keyed by (seed, t, batch
+row, lane); ``philox_uniform_plain`` implements it in torch integer ops so
+kernel and plain version draw identical uniforms.
+
+On this card (H100: 3.35 TB/s, 989 TFLOP/s bf16, 1979 TOP/s int8) a step of
+the full-width MoL teacher is bound by its weight stream below a batch of a
+few hundred rows (bf16 67 MB, about 20 us; W8A8 34 MB, about 10 us, and the
+int8 weights fit the 50 MB L2) and by the tensor cores above.  Both modes run
+61 launches per step far above that; PERF.md has the times.
 """
 
 import ctypes
@@ -58,16 +79,46 @@ def _k2d(p):
     return w.reshape(w.shape[0] * w.shape[1], w.shape[2])
 
 
-def build_kernel_weights(cfg, params):
-    """Pack the teacher's params into the kernel's bf16 layout.
+def _quantize_columns(w):
+    """Per-output-channel symmetric int8 quantisation of [K, N] f32 ->
+    (q int8, scale [1, N] f32), w ~= q * scale."""
+    amax = torch.clamp(w.abs().amax(dim=0, keepdim=True), min=1e-8)
+    scale = amax / 127.0
+    return torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8), scale.float()
+
+
+def _k4(w):
+    """int8 [NL, K, N] -> [NL, K/4, N, 4]: four consecutive k of a column in
+    one 32-bit word, the B-operand layout of the int8 tensor-core tile."""
+    nl, k, n = w.shape
+    return w.reshape(nl, k // 4, 4, n).permute(0, 1, 3, 2).contiguous()
+
+
+def build_kernel_weights(cfg, params, weight_dtype="bf16", act_amax=None, gate_static=False):
+    """Pack the teacher's params into the kernel's layout.
 
     w_comb [NL, 3W+DW, GW]: dilated taps (t-2d, t-d, t) stacked over the
     mel-cond 1x1, with b_comb the sum of both biases; w_rs [NL, m, W+S];
     w_out1 [S+DW, S] with the out1 mel-cond stacked under out1; w_out2
     [S, out_pad] in the head_layout, padded logit lanes biased to -1e9.
+
+    weight_dtype "int8": w_comb and w_rs are int8 with per-column f32 scales
+    s_comb [NL, 1, GW] and s_rs [NL, 1, W+S]; w_comb_k4 and w_rs_k4 hold the
+    same matrices in the CUDA kernels' layout (see _k4).  The head matrices
+    stay bf16.  act_amax [NL] (Fastgen.calibrate_act_amax, int8 only) adds
+    the static activation scales s_act_inv [NL] = 127/amax and s_main
+    [NL, 1, GW] = amax/127 * s_comb.  gate_static (int8 only): the gate is
+    quantised with the fixed scale 1/127, folded into s_rs here.
     """
     if cfg.filter_length != 3:
         raise ValueError("the generation kernel needs filter_length 3")
+    if weight_dtype not in ("bf16", "int8"):
+        raise ValueError(f"weight_dtype {weight_dtype!r}: want 'bf16' or 'int8'")
+    int8 = weight_dtype == "int8"
+    if act_amax is not None and not int8:
+        raise ValueError("act_amax (static activation scales) needs weight_dtype='int8'")
+    if gate_static and not int8:
+        raise ValueError("gate_static needs weight_dtype='int8'")
     skip = cfg.skip_width
     seg, out_pad = head_layout(cfg)
     w_comb, b_comb, w_rs, b_rs = [], [], [], []
@@ -94,11 +145,29 @@ def build_kernel_weights(cfg, params):
             b_out2[cfg.out_width :] = -1e9
 
     bf = torch.bfloat16
+    if int8:
+        q_comb, s_comb = zip(*(_quantize_columns(w) for w in w_comb))
+        q_rs, s_rs = zip(*(_quantize_columns(w) for w in w_rs))
+        s_comb, s_rs = torch.stack(s_comb), torch.stack(s_rs)
+        layers = {
+            "w_comb": torch.stack(q_comb).contiguous(), "s_comb": s_comb.contiguous(),
+            "w_rs": torch.stack(q_rs).contiguous(),
+            "s_rs": (s_rs * (1.0 / 127.0) if gate_static else s_rs).contiguous(),
+            "gate_static": bool(gate_static),
+        }
+        layers["w_comb_k4"], layers["w_rs_k4"] = _k4(layers["w_comb"]), _k4(layers["w_rs"])
+        if act_amax is not None:
+            amax = torch.clamp(torch.as_tensor(act_amax, dtype=torch.float32, device=dev), min=1e-8)
+            # tensor / tensor: a Python number over a tensor is reciprocal() * number, rounded twice
+            layers["s_act_inv"] = (amax.new_tensor(127.0) / amax).contiguous()
+            layers["s_main"] = ((amax / 127.0)[:, None, None] * s_comb).contiguous()
+    else:
+        layers = {"w_comb": torch.stack(w_comb).to(bf).contiguous(),
+                  "w_rs": torch.stack(w_rs).to(bf).contiguous()}
     return {
         "cfg": cfg,
-        "w_comb": torch.stack(w_comb).to(bf).contiguous(),
+        **layers,
         "b_comb": torch.stack(b_comb).float().contiguous(),
-        "w_rs": torch.stack(w_rs).to(bf).contiguous(),
         "b_rs": torch.stack(b_rs).float().contiguous(),
         "w_start": _k2d(params["conv_start"]).float().contiguous(),
         "b_start": params["conv_start"]["b"].float().contiguous(),
@@ -232,29 +301,79 @@ def _sample(cfg, out, u1, u2, greedy):
     return qv / half
 
 
-def _draws(cfg, seed, L, B, device):
-    """Per step t < L: (u1 [B, lanes], u2 [B]), made many steps at a time."""
+def _draws(cfg, seed, L, B, device, t0=0):
+    """Per global step t0 <= t < t0 + L: (u1 [B, lanes], u2 [B]), made many
+    steps at a time."""
     lanes = _draw_lanes(cfg)
     chunk = max(1, (1 << 20) // (B * lanes))
-    for t0 in range(0, L, chunk):
-        steps = range(t0, min(t0 + chunk, L))
+    for c0 in range(t0, t0 + L, chunk):
+        steps = range(c0, min(c0 + chunk, t0 + L))
         u1 = philox_uniform_plain(seed, steps, B, lanes, 0, device)
         u2 = philox_uniform_plain(seed, steps, B, 1, 1, device)[..., 0]
         yield from zip(u1, u2)
 
 
 @torch.no_grad()
-def resample_plain(cfg, out_params, seed, *, greedy=False):
+def resample_plain(cfg, out_params, seed, *, greedy=False, t0=0):
     """The sampler alone: head outputs [B, L, out_pad] (e.g. collected from a
-    kernel run) -> the audio [B, L] that run must have drawn with this seed."""
+    kernel run that began at global step t0) -> the audio [B, L] that run
+    must have drawn with this seed."""
     B, L, _ = out_params.shape
-    draws = _draws(cfg, seed, L, B, out_params.device)
+    draws = _draws(cfg, seed, L, B, out_params.device, t0)
     return torch.stack([_sample(cfg, out_params[:, t], *next(draws), greedy) for t in range(L)], 1)
 
 
+def quant_rows_dyn(x):
+    """Per-row symmetric int8 quantisation of [B, K] -> (q int8, r [B, 1] f32),
+    x ~= q * r.  A bf16 input is abs-maxed and scaled in bf16 (the multiplier
+    127/amax and the product are rounded to bf16), as the reference does; the
+    product can then reach 127.5, so the clip is what keeps q inside int8."""
+    amax = torch.clamp(x.abs().amax(dim=-1, keepdim=True).float(), min=1e-8)
+    r = amax * (1.0 / 127.0)
+    # tensor / tensor: a Python number over a tensor is reciprocal() * number, rounded twice
+    prod = (x * (amax.new_tensor(127.0) / amax).to(x.dtype)).float()
+    return torch.clamp(torch.round(prod), -127, 127).to(torch.int8), r
+
+
+def quant_static(x, inv):
+    """f32 activations with the calibrated multiplier inv = 127/amax -> int8,
+    round half to even, clipped symmetrically."""
+    return torch.clamp(torch.round(x * inv), -127.0, 127.0).to(torch.int8)
+
+
+def _int_mm(a, w64):
+    """int8 [B, K] @ (int8 [K, N] held as f64) -> the exact integer sums as
+    f32.  The sums stay below 2^53, so every f64 product and partial sum is an
+    exact integer whatever the summation order; the final conversion rounds
+    the same integer the CUDA kernel's int32 -> f32 conversion rounds."""
+    return (a.double() @ w64).float()
+
+
+def w8a8_static(kw):
+    """True for W8A8-static packed weights, False for bf16; the per-row W8A8
+    modes are not ported."""
+    if kw["w_comb"].dtype != torch.int8:
+        return False
+    if "s_act_inv" not in kw or not kw.get("gate_static"):
+        raise NotImplementedError(
+            "W8A8 with per-row activation or gate scales (int8 weights without act_amax, or "
+            "without gate_static) is not ported yet: ROADMAP.md Queue 2 item 1 (e)")
+    return True
+
+
+def init_state(cfg, B, device, w8a8=False):
+    """Fresh streaming state (lbuf [sum 2d, B, W] zeros in the mode's ring
+    type, xh [3, B] f32 zeros, t0 = 0)."""
+    _, slots = ring_offsets(cfg)
+    ring = torch.int8 if w8a8 else torch.bfloat16
+    return (torch.zeros((slots, B, cfg.width), dtype=ring, device=device),
+            torch.zeros((3, B), device=device), 0)
+
+
 @torch.no_grad()
-def generate_plain(kw, enc_t, seed, *, greedy=False, tf=None, collect_out_params=False):
-    """Plain PyTorch version of the kernel (see ``generate``)."""
+def generate_plain(kw, enc_t, seed, *, greedy=False, tf=None, collect_out_params=False,
+                   state=None, return_state=False):
+    """Plain PyTorch version of the kernels, both modes (see ``generate``)."""
     cfg = kw["cfg"]
     L, B, _ = enc_t.shape
     dev = enc_t.device
@@ -262,31 +381,54 @@ def generate_plain(kw, enc_t, seed, *, greedy=False, tf=None, collect_out_params
     m = cfg.gate_width // 2
     half = float(cfg.quant_chann // 2)
     dils = dilations(cfg)
-    offs, slots = ring_offsets(cfg)
-    f32 = {k: v.float() for k, v in kw.items() if isinstance(v, torch.Tensor)}
+    offs, _ = ring_offsets(cfg)
+    int8 = w8a8_static(kw)
+    f32 = {k: v.float() for k, v in kw.items()
+           if isinstance(v, torch.Tensor) and v.dtype != torch.int8}
     w_start = f32["w_start"]
+    if int8:
+        w_comb64, w_rs64 = kw["w_comb"].double(), kw["w_rs"].double()
+        s_main, s_comb, s_rs = f32["s_main"][:, 0], f32["s_comb"][:, 0], f32["s_rs"][:, 0]
+        s_act_inv = f32["s_act_inv"]
 
-    enc_t = enc_t.to(torch.bfloat16).float()
-    lbuf = torch.zeros((slots, B, W), dtype=torch.bfloat16, device=dev)
-    xh = torch.zeros((3, B), device=dev)
+    enc_bf = enc_t.to(torch.bfloat16)
+    enc_t = enc_bf.float()
+    lbuf, xh, t0 = init_state(cfg, B, dev, int8) if state is None else state
     audio = torch.empty((L, B), device=dev)
     outp = torch.empty((L, B, f32["w_out2"].shape[1]), device=dev) if collect_out_params else None
-    draws = _draws(cfg, seed, L, B, dev)
+    draws = _draws(cfg, seed, L, B, dev, t0)
     for t in range(L):
+        tg = t0 + t  # global step: ring phase (and, in _draws, the random counter)
         enc = enc_t[t]
         l = (xh[0][:, None] * w_start[0] + xh[1][:, None] * w_start[1]
              + xh[2][:, None] * w_start[2] + f32["b_start"])
         s = _bf(l) @ f32["w_skip0"] + f32["b_skip0"]
+        if int8:
+            q_enc, r_enc = quant_rows_dyn(enc_bf[t])
+            q_l = quant_static(l, s_act_inv[0])
         for li, d in enumerate(dils):
-            r2 = offs[li] + t % (2 * d)
-            r1 = offs[li] + (t + d) % (2 * d)
-            stack = torch.cat([lbuf[r2].float(), lbuf[r1].float(), _bf(l), enc], 1)
-            dpre = stack @ f32["w_comb"][li] + f32["b_comb"][li]
+            r2 = offs[li] + tg % (2 * d)
+            r1 = offs[li] + (tg + d) % (2 * d)
+            if int8:
+                mm = _int_mm(torch.cat([lbuf[r2], lbuf[r1], q_l], 1), w_comb64[li, : 3 * W])
+                acc_enc = _int_mm(q_enc, w_comb64[li, 3 * W :]) * r_enc
+                dpre = mm * s_main[li] + acc_enc * s_comb[li] + f32["b_comb"][li]
+            else:
+                stack = torch.cat([lbuf[r2].float(), lbuf[r1].float(), _bf(l), enc], 1)
+                dpre = stack @ f32["w_comb"][li] + f32["b_comb"][li]
             gate = torch.sigmoid(dpre[:, :m]) * torch.tanh(dpre[:, m:])
-            rs = _bf(gate) @ f32["w_rs"][li] + f32["b_rs"][li]
-            lbuf[r2] = l.to(torch.bfloat16)
+            if int8:
+                # |gate| < 1, so round(gate * 127) stays inside int8 without a clip
+                q_gate = torch.round(gate * 127.0).to(torch.int8)
+                rs = _int_mm(q_gate, w_rs64[li]) * s_rs[li] + f32["b_rs"][li]
+                lbuf[r2] = q_l  # the ring of layer li holds rows at layer li's scale
+            else:
+                rs = _bf(gate) @ f32["w_rs"][li] + f32["b_rs"][li]
+                lbuf[r2] = l.to(torch.bfloat16)
             l = l + rs[:, :W]
             s = s + rs[:, W:]
+            if int8 and li + 1 < len(dils):
+                q_l = quant_static(l, s_act_inv[li + 1])
         o1 = torch.relu(torch.cat([_bf(torch.relu(s)), enc], 1) @ f32["w_out1"] + f32["b_out1"])
         out = _bf(o1) @ f32["w_out2"] + f32["b_out2"]
         if outp is not None:
@@ -297,10 +439,12 @@ def generate_plain(kw, enc_t, seed, *, greedy=False, tf=None, collect_out_params
             fb = torch.floor(torch.sign(fb) * torch.log1p(255.0 * torch.abs(fb))
                              / math.log(256.0) * 128.0) / half
         xh = torch.stack([xh[1], xh[2], fb])
-    audio = audio.T.contiguous()
+    result = [audio.T.contiguous()]
     if collect_out_params:
-        return audio, outp.transpose(0, 1).contiguous()
-    return audio
+        result.append(outp.transpose(0, 1).contiguous())
+    if return_state:
+        result.append((lbuf, xh, t0 + L))
+    return result[0] if len(result) == 1 else tuple(result)
 
 
 # ---------------------------------------------------------------------------
@@ -312,12 +456,13 @@ class _FastgenArgs(ctypes.Structure):
     """Mirror of struct FastgenArgs in csrc/fastgen_kernel.cuh."""
 
     _fields_ = [(name, ctypes.c_void_p) for name in (
-        "w_comb", "b_comb", "w_rs", "b_rs", "w_start", "b_start", "w_skip0", "b_skip0",
-        "w_out1", "b_out1", "w_out2", "b_out2", "enc", "tf", "lbuf", "l", "l_bf", "s", "gate",
-        "part", "counters", "xh", "audio", "out_params", "stream",
+        "w_comb", "b_comb", "w_rs", "b_rs", "s_comb", "s_main", "s_rs", "s_act_inv",
+        "w_start", "b_start", "w_skip0", "b_skip0",
+        "w_out1", "b_out1", "w_out2", "b_out2", "enc", "tf", "lbuf", "xh", "l", "l_bf", "q_l",
+        "q_enc", "r_enc", "s", "gate", "part", "counters", "audio", "out_params", "stream",
     )] + [("seed", ctypes.c_longlong)] + [(name, ctypes.c_int) for name in (
         "device", "B", "L", "W", "GW", "S", "DW", "NL", "num_stages",
-        "out_pad", "out_seg", "head", "use_mu_law", "quant_chann", "greedy",
+        "out_pad", "out_seg", "head", "use_mu_law", "quant_chann", "greedy", "t0", "w8a8",
     )]
 
 
@@ -328,7 +473,7 @@ def _lib():
     if not getattr(lib, "_argtypes_set", False):
         lib.fastgen_generate.argtypes = [ctypes.POINTER(_FastgenArgs)]
         lib.fastgen_generate.restype = ctypes.c_int
-        lib.fastgen_workspace.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong)] * 2
+        lib.fastgen_workspace.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)] * 2
         lib.fastgen_workspace.restype = None
         lib.philox_uniform.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -355,85 +500,125 @@ def _expect(name, t, shape, dtype, device):
         raise ValueError(f"{name} must be contiguous and 32-byte aligned")
 
 
-def _generate_cuda(kw, enc_t, seed, greedy, tf, collect_out_params):
+def _generate_cuda(kw, enc_t, seed, greedy, tf, collect_out_params, state, return_state):
     cfg = kw["cfg"]
     L, B, DW = enc_t.shape
     W, GW, S, NL = cfg.width, cfg.gate_width, cfg.skip_width, cfg.num_layers
     m = GW // 2
     seg, out_pad = head_layout(cfg)
+    int8 = w8a8_static(kw)
     if DW != cfg.deconv_width:
         raise ValueError(f"enc_t width {DW} != deconv_width {cfg.deconv_width}")
+    # % 64: whole K chunks and column tiles; it also gives the int8 rows (W, DW
+    # and m bytes) the 16-byte alignment of the kernels' vector loads
     for name, v in (("width", W), ("skip_width", S), ("deconv_width", DW), ("gate_width/2", m)):
         if v % 64:
             raise ValueError(f"the CUDA kernel needs {name} % 64 == 0, got {v}")
     dev = enc_t.device
-    bf, f32 = torch.bfloat16, torch.float32
+    bf, f32, i8 = torch.bfloat16, torch.float32, torch.int8
+    K, N = 3 * W + DW, W + S
     want = {
-        "w_comb": ((NL, 3 * W + DW, GW), bf), "b_comb": ((NL, GW), f32),
-        "w_rs": ((NL, m, W + S), bf), "b_rs": ((NL, W + S), f32),
+        "b_comb": ((NL, GW), f32), "b_rs": ((NL, N), f32),
         "w_start": ((3, W), f32), "b_start": ((W,), f32),
         "w_skip0": ((W, S), bf), "b_skip0": ((S,), f32),
         "w_out1": ((S + DW, S), bf), "b_out1": ((S,), f32),
         "w_out2": ((S, out_pad), bf), "b_out2": ((out_pad,), f32),
     }
+    if int8:
+        # the kernels read the k4 copies; w_comb and w_rs are the plain version's
+        want.update({
+            "w_comb_k4": ((NL, K // 4, GW, 4), i8), "w_rs_k4": ((NL, m // 4, N, 4), i8),
+            "s_comb": ((NL, 1, GW), f32), "s_main": ((NL, 1, GW), f32),
+            "s_rs": ((NL, 1, N), f32), "s_act_inv": ((NL,), f32),
+        })
+    else:
+        want.update({"w_comb": ((NL, K, GW), bf), "w_rs": ((NL, m, N), bf)})
     for name, (shape, dtype) in want.items():
         _expect(name, kw[name], shape, dtype, dev)
     enc_t = enc_t.to(bf).contiguous()
+    _expect("enc_t", enc_t, (L, B, DW), bf, dev)
     if tf is not None:
         tf = tf.to(f32).contiguous()
         _expect("tf", tf, (L, B), f32, dev)
 
     _, slots = ring_offsets(cfg)
+    ring = i8 if int8 else bf
+    lbuf, xh, t0 = init_state(cfg, B, dev, int8) if state is None else state
+    _expect("state lbuf", lbuf, (slots, B, W), ring, dev)
+    _expect("state xh", xh, (3, B), f32, dev)
+    t0 = int(t0)
+    if not 0 <= t0 <= 2**31 - 1 - L:
+        raise ValueError(f"state t0 {t0} + {L} steps leaves the 32-bit step counter")
+
     lib = _lib()
-    part_floats, n_counters = ctypes.c_longlong(), ctypes.c_longlong()
-    lib.fastgen_workspace(B, W, GW, DW, ctypes.byref(part_floats), ctypes.byref(n_counters))
-    state = {
-        "lbuf": torch.zeros((slots, B, W), dtype=bf, device=dev),
-        "l": torch.zeros((B, W), device=dev),
-        "l_bf": torch.zeros((B, W), dtype=bf, device=dev),
-        "s": torch.zeros((B, S), device=dev),
-        "gate": torch.zeros((B, m), dtype=bf, device=dev),
-        "part": torch.empty((max(part_floats.value, 1),), device=dev),
+    part_words, n_counters = ctypes.c_longlong(), ctypes.c_longlong()
+    lib.fastgen_workspace(B, W, GW, DW, int(int8), ctypes.byref(part_words), ctypes.byref(n_counters))
+    scratch = {
+        "l": torch.empty((B, W), device=dev),
+        "s": torch.empty((B, S), device=dev),
+        "gate": torch.empty((B, m), dtype=ring, device=dev),
+        "part": torch.empty((max(part_words.value, 1),), dtype=torch.int32 if int8 else f32,
+                            device=dev),
         "counters": torch.zeros((n_counters.value,), dtype=torch.int32, device=dev),
-        "xh": torch.zeros((3, B), device=dev),
         "audio": torch.empty((L, B), device=dev),
     }
+    if int8:
+        scratch.update({
+            "q_l": torch.empty((B, W), dtype=i8, device=dev),
+            "q_enc": torch.empty((L, B, DW), dtype=i8, device=dev),
+            "r_enc": torch.empty((L, B), device=dev),
+        })
+    else:
+        scratch["l_bf"] = torch.empty((B, W), dtype=bf, device=dev)
     outp = torch.empty((L, B, out_pad), device=dev) if collect_out_params else None
+    weights = {name.removesuffix("_k4"): kw[name].data_ptr() for name in want}
     args = _FastgenArgs(
-        **{name: kw[name].data_ptr() for name in want},
-        enc=enc_t.data_ptr(), tf=None if tf is None else tf.data_ptr(),
-        **{name: v.data_ptr() for name, v in state.items()},
+        **weights, enc=enc_t.data_ptr(), tf=None if tf is None else tf.data_ptr(),
+        lbuf=lbuf.data_ptr(), xh=xh.data_ptr(),
+        **{name: v.data_ptr() for name, v in scratch.items()},
         out_params=None if outp is None else outp.data_ptr(),
         stream=torch.cuda.current_stream(dev).cuda_stream,
         seed=int(seed), device=dev.index, B=B, L=L, W=W, GW=GW, S=S, DW=DW, NL=NL,
         num_stages=cfg.num_stages, out_pad=out_pad, out_seg=seg, head=HEADS[cfg.loss_type],
         use_mu_law=int(cfg.use_mu_law), quant_chann=cfg.quant_chann, greedy=int(greedy),
+        t0=t0, w8a8=int(int8),
     )
     rc = lib.fastgen_generate(ctypes.byref(args))
     generate.launches += 1
+    generate.launches_by_mode["w8a8" if int8 else "bf16"] += 1
     _check(lib, rc)
-    audio = state["audio"].T.contiguous()
+    result = [scratch["audio"].T.contiguous()]
     if collect_out_params:
-        return audio, outp.transpose(0, 1).contiguous()
-    return audio
+        result.append(outp.transpose(0, 1).contiguous())
+    if return_state:
+        result.append((lbuf, xh, t0 + L))
+    return result[0] if len(result) == 1 else tuple(result)
 
 
-def generate(kw, enc_t, seed, *, greedy=False, tf=None, collect_out_params=False):
+def generate(kw, enc_t, seed, *, greedy=False, tf=None, collect_out_params=False,
+             state=None, return_state=False):
     """Generate L samples for a batch.
 
-    kw: build_kernel_weights output; enc_t [L, B, DW] upsampled conditioning
+    kw: build_kernel_weights output; bf16 ``w_comb`` runs the bf16 kernels,
+    int8 ``w_comb`` with static scales the W8A8 kernels (the per-row int8
+    modes raise NotImplementedError).  enc_t [L, B, DW] upsampled conditioning
     (already offset-trimmed, cast to bf16); seed: int; tf [L, B] f32
     teacher-forced feedback (the sample fed back after step t) or None.
-    Returns audio [B, L] f32, plus out_params [B, L, out_pad] f32 with
-    collect_out_params.  CUDA tensors run the CUDA kernel, CPU tensors the
-    plain version.
+    state: (lbuf, xh, t0) from a previous call with return_state (None: a
+    fresh utterance, see init_state).  The state passed in is consumed: its
+    buffers are updated in place and come back in the new state.
+    Returns audio [B, L] f32, then out_params [B, L, out_pad] f32 with
+    collect_out_params, then the new state with return_state.  CUDA tensors
+    run the CUDA kernels, CPU tensors the plain version.
     """
     if enc_t.device.type == "cuda":
-        return _generate_cuda(kw, enc_t, seed, greedy, tf, collect_out_params)
+        return _generate_cuda(kw, enc_t, seed, greedy, tf, collect_out_params, state, return_state)
     if enc_t.device.type == "cpu":
         return generate_plain(kw, enc_t, seed, greedy=greedy, tf=tf,
-                              collect_out_params=collect_out_params)
+                              collect_out_params=collect_out_params, state=state,
+                              return_state=return_state)
     raise ValueError(f"unsupported device {enc_t.device}")
 
 
 generate.launches = 0
+generate.launches_by_mode = {"bf16": 0, "w8a8": 0}
