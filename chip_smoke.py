@@ -58,12 +58,41 @@ while the teacher is on the card:
      torch._int_mm on the same products and the card's int8 bound;
  17. a golden W8A8 free run that must track its conditioning;
  18. evaluation.generate_wavenet(int8, int8_static, streaming_chunk) over two wavs.
+Phases 19 to 26 cover the calibration-free W8A8 modes (per-row log8
+activation scales whose codes ride in the ring, per-row gate scales, bf16
+res/skip under an int8 ring, the bf16 combine); they follow phase 18:
+ 19. int8 packing with nothing calibrated, and the per-row kernels against
+     their plain version: single steps from the plain version's state at full
+     width, B = 8, 64 and 512, judged per (step, row) pair, with the share of
+     ring payloads and of exponent codes that differ; whole runs for MoL, CE
+     and Gauss at 4 layers and for the golden tiny_mol; full depth under the
+     gross-fault guard;
+ 20. the other combinations (row + fixed gate scale, row + bf16 res/skip,
+     static + per-row gate scale, static + bf16 res/skip, the bf16 combine, and
+     bf16 weights with an int8 res/skip product): single steps at full width,
+     B = 64, and whole runs at 4 layers;
+ 21. the per-row mode against bf16 and against the static mode, teacher-forced,
+     on the golden and at 4 layers: within 5 % of scale, bf16 res/skip no
+     further from bf16 than 1.5 times the all-int8 distance; full depth printed;
+ 22. streaming in the per-row mode at full width: chained chunks of 128 equal to
+     the one-shot call bit for bit, exponent codes included;
+ 23. the calibration-free main path: Fastgen.generate_cuda(weight_dtype="int8")
+     at B = 64 and 512, L = 2000, sampled; a streamed run (chunk 500) at B = 64
+     equal to the one-shot run on the same encoding; launch counts by mode;
+ 24. step time of the per-row mode with the bf16, the static and the other
+     modes in the same call, against the plain version, torch._int_mm on the
+     four segment products and the res/skip product, and the card's bound;
+     per-kernel device time;
+ 25. a golden per-row free run that must track its conditioning;
+ 26. evaluation.generate_wavenet(int8=True) over two wavs and over one mel-only
+     .npy, one-shot and streamed.
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 per-kernel JSON record.
 """
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -196,7 +225,7 @@ def on_cpu(kw):
     return {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
 
 
-def check_kernel(label, cfg, kw, enc_t, seed, rel_tol, cpu_floor=False):
+def check_kernel(label, cfg, kw, enc_t, seed, rel_tol, cpu_floor=False, **opts):
     """Kernel vs plain version on the same inputs; returns (largest
     teacher-forced head-output error, the plain version's CPU-vs-card
     disagreement or None).  Fails if an error exceeds rel_tol * max(|plain|, 1).
@@ -213,13 +242,14 @@ def check_kernel(label, cfg, kw, enc_t, seed, rel_tol, cpu_floor=False):
     cpu_floor: also run the plain version on the CPU, where only the f32
     summation order differs from the plain version on the card, and log how
     far the two plain runs part: no implementation can be held closer to the
-    plain version than that."""
+    plain version than that.  opts (int8_combine) go to both versions."""
     L, B, _ = enc_t.shape
     tf = forced_feedback(L, B)
 
     # teacher-forced, greedy: the network and head
-    _, out_k = fk.generate(kw, enc_t, seed, greedy=True, tf=tf, collect_out_params=True)
-    _, out_p = fk.generate_plain(kw, enc_t, seed, greedy=True, tf=tf, collect_out_params=True)
+    _, out_k = fk.generate(kw, enc_t, seed, greedy=True, tf=tf, collect_out_params=True, **opts)
+    _, out_p = fk.generate_plain(kw, enc_t, seed, greedy=True, tf=tf, collect_out_params=True,
+                                 **opts)
     out_k, out_p = fk.unpack_head(cfg, out_k), fk.unpack_head(cfg, out_p)
     require(bool(torch.isfinite(out_k).all()), f"{label}: non-finite kernel output")
     step_err = (out_k - out_p).abs().amax(dim=(0, 2))
@@ -230,7 +260,7 @@ def check_kernel(label, cfg, kw, enc_t, seed, rel_tol, cpu_floor=False):
     floor = None
     if cpu_floor:
         _, out_c = fk.generate_plain(on_cpu(kw), enc_t.cpu(), seed, greedy=True, tf=tf.cpu(),
-                                     collect_out_params=True)
+                                     collect_out_params=True, **opts)
         floor = float((fk.unpack_head(cfg, out_c) - out_p.cpu()).abs().max())
     log(f"{label} B={B} L={L}: teacher-forced head outputs max|d| kernel-plain {err:.3e} "
         f"({growth}), scale {scale:.3f}, limit {limit:.3e} ({rel_tol:g} x scale)"
@@ -239,7 +269,7 @@ def check_kernel(label, cfg, kw, enc_t, seed, rel_tol, cpu_floor=False):
 
     # sampled free run: sampler exact on the kernel's own head outputs, and the
     # plain network fed the kernel's own audio reproduces those outputs
-    audio_k, outs_k = fk.generate(kw, enc_t, seed, collect_out_params=True)
+    audio_k, outs_k = fk.generate(kw, enc_t, seed, collect_out_params=True, **opts)
     require(bool(torch.isfinite(audio_k).all()) and float(audio_k.abs().max()) <= 1.0,
             f"{label} B={B}: free-run audio not finite in [-1, 1]")
     replay = fk.resample_plain(cfg, outs_k, seed)
@@ -249,14 +279,14 @@ def check_kernel(label, cfg, kw, enc_t, seed, rel_tol, cpu_floor=False):
         f"{float((d <= tol).float().mean()):.4f} of samples within one bin")
     require(bool((d[:, :64] <= tol).all()), f"{label} B={B}: sampler replay differs in the first 64 steps")
     require(float((d <= tol).float().mean()) >= 0.999, f"{label} B={B}: sampler replay differs")
-    _, outs_p = fk.generate_plain(kw, enc_t, seed, tf=audio_k.T, collect_out_params=True)
+    _, outs_p = fk.generate_plain(kw, enc_t, seed, tf=audio_k.T, collect_out_params=True, **opts)
     outs_k, outs_p = fk.unpack_head(cfg, outs_k), fk.unpack_head(cfg, outs_p)
     ferr = float((outs_k - outs_p).abs().max())
     flimit = rel_tol * max(float(outs_p.abs().max()), 1.0)
     log(f"{label} B={B}: free-run head outputs vs plain fed the same audio max|d| {ferr:.3e} "
         f"(limit {flimit:.3e})")
     require(ferr <= flimit, f"{label} B={B}: free-run head outputs differ")
-    direct = fk.generate_plain(kw, enc_t, seed)
+    direct = fk.generate_plain(kw, enc_t, seed, **opts)
     same = (direct - audio_k).abs() <= tol
     first = int(torch.nonzero(~same.all(0)).min()) if not bool(same.all()) else L
     log(f"{label} B={B}: independent free runs agree within one bin for {first} steps, "
@@ -264,25 +294,26 @@ def check_kernel(label, cfg, kw, enc_t, seed, rel_tol, cpu_floor=False):
     return err, floor
 
 
-def step_counts(cfg, B, out_width, w8a8=False):
+def step_counts(cfg, B, out_width, mode=fk.Mode("bf16", "bf16")):
     """(seconds of tensor-core work at the card's peak, operations, weight
-    bytes, ring bytes) of one generated sample for the batch.  W8A8: the layer
-    products are int8 (1 byte a weight, the int8 peak, f32 scales beside the
-    biases, int8 ring rows); the head stays bf16."""
+    bytes, ring bytes) of one generated sample for the batch.  An int8 product
+    (mode.act for w_comb, mode.rs for w_rs) counts 1 byte a weight, the int8
+    peak and its f32 scales beside the biases; int8 ring rows are 1 byte a
+    value, and in the per-row mode one more byte a row for the exponent code;
+    the head stays bf16."""
     W, GW, S, DW, NL = cfg.width, cfg.gate_width, cfg.skip_width, cfg.deconv_width, cfg.num_layers
     m = GW // 2
-    layer_macs = NL * ((3 * W + DW) * GW + m * (W + S))
+    comb_macs, rs_macs = NL * (3 * W + DW) * GW, NL * m * (W + S)
     head_macs = W * S + (S + DW) * S + S * out_width
-    vectors = 4 * (NL * (GW + W + S) + 4 * W + 2 * S + out_width)
-    if w8a8:
-        t_ops = 2 * B * (layer_macs / PEAK_INT8_OPS + head_macs / PEAK_BF16_FLOPS)
-        weight_bytes = layer_macs + 2 * head_macs + vectors + 4 * NL * (2 * GW + W + S + 1)
-        ring_bytes = NL * 3 * B * W
-    else:
-        t_ops = 2 * B * (layer_macs + head_macs) / PEAK_BF16_FLOPS
-        weight_bytes = 2 * (layer_macs + head_macs) + vectors
-        ring_bytes = NL * 3 * B * W * 2
-    return t_ops, 2 * B * (layer_macs + head_macs), weight_bytes, ring_bytes
+    t_ops = 2 * B * head_macs / PEAK_BF16_FLOPS
+    weight_bytes = 2 * head_macs + 4 * (NL * (GW + W + S) + 4 * W + 2 * S + out_width)
+    for macs, kind, scales in ((comb_macs, mode.act, GW + (GW + 1 if mode.act == "static" else 0)),
+                               (rs_macs, mode.rs, W + S)):
+        int8 = kind != "bf16"
+        t_ops += 2 * B * macs / (PEAK_INT8_OPS if int8 else PEAK_BF16_FLOPS)
+        weight_bytes += macs + 4 * NL * scales if int8 else 2 * macs
+    row_bytes = {"bf16": 2 * W, "static": W, "row": W + 1}[mode.act]
+    return t_ops, 2 * B * (comb_macs + rs_macs + head_macs), weight_bytes, NL * 3 * B * row_bytes
 
 
 def replay_graph(step, reps):
@@ -305,37 +336,45 @@ def replay_graph(step, reps):
 
 
 def time_kernel(cfg, kw, enc_t, seed):
-    """ms of the kernel, the plain version and the library (cuBLAS for bf16,
-    torch._int_mm for W8A8) on the same per-step matmuls, and the card's
-    bound, for one call of TIMED_STEPS steps."""
+    """ms of the kernel, the plain version and the library on the same per-step
+    matmuls (cuBLAS for a bf16 product, torch._int_mm for an int8 one: one
+    call for the stacked operand, or in the per-row mode one for each of the
+    four segments that dequantise apart), and the card's bound, for one call
+    of TIMED_STEPS steps."""
     L, B, DW = enc_t.shape
-    w8a8 = fk.w8a8_static(kw)
+    mode = fk.kernel_mode(kw)
     ms = cuda_ms(lambda: fk.generate(kw, enc_t, seed))
     plain_ms = cuda_ms(lambda: fk.generate_plain(kw, enc_t, seed), reps=1)
     W, GW = cfg.width, cfg.gate_width
     w_comb, w_rs = kw["w_comb"], kw["w_rs"]
-    if w8a8:
-        a = torch.randint(-127, 128, (B, 3 * W + DW), device="cuda", dtype=torch.int8)
-        g = torch.randint(-127, 128, (B, GW // 2), device="cuda", dtype=torch.int8)
 
-        def step():
-            for li in range(cfg.num_layers):
-                torch._int_mm(a, w_comb[li])
-                torch._int_mm(g, w_rs[li])
-    else:
-        a = torch.randn((B, 3 * W + DW), device="cuda").to(torch.bfloat16)
-        g = torch.randn((B, GW // 2), device="cuda").to(torch.bfloat16)
-        d_out = torch.empty((B, GW), device="cuda", dtype=torch.bfloat16)
-        rs_out = torch.empty((B, w_rs.shape[2]), device="cuda", dtype=torch.bfloat16)
+    def operand(k, int8):
+        if int8:
+            return torch.randint(-127, 128, (B, k), device="cuda", dtype=torch.int8)
+        return torch.randn((B, k), device="cuda").to(torch.bfloat16)
 
-        def step():
-            for li in range(cfg.num_layers):
-                torch.mm(a, w_comb[li], out=d_out)
+    # the K ranges of w_comb that are one product each
+    cuts = [0, W, 2 * W, 3 * W, 3 * W + DW] if mode.act == "row" else [0, 3 * W + DW]
+    a = [operand(k1 - k0, mode.act != "bf16") for k0, k1 in zip(cuts, cuts[1:])]
+    g = operand(GW // 2, mode.rs != "bf16")
+    d_out = torch.empty((B, GW), device="cuda", dtype=torch.bfloat16)
+    rs_out = torch.empty((B, w_rs.shape[2]), device="cuda", dtype=torch.bfloat16)
+
+    def step():
+        for li in range(cfg.num_layers):
+            for x, k0, k1 in zip(a, cuts, cuts[1:]):
+                if mode.act == "bf16":
+                    torch.mm(x, w_comb[li], out=d_out)
+                else:
+                    torch._int_mm(x, w_comb[li, k0:k1])
+            if mode.rs == "bf16":
                 torch.mm(g, w_rs[li], out=rs_out)
+            else:
+                torch._int_mm(g, w_rs[li])
 
     # one step's matmuls captured once, replayed per step
     library_ms = cuda_ms(replay_graph(step, L))
-    t_ops, _, weight_bytes, ring_bytes = step_counts(cfg, B, cfg.out_width, w8a8)
+    t_ops, _, weight_bytes, ring_bytes = step_counts(cfg, B, cfg.out_width, mode)
     io_bytes = weight_bytes + L * B * (DW * 2 + 4)  # each input read once, audio written once
     t_ops, t_bytes = L * t_ops, io_bytes / PEAK_HBM_BYTES
     stream_bound_ms = 1e3 * L * (weight_bytes + ring_bytes) / PEAK_HBM_BYTES
@@ -360,23 +399,22 @@ def kernel_breakdown(kw, enc_t, seed):
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.time() - t0)
     out = {}
-    # the longer names first: "gate_kernel" is a prefix of "gate_kernel_i8"
-    names = ("gate_kernel_i8", "resskip_kernel_i8", "quant_enc_kernel", "gate_kernel",
-             "resskip_kernel", "head_kernel")
+    names = "gate_kernel_i8|resskip_kernel_i8|quant_enc_kernel|gate_kernel|resskip_kernel|head_kernel"
     for evt in prof.key_averages():
-        name = next((n for n in names if n + "(" in evt.key or evt.key.endswith(n)), None)
-        if name is not None:
+        # a whole identifier, then its template arguments, its parameters or the end
+        found = re.search(rf"\b({names})(?=[<(]|$)", evt.key)
+        if found is not None:
             total = getattr(evt, "device_time_total", None) or evt.cuda_time_total
-            out[name] = (evt.count, total / max(evt.count, 1))
+            out[found.group(1)] = (evt.count, total / max(evt.count, 1))
     return out, wall_us
 
 
 def log_timing(label, cfg, kw, enc, tm):
     """The timing line and the profile line of one mode at one batch."""
     B = enc.shape[1]
-    w8a8 = fk.w8a8_static(kw)
-    _, ops, weight_bytes, ring_bytes = step_counts(cfg, B, cfg.out_width, w8a8)
-    library = "torch._int_mm" if w8a8 else "cuBLAS"
+    mode = fk.kernel_mode(kw)
+    _, ops, weight_bytes, ring_bytes = step_counts(cfg, B, cfg.out_width, mode)
+    library = " + ".join(dict.fromkeys("cuBLAS" if k == "bf16" else "torch._int_mm" for k in mode))
     log(f"timing {label} B={B} {TIMED_STEPS} steps: kernel {tm['ms']:.3f} ms "
         f"({1e3 * tm['ms'] / TIMED_STEPS:.1f} us/step), plain {tm['plain_ms']:.3f} ms, "
         f"{library} per-step matmuls {tm['library_ms']:.3f} ms, "
@@ -408,7 +446,8 @@ def forced_feedback(L, B):
     return (0.6 * torch.sin(0.03 * t * (1 + torch.arange(B, device="cuda")[None]))).float()
 
 
-def check_single_steps(label, cfg, kw, enc_t, seed, rel_tol, rel_tol_max):
+def check_single_steps(label, cfg, kw, enc_t, seed, rel_tol, rel_tol_max,
+                       flip_share_limit=W8A8_FLIP_SHARE, **opts):
     """Each step of the kernel started from the plain version's state of that
     step, against the plain version's step: teacher-forced greedy head outputs
     and the state that comes back.  Differences cannot pile up over steps, and
@@ -416,51 +455,63 @@ def check_single_steps(label, cfg, kw, enc_t, seed, rel_tol, rel_tol_max):
     layers spoils one (step, row) pair and no other: all but W8A8_PAIR_SHARE of
     the pairs must hold rel_tol, every pair rel_tol_max, and the int8 ring
     entries written in a step may differ in a share of W8A8_FLIP_SHARE at most.
-    Returns (share of pairs over rel_tol, largest error, largest error of the
-    pairs that hold rel_tol)."""
+    In the per-row mode a ring row also holds its exponent code: the share of
+    rows written whose code differs (the whole row's payload then moves) is
+    counted apart and held to the same limit.  flip_share_limit: that limit (a
+    mode with a bf16 product needs a wider one: its f32 sums come in another
+    order, which moves a quantiser far more often than expf's last bit does).
+    opts (int8_combine) go to both versions.  Returns (share of pairs over rel_tol, largest error, largest
+    error of the pairs that hold rel_tol, share of codes that differ)."""
     L, B, _ = enc_t.shape
+    W = cfg.width
     tf = forced_feedback(L, B)
-    state = fk.init_state(cfg, B, "cuda", fk.w8a8_static(kw))
-    errs, ring_diff, scale = [], 0, 1.0
+    state = fk.init_state(cfg, B, "cuda", fk.kernel_mode(kw).act)
+    errs, ring_diff, code_diff, scale = [], 0, 0, 1.0
     for t in range(L):
         mine = (state[0].clone(), state[1].clone(), state[2])
-        step = dict(greedy=True, tf=tf[t : t + 1], collect_out_params=True, return_state=True)
+        step = dict(greedy=True, tf=tf[t : t + 1], collect_out_params=True, return_state=True, **opts)
         _, out_p, state = fk.generate_plain(kw, enc_t[t : t + 1], seed, state=state, **step)
         _, out_k, mine = fk.generate(kw, enc_t[t : t + 1], seed, state=mine, **step)
         out_k, out_p = fk.unpack_head(cfg, out_k), fk.unpack_head(cfg, out_p)
         errs.append((out_k - out_p).abs().amax(dim=(1, 2)))
         scale = max(scale, float(out_p.abs().max()))
-        ring_diff += int((mine[0] != state[0]).sum())
+        ring_diff += int((mine[0][..., :W] != state[0][..., :W]).sum())
+        code_diff += int((mine[0][..., W:] != state[0][..., W:]).any(-1).sum())
         require(bool(torch.equal(mine[1], state[1])) and mine[2] == state[2] == t + 1,
                 f"{label}: taps or step count differ after step {t}")
     errs = torch.stack(errs)  # [L, B]
     over = errs > rel_tol * scale
     pair_share, err = float(over.float().mean()), float(errs.max())
     held = float(errs[~over].max()) if not bool(over.all()) else float("nan")
-    flip_share = ring_diff / (L * B * cfg.width * cfg.num_layers)
+    flip_share = ring_diff / (L * B * W * cfg.num_layers)
+    code_share = code_diff / (L * B * cfg.num_layers)
     log(f"{label} B={B}: {L} single steps from the plain version's state, head outputs per (step, "
         f"row): {int(over.sum())} of {L * B} pairs over {rel_tol * scale:.3e} ({rel_tol:g} x scale "
         f"{scale:.3f}; limit {W8A8_PAIR_SHARE:g} of them), the others max|d| {held:.3e}, largest "
         f"{err:.3e} (limit {rel_tol_max * scale:.3e}); ring entries written that differ: "
-        f"{ring_diff}, {flip_share:.2e} of them (limit {W8A8_FLIP_SHARE:g})")
+        f"{ring_diff}, {flip_share:.2e} of them (limit {flip_share_limit:g})"
+        + (f"; exponent codes written that differ: {code_diff}, {code_share:.2e} of the rows"
+           if state[0].shape[-1] > W else ""))
     require(pair_share <= W8A8_PAIR_SHARE and err <= rel_tol_max * scale
-            and flip_share <= W8A8_FLIP_SHARE,
+            and flip_share <= flip_share_limit and code_share <= flip_share_limit,
             f"{label} B={B}: single steps differ from the plain version's")
-    return pair_share, err, held
+    return pair_share, err, held, code_share
 
 
-def check_w8a8_vs_bf16(label, cfg, kw_bf16, kw_w8a8, enc_t, seed, limit=W8A8_VS_BF16):
+def check_w8a8_vs_bf16(label, cfg, kw_bf16, kw_w8a8, enc_t, seed, limit=W8A8_VS_BF16,
+                       names=("W8A8", "bf16")):
     """Teacher-forced greedy head outputs of the two modes on the card; returns
-    their distance as a share of the bf16 output's scale."""
+    their distance as a share of the second one's (bf16's) output scale."""
     L, B, _ = enc_t.shape
     tf = forced_feedback(L, B)
     outs = [fk.unpack_head(cfg, fk.generate(kw, enc_t, seed, greedy=True, tf=tf,
                                             collect_out_params=True)[1])
             for kw in (kw_bf16, kw_w8a8)]
     err, scale = float((outs[1] - outs[0]).abs().max()), float(outs[0].abs().max())
-    log(f"{label} B={B} L={L}: W8A8 vs bf16 teacher-forced head outputs max|d| {err:.3e}, bf16 "
-        f"scale {scale:.3f}, {err / scale:.4f} of scale (limit {limit:g})")
-    require(err < limit * scale, f"{label}: W8A8 parts from bf16 by more than {limit:g} of scale")
+    log(f"{label} B={B} L={L}: {names[0]} vs {names[1]} teacher-forced head outputs max|d| "
+        f"{err:.3e}, {names[1]} scale {scale:.3f}, {err / scale:.4f} of scale (limit {limit:g})")
+    require(err < limit * scale,
+            f"{label}: {names[0]} parts from {names[1]} by more than {limit:g} of scale")
     return err / scale
 
 
@@ -470,7 +521,8 @@ def check_streaming(label, cfg, kw, enc_t, seed, rel_tol):
     state against the plain version's (teacher-forced, so that both see the
     same feedback).  Returns the ring's largest distance from the plain one."""
     L, B, _ = enc_t.shape
-    w8a8 = fk.w8a8_static(kw)
+    W = cfg.width
+    int8_ring = fk.kernel_mode(kw).act != "bf16"
 
     def chained(**opts):
         state, audio, outs = None, [], []
@@ -502,12 +554,15 @@ def check_streaming(label, cfg, kw, enc_t, seed, rel_tol):
     _, p_state = fk.generate_plain(kw, enc_t, seed, greedy=True, tf=tf, return_state=True)
     require(bool(torch.equal(c_state[1], p_state[1])) and c_state[2] == p_state[2],
             f"{label}: final taps or step differ from the plain version's")
-    d = (c_state[0].float() - p_state[0].float()).abs()
-    if w8a8:
+    d = (c_state[0][..., :W].float() - p_state[0][..., :W].float()).abs()
+    if int8_ring:
         share = float((d > 0).float().mean())
-        clipped = float((c_state[0].abs() == 127).float().mean())
+        clipped = float((c_state[0][..., :W].abs() == 127).float().mean())
+        codes = (c_state[0][..., W:] != p_state[0][..., W:]).any(-1)  # per-row mode: lane W
         log(f"{label} streaming final state: int8 ring max|d| {float(d.max()):.0f} LSB, "
-            f"{share:.2e} of entries differ; {clipped:.2e} of ring entries sit at +-127 (clipped)")
+            f"{share:.2e} of entries differ; {clipped:.2e} of ring entries sit at +-127 (clipped)"
+            + (f"; {float(codes.float().mean()):.2e} of the rows' exponent codes differ"
+               if codes.numel() else ""))
         # a loose guard: over a run the flips pile up (see W8A8_REL_TOL); the close
         # comparison of the state is check_single_steps'
         require(share <= W8A8_STATE_SHARE, f"{label}: final ring differs from the plain one")
@@ -523,7 +578,8 @@ def check_streaming(label, cfg, kw, enc_t, seed, rel_tol):
 
 
 def w8a8_phases(model, params, kw_bf16, gmodel, gparams, gdir, mels):
-    """Phases 12 to 18; returns the W8A8 kernels' record."""
+    """Phases 12 to 18; returns the W8A8 static kernels' record, and the
+    calibrated full-width weights and abs-max for the phases that compare with them."""
     cfg = model.cfg
     fg = Fastgen(model)
     # ---- 12. calibration, packing, kernel vs plain ----
@@ -531,7 +587,7 @@ def w8a8_phases(model, params, kw_bf16, gmodel, gparams, gdir, mels):
     log(f"calibrated act_amax on 8 rows x 1 s: min {float(amax.min()):.3f} max {float(amax.max()):.3f}; "
         f"int8 layer weights {(kw['w_comb'].numel() + kw['w_rs'].numel()) / 1e6:.1f} MB")
     enc8 = conditioning(model, params, B=8, L=256, seed=1)
-    pair_share, step_err, step_held = check_single_steps(
+    pair_share, step_err, step_held, _ = check_single_steps(
         "w8a8 mol full width", cfg, kw, enc8[:96], seed=5, rel_tol=REL_TOL,
         rel_tol_max=W8A8_FULL_WIDTH_RUN_TOL)
     run_err, run_floor = check_kernel("w8a8 mol full width", cfg, kw, enc8, seed=5,
@@ -543,7 +599,7 @@ def w8a8_phases(model, params, kw_bf16, gmodel, gparams, gdir, mels):
     vs_bf16 = check_w8a8_vs_bf16("mol 4 layers", m4.cfg, kw4_bf16, kw4, enc8, seed=5)
     for B in MAIN_BATCHES:
         enc = conditioning(model, params, B=B, L=CHECK_STEPS, seed=20 + B)
-        share, err, held = check_single_steps("w8a8 mol full width", cfg, kw, enc, seed=8,
+        share, err, held, _ = check_single_steps("w8a8 mol full width", cfg, kw, enc, seed=8,
                                               rel_tol=REL_TOL,
                                               rel_tol_max=W8A8_FULL_WIDTH_RUN_TOL)
         pair_share, step_err, step_held = max(pair_share, share), max(step_err, err), max(step_held, held)
@@ -668,7 +724,7 @@ def w8a8_phases(model, params, kw_bf16, gmodel, gparams, gdir, mels):
         log(f"W8A8 eval path (streaming_chunk 1000) wrote {[os.path.basename(p) for p in paths]}")
 
     big = timings[MAIN_BATCHES[-1]]
-    return {
+    return kw, amax, {
         "name": "fastgen_generate_w8a8",
         "route": "cuda",
         "source": "nsynth_wavenet_tpu_torch/csrc/fastgen_kernel.cu",
@@ -684,6 +740,245 @@ def w8a8_phases(model, params, kw_bf16, gmodel, gparams, gdir, mels):
         "run_plain_cpu_vs_card_err": run_floor,
         "vs_bf16_share_of_scale": vs_bf16,
         "vs_bf16_share_of_scale_full_depth": vs_bf16_full,
+        "ms": big["ms"],
+        "plain_ms": big["plain_ms"],
+        "bound_ms": big["bound_ms"],
+        "bound_by": big["bound_by"],
+        "library_ms": big["library_ms"],
+    }
+
+
+# The calibration-free modes against their plain version: the limits of the
+# static mode above hold for every all-int8 mode (readings in PERF.md: single
+# steps at full width at most 17 of 24 576 pairs over REL_TOL x scale, ring
+# payloads that differ up to 5.9e-4, exponent codes up to 8.7e-5 of the rows).
+# A mode with a bf16 product (bf16 res/skip under an int8 ring, int8 res/skip
+# under a bf16 ring) sums in f32 in another order than torch.matmul, which moves
+# a quantiser far more often than expf's last bit: up to 1.1e-2 of the ring
+# payloads and 1.2e-3 of the codes differ and some percent of the pairs pass
+# REL_TOL, so their pairs are held to the bf16 mode's FULL_WIDTH_REL_TOL and
+# their ring entries to BF16_PRODUCT_FLIP_SHARE (a bf16 ring holds roundings,
+# not quantised values: no ring limit there).
+BF16_PRODUCT_FLIP_SHARE = 5e-2
+# (label, build_kernel_weights options beyond act_amax, generate options)
+OTHER_MODES = (
+    ("row + gate static", dict(weight_dtype="int8", gate_static=True), {}),
+    ("row + bf16 rs", dict(weight_dtype="int8", rs_dtype="bf16"), {}),
+    ("static + gate row", dict(weight_dtype="int8", static=True), {}),
+    ("static + bf16 rs", dict(weight_dtype="int8", rs_dtype="bf16", static=True), {}),
+    ("row, bf16 combine", dict(weight_dtype="int8"), dict(int8_combine="bf16")),
+    ("bf16 + int8 rs, gate row", dict(weight_dtype="bf16", rs_dtype="int8"), {}),
+    ("bf16 + int8 rs, gate static", dict(weight_dtype="bf16", rs_dtype="int8", gate_static=True), {}),
+)
+
+
+def pack(cfg, params, amax, static=False, **build):
+    """build_kernel_weights with the calibrated abs-max where the mode wants one."""
+    return fk.build_kernel_weights(cfg, params, act_amax=amax if static else None, **build)
+
+
+def row_phases(model, params, kw_bf16, kw_static, amax, gmodel, gparams, gdir, mels):
+    """Phases 19 to 26: W8A8 with per-row scales, nothing calibrated, and the
+    other combinations of activation scale and res/skip type; returns the
+    per-row kernels' record."""
+    cfg = model.cfg
+    fg = Fastgen(model)
+    # ---- 19. packing without calibration; the row-mode kernels vs plain ----
+    kw = fk.build_kernel_weights(cfg, params, weight_dtype="int8")
+    require(tuple(fk.kernel_mode(kw)) == ("row", "row") and "s_act_inv" not in kw,
+            "int8 weights without act_amax are not the per-row mode")
+    enc8 = conditioning(model, params, B=8, L=256, seed=1)
+    pair_share, step_err, step_held, code_share = check_single_steps(
+        "w8a8 row mol full width", cfg, kw, enc8[:96], seed=5, rel_tol=REL_TOL,
+        rel_tol_max=W8A8_FULL_WIDTH_RUN_TOL)
+    run_err, _ = check_kernel("w8a8 row mol full width", cfg, kw, enc8, seed=5,
+                              rel_tol=W8A8_FULL_WIDTH_RUN_TOL)
+    m4, p4, kw4_bf16 = full_model("configs/wavenet_mol.json", num_layers=4)
+    wav4 = torch.from_numpy(synthetic_wavs(8, 16000, 77)).cuda()
+    amax4 = Fastgen(m4).calibrate_act_amax(p4, wav4, stft.melspectrogram(wav4))
+    kw4 = fk.build_kernel_weights(m4.cfg, p4, weight_dtype="int8")
+    shallow_err = 0.0
+    for B in MAIN_BATCHES:
+        enc = conditioning(model, params, B=B, L=CHECK_STEPS, seed=20 + B)
+        share, err, held, codes = check_single_steps(
+            "w8a8 row mol full width", cfg, kw, enc, seed=8, rel_tol=REL_TOL,
+            rel_tol_max=W8A8_FULL_WIDTH_RUN_TOL)
+        pair_share, step_err = max(pair_share, share), max(step_err, err)
+        step_held, code_share = max(step_held, held), max(code_share, codes)
+        err, _ = check_kernel("w8a8 row mol full width", cfg, kw, enc, seed=8,
+                              rel_tol=W8A8_FULL_WIDTH_RUN_TOL)
+        run_err = max(run_err, err)
+        err, _ = check_kernel("w8a8 row mol 4 layers", m4.cfg, kw4, enc, seed=8, rel_tol=W8A8_REL_TOL)
+        shallow_err = max(shallow_err, err)
+    for path in ("configs/wavenet_ce.json", "configs/wavenet_gauss.json"):
+        m3, p3, _ = full_model(path, num_layers=4)
+        kw3 = fk.build_kernel_weights(m3.cfg, p3, weight_dtype="int8")
+        err, _ = check_kernel(f"w8a8 row {m3.cfg.loss_type} 4 layers", m3.cfg, kw3,
+                              conditioning(m3, p3, B=8, L=256, seed=2), seed=6, rel_tol=W8A8_REL_TOL)
+        shallow_err = max(shallow_err, err)
+    del m3, p3, kw3
+    gkw = fk.build_kernel_weights(gmodel.cfg, gparams, weight_dtype="int8")
+    genc = conditioning(gmodel, gparams, B=8, L=256, seed=3)
+    check_single_steps("w8a8 row golden tiny_mol", gmodel.cfg, gkw, genc[:48], seed=7,
+                       rel_tol=REL_TOL, rel_tol_max=REL_TOL)
+    check_kernel("w8a8 row golden tiny_mol", gmodel.cfg, gkw, genc, seed=7, rel_tol=REL_TOL)
+
+    # ---- 20. the other combinations, and the bf16 combine ----
+    enc64 = conditioning(model, params, B=MAIN_BATCHES[0], L=CHECK_STEPS, seed=20 + MAIN_BATCHES[0])
+    other_ms = {}
+    for label, build, opts in OTHER_MODES:
+        kw_o = pack(cfg, params, amax, **build)
+        mode = fk.kernel_mode(kw_o)
+        exact = "bf16" not in mode  # both products int8: only a quantiser's last bit parts the two
+        check_single_steps(
+            f"{label} full width", cfg, kw_o, enc64[:24], seed=8,
+            rel_tol=REL_TOL if exact else FULL_WIDTH_REL_TOL, rel_tol_max=W8A8_FULL_WIDTH_RUN_TOL,
+            flip_share_limit=(W8A8_FLIP_SHARE if exact else
+                              1.0 if mode.act == "bf16" else BF16_PRODUCT_FLIP_SHARE), **opts)
+        check_kernel(f"{label} 4 layers", m4.cfg, pack(m4.cfg, p4, amax4, **build), enc64, seed=8,
+                     rel_tol=W8A8_REL_TOL, **opts)
+        other_ms[label] = kw_o, opts
+    del kw_o
+
+    # ---- 21. row mode against bf16 and against the static mode ----
+    gkw_bf16 = fk.build_kernel_weights(gmodel.cfg, gparams)
+    gwavs = np.stack([wav_io.read_wav(os.path.join(GOLDEN, f"gen_golden_mol_{i}.wav"))[0][:8000]
+                      for i in (0, 1)])
+    gkw_static, _ = calibrated_w8a8(gmodel, gparams, gwavs)
+    vs_bf16 = vs_static = 0.0
+    for label, c, bf, st, row, row_rs in (
+            ("golden tiny_mol", gmodel.cfg, gkw_bf16, gkw_static, gkw,
+             fk.build_kernel_weights(gmodel.cfg, gparams, weight_dtype="int8", rs_dtype="bf16")),
+            ("mol 4 layers", m4.cfg, kw4_bf16, pack(m4.cfg, p4, amax4, weight_dtype="int8",
+                                                   static=True, gate_static=True), kw4,
+             fk.build_kernel_weights(m4.cfg, p4, weight_dtype="int8", rs_dtype="bf16"))):
+        enc = genc if c is gmodel.cfg else enc8
+        seed = 7 if c is gmodel.cfg else 5
+        d_row = check_w8a8_vs_bf16(label, c, bf, row, enc, seed, names=("W8A8 row", "bf16"))
+        d_rs = check_w8a8_vs_bf16(label, c, bf, row_rs, enc, seed,
+                                  names=("W8A8 row with bf16 res/skip", "bf16"))
+        require(d_rs <= 1.5 * d_row + 1e-6,
+                f"{label}: bf16 res/skip is further from bf16 than 1.5 x the all-int8 distance")
+        vs_bf16 = max(vs_bf16, d_row)
+        vs_static = max(vs_static, check_w8a8_vs_bf16(label, c, st, row, enc, seed,
+                                                      names=("W8A8 row", "W8A8 static")))
+    vs_bf16_full = check_w8a8_vs_bf16("mol full width", cfg, kw_bf16, kw, enc8, seed=5,
+                                      limit=W8A8_FULL_WIDTH_RUN_TOL, names=("W8A8 row", "bf16"))
+    check_w8a8_vs_bf16("mol full width", cfg, kw_static, kw, enc8, seed=5,
+                       limit=W8A8_FULL_WIDTH_RUN_TOL, names=("W8A8 row", "W8A8 static"))
+    del m4, p4, kw4, kw4_bf16, gkw_static, gkw_bf16
+
+    # ---- 22. streaming in row mode ----
+    enc_s = conditioning(model, params, B=8, L=STREAM_STEPS, seed=4)
+    check_streaming("w8a8 row mol full width", cfg, kw, enc_s, seed=9, rel_tol=FULL_WIDTH_REL_TOL)
+
+    # ---- 23. the slice's main path: calibration-free W8A8 ----
+    fg.generate_cuda(params, mels[MAIN_BATCHES[0]], seed=0, length=16, weight_dtype="int8")  # warm-up
+    torch.cuda.synchronize()
+    fk.generate.launches = 0
+    fk.generate.launches_by_mode = {"bf16": 0, "w8a8": 0, "w8a8_row": 0}
+    runs = {}
+    for B in MAIN_BATCHES:
+        t0 = time.time()
+        audio = fg.generate_cuda(params, mels[B], seed=B, length=MAIN_LENGTH, weight_dtype="int8")
+        torch.cuda.synchronize()
+        runs[B] = (audio, time.time() - t0)
+    launches = fk.generate.launches
+    by_mode = dict(fk.generate.launches_by_mode)
+    for B, (audio, dt) in runs.items():
+        require(tuple(audio.shape) == (B, MAIN_LENGTH), f"row main path shape {tuple(audio.shape)}")
+        require(bool(torch.isfinite(audio).all()) and float(audio.abs().max()) <= 1.0,
+                f"row main path B={B}: audio not finite in [-1, 1]")
+        log(f"W8A8 row main path B={B} L={MAIN_LENGTH}: {dt:.3f} s (int8 packing included), "
+            f"{1e6 * dt / MAIN_LENGTH:.1f} us/step, {B * MAIN_LENGTH / 16000 / dt:.2f} audio-sec/s, "
+            f"audio std {float(audio.std()):.4f}")
+    log(f"W8A8 row main path kernel launches: generate {launches}, by mode {by_mode} "
+        f"({2 * cfg.num_layers + 1} CUDA launches per step each, and one pre-pass per call)")
+    require(launches == len(MAIN_BATCHES)
+            and by_mode == {"bf16": 0, "w8a8": 0, "w8a8_row": launches},
+            "the calibration-free main path did not go through the per-row int8 kernels alone")
+    B = MAIN_BATCHES[0]
+    enc = model.deconv_stack(params, mels[B])
+    timed = {}
+    for chunk in (None, 500):
+        t0 = time.time()
+        audio = fg.generate_cuda(params, None, seed=B, length=MAIN_LENGTH, kw=kw, encoding=enc,
+                                 chunk=chunk)
+        torch.cuda.synchronize()
+        timed[chunk] = (audio, time.time() - t0)
+    same = bool(torch.equal(timed[500][0], timed[None][0]))
+    log(f"W8A8 row main path B={B} L={MAIN_LENGTH} from one encoding: one-shot {timed[None][1]:.3f} s, "
+        f"streamed in chunks of 500 {timed[500][1]:.3f} s "
+        f"({1e6 * timed[500][1] / MAIN_LENGTH:.1f} us/step); equal bit for bit: {same}")
+    require(same, "the streamed row-mode main-path run differs from its one-shot run")
+    require(bool(torch.isfinite(timed[500][0]).all()) and float(timed[500][0].abs().max()) <= 1.0,
+            "streamed row-mode audio not finite in [-1, 1]")
+    del runs, timed, enc
+
+    # ---- 24. timing, with the bf16 and the static mode in the same call ----
+    timings = {}
+    for B in MAIN_BATCHES:
+        enc = conditioning(model, params, B=B, L=TIMED_STEPS, seed=10 + B)
+        timings[B] = time_kernel(cfg, kw, enc, seed=1)
+        log_timing("w8a8 row", cfg, kw, enc, timings[B])
+        beside = {"bf16": (kw_bf16, {}), "w8a8 static": (kw_static, {}), **other_ms}
+        log(f"timing B={B} {TIMED_STEPS} steps, same call: w8a8 row {timings[B]['ms']:.3f} ms; "
+            + "; ".join(f"{name} {cuda_ms(lambda: fk.generate(k, enc, 1, **o)):.3f} ms"
+                        for name, (k, o) in beside.items()))
+    del other_ms, beside
+
+    # ---- 25. golden row-mode free run tracks its conditioning ----
+    n = gwavs.shape[1]
+    gmels = stft.melspectrogram_np(gwavs)
+    audio = Fastgen(gmodel).generate_cuda(gparams, torch.from_numpy(gmels).cuda(), seed=7, length=n,
+                                          weight_dtype="int8").cpu().numpy()
+    require(np.isfinite(audio).all() and np.abs(audio).max() <= 1.0, "golden row-mode free-run audio")
+    matched, mismatched = mel_corr(audio, gmels, n)
+    log(f"golden W8A8 row free run mel corr: matched {matched:.4f} mismatched {mismatched:.4f}")
+    require(matched > mismatched + 0.05, "golden row-mode free run does not track its conditioning")
+
+    # ---- 26. eval path, calibration-free: wavs, and a mel-only source ----
+    with tempfile.TemporaryDirectory() as tmp:
+        src, mel_src = os.path.join(tmp, "src"), os.path.join(tmp, "mels")
+        os.makedirs(src)
+        os.makedirs(mel_src)
+        for i in (0, 1):
+            wav_io.write_wav(os.path.join(src, f"utt_{i}.wav"), gwavs[i])
+        np.save(os.path.join(mel_src, "utt_0.npy"), gmels[0, :16])
+        for source, want, n_min in ((src, 2, 4000), (mel_src, 1, 16 * gmodel.cfg.frame_shift)):
+            for chunk in (None, 1000):
+                paths = generate_wavenet(source, os.path.join(gdir, "params.npz"),
+                                         os.path.join(gdir, "meta.json"),
+                                         os.path.join(tmp, f"gen_{want}_{chunk}"), batch_size=8,
+                                         seed=0, device="cuda", sample_length=4000, int8=True,
+                                         streaming_chunk=chunk)
+                require(len(paths) == want, f"row-mode eval wrote {len(paths)} files")
+                for p in paths:
+                    wav, sr = wav_io.read_wav(p)
+                    require(sr == 16000 and len(wav) >= n_min and np.isfinite(wav).all()
+                            and np.abs(wav).max() > 0, f"row-mode eval output {p}")
+                log(f"W8A8 row eval path ({'wav' if want == 2 else 'mel-only .npy'} sources, "
+                    f"streaming_chunk {chunk}) wrote {[os.path.basename(p) for p in paths]}")
+
+    big = timings[MAIN_BATCHES[-1]]
+    return {
+        "name": "fastgen_generate_w8a8_row",
+        "route": "cuda",
+        "source": "nsynth_wavenet_tpu_torch/csrc/fastgen_kernel.cu",
+        "replaces": "nsynth_wavenet_tpu/ops/fastgen_kernel.py:291 (branches :229-241, :517-560, "
+                    ":593-615, :627-629, :641)",
+        "launches": launches,
+        "max_abs_err": shallow_err,
+        "rel_tol": W8A8_REL_TOL,
+        "step_pairs_over_share": pair_share,
+        "step_max_abs_err_within": step_held,
+        "step_max_abs_err": step_err,
+        "step_codes_differ_share": code_share,
+        "run_max_abs_err": run_err,
+        "run_rel_tol": W8A8_FULL_WIDTH_RUN_TOL,
+        "vs_bf16_share_of_scale": vs_bf16,
+        "vs_bf16_share_of_scale_full_depth": vs_bf16_full,
+        "vs_static_share_of_scale": vs_static,
         "ms": big["ms"],
         "plain_ms": big["plain_ms"],
         "bound_ms": big["bound_ms"],
@@ -1141,7 +1436,9 @@ def main():
     require(matched > mismatched + 0.05, "golden free run does not track its conditioning")
 
     del main_runs
-    w8a8_record = w8a8_phases(model, params, kw, gmodel, gparams, gdir, mels)
+    kw_static, amax, w8a8_record = w8a8_phases(model, params, kw, gmodel, gparams, gdir, mels)
+    row_record = row_phases(model, params, kw, kw_static, amax, gmodel, gparams, gdir, mels)
+    del kw_static, amax
 
     del model, params, kw, fg, mels, gmodel, gparams
     torch.cuda.empty_cache()
@@ -1162,7 +1459,7 @@ def main():
         "bound_ms": big["bound_ms"],
         "bound_by": big["bound_by"],
         "library_ms": big["library_ms"],
-    }, flow_record, w8a8_record]}
+    }, flow_record, w8a8_record, row_record]}
     log(f"timed call: B={MAIN_BATCHES[-1]}, {TIMED_STEPS} steps, full width; "
         f"total {time.time() - T_START:.1f} s")
     print(smi, flush=True)

@@ -7,10 +7,11 @@
 --params is a golden-format params.npz (int8 '#q'/'#s' pairs allowed);
 --config a teacher config JSON or a golden meta.json (a student config is
 refused: eval_parallel_wavenet_torch.py serves the student).  Runs on the
-first CUDA device unless --device cpu.  --int8 --int8_static serves the W8A8
-mode (int8 weights, static activation scales calibrated on the first source
-wavs); --streaming_chunk N generates in kernel calls of N samples with the
-state carried.
+first CUDA device unless --device cpu.  --int8 serves W8A8 (int8 weights and
+ring rows) with per-row activation and gate scales: nothing is calibrated, so
+mel-only .npy sources work too; --int8 --int8_static calibrates static
+activation scales on the first source wavs instead.  --streaming_chunk N
+generates in kernel calls of N samples with the state carried.
 """
 
 import argparse
@@ -33,10 +34,10 @@ def main():
                     help="chunk size in samples: chained kernel calls with carried state "
                          "(0 = one call per utterance)")
     ap.add_argument("--int8", action="store_true",
-                    help="int8 weights and activations (W8A8); needs --int8_static for now")
+                    help="int8 weights and activations (W8A8) with per-row scales, no calibration")
     ap.add_argument("--int8_static", action="store_true",
                     help="with --int8: static per-layer activation scales calibrated on the "
-                         "first source wavs (needs .wav inputs)")
+                         "first source wavs and the fixed gate scale (needs .wav inputs)")
     args = ap.parse_args()
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     for path in generate_wavenet(args.source_path, args.params, args.config, args.save_path,

@@ -10,22 +10,43 @@
 
 enum HeadType { HEAD_CE = 0, HEAD_MOL = 1, HEAD_GAUSS = 2 };
 
-// Two modes share the struct.  bf16 (w8a8 == 0): bf16 layer matrices and bf16
-// ring rows.  W8A8 (w8a8 == 1; int8 weights, static activation and gate
-// scales): int8 layer matrices in the k4 layout, int8 ring rows, and the
-// scale arrays below; the head matrices are bf16 in both modes.
+// How the residual stream enters the gate product (act_mode) and how the gate
+// enters the res/skip product (rs_mode); the codes are those of _MODE_CODES in
+// ops/fastgen_kernel.py.
+//   ACT_BF16    bf16 w_comb, bf16 ring rows of W.
+//   ACT_STATIC  int8 w_comb (k4 layout), l quantised with calibrated per-layer
+//               scales, int8 ring rows of W.
+//   ACT_ROW     int8 w_comb, l quantised per batch row with a scale 2^(e/8)
+//               (log8 code e, see Log8); int8 ring rows
+//               of W + ROW_LANES bytes: W payload bytes, then the code in lane W.
+//   RS_BF16     bf16 w_rs, bf16 gate.
+//   RS_STATIC   int8 w_rs, int8 gate rint(gate * 127), 1/127 folded into s_rs.
+//   RS_ROW      int8 w_rs, f32 gate quantised per batch row where it is read.
+// The head matrices are bf16 in every mode.
+enum ActMode { ACT_BF16 = 0, ACT_STATIC = 1, ACT_ROW = 2 };
+enum RsMode { RS_BF16 = 0, RS_STATIC = 1, RS_ROW = 2 };
+constexpr int LOG8_MIN = -120, LOG8_MAX = 126;  // range of the log8 exponent code
+constexpr int ROW_LANES = 16;                   // bytes behind the payload of an ACT_ROW ring row
+
+// 2^(k/8) for k = 0..7 as f32: every log8 scale 2^(e/8) and multiplier 2^(-e/8)
+// is one of these times a whole power of two (log8_pow in fastgen_kernel.cu,
+// log8_tables in ops/fastgen_kernel.py).
+struct Log8 {
+  float frac[8];
+};
+
 struct FastgenArgs {
   // packed weights (ops/fastgen_kernel.py build_kernel_weights), f32 biases
   const void* w_comb;   // bf16 [NL, 3W+DW, GW]: dilated taps (t-2d, t-d, t) stacked over the mel-cond 1x1;
-                        // W8A8: int8 [NL, (3W+DW)/4, GW, 4], four consecutive k of a column in one word
+                        // int8: [NL, (3W+DW)/4, GW, 4], four consecutive k of a column in one word
   const void* b_comb;   // [NL, GW] f32
-  const void* w_rs;     // bf16 [NL, m, W+S]: res | skip 1x1; W8A8: int8 [NL, m/4, W+S, 4]
+  const void* w_rs;     // bf16 [NL, m, W+S]: res | skip 1x1; int8: [NL, m/4, W+S, 4]
   const void* b_rs;     // [NL, W+S] f32
-  // W8A8 only (null in bf16 mode)
-  const void* s_comb;     // [NL, GW] f32 per-column scales of w_comb
-  const void* s_main;     // [NL, GW] f32 (act_amax/127) * s_comb: dequantises the 3W part in one multiply
-  const void* s_rs;       // [NL, W+S] f32 per-column scales of w_rs, already divided by 127 (gate scale)
-  const void* s_act_inv;  // [NL] f32 127 / act_amax: quantises l entering layer i
+  // scales (null where the mode has none)
+  const void* s_comb;     // [NL, GW] f32 per-column scales of an int8 w_comb
+  const void* s_main;     // ACT_STATIC: [NL, GW] f32 (act_amax/127) * s_comb, dequantises the 3W part in one multiply
+  const void* s_rs;       // [NL, W+S] f32 per-column scales of an int8 w_rs; RS_STATIC: already divided by 127
+  const void* s_act_inv;  // ACT_STATIC: [NL] f32 127 / act_amax, quantises l entering layer i
   const void* w_start;  // [3, W] f32 conv_start taps
   const void* b_start;  // [W] f32
   const void* w_skip0;  // [W, S] bf16
@@ -38,18 +59,21 @@ struct FastgenArgs {
   const void* enc;      // [L, B, DW] bf16 upsampled conditioning, offset-trimmed
   const void* tf;       // [L, B] f32 teacher-forced feedback, or null
   // carried state (zeros for a fresh utterance, else the previous chunk's; updated in place)
-  void* lbuf;           // [sum(2d), B, W] ring buffers of every layer's input: bf16, W8A8 int8
-                        // (layer i's rows are quantised at layer i's scale)
+  void* lbuf;           // [sum(2d), B, lrow] ring buffers of every layer's input: bf16 rows of W,
+                        // ACT_STATIC int8 rows of W at layer i's scale, ACT_ROW int8 rows of W + ROW_LANES
   void* xh;             // [3, B] f32 input taps x(t-2), x(t-1), x(t)
-  // scratch (allocated by the wrapper; l, s, q_l are rebuilt from xh by the first launch)
+  // scratch (allocated by the wrapper; l, s and the layer-0 operand are rebuilt from xh by the first launch)
   void* l;              // [B, W] f32 residual stream
-  void* l_bf;           // [B, W] bf16 copy of l, the current-row operand of the gate product (bf16 mode)
-  void* q_l;            // [B, W] int8 l quantised at the current layer's scale (W8A8)
-  void* q_enc;          // [L, B, DW] int8 per-row quantised conditioning (W8A8, written by the pre-pass)
-  void* r_enc;          // [L, B] f32 its per-row scales
+  void* l_bf;           // ACT_BF16: [B, W] bf16 copy of l, the current-row operand of the gate product
+  void* q_l;            // ACT_STATIC: [B, W] int8 l quantised at the current layer's scale
+  void* q_enc;          // int8 act: [L, B, DW] int8 per-row quantised conditioning (written by the pre-pass)
+  void* r_enc;          // int8 act: [L, B] f32 its per-row scales
+  void* lmax;           // ACT_ROW: [NL, l_tiles, B] f32: per res column tile, max|l| entering layer i
+  void* gmax;           // RS_ROW: [NL, g_tiles, B] f32: per gate column tile, max|gate| of layer i
+                        // (tile counts from fastgen_workspace; every slot is rewritten in every step)
   void* s;              // [B, S] f32 skip sum
-  void* gate;           // [B, m] gated activation of the current layer: bf16, W8A8 int8 round(gate * 127)
-  void* part;           // partial tiles of the split-K gate product (fastgen_workspace): f32, W8A8 int32
+  void* gate;           // [B, m] gated activation of the current layer: bf16, RS_STATIC int8, RS_ROW f32
+  void* part;           // partial tiles of the split-K gate product (fastgen_workspace): f32, int8 act int32
   void* counters;       // u32 per gate tile, zeroed; each reduction resets its own
   // outputs
   void* audio;          // [L, B] f32
@@ -59,8 +83,11 @@ struct FastgenArgs {
   int device;
   int B, L, W, GW, S, DW, NL, num_stages;
   int out_pad, out_seg, head, use_mu_law, quant_chann, greedy;
-  int t0;    // global index of the call's first step: ring phase and random counter run on t0 + t
-  int w8a8;  // 0 bf16 mode, 1 W8A8 static mode
+  int t0;            // global index of the call's first step: ring phase and random counter run on t0 + t
+  int act_mode;      // ActMode
+  int rs_mode;       // RsMode
+  int combine_bf16;  // ACT_ROW: combine the four dequantised sums in bf16 (every product and sum rounded)
+  Log8 log8;         // ACT_ROW: the fractional powers behind every row scale
 };
 
 // Philox4x32-10 (Salmon et al., SC'11), first output word.  Counter
@@ -92,8 +119,8 @@ __host__ __device__ inline float uniform_from_bits(uint32_t bits) {
 
 extern "C" {
 int fastgen_generate(const FastgenArgs* args);
-void fastgen_workspace(int B, int W, int GW, int DW, int w8a8, long long* part_words,
-                       long long* counters);
+void fastgen_workspace(int B, int W, int GW, int DW, int act_mode, long long* part_words,
+                       long long* counters, int* l_tiles, int* g_tiles);
 int philox_uniform(float* out, int rows, int lanes, int t, int draw, long long seed,
                    int device, void* stream);
 const char* fastgen_error_string(int code);

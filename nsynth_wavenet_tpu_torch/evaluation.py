@@ -1,7 +1,8 @@
 """Batch synthesis over files (counterparts of generate_wavenet and
 generate_parallel_wavenet in nsynth_wavenet_tpu/evaluation.py): wav or mel
-files -> mel batch on the host -> Fastgen.generate_cuda (teacher; bf16 or
-W8A8 with static scales calibrated on the sources, one-shot or streamed) or
+files -> mel batch on the host -> Fastgen.generate_cuda (teacher; bf16, or
+W8A8 with per-row scales or with static scales calibrated on the sources,
+one-shot or streamed) or
 parallelgen.synthesize_cuda / StudentStreamer (student) on the device ->
 gen_*.wav."""
 
@@ -73,10 +74,11 @@ def generate_wavenet(source_path, params_npz, config_json, save_path, batch_size
     as it is: the CUDA kernel masks the rows past the batch in its tiles.
     streaming_chunk: generate in kernel calls of that many samples with the
     state carried, so a call's buffers do not grow with the utterance.
-    int8 with int8_static: the W8A8 mode, int8 weights with static per-layer
-    activation scales calibrated on the first up to 8 .wav sources (each
-    fitted to 16 000 samples) and the fixed gate scale; it needs .wav sources.
-    int8 alone is the per-row W8A8 mode, which is not ported."""
+    int8: W8A8, int8 weights and ring rows with per-row activation and gate
+    scales; nothing is calibrated, so mel-only .npy sources serve as well.
+    int8 with int8_static: static per-layer activation scales calibrated on
+    the first up to 8 .wav sources (each fitted to 16 000 samples) and the
+    fixed gate scale; it needs .wav sources."""
     from nsynth_wavenet_tpu_torch.models.fastgen import Fastgen
     from nsynth_wavenet_tpu_torch.models.wavenet import Wavenet
     from nsynth_wavenet_tpu_torch.ops import fastgen_kernel as fk
@@ -88,10 +90,6 @@ def generate_wavenet(source_path, params_npz, config_json, save_path, batch_size
     params = weights.load_npz(params_npz, device=device)
     if int8_static and not int8:
         raise ValueError("int8_static needs int8")
-    if int8 and not int8_static:
-        raise NotImplementedError(
-            "int8 without int8_static is the W8A8 mode with per-row activation scales, which is "
-            "not ported yet (ROADMAP.md Queue 2 item 1 (e)): pass int8_static as well")
     fg = Fastgen(Wavenet(dataclasses.replace(cfg, use_as_teacher=True)))
     os.makedirs(save_path, exist_ok=True)
     files = discover_files(source_path)

@@ -12,8 +12,9 @@ with the state carried (init_carry, carry_in, return_carry).
 
 ``Fastgen.generate_cuda`` is the serving path: mel -> deconv on the device
 -> the whole utterance in the CUDA kernels of ops/fastgen_kernel.py (the
-counterpart of generate_pallas): bf16 or W8A8 with static scales from
-``Fastgen.calibrate_act_amax``, one-shot or in chunks with carried state.
+counterpart of generate_pallas): bf16, or W8A8 with per-row scales (nothing
+to calibrate) or with static scales from ``Fastgen.calibrate_act_amax``,
+one-shot or in chunks with carried state.
 """
 
 from typing import Optional
@@ -196,41 +197,41 @@ class Fastgen:
 
     @torch.no_grad()
     def generate_cuda(self, params, mel, seed: int, length: Optional[int] = None, *,
-                      cond_offset: int = 0, kw=None, weight_dtype: str = "bf16", act_amax=None,
-                      gate_static: bool = False, greedy: bool = False,
-                      chunk: Optional[int] = None, encoding=None):
+                      cond_offset: int = 0, kw=None, weight_dtype: str = "bf16", rs_dtype=None,
+                      act_amax=None, gate_static: bool = False, int8_combine: str = "f32",
+                      greedy: bool = False, chunk: Optional[int] = None, encoding=None):
         """Serving path: deconv on mel's device, then the whole utterance
         through fastgen_kernel.generate (the CUDA kernels on a CUDA device).
         Any batch size runs as it is: the kernels mask the rows past B in
         their tiles.  cond_offset: start of the generated window in the
         upsampled conditioning, as in generate.
 
-        weight_dtype "int8" with act_amax (calibrate_act_amax) and
-        gate_static is the W8A8 static mode: int8 weights and ring rows, static
-        per-layer activation scales, the gate at the fixed scale 1/127.  int8
-        without act_amax, or without gate_static, is the per-row mode, which
-        is not ported: NotImplementedError.  kw: packed weights from
+        weight_dtype "int8" is W8A8: int8 weights and ring rows.  Alone it is
+        the calibration-free mode: the residual stream is quantised per batch
+        row with a log8 scale whose code rides in the ring, the gate per row.
+        act_amax (calibrate_act_amax) switches the residual stream to static
+        per-layer scales, gate_static the gate to the fixed scale 1/127;
+        rs_dtype "bf16" keeps the res/skip product in bf16 over the int8 ring
+        (rs_dtype "int8" under bf16 weights is the reverse).  int8_combine
+        "bf16" (per-row activation scales only): the layer's four dequantised
+        sums are combined in bf16.  kw: packed weights from
         fastgen_kernel.build_kernel_weights, to pack once for many calls; it
-        then decides the mode, and weight_dtype, act_amax and gate_static are
-        not read.
+        then decides the mode, and weight_dtype, rs_dtype, act_amax and
+        gate_static are not read.
         chunk: generate in calls of ``chunk`` samples with the kernel state
-        carried, equal to the one-shot call bit for bit; the working buffers
-        of a call then do not grow with the utterance.  The kernels take any
-        length, so the last chunk runs at its own length and the encoding is
-        not padded.
+        carried, equal to the one-shot call bit for bit in every mode; the
+        working buffers of a call then do not grow with the utterance.  The
+        kernels take any length, so the last chunk runs at its own length and
+        the encoding is not padded.
         encoding [B, T, DW]: an already upsampled conditioning to use instead
         of mel.  The kernels are deterministic, so two calls on one encoding
         agree bit for bit, chunked or not; cuDNN's transposed convolution is
         not bit-stable between calls, so two calls on one mel need not.
         Returns audio [B, L] f32."""
         if kw is None:
-            if weight_dtype == "int8" and (act_amax is None or not gate_static):
-                raise NotImplementedError(
-                    "weight_dtype='int8' needs act_amax and gate_static=True (the W8A8 static "
-                    "mode); per-row activation and gate scales are not ported yet: ROADMAP.md "
-                    "Queue 2 item 1 (e)")
             kw = fk.build_kernel_weights(self.cfg, params, weight_dtype=weight_dtype,
-                                         act_amax=act_amax, gate_static=gate_static)
+                                         rs_dtype=rs_dtype, act_amax=act_amax,
+                                         gate_static=gate_static)
         if encoding is None:
             encoding = self.model.deconv_stack(params, mel)
         enc_len = encoding.shape[1]
@@ -240,10 +241,10 @@ class Fastgen:
         enc_t = encoding.transpose(0, 1)[cond_offset : cond_offset + L]
         enc_t = enc_t.to(torch.bfloat16).contiguous()
         if chunk is None:
-            return fk.generate(kw, enc_t, seed, greedy=greedy)
+            return fk.generate(kw, enc_t, seed, greedy=greedy, int8_combine=int8_combine)
         state, pieces = None, []
         for c0 in range(0, L, chunk):
             audio, state = fk.generate(kw, enc_t[c0 : c0 + chunk], seed, greedy=greedy,
-                                       state=state, return_state=True)
+                                       state=state, return_state=True, int8_combine=int8_combine)
             pieces.append(audio)
         return torch.cat(pieces, 1)

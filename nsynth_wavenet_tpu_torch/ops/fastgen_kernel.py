@@ -1,22 +1,44 @@
 """Whole-utterance autoregressive generation through the hand-written CUDA
 kernels of ``csrc/fastgen_kernel.cu``: the port of the Pallas TPU kernel
-nsynth_wavenet_tpu/ops/fastgen_kernel.py make_generate_fn in two of its modes,
-each one-shot or streamed in chunks with carried state.
+nsynth_wavenet_tpu/ops/fastgen_kernel.py make_generate_fn in every mode it
+accepts, each one-shot or streamed in chunks with carried state.
 
-* bf16 (reference branch :561-571, :605-615): bf16 matrices, f32
-  accumulation, f32 gate, bf16 operands rounded at the same places.
-* W8A8 static (weight_dtype=int8, act_scale="static", gate_scale="static";
-  reference branches :448-452, :474-475, :487-516, :582-592, :625-626,
-  :638-639): int8 ``w_comb`` and ``w_rs`` with per-column scales, the residual
-  stream quantised per layer with a calibrated scale (``act_amax``), int8 ring
-  rows, the conditioning quantised per row, int8 x int8 -> int32 products
-  dequantised by one multiply, the gate quantised with the fixed scale 1/127.
-* streaming (reference :416-427, :737-738, :840-879), either mode: the ring
+A mode is a pair (``kernel_mode``): how the residual stream enters the gate
+product, and how the gate enters the res/skip product.
+
+* act "bf16" (reference branch :561-571): bf16 ``w_comb``, f32 accumulation,
+  bf16 ring rows, bf16 operands rounded at the same places.
+* act "static" (weight_dtype=int8 with ``act_amax``; reference :474-475,
+  :487-516, :625-626, :638-639): int8 ``w_comb`` with per-column scales, the
+  residual stream quantised per layer with a calibrated scale, int8 ring
+  rows, the conditioning quantised per row; the 3W part and the enc part are
+  two exact int32 sums dequantised by one multiply each.
+* act "row" (weight_dtype=int8 without ``act_amax``, the calibration-free
+  mode; reference :229-241, :477, :517-560, :627-629, :641): the residual
+  stream quantised per batch row by ``quant_log8`` with a scale 2^(e/8); a
+  ring row holds the int8 payload and, in lane W, its exponent code e; enc,
+  l and the two taps are FOUR int32 sums, each dequantised with its own row
+  scale and added in the reference's order (enc, l, tap t-2d, tap t-d), in
+  f32 or, with ``int8_combine="bf16"``, in bf16 with every product and sum
+  rounded.
+* rs "bf16" (``rs_dtype="bf16"``, the default under bf16 weights; reference
+  :605-615): bf16 ``w_rs``, the gate rounded to bf16.
+* rs "static" (int8 ``w_rs`` with ``gate_static``; reference :582-592): the
+  gate quantised with the fixed scale 1/127, folded into ``s_rs``.
+* rs "row" (int8 ``w_rs`` without ``gate_static``; reference :593-604): the
+  f32 gate quantised per batch row by ``quant_rows_dyn``.
+* streaming (reference :416-427, :737-738, :840-879), every mode: the ring
   and the three input taps come in and go out as ``state = (lbuf, xh, t0)``;
   ring phase and random counter run on the global step ``t0 + t``, so chained
   calls equal one call bit for bit.
-The per-row W8A8 modes (act_scale="row", gate_scale="row") and ``rs_dtype`` are
-not ported yet (ROADMAP.md Queue 2 item 1 (e), (f)).
+
+``quant_log8`` takes its code from one 247-entry table of 2^(e/8) (e the
+least code whose table entry reaches amax/127) and its multiplier from a
+second table of 2^(-e/8).  Every entry is one of eight f32 values 2^(k/8)
+times a whole power of two; the CUDA kernels are handed those eight and form
+the same products in registers, so kernel and plain version agree on every
+code and every scale whatever ``log2f`` returns in its last bit.  The reference's ceil(8*log2(.)) gives the same code except
+where amax/127 lies within a rounding of a table entry.
 
 ``generate`` is the wrapper: on CUDA tensors it launches the kernels (and
 raises if it cannot), on CPU tensors it runs ``generate_plain``, the plain
@@ -27,17 +49,20 @@ kernel and plain version draw identical uniforms.
 
 On this card (H100: 3.35 TB/s, 989 TFLOP/s bf16, 1979 TOP/s int8) a step of
 the full-width MoL teacher is bound by its weight stream below a batch of a
-few hundred rows (bf16 67 MB, about 20 us; W8A8 34 MB, about 10 us, and the
-int8 weights fit the 50 MB L2) and by the tensor cores above.  Both modes run
-61 launches per step far above that; PERF.md has the times.
+few hundred rows (bf16 67 MB, about 20 us; int8 34 MB, about 10 us, and the
+int8 weights fit the 50 MB L2) and by the tensor cores above.  Every mode
+runs 61 launches per step far above that; PERF.md has the times.
 """
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
 LANE = 16  # head segments are padded to the tensor-core tile width
+ROW_LANES = 16  # lanes behind the W payload bytes of a row-mode ring row; lane W holds the log8 code
+LOG8_MIN, LOG8_MAX = -120, 126  # range of the log8 exponent code e, scale 2^(e/8)
 HEADS = {"ce": 0, "mol": 1, "gauss": 2}
 
 M32 = 0xFFFFFFFF
@@ -94,7 +119,8 @@ def _k4(w):
     return w.reshape(nl, k // 4, 4, n).permute(0, 1, 3, 2).contiguous()
 
 
-def build_kernel_weights(cfg, params, weight_dtype="bf16", act_amax=None, gate_static=False):
+def build_kernel_weights(cfg, params, weight_dtype="bf16", rs_dtype=None, act_amax=None,
+                         gate_static=False):
     """Pack the teacher's params into the kernel's layout.
 
     w_comb [NL, 3W+DW, GW]: dilated taps (t-2d, t-d, t) stacked over the
@@ -102,23 +128,30 @@ def build_kernel_weights(cfg, params, weight_dtype="bf16", act_amax=None, gate_s
     w_out1 [S+DW, S] with the out1 mel-cond stacked under out1; w_out2
     [S, out_pad] in the head_layout, padded logit lanes biased to -1e9.
 
-    weight_dtype "int8": w_comb and w_rs are int8 with per-column f32 scales
-    s_comb [NL, 1, GW] and s_rs [NL, 1, W+S]; w_comb_k4 and w_rs_k4 hold the
-    same matrices in the CUDA kernels' layout (see _k4).  The head matrices
-    stay bf16.  act_amax [NL] (Fastgen.calibrate_act_amax, int8 only) adds
-    the static activation scales s_act_inv [NL] = 127/amax and s_main
-    [NL, 1, GW] = amax/127 * s_comb.  gate_static (int8 only): the gate is
-    quantised with the fixed scale 1/127, folded into s_rs here.
+    weight_dtype "int8": w_comb is int8 with per-column f32 scales s_comb
+    [NL, 1, GW]; w_comb_k4 holds the same matrix in the CUDA kernels' layout
+    (see _k4).  rs_dtype (default: weight_dtype) does the same for w_rs, s_rs
+    [NL, 1, W+S] and w_rs_k4; "bf16" under int8 weights keeps the res/skip
+    product in bf16 (no gate quantiser) over an int8 ring.  The head matrices
+    stay bf16.  act_amax [NL] (Fastgen.calibrate_act_amax, int8 weights only)
+    adds the static activation scales s_act_inv [NL] = 127/amax and s_main
+    [NL, 1, GW] = amax/127 * s_comb; without it the residual stream is
+    quantised per row (quant_log8) and nothing is calibrated.  gate_static
+    (int8 rs only): the gate is quantised with the fixed scale 1/127, folded
+    into s_rs here; without it the gate is quantised per row and s_rs stays
+    the bare column scales.
     """
     if cfg.filter_length != 3:
         raise ValueError("the generation kernel needs filter_length 3")
-    if weight_dtype not in ("bf16", "int8"):
-        raise ValueError(f"weight_dtype {weight_dtype!r}: want 'bf16' or 'int8'")
-    int8 = weight_dtype == "int8"
+    rs_dtype = weight_dtype if rs_dtype is None else rs_dtype
+    for name, v in (("weight_dtype", weight_dtype), ("rs_dtype", rs_dtype)):
+        if v not in ("bf16", "int8"):
+            raise ValueError(f"{name} {v!r}: want 'bf16' or 'int8'")
+    int8, int8_rs = weight_dtype == "int8", rs_dtype == "int8"
     if act_amax is not None and not int8:
         raise ValueError("act_amax (static activation scales) needs weight_dtype='int8'")
-    if gate_static and not int8:
-        raise ValueError("gate_static needs weight_dtype='int8'")
+    if gate_static and not int8_rs:
+        raise ValueError("gate_static needs int8 res/skip weights (weight_dtype or rs_dtype 'int8')")
     skip = cfg.skip_width
     seg, out_pad = head_layout(cfg)
     w_comb, b_comb, w_rs, b_rs = [], [], [], []
@@ -145,25 +178,30 @@ def build_kernel_weights(cfg, params, weight_dtype="bf16", act_amax=None, gate_s
             b_out2[cfg.out_width :] = -1e9
 
     bf = torch.bfloat16
+    layers = {}
     if int8:
         q_comb, s_comb = zip(*(_quantize_columns(w) for w in w_comb))
-        q_rs, s_rs = zip(*(_quantize_columns(w) for w in w_rs))
-        s_comb, s_rs = torch.stack(s_comb), torch.stack(s_rs)
-        layers = {
-            "w_comb": torch.stack(q_comb).contiguous(), "s_comb": s_comb.contiguous(),
-            "w_rs": torch.stack(q_rs).contiguous(),
-            "s_rs": (s_rs * (1.0 / 127.0) if gate_static else s_rs).contiguous(),
-            "gate_static": bool(gate_static),
-        }
-        layers["w_comb_k4"], layers["w_rs_k4"] = _k4(layers["w_comb"]), _k4(layers["w_rs"])
+        s_comb = torch.stack(s_comb)
+        layers.update({"w_comb": torch.stack(q_comb).contiguous(), "s_comb": s_comb.contiguous()})
+        layers["w_comb_k4"] = _k4(layers["w_comb"])
         if act_amax is not None:
             amax = torch.clamp(torch.as_tensor(act_amax, dtype=torch.float32, device=dev), min=1e-8)
             # tensor / tensor: a Python number over a tensor is reciprocal() * number, rounded twice
             layers["s_act_inv"] = (amax.new_tensor(127.0) / amax).contiguous()
             layers["s_main"] = ((amax / 127.0)[:, None, None] * s_comb).contiguous()
     else:
-        layers = {"w_comb": torch.stack(w_comb).to(bf).contiguous(),
-                  "w_rs": torch.stack(w_rs).to(bf).contiguous()}
+        layers["w_comb"] = torch.stack(w_comb).to(bf).contiguous()
+    if int8_rs:
+        q_rs, s_rs = zip(*(_quantize_columns(w) for w in w_rs))
+        s_rs = torch.stack(s_rs)
+        layers.update({
+            "w_rs": torch.stack(q_rs).contiguous(),
+            "s_rs": (s_rs * (1.0 / 127.0) if gate_static else s_rs).contiguous(),
+            "gate_static": bool(gate_static),
+        })
+        layers["w_rs_k4"] = _k4(layers["w_rs"])
+    else:
+        layers["w_rs"] = torch.stack(w_rs).to(bf).contiguous()
     return {
         "cfg": cfg,
         **layers,
@@ -349,31 +387,103 @@ def _int_mm(a, w64):
     return (a.double() @ w64).float()
 
 
-def w8a8_static(kw):
-    """True for W8A8-static packed weights, False for bf16; the per-row W8A8
-    modes are not ported."""
-    if kw["w_comb"].dtype != torch.int8:
-        return False
-    if "s_act_inv" not in kw or not kw.get("gate_static"):
-        raise NotImplementedError(
-            "W8A8 with per-row activation or gate scales (int8 weights without act_amax, or "
-            "without gate_static) is not ported yet: ROADMAP.md Queue 2 item 1 (e)")
-    return True
+_LOG8_TABLES = {}
 
 
-def init_state(cfg, B, device, w8a8=False):
-    """Fresh streaming state (lbuf [sum 2d, B, W] zeros in the mode's ring
-    type, xh [3, B] f32 zeros, t0 = 0)."""
+def log8_frac():
+    """2^(k/8) for k = 0..7 as f32 [8] (from f64, rounded once): what the CUDA
+    kernels are handed in place of tables."""
+    return torch.exp2(torch.arange(8, dtype=torch.float64) / 8).float()
+
+
+def log8_tables(device):
+    """(2^(e/8), 2^(-e/8)) for e = LOG8_MIN .. LOG8_MAX as f32 [247] on
+    ``device``.  Every entry is log8_frac()[e mod 8] times the whole power of
+    two 2^floor(e/8), an exact product: the rule by which the CUDA kernels
+    compute the same values in registers (log8_pow), so that the plain version
+    and the kernels take every row scale and every quantising multiplier from
+    the same bits."""
+    device = torch.device(device)
+    if device not in _LOG8_TABLES:
+        frac = log8_frac()
+        tables = []
+        for e in (torch.arange(LOG8_MIN, LOG8_MAX + 1), -torch.arange(LOG8_MIN, LOG8_MAX + 1)):
+            tables.append((frac[e & 7] * torch.exp2((e >> 3).float())).to(device))
+        _LOG8_TABLES[device] = tuple(tables)
+    return _LOG8_TABLES[device]
+
+
+def quant_log8(x):
+    """Per-row symmetric int8 quantisation of [B, K] with the scale held to a
+    power of 2^(1/8): -> (q int8, e [B, 1] int8, r [B, 1] f32), x ~= q * r,
+    r = 2^(e/8).  e is the least code whose table entry reaches amax/127
+    (the reference's clip(ceil(8*log2(amax/127)), -120, 126)), so |q| <= 127
+    before the clip unless the row is louder than 127 * 2^15.75."""
+    x = x.float()
+    tab_r, tab_inv = log8_tables(x.device)
+    amax = torch.clamp(x.abs().amax(dim=-1, keepdim=True), min=1e-8)
+    idx = torch.clamp(torch.searchsorted(tab_r, amax * (1.0 / 127.0)), max=tab_r.numel() - 1)
+    q = torch.clamp(torch.round(x * tab_inv[idx]), -127.0, 127.0).to(torch.int8)
+    return q, (idx + LOG8_MIN).to(torch.int8), tab_r[idx]
+
+
+class Mode(NamedTuple):
+    """How packed weights run.  act: the gate product's operands ("bf16";
+    "static": int8 with calibrated per-layer scales; "row": int8 with per-row
+    log8 scales whose codes ride in the ring).  rs: the res/skip product's
+    ("bf16"; "static": int8 gate at the fixed scale 1/127; "row": int8 gate
+    with a per-row scale)."""
+
+    act: str
+    rs: str
+
+    @property
+    def family(self):
+        """Key of generate.launches_by_mode."""
+        if self.act == "bf16":
+            return "bf16" if self.rs == "bf16" else "bf16_rs8"
+        if self.act == self.rs:
+            return "w8a8" if self.act == "static" else "w8a8_row"
+        return "w8a8_mixed"
+
+
+def kernel_mode(kw):
+    """The Mode of build_kernel_weights output, read from what it holds."""
+    if kw["w_comb"].dtype == torch.int8:
+        act = "static" if "s_act_inv" in kw else "row"
+    else:
+        act = "bf16"
+    if kw["w_rs"].dtype == torch.int8:
+        rs = "static" if kw["gate_static"] else "row"
+    else:
+        rs = "bf16"
+    return Mode(act, rs)
+
+
+def ring_layout(cfg, B, act):
+    """(shape, dtype) of the ring lbuf in the mode's ``act`` (see init_state)."""
     _, slots = ring_offsets(cfg)
-    ring = torch.int8 if w8a8 else torch.bfloat16
-    return (torch.zeros((slots, B, cfg.width), dtype=ring, device=device),
-            torch.zeros((3, B), device=device), 0)
+    lrow = cfg.width + (ROW_LANES if act == "row" else 0)
+    return (slots, B, lrow), torch.bfloat16 if act == "bf16" else torch.int8
+
+
+def init_state(cfg, B, device, act="bf16"):
+    """Fresh streaming state (lbuf, xh, t0 = 0): xh [3, B] f32 zeros and the
+    ring lbuf [sum 2d, B, lrow] zeros in the ring type of the mode's ``act``:
+    bf16 rows of W for "bf16", int8 rows of W for "static", and for "row"
+    int8 rows of W + ROW_LANES: W payload bytes, then the row's log8 exponent
+    code in lane W (the other lanes stay zero; they keep a row a whole number
+    of 16-byte vectors).  A zero row reads as payload 0 at scale 2^0."""
+    shape, ring = ring_layout(cfg, B, act)
+    return torch.zeros(shape, dtype=ring, device=device), torch.zeros((3, B), device=device), 0
 
 
 @torch.no_grad()
 def generate_plain(kw, enc_t, seed, *, greedy=False, tf=None, collect_out_params=False,
-                   state=None, return_state=False):
-    """Plain PyTorch version of the kernels, both modes (see ``generate``)."""
+                   state=None, return_state=False, int8_combine="f32"):
+    """Plain PyTorch version of the kernels, every mode (see ``generate``)."""
+    if int8_combine not in ("f32", "bf16"):
+        raise ValueError(f"int8_combine {int8_combine!r}: want 'f32' or 'bf16'")
     cfg = kw["cfg"]
     L, B, _ = enc_t.shape
     dev = enc_t.device
@@ -382,18 +492,25 @@ def generate_plain(kw, enc_t, seed, *, greedy=False, tf=None, collect_out_params
     half = float(cfg.quant_chann // 2)
     dils = dilations(cfg)
     offs, _ = ring_offsets(cfg)
-    int8 = w8a8_static(kw)
+    mode = kernel_mode(kw)
     f32 = {k: v.float() for k, v in kw.items()
            if isinstance(v, torch.Tensor) and v.dtype != torch.int8}
     w_start = f32["w_start"]
-    if int8:
-        w_comb64, w_rs64 = kw["w_comb"].double(), kw["w_rs"].double()
-        s_main, s_comb, s_rs = f32["s_main"][:, 0], f32["s_comb"][:, 0], f32["s_rs"][:, 0]
-        s_act_inv = f32["s_act_inv"]
+    if mode.act != "bf16":
+        w_comb64, s_comb = kw["w_comb"].double(), f32["s_comb"][:, 0]
+    if mode.act == "static":
+        s_main, s_act_inv = f32["s_main"][:, 0], f32["s_act_inv"]
+    if mode.act == "row":
+        tab_r, _ = log8_tables(dev)
+        # the combine's type: every product and sum below rounds to it
+        cdt = torch.bfloat16 if int8_combine == "bf16" else torch.float32
+        s_comb_c, b_comb_c = s_comb.to(cdt), f32["b_comb"].to(cdt)
+    if mode.rs != "bf16":
+        w_rs64, s_rs = kw["w_rs"].double(), f32["s_rs"][:, 0]
 
     enc_bf = enc_t.to(torch.bfloat16)
     enc_t = enc_bf.float()
-    lbuf, xh, t0 = init_state(cfg, B, dev, int8) if state is None else state
+    lbuf, xh, t0 = init_state(cfg, B, dev, mode.act) if state is None else state
     audio = torch.empty((L, B), device=dev)
     outp = torch.empty((L, B, f32["w_out2"].shape[1]), device=dev) if collect_out_params else None
     draws = _draws(cfg, seed, L, B, dev, t0)
@@ -403,32 +520,57 @@ def generate_plain(kw, enc_t, seed, *, greedy=False, tf=None, collect_out_params
         l = (xh[0][:, None] * w_start[0] + xh[1][:, None] * w_start[1]
              + xh[2][:, None] * w_start[2] + f32["b_start"])
         s = _bf(l) @ f32["w_skip0"] + f32["b_skip0"]
-        if int8:
+        if mode.act != "bf16":
             q_enc, r_enc = quant_rows_dyn(enc_bf[t])
+        if mode.act == "static":
             q_l = quant_static(l, s_act_inv[0])
+        elif mode.act == "row":
+            q_l, e_l, r_l = quant_log8(l)
         for li, d in enumerate(dils):
             r2 = offs[li] + tg % (2 * d)
             r1 = offs[li] + (tg + d) % (2 * d)
-            if int8:
+            if mode.act == "static":
                 mm = _int_mm(torch.cat([lbuf[r2], lbuf[r1], q_l], 1), w_comb64[li, : 3 * W])
                 acc_enc = _int_mm(q_enc, w_comb64[li, 3 * W :]) * r_enc
                 dpre = mm * s_main[li] + acc_enc * s_comb[li] + f32["b_comb"][li]
+            elif mode.act == "row":
+                # four exact sums, each with its own row scale, added in the
+                # reference's order: enc, l, tap t-2d, tap t-d
+                acc = _int_mm(q_enc, w_comb64[li, 3 * W :]).to(cdt) * r_enc.to(cdt)
+                acc = acc + _int_mm(q_l, w_comb64[li, 2 * W : 3 * W]).to(cdt) * r_l.to(cdt)
+                for j, row in enumerate((r2, r1)):
+                    r_t = tab_r[lbuf[row, :, W].long() - LOG8_MIN][:, None]
+                    acc = acc + (_int_mm(lbuf[row, :, :W], w_comb64[li, j * W : (j + 1) * W]).to(cdt)
+                                 * r_t.to(cdt))
+                dpre = (acc * s_comb_c[li] + b_comb_c[li]).float()
             else:
                 stack = torch.cat([lbuf[r2].float(), lbuf[r1].float(), _bf(l), enc], 1)
                 dpre = stack @ f32["w_comb"][li] + f32["b_comb"][li]
             gate = torch.sigmoid(dpre[:, :m]) * torch.tanh(dpre[:, m:])
-            if int8:
+            if mode.rs == "static":
                 # |gate| < 1, so round(gate * 127) stays inside int8 without a clip
                 q_gate = torch.round(gate * 127.0).to(torch.int8)
                 rs = _int_mm(q_gate, w_rs64[li]) * s_rs[li] + f32["b_rs"][li]
-                lbuf[r2] = q_l  # the ring of layer li holds rows at layer li's scale
+            elif mode.rs == "row":
+                q_gate, r_gate = quant_rows_dyn(gate)
+                rs = _int_mm(q_gate, w_rs64[li]) * (r_gate * s_rs[li]) + f32["b_rs"][li]
             else:
                 rs = _bf(gate) @ f32["w_rs"][li] + f32["b_rs"][li]
+            # the ring of layer li holds the layer's input as the gate product read it
+            if mode.act == "static":
+                lbuf[r2] = q_l
+            elif mode.act == "row":
+                lbuf[r2, :, :W] = q_l
+                lbuf[r2, :, W] = e_l[:, 0]
+            else:
                 lbuf[r2] = l.to(torch.bfloat16)
             l = l + rs[:, :W]
             s = s + rs[:, W:]
-            if int8 and li + 1 < len(dils):
-                q_l = quant_static(l, s_act_inv[li + 1])
+            if li + 1 < len(dils):
+                if mode.act == "static":
+                    q_l = quant_static(l, s_act_inv[li + 1])
+                elif mode.act == "row":
+                    q_l, e_l, r_l = quant_log8(l)
         o1 = torch.relu(torch.cat([_bf(torch.relu(s)), enc], 1) @ f32["w_out1"] + f32["b_out1"])
         out = _bf(o1) @ f32["w_out2"] + f32["b_out2"]
         if outp is not None:
@@ -459,11 +601,16 @@ class _FastgenArgs(ctypes.Structure):
         "w_comb", "b_comb", "w_rs", "b_rs", "s_comb", "s_main", "s_rs", "s_act_inv",
         "w_start", "b_start", "w_skip0", "b_skip0",
         "w_out1", "b_out1", "w_out2", "b_out2", "enc", "tf", "lbuf", "xh", "l", "l_bf", "q_l",
-        "q_enc", "r_enc", "s", "gate", "part", "counters", "audio", "out_params", "stream",
+        "q_enc", "r_enc", "lmax", "gmax", "s", "gate", "part", "counters", "audio", "out_params",
+        "stream",
     )] + [("seed", ctypes.c_longlong)] + [(name, ctypes.c_int) for name in (
         "device", "B", "L", "W", "GW", "S", "DW", "NL", "num_stages",
-        "out_pad", "out_seg", "head", "use_mu_law", "quant_chann", "greedy", "t0", "w8a8",
-    )]
+        "out_pad", "out_seg", "head", "use_mu_law", "quant_chann", "greedy", "t0",
+        "act_mode", "rs_mode", "combine_bf16",
+    )] + [("log8_frac", ctypes.c_float * 8)]
+
+
+_MODE_CODES = {"bf16": 0, "static": 1, "row": 2}  # ActMode / RsMode in csrc/fastgen_kernel.cuh
 
 
 def _lib():
@@ -473,7 +620,8 @@ def _lib():
     if not getattr(lib, "_argtypes_set", False):
         lib.fastgen_generate.argtypes = [ctypes.POINTER(_FastgenArgs)]
         lib.fastgen_generate.restype = ctypes.c_int
-        lib.fastgen_workspace.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)] * 2
+        lib.fastgen_workspace.argtypes = ([ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)] * 2
+                                          + [ctypes.POINTER(ctypes.c_int)] * 2)
         lib.fastgen_workspace.restype = None
         lib.philox_uniform.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -500,13 +648,16 @@ def _expect(name, t, shape, dtype, device):
         raise ValueError(f"{name} must be contiguous and 32-byte aligned")
 
 
-def _generate_cuda(kw, enc_t, seed, greedy, tf, collect_out_params, state, return_state):
+def _generate_cuda(kw, enc_t, seed, greedy, tf, collect_out_params, state, return_state,
+                   int8_combine):
     cfg = kw["cfg"]
     L, B, DW = enc_t.shape
     W, GW, S, NL = cfg.width, cfg.gate_width, cfg.skip_width, cfg.num_layers
     m = GW // 2
     seg, out_pad = head_layout(cfg)
-    int8 = w8a8_static(kw)
+    mode = kernel_mode(kw)
+    if int8_combine not in ("f32", "bf16"):
+        raise ValueError(f"int8_combine {int8_combine!r}: want 'f32' or 'bf16'")
     if DW != cfg.deconv_width:
         raise ValueError(f"enc_t width {DW} != deconv_width {cfg.deconv_width}")
     # % 64: whole K chunks and column tiles; it also gives the int8 rows (W, DW
@@ -524,15 +675,17 @@ def _generate_cuda(kw, enc_t, seed, greedy, tf, collect_out_params, state, retur
         "w_out1": ((S + DW, S), bf), "b_out1": ((S,), f32),
         "w_out2": ((S, out_pad), bf), "b_out2": ((out_pad,), f32),
     }
-    if int8:
-        # the kernels read the k4 copies; w_comb and w_rs are the plain version's
-        want.update({
-            "w_comb_k4": ((NL, K // 4, GW, 4), i8), "w_rs_k4": ((NL, m // 4, N, 4), i8),
-            "s_comb": ((NL, 1, GW), f32), "s_main": ((NL, 1, GW), f32),
-            "s_rs": ((NL, 1, N), f32), "s_act_inv": ((NL,), f32),
-        })
+    # the int8 kernels read the k4 copies; w_comb and w_rs are then the plain version's
+    if mode.act == "bf16":
+        want["w_comb"] = ((NL, K, GW), bf)
     else:
-        want.update({"w_comb": ((NL, K, GW), bf), "w_rs": ((NL, m, N), bf)})
+        want.update({"w_comb_k4": ((NL, K // 4, GW, 4), i8), "s_comb": ((NL, 1, GW), f32)})
+    if mode.act == "static":
+        want.update({"s_main": ((NL, 1, GW), f32), "s_act_inv": ((NL,), f32)})
+    if mode.rs == "bf16":
+        want["w_rs"] = ((NL, m, N), bf)
+    else:
+        want.update({"w_rs_k4": ((NL, m // 4, N, 4), i8), "s_rs": ((NL, 1, N), f32)})
     for name, (shape, dtype) in want.items():
         _expect(name, kw[name], shape, dtype, dev)
     enc_t = enc_t.to(bf).contiguous()
@@ -541,10 +694,8 @@ def _generate_cuda(kw, enc_t, seed, greedy, tf, collect_out_params, state, retur
         tf = tf.to(f32).contiguous()
         _expect("tf", tf, (L, B), f32, dev)
 
-    _, slots = ring_offsets(cfg)
-    ring = i8 if int8 else bf
-    lbuf, xh, t0 = init_state(cfg, B, dev, int8) if state is None else state
-    _expect("state lbuf", lbuf, (slots, B, W), ring, dev)
+    lbuf, xh, t0 = init_state(cfg, B, dev, mode.act) if state is None else state
+    _expect("state lbuf", lbuf, *ring_layout(cfg, B, mode.act), dev)
     _expect("state xh", xh, (3, B), f32, dev)
     t0 = int(t0)
     if not 0 <= t0 <= 2**31 - 1 - L:
@@ -552,24 +703,30 @@ def _generate_cuda(kw, enc_t, seed, greedy, tf, collect_out_params, state, retur
 
     lib = _lib()
     part_words, n_counters = ctypes.c_longlong(), ctypes.c_longlong()
-    lib.fastgen_workspace(B, W, GW, DW, int(int8), ctypes.byref(part_words), ctypes.byref(n_counters))
+    l_tiles, g_tiles = ctypes.c_int(), ctypes.c_int()
+    lib.fastgen_workspace(B, W, GW, DW, _MODE_CODES[mode.act], ctypes.byref(part_words),
+                          ctypes.byref(n_counters), ctypes.byref(l_tiles), ctypes.byref(g_tiles))
     scratch = {
         "l": torch.empty((B, W), device=dev),
         "s": torch.empty((B, S), device=dev),
-        "gate": torch.empty((B, m), dtype=ring, device=dev),
-        "part": torch.empty((max(part_words.value, 1),), dtype=torch.int32 if int8 else f32,
-                            device=dev),
+        "gate": torch.empty((B, m), dtype={"bf16": bf, "static": i8, "row": f32}[mode.rs], device=dev),
+        "part": torch.empty((max(part_words.value, 1),),
+                            dtype=f32 if mode.act == "bf16" else torch.int32, device=dev),
         "counters": torch.zeros((n_counters.value,), dtype=torch.int32, device=dev),
         "audio": torch.empty((L, B), device=dev),
     }
-    if int8:
-        scratch.update({
-            "q_l": torch.empty((B, W), dtype=i8, device=dev),
-            "q_enc": torch.empty((L, B, DW), dtype=i8, device=dev),
-            "r_enc": torch.empty((L, B), device=dev),
-        })
-    else:
+    if mode.act == "bf16":
         scratch["l_bf"] = torch.empty((B, W), dtype=bf, device=dev)
+    else:
+        scratch["q_enc"] = torch.empty((L, B, DW), dtype=i8, device=dev)
+        scratch["r_enc"] = torch.empty((L, B), device=dev)
+    if mode.act == "static":
+        scratch["q_l"] = torch.empty((B, W), dtype=i8, device=dev)
+    # per-layer row maxima, one slot per producer column tile; rewritten in every step
+    if mode.act == "row":
+        scratch["lmax"] = torch.zeros((NL, l_tiles.value, B), device=dev)
+    if mode.rs == "row":
+        scratch["gmax"] = torch.zeros((NL, g_tiles.value, B), device=dev)
     outp = torch.empty((L, B, out_pad), device=dev) if collect_out_params else None
     weights = {name.removesuffix("_k4"): kw[name].data_ptr() for name in want}
     args = _FastgenArgs(
@@ -581,11 +738,14 @@ def _generate_cuda(kw, enc_t, seed, greedy, tf, collect_out_params, state, retur
         seed=int(seed), device=dev.index, B=B, L=L, W=W, GW=GW, S=S, DW=DW, NL=NL,
         num_stages=cfg.num_stages, out_pad=out_pad, out_seg=seg, head=HEADS[cfg.loss_type],
         use_mu_law=int(cfg.use_mu_law), quant_chann=cfg.quant_chann, greedy=int(greedy),
-        t0=t0, w8a8=int(int8),
+        t0=t0, act_mode=_MODE_CODES[mode.act], rs_mode=_MODE_CODES[mode.rs],
+        combine_bf16=int(int8_combine == "bf16"),
+        log8_frac=(ctypes.c_float * 8)(*log8_frac().tolist()),
     )
     rc = lib.fastgen_generate(ctypes.byref(args))
     generate.launches += 1
-    generate.launches_by_mode["w8a8" if int8 else "bf16"] += 1
+    by_mode = generate.launches_by_mode
+    by_mode[mode.family] = by_mode.get(mode.family, 0) + 1
     _check(lib, rc)
     result = [scratch["audio"].T.contiguous()]
     if collect_out_params:
@@ -596,29 +756,36 @@ def _generate_cuda(kw, enc_t, seed, greedy, tf, collect_out_params, state, retur
 
 
 def generate(kw, enc_t, seed, *, greedy=False, tf=None, collect_out_params=False,
-             state=None, return_state=False):
+             state=None, return_state=False, int8_combine="f32"):
     """Generate L samples for a batch.
 
-    kw: build_kernel_weights output; bf16 ``w_comb`` runs the bf16 kernels,
-    int8 ``w_comb`` with static scales the W8A8 kernels (the per-row int8
-    modes raise NotImplementedError).  enc_t [L, B, DW] upsampled conditioning
-    (already offset-trimmed, cast to bf16); seed: int; tf [L, B] f32
-    teacher-forced feedback (the sample fed back after step t) or None.
+    kw: build_kernel_weights output; what it holds decides the mode
+    (kernel_mode): bf16 or int8 ``w_comb`` (int8 with static scales, or with
+    per-row log8 scales when it was packed without act_amax), bf16 or int8
+    ``w_rs`` (int8 with the fixed or a per-row gate scale).  enc_t [L, B, DW]
+    upsampled conditioning (already offset-trimmed, cast to bf16); seed: int;
+    tf [L, B] f32 teacher-forced feedback (the sample fed back after step t)
+    or None.  int8_combine "bf16" (read by the per-row activation mode only):
+    the four dequantised sums of a layer are combined in bf16, every product
+    and sum rounded, instead of f32.
     state: (lbuf, xh, t0) from a previous call with return_state (None: a
-    fresh utterance, see init_state).  The state passed in is consumed: its
-    buffers are updated in place and come back in the new state.
+    fresh utterance, see init_state for the ring's layout in each mode).  The
+    state passed in is consumed: its buffers are updated in place and come
+    back in the new state.
     Returns audio [B, L] f32, then out_params [B, L, out_pad] f32 with
     collect_out_params, then the new state with return_state.  CUDA tensors
     run the CUDA kernels, CPU tensors the plain version.
     """
     if enc_t.device.type == "cuda":
-        return _generate_cuda(kw, enc_t, seed, greedy, tf, collect_out_params, state, return_state)
+        return _generate_cuda(kw, enc_t, seed, greedy, tf, collect_out_params, state, return_state,
+                              int8_combine)
     if enc_t.device.type == "cpu":
         return generate_plain(kw, enc_t, seed, greedy=greedy, tf=tf,
                               collect_out_params=collect_out_params, state=state,
-                              return_state=return_state)
+                              return_state=return_state, int8_combine=int8_combine)
     raise ValueError(f"unsupported device {enc_t.device}")
 
 
 generate.launches = 0
-generate.launches_by_mode = {"bf16": 0, "w8a8": 0}
+# by Mode.family: "bf16", "w8a8" (static + static), "w8a8_row" (row + row), "w8a8_mixed", "bf16_rs8"
+generate.launches_by_mode = {"bf16": 0, "w8a8": 0, "w8a8_row": 0}

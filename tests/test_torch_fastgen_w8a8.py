@@ -101,29 +101,35 @@ def test_int8_weights_and_scales_equal_jax(head, mu_law, double_gate):
 def test_int8_weights_without_scales_and_refusals():
     jmodel, jparams, wav = _small("mol", False, False, B=2)
     model, params = _port(jmodel, jparams)
-    # int8 weights alone equal the JAX package's row-mode packing too ...
+    # int8 weights alone are the calibration-free mode: packed as the JAX package packs them ...
     jkw = jfk.build_kernel_weights(jmodel.cfg, jparams, weight_dtype=jnp.int8)
     kw = fk.build_kernel_weights(model.cfg, params, weight_dtype="int8")
     np.testing.assert_array_equal(kw["w_comb"].numpy(), np.asarray(jkw["w_comb"]))
     np.testing.assert_array_equal(kw["s_rs"].numpy(), _np32(jkw["s_rs"]))
-    assert "s_act_inv" not in kw
-    # ... but the row mode has no kernel yet, on any device, and nothing runs bf16 in its place
+    assert "s_act_inv" not in kw and tuple(fk.kernel_mode(kw)) == ("row", "row")
+    # ... and they run, with per-row scales, where they used to be refused
     enc = torch.zeros((4, 2, 128), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 1"):
-        fk.generate(kw, enc, 0)
+    audio = fk.generate(kw, enc, 0)
+    assert audio.shape == (2, 4) and torch.isfinite(audio).all()
     mel = torch.from_numpy(tstft.melspectrogram_np(wav[:, :640]))
     fg = Fastgen(model)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 1"):
-        fg.generate_cuda(params, mel, seed=0, length=8, weight_dtype="int8")
+    audio = fg.generate_cuda(params, mel, seed=0, length=8, weight_dtype="int8")
+    assert audio.shape == (2, 8) and torch.isfinite(audio).all()
     amax = np.ones(model.cfg.num_layers, np.float32)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 1"):
-        fg.generate_cuda(params, mel, seed=0, length=8, weight_dtype="int8", act_amax=amax)
+    audio = fg.generate_cuda(params, mel, seed=0, length=8, weight_dtype="int8", act_amax=amax)
+    assert audio.shape == (2, 8) and torch.isfinite(audio).all()  # static activations, per-row gate
+    # what is still refused: scales that the weights' type has no use for
     with pytest.raises(ValueError, match="act_amax"):
         fk.build_kernel_weights(model.cfg, params, act_amax=amax)
     with pytest.raises(ValueError, match="gate_static"):
         fk.build_kernel_weights(model.cfg, params, gate_static=True)
+    with pytest.raises(ValueError, match="gate_static"):
+        fk.build_kernel_weights(model.cfg, params, weight_dtype="int8", rs_dtype="bf16",
+                                gate_static=True)
     with pytest.raises(ValueError, match="act_amax"):
         fg.generate_cuda(params, mel, seed=0, length=8, act_amax=amax)
+    with pytest.raises(ValueError, match="rs_dtype"):
+        fk.build_kernel_weights(model.cfg, params, rs_dtype="fp8")
 
 
 def _quantizer_inputs():
@@ -431,8 +437,10 @@ def test_eval_path_refusals(tmp_path):
     args = (os.path.join(d, "params.npz"), os.path.join(d, "meta.json"), str(tmp_path / "gen"))
     with pytest.raises(ValueError, match="int8_static needs int8"):
         generate_wavenet(str(src), *args, device="cpu", int8_static=True)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 1"):
-        generate_wavenet(str(src), *args, device="cpu", int8=True)
+    # int8 alone needs no calibration audio any more: it runs (per-row scales)
+    paths = generate_wavenet(str(src), *args, device="cpu", int8=True, sample_length=200)
+    assert len(paths) == 2 and all(np.isfinite(wav_io.read_wav(p)[0]).all() for p in paths)
+    # static scales still need wavs to calibrate on
     mels = tmp_path / "mels"
     mels.mkdir()
     np.save(str(mels / "utt_0.npy"), np.zeros((3, 80), np.float32))
