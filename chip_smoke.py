@@ -86,10 +86,42 @@ res/skip under an int8 ring, the bf16 combine); they follow phase 18:
  25. a golden per-row free run that must track its conditioning;
  26. evaluation.generate_wavenet(int8=True) over two wavs and over one mel-only
      .npy, one-shot and streamed.
+Phases 27 to 31 cover the flow kernel's other modes and the f32 student; they
+follow phase 11:
+ 27. the flow kernel's modes against their plain versions at the full width of
+     configs/parallel_wavenet.json (10 layers, dilations 1..512, W 64, DW 256),
+     random weights from a seed, B = 8 x L = 8192 and B = 3 x L = 1000: the f32
+     conditioning product (one-shot; chained chunks of 2048 and 512 bit for bit
+     equal to one-shot, the final state against the plain one); fuse_cond on an
+     f32 encoding; the cond stream in bf16 and f32 (the f32 one also against
+     the f32-cond mode); bf16 carries (output bit for bit, state rounded); one
+     30-layer call equal to three chained 10-layer calls; the f32 precision
+     probe (w_tap = 0, x = 0, w_res = [I | 0]: the share of bf16(g) values that
+     differ from the plain version with TF32 off, under 1 %);
+ 28. widths 32, 128 and 256 (B = 8 x L = 4096, DW 256) and deconv width 136 at
+     W 64, both conditioning modes: one-shot and chained chunks of 512;
+ 29. the f32 student end to end at full width, B = 32 and 8, 4 s:
+     parallelgen.synthesize_cuda through the f32-cond kernel alone (launches by
+     mode), the fused feed-forward against the same path on the plain kernel,
+     layers_per_call=30 bit for bit equal to the default, fuse_cond within 5e-4
+     of it on the mean and scale outputs, StudentStreamer (chunk 32768) against
+     one-shot, device time per CUDA kernel; the 10-layer call at B = 32 x
+     L = 64000 against its plain version, timed beside the bf16 call, both
+     cond streams, one 30-layer call and a call with a carried state (f32 and
+     bf16 carries), torch.mm (bf16, and f32 with TF32 off) and the card's bound;
+ 30. the trained golden tiny_student loaded as f32: fused against plain audio,
+     streamer against one-shot, a free synthesis that tracks its mels,
+     evaluation.generate_parallel_wavenet on an f32 config, one-shot and
+     streamed;
+ 31. a width-128 student (configs/parallel_wavenet.json with width 128) through
+     synthesize_cuda at B = 8 x 1 s against the same path on the plain kernel;
+     one 10-layer call timed at widths 32, 64, 128 and 256.
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 per-kernel JSON record.
 """
 
+import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -118,6 +150,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(REPO, "tests", "golden")
 # published dense peaks of one H100 SXM at its 700 W limit
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12  # FMA on the CUDA cores, not the tensor cores' TF32
 PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 MAIN_BATCHES = (64, 512)
@@ -143,6 +176,9 @@ FLOW_REL_TOL = 5e-3
 # the fused feed-forward on the kernel vs on the plain kernel, 60 layers in 4
 # flows, every key of the ff dict within this share of max(|plain|, 1e-3)
 STUDENT_REL_TOL = 2e-2
+# fuse_cond against the default f32 student, mean and scale outputs: the JAX
+# package's own limit (tests/test_flow_kernel.py::test_opt_in_kernel_variants_match_default)
+FUSE_COND_ATOL = 5e-4
 # W8A8 kernels vs their plain version.  The integer products are exact, so
 # what parts the two is an int8 LSB where the f32 value before a quantiser
 # differs in its last bits (expf, tanhf): about one quantised value in 1e7.
@@ -1011,36 +1047,38 @@ def golden_model():
     return Wavenet(cfg), weights.load_npz(os.path.join(d, "params.npz"), device="cuda"), d
 
 
-def student_model(seed=0):
-    cfg = config_lib.load_config(os.path.join(REPO, "configs/parallel_wavenet.json"))
+def student_model(seed=0, **overrides):
+    cfg = config_lib.load_config(os.path.join(REPO, "configs/parallel_wavenet.json"), **overrides)
     pwn = ParallelWavenet(cfg)
     return pwn, pwn.init_params(seed, device="cuda")
 
 
 def flow_inputs(pwn, params, B, L, seed):
-    """x [L, B, W] f32 and enc [L, B, DW] bf16 from a random mel through the
-    student's shared deconv stack."""
+    """x [L, B, W] f32 and enc [L, B, DW] from a random mel through the
+    student's shared deconv stack, in the model's compute dtype (bf16 or f32)."""
     frames = 1 + -(-L // pwn.cfg.frame_shift)
     g = torch.Generator().manual_seed(seed)
     mel = torch.rand((B, frames, 80), generator=g).cuda()
-    enc = pwn._flow_deconv(params, 0, mel).transpose(0, 1)[:L].to(torch.bfloat16).contiguous()
+    enc = pwn._flow_deconv(params, 0, mel).transpose(0, 1)[:L]
+    enc = enc.to(pwn.dtype or torch.float32).contiguous()
     x = (0.3 * torch.randn((L, B, pwn.cfg.width), generator=g)).cuda()
     return x, enc
 
 
-def check_flow(label, x, enc, sw, s, nl, num_stages, cpu_floor=False):
-    """One-shot kernel vs plain version on the same inputs; returns (kernel
-    output, largest error, the plain version's CPU-vs-card distance or None)."""
-    out_k = flk.flow_stack(x, enc, sw, s, nl, num_stages)
+def check_flow(label, x, enc, sw, s, nl, num_stages, cpu_floor=False, **kw):
+    """One-shot kernel vs plain version on the same inputs (kw: the mode's
+    flow_stack options); returns (kernel output, largest error, the plain
+    version's CPU-vs-card distance or None)."""
+    out_k = flk.flow_stack(x, enc, sw, s, nl, num_stages, **kw)
     torch.cuda.synchronize()
-    out_p = flk.flow_stack_plain(x, enc, sw, s, nl, num_stages)
+    out_p = flk.flow_stack_plain(x, enc, sw, s, nl, num_stages, **kw)
     require(bool(torch.isfinite(out_k).all()), f"{label}: non-finite kernel output")
     err = float((out_k - out_p).abs().max())
     scale = max(float(out_p.abs().max()), 1.0)
     floor = None
     if cpu_floor:
         cpu_sw = {k: v.cpu() for k, v in sw.items()}
-        out_c = flk.flow_stack_plain(x.cpu(), enc.cpu(), cpu_sw, s, nl, num_stages)
+        out_c = flk.flow_stack_plain(x.cpu(), enc.cpu(), cpu_sw, s, nl, num_stages, **kw)
         floor = float((out_c - out_p.cpu()).abs().max())
     L, B, _ = x.shape
     log(f"{label} B={B} L={L} layers {s}..{s + nl - 1}: max|d| kernel-plain {err:.3e}, scale "
@@ -1051,10 +1089,11 @@ def check_flow(label, x, enc, sw, s, nl, num_stages, cpu_floor=False):
     return out_k, err, floor
 
 
-def check_flow_streaming(x, enc, sw, nl, num_stages, oneshot, chunk):
+def check_flow_streaming(x, enc, sw, nl, num_stages, oneshot, chunk, label="flow", **kw):
     """Chained kernel chunks against the one-shot kernel call (bit for bit: the
     arithmetic of a row does not depend on the call it falls in) and the final
-    state against the plain version's; returns the state's error."""
+    state against the plain version's (kw: the mode's flow_stack options);
+    returns (the state's error, the kernel's final state)."""
     L, B, W = x.shape
     rows = flk.state_rows(0, nl, num_stages)
     state = torch.zeros((rows, B, W), device="cuda")
@@ -1062,51 +1101,83 @@ def check_flow_streaming(x, enc, sw, nl, num_stages, oneshot, chunk):
     outs = []
     for c0 in range(0, L, chunk):
         o, state = flk.flow_stack(x[c0 : c0 + chunk], enc[c0 : c0 + chunk], sw, 0, nl, num_stages,
-                                  state=state)
+                                  state=state, **kw)
         _, state_p = flk.flow_stack_plain(x[c0 : c0 + chunk], enc[c0 : c0 + chunk], sw, 0, nl,
-                                          num_stages, state=state_p)
+                                          num_stages, state=state_p, **kw)
         outs.append(o)
     torch.cuda.synchronize()
     same = bool(torch.equal(torch.cat(outs, 0), oneshot))
     err = float((state - state_p).abs().max())
     scale = max(float(state_p.abs().max()), 1.0)
-    log(f"flow streaming B={B} L={L} chunk {chunk} ({rows} state rows): chained == one-shot "
+    log(f"{label} streaming B={B} L={L} chunk {chunk} ({rows} state rows): chained == one-shot "
         f"bit for bit: {same}; final state max|d| kernel-plain {err:.3e} "
         f"(limit {FLOW_REL_TOL * scale:.3e})")
     require(same, f"chained chunks of {chunk} differ from the one-shot call")
     require(err <= FLOW_REL_TOL * scale, f"chunk {chunk}: final state differs from the plain one")
     require(bool(torch.equal(state[:2], x[-2:])), "layer 0's state is not the tail of its input")
-    return err
+    return err, state
 
 
-def time_flow(x, enc, sw, nl, num_stages):
+def time_flow(x, enc, sw, nl, num_stages, **kw):
     """ms of one stack call for the kernel, the plain version and torch.mm on
-    the same per-layer products, and the card's bound for the call."""
+    the same per-layer products, and the card's bound for the call.  kw: the
+    mode's flow_stack options.  The yardstick runs the bf16 products (taps,
+    with a bf16 encoding its cond product too, res) as bf16 torch.mm, an f32
+    cond product as an f32 torch.mm (TF32 off), and adds a cond stream's
+    columns."""
     L, B, W = x.shape
-    DW = enc.shape[-1]
     rows = L * B
-    ms = cuda_ms(lambda: flk.flow_stack(x, enc, sw, 0, nl, num_stages))
-    plain_ms = cuda_ms(lambda: flk.flow_stack_plain(x, enc, sw, 0, nl, num_stages), reps=1)
-    a = torch.randn((rows, 3 * W + DW), device="cuda", dtype=torch.bfloat16)
+    cond = kw.get("cond")
+    f32_cond = cond is None and not kw.get("compact", True) and not kw.get("fuse_cond", False)
+    feed = enc if cond is None else cond
+    DW = feed.shape[-1] if cond is None else 0
+    k_bf = 3 * W + (0 if f32_cond else DW)
+    ms = cuda_ms(lambda: flk.flow_stack(x, enc, sw, 0, nl, num_stages, **kw))
+    plain_ms = cuda_ms(lambda: flk.flow_stack_plain(x, enc, sw, 0, nl, num_stages, **kw), reps=1)
+    a = torch.randn((rows, k_bf), device="cuda", dtype=torch.bfloat16)
     g = torch.randn((rows, W // 2), device="cuda", dtype=torch.bfloat16)
-    w_comb = torch.cat([sw["w_tap"][:nl].reshape(nl, 3 * W, W), sw["w_cond"][:nl]], 1).contiguous()
+    w_comb = sw["w_tap"][:nl].reshape(nl, 3 * W, W).to(torch.bfloat16)
+    if DW and not f32_cond:
+        w_comb = torch.cat([w_comb, sw["w_cond"][:nl].to(torch.bfloat16)], 1)
+    w_comb = w_comb.contiguous()
     pre = torch.empty((rows, W), device="cuda", dtype=torch.bfloat16)
     res = torch.empty((rows, W), device="cuda", dtype=torch.bfloat16)
+    pre32 = torch.empty((rows, W), device="cuda") if f32_cond or cond is not None else None
+    feed2d = feed.reshape(rows, feed.shape[-1])
 
     def library():
         for li in range(nl):
             torch.mm(a, w_comb[li], out=pre)
+            if f32_cond:
+                torch.mm(feed2d, sw["w_cond"][li], out=pre32)
+            elif cond is not None:
+                torch.add(pre, feed2d[:, li * W : (li + 1) * W], out=pre32)
             torch.mm(g, sw["w_res"][li], out=res)
 
     library_ms = cuda_ms(library)
-    del a, g, pre, res
-    flops = 2 * rows * nl * ((3 * W + DW) * W + (W // 2) * W)
-    io_bytes = rows * (4 * W + 2 * DW + 4 * W) + nl * (2 * ((3 * W + DW) * W + W // 2 * W) + 8 * W)
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, io_bytes / PEAK_HBM_BYTES
+    del a, g, pre, res, pre32
+    flops = 2 * rows * nl * (k_bf * W + (W // 2) * W)
+    flops_f32 = 2 * rows * nl * DW * W if f32_cond else (rows * nl * W if cond is not None else 0)
+    io_bytes = (rows * (4 * W + feed.element_size() * feed.shape[-1] + 4 * W)
+                + nl * (2 * (3 * W * W + W // 2 * W) + sw["w_cond"].element_size() * DW * W + 8 * W))
+    if kw.get("state") is not None:  # the old state read, the new one written
+        io_bytes += 2 * 4 * kw["state"].numel()
+    t_ops = flops / PEAK_BF16_FLOPS + flops_f32 / PEAK_F32_FLOPS
+    t_bytes = io_bytes / PEAK_HBM_BYTES
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "ops_ms": 1e3 * t_ops, "bytes_ms": 1e3 * t_bytes, "flops": flops, "io_bytes": io_bytes}
+            "ops_ms": 1e3 * t_ops, "bytes_ms": 1e3 * t_bytes, "flops": flops + flops_f32,
+            "io_bytes": io_bytes}
+
+
+def log_flow_timing(label, x, nl, tm):
+    L, B, W = x.shape
+    log(f"timing flow_stack {label} W={W} B={B} L={L}, {nl} layers: kernel {tm['ms']:.3f} ms, "
+        f"plain {tm['plain_ms']:.3f} ms, torch.mm on the same products {tm['library_ms']:.3f} ms, "
+        f"bound {tm['bound_ms']:.3f} ms ({tm['bound_by']}; operations {tm['ops_ms']:.3f} ms, "
+        f"bytes {tm['bytes_ms']:.3f} ms); {tm['flops'] / 1e12:.3f} TFLOP, "
+        f"{tm['io_bytes'] / 1e9:.3f} GB")
 
 
 def student_breakdown(pwn, params, mel):
@@ -1136,17 +1207,17 @@ def with_plain_flow_kernel(fn):
     """fn() with the wrapper's kernel swapped for its plain version, so that a
     whole path can be held against the same path on the plain kernel."""
     kernel = flk.flow_stack
-    flk.flow_stack = lambda x, enc, sw, s, nl, ns, state=None, compact=True: (
-        flk.flow_stack_plain(x, enc, sw, s, nl, ns, state, compact))
+    flk.flow_stack = lambda x, enc, sw, s, nl, ns, state=None, compact=True, **kw: (
+        flk.flow_stack_plain(x, enc, sw, s, nl, ns, state, compact, **kw))
     try:
         return fn()
     finally:
         flk.flow_stack = kernel
 
 
-def golden_student():
+def golden_student(**overrides):
     d = os.path.join(GOLDEN, "tiny_student")
-    cfg = config_lib.load_config(os.path.join(d, "meta.json"))
+    cfg = config_lib.load_config(os.path.join(d, "meta.json"), **overrides)
     return ParallelWavenet(cfg), weights.load_npz(os.path.join(d, "params.npz"), device="cuda"), d
 
 
@@ -1164,7 +1235,7 @@ def student_phases():
         xb, encb = flow_inputs(pwn, params, B=B, L=L, seed=32 + B)
         _, err, _ = check_flow("flow full width", xb, encb, sw, s, ns, ns)
         flow_err = max(flow_err, err)
-    state_err = max(check_flow_streaming(x8, enc8, sw, ns, ns, out8, chunk)
+    state_err = max(check_flow_streaming(x8, enc8, sw, ns, ns, out8, chunk)[0]
                     for chunk in (2048, 512))
     del x8, enc8, out8
 
@@ -1311,6 +1382,369 @@ def student_phases():
     }
 
 
+def reset_flow_counts():
+    flk.flow_stack.launches = 0
+    flk.flow_stack.launches_by_mode = dict.fromkeys(flk.flow_stack.launches_by_mode, 0)
+
+
+def flow_counts():
+    """The flow kernel's launches by mode since the last reset, modes with none left out."""
+    return {k: v for k, v in flk.flow_stack.launches_by_mode.items() if v}
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms inside the block, so that two runs of a
+    path share one encoding bit for bit (the default transposed convolution
+    is not bit-stable between calls)."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def stream_of(enc, sw, s, nl):
+    """The precomputed-conditioning stream of layers s .. s + nl - 1 of a flow:
+    [L, B, nl * W] f32, each layer's enc @ w_cond + b_cond in f32."""
+    L, B, DW = enc.shape
+    e = enc.float().reshape(L * B, DW)
+    return torch.cat([e @ sw["w_cond"][li].float() + sw["b_cond"][li] for li in range(s, s + nl)],
+                     -1).reshape(L, B, -1)
+
+
+def flow_record(name, replaces, launches, err, tm, **extra):
+    return {"name": name, "route": "cuda", "source": "nsynth_wavenet_tpu_torch/csrc/flow_kernel.cu",
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "rel_tol": FLOW_REL_TOL, "ms": tm["ms"], "plain_ms": tm["plain_ms"],
+            "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
+            "library_ms": tm["library_ms"], **extra}
+
+
+def timing_summary(tm):
+    return {k: tm[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+
+
+def flow_mode_phases():
+    """Phases 27 to 31; returns the records of the f32-cond, cond-stream and
+    width kernels."""
+    bf = torch.bfloat16
+    # ---- 27. the flow kernel's modes against their plain versions, full width ----
+    pwn, params = student_model()
+    pwn32 = ParallelWavenet(dataclasses.replace(pwn.cfg, compute_dtype="float32"))
+    cfg, ns = pwn.cfg, pwn.cfg.num_stages
+    W = cfg.width
+    sw = flk.stack_flow_weights(params["flows"][3])  # the 30-layer flow
+    nw, cw = flk.noncompact_weights(sw), flk.compact_weights(sw)
+    f32 = {"compact": False}
+    x8, enc8 = flow_inputs(pwn32, params, B=8, L=8192, seed=51)
+    x3, enc3 = flow_inputs(pwn32, params, B=3, L=1000, seed=52)
+    out8, f32_err, f32_floor = check_flow("flow f32-cond", x8, enc8, nw, 0, ns, ns, cpu_floor=True,
+                                          **f32)
+    f32_err = max(f32_err, check_flow("flow f32-cond", x3, enc3, nw, 20, ns, ns, **f32)[1])
+    f32_state_err, state32 = 0.0, None
+    for chunk in (2048, 512):
+        err, state32 = check_flow_streaming(x8, enc8, nw, ns, ns, out8, chunk,
+                                            label="flow f32-cond", **f32)
+        f32_state_err = max(f32_state_err, err)
+    _, fuse_err, _ = check_flow("flow fuse_cond (f32 enc)", x8, enc8, nw, 0, ns, ns, compact=False,
+                                fuse_cond=True)
+    # bf16 carries: the output bit for bit, the state rounded
+    outs, st = [], torch.zeros_like(state32)
+    for c0 in range(0, x8.shape[0], 512):
+        o, st = flk.flow_stack(x8[c0 : c0 + 512], enc8[c0 : c0 + 512], nw, 0, ns, ns, st,
+                               carry_dtype=bf, **f32)
+        outs.append(o)
+    torch.cuda.synchronize()
+    same_out = bool(torch.equal(torch.cat(outs, 0), out8))
+    same_state = bool(torch.equal(st, state32.to(bf).float()))
+    log(f"flow bf16 carries, chunks of 512: output == f32 carries bit for bit: {same_out}; "
+        f"state == bf16(f32 state): {same_state}")
+    require(same_out and same_state, "bf16 carries changed the output or the state")
+    # one 30-layer call of the 30-layer flow against three chained 10-layer calls
+    one = flk.flow_stack(x8, enc8, nw, 0, cfg.num_iaf_layers[3], ns, **f32)
+    chained = x8
+    for s in range(0, cfg.num_iaf_layers[3], ns):
+        chained = flk.flow_stack(chained, enc8, nw, s, ns, ns, **f32)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(one, chained))
+    log(f"flow f32-cond: one {cfg.num_iaf_layers[3]}-layer call == chained {ns}-layer calls "
+        f"bit for bit: {same}")
+    require(same, "a layers_per_call call differs from the chained calls")
+    del one, chained, outs
+    # the cond stream, bf16 and f32, driven with the counts reset
+    reset_flow_counts()
+    stream_err = 0.0
+    for s, xs, es in ((0, x8, enc8), (20, x3, enc3)):
+        cs = stream_of(es, sw, s, ns)
+        for compact, c, wts in ((True, cs.to(bf), cw), (False, cs, nw)):
+            out_s, err, _ = check_flow(f"flow cond stream ({'bf16' if compact else 'f32'})", xs,
+                                       None, wts, s, ns, ns, cond=c, compact=compact)
+            stream_err = max(stream_err, err)
+        if s == 0:  # the f32 stream is the f32-cond function fed the projection
+            d = float((out_s - out8).abs().max())
+            log(f"flow f32 cond stream vs f32-cond enc mode: max|d| {d:.3e}")
+            require(d <= FLOW_REL_TOL * max(float(out8.abs().max()), 1.0),
+                    "the f32 cond stream and the f32-cond mode differ")
+    stream_launches = flow_counts()
+    log(f"cond-stream drive launches by mode: {stream_launches}")
+    require(stream_launches == {"stream": 2, "stream_f32": 2}, "the stream drive's launches")
+    # f32 precision probe: w_tap = 0, b = 0, x = 0, w_res = [I | 0] put bf16(g)
+    # in the first W/2 output columns, g from the cond product alone
+    m = W // 2
+    probe = {"w_tap": torch.zeros((1, 3, W, W), device="cuda", dtype=bf),
+             "b": torch.zeros((1, W), device="cuda"), "w_cond": nw["w_cond"][:1].contiguous(),
+             "b_cond": torch.zeros((1, W), device="cuda"),
+             "w_res": torch.cat([torch.eye(m), torch.zeros(m, m)], 1)[None].to("cuda", bf),
+             "b_res": torch.zeros((1, W), device="cuda")}
+    zx = torch.zeros_like(x8)
+    g_k = flk.flow_stack(zx, enc8, probe, 0, 1, ns, **f32)[..., :m]
+    g_p = flk.flow_stack_plain(zx, enc8, probe, 0, 1, ns, **f32)[..., :m]
+    torch.backends.cuda.matmul.allow_tf32 = True
+    g_t = flk.flow_stack_plain(zx, enc8, probe, 0, 1, ns, **f32)[..., :m]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    probe_share = float((g_k != g_p).float().mean())
+    tf32_share = float((g_t != g_p).float().mean())
+    log(f"f32 precision probe: {probe_share:.3e} of {g_p.numel()} bf16(g) values differ between "
+        f"kernel and plain version (TF32 off); the plain version with TF32 on differs in "
+        f"{tf32_share:.3e}")
+    require(probe_share < 0.01 and bool(torch.equal(g_p, g_p.to(bf).float())),
+            "the f32 cond product is not f32")
+    del x3, enc3, out8, state32, st, zx, g_k, g_p, g_t, cs, out_s
+
+    # ---- 28. widths 32, 128 and 256, and a deconv width that is not a multiple of 64 ----
+    width_err, width_sw = 0.0, {W: cw}
+    for wd, over in ((32, {"width": 32}), (128, {"width": 128}), (256, {"width": 256}),
+                     (W, {"deconv_width": 136})):
+        pw, pp = student_model(seed=wd, **over)
+        pw32 = ParallelWavenet(dataclasses.replace(pw.cfg, compute_dtype="float32"))
+        sww = flk.stack_flow_weights(pp["flows"][0])
+        xw, ew = flow_inputs(pw32, pp, B=8, L=4096, seed=60 + wd)
+        label = f"flow width {wd} deconv {pw.cfg.deconv_width}"
+        for compact in (True, False):
+            wts = (flk.compact_weights if compact else flk.noncompact_weights)(sww)
+            e = ew.to(bf) if compact else ew
+            name = f"{label} ({'bf16' if compact else 'f32-cond'})"
+            o, err, _ = check_flow(name, xw, e, wts, 0, ns, ns, compact=compact)
+            check_flow_streaming(xw, e, wts, ns, ns, o, 512, label=name, compact=compact)
+            width_err = max(width_err, err)
+        if "width" in over:
+            width_sw[wd] = flk.compact_weights(sww)
+        del pp, xw, ew, o
+
+    # ---- 29. the f32 student path end to end ----
+    mels = {B: stft.melspectrogram(torch.from_numpy(synthetic_wavs(B, STUDENT_SAMPLES, 40 + B)).cuda())
+            for B in STUDENT_BATCHES}
+    L = pwn32.sample_length(mels[8].shape[1])
+    parallelgen.synthesize_cuda(pwn32, params, mels[8][:, :6], torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()  # warm-up
+    reset_flow_counts()
+    runs = {}
+    for B in STUDENT_BATCHES:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        audio = parallelgen.synthesize_cuda(pwn32, params, mels[B], torch.Generator().manual_seed(B))
+        torch.cuda.synchronize()
+        runs[B] = (audio, time.time() - t0, torch.cuda.max_memory_allocated())
+    f32_launches, f32_modes = flk.flow_stack.launches, flow_counts()
+    for B, (audio, dt, peak) in runs.items():
+        require(tuple(audio.shape) == (B, L), f"f32 student path shape {tuple(audio.shape)}")
+        require(bool(torch.isfinite(audio).all()) and float(audio.abs().max()) <= 1.0,
+                f"f32 student path B={B}: audio not finite in [-1, 1]")
+        log(f"f32 student path B={B} L={L}: {1e3 * dt:.1f} ms, {B * L / 16000 / dt:.1f} "
+            f"audio-sec/s, audio std {float(audio.std()):.4f}, peak memory {peak / 2**30:.2f} GiB")
+    cycles = sum(-(-n // ns) for n in cfg.num_iaf_layers)
+    log(f"f32 student path kernel launches: flow_stack {f32_launches}, by mode {f32_modes}")
+    require(f32_modes == {"f32cond": cycles * len(STUDENT_BATCHES)},
+            "the f32 student path did not go through the f32-cond kernel alone")
+    del runs
+
+    inputs = {"mel": mels[8], "base_x": pwn32.base_noise(torch.Generator().manual_seed(9), 8, L,
+                                                          "cuda")}
+    with deterministic_cudnn():  # one encoding for every run below
+        ff_k = parallelgen.feed_forward_cuda(pwn32, params, inputs)
+        ff_p = with_plain_flow_kernel(lambda: parallelgen.feed_forward_cuda(pwn32, params, inputs))
+        reset_flow_counts()
+        ff_lpc = parallelgen.feed_forward_cuda(pwn32, params, inputs,
+                                               layers_per_call=max(cfg.num_iaf_layers))
+        lpc_modes = flow_counts()
+        reset_flow_counts()
+        ff_fc = parallelgen.feed_forward_cuda(pwn32, params, inputs, fuse_cond=True)
+        fc_modes = flow_counts()
+    log(f"f32 student launches by mode: layers_per_call={max(cfg.num_iaf_layers)} {lpc_modes}, "
+        f"fuse_cond {fc_modes}")
+    require(lpc_modes == {"f32cond": len(cfg.num_iaf_layers)} and fc_modes == {"bf16": cycles},
+            "the opt-in variants' launches")
+    for k in ("x", "mean_tot", "scale_tot", "log_scale_tot"):
+        err = float((ff_k[k] - ff_p[k]).abs().max())
+        scale = max(float(ff_p[k].abs().max()), 1e-3)
+        fc = float((ff_fc[k] - ff_k[k]).abs().max())
+        log(f"f32 student feed-forward B=8 {k}: max|d| kernel-plain {err:.3e}, scale {scale:.3e}, "
+            f"limit {STUDENT_REL_TOL * scale:.3e}; fuse_cond vs default {fc:.3e}; "
+            f"layers_per_call={max(cfg.num_iaf_layers)} == default: {torch.equal(ff_lpc[k], ff_k[k])}")
+        require(err <= STUDENT_REL_TOL * scale, f"f32 student feed-forward {k} differs")
+        require(bool(torch.equal(ff_lpc[k], ff_k[k])), f"layers_per_call changed {k}")
+        if k in ("mean_tot", "scale_tot"):
+            require(fc <= FUSE_COND_ATOL, f"fuse_cond moved {k} by {fc:.3e}")
+    one = pwn32._clip_quant_scale(ff_k["x"])
+    streamer = parallelgen.StudentStreamer(pwn32, chunk=32768)
+    streamer.synthesize(params, mels[8][:, :6], base_x=inputs["base_x"][:, :pwn32.sample_length(6)])
+    torch.cuda.synchronize()  # warm-up
+    t0 = time.time()
+    streamed = streamer.synthesize(params, mels[8], base_x=inputs["base_x"])
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    sdiff = float((streamed - one).abs().max())
+    log(f"f32 student streamer B=8 L={L} chunk 32768: {1e3 * dt:.1f} ms, "
+        f"{8 * L / 16000 / dt:.1f} audio-sec/s; vs one-shot on the same noise max|d| {sdiff:.3e} "
+        f"(limit 5e-3)")
+    require(tuple(streamed.shape) == (8, L) and sdiff <= 5e-3,
+            "f32 streamer differs from the one-shot path")
+    del ff_k, ff_p, ff_lpc, ff_fc, inputs, one, streamed
+
+    kernels, wall_ms = student_breakdown(pwn32, params, mels[8])
+    busy = sum(ms for _, _, ms in kernels)
+    log(f"profile f32 student B=8: device busy {busy:.1f} ms of {wall_ms:.1f} ms wall; " + ", ".join(
+        f"{name[:48]} {n} x {1e3 * ms / n:.1f} us" for name, n, ms in kernels[:8]))
+
+    B = STUDENT_BATCHES[0]
+    with torch.no_grad():
+        enc = parallelgen._trim_to(pwn32._flow_deconv(params, 0, mels[B]), L)
+    enc = enc.transpose(0, 1).float().contiguous()
+    x = (0.3 * torch.randn((L, B, W), generator=torch.Generator().manual_seed(1))).cuda()
+    f32_err = max(f32_err, check_flow("flow f32-cond main-path shape", x, enc, nw, 0, ns, ns,
+                                      **f32)[1])
+    tm32 = time_flow(x, enc, nw, ns, ns, **f32)
+    log_flow_timing("f32-cond", x, ns, tm32)
+    tm_bf = time_flow(x, enc.to(bf), cw, ns, ns)
+    log_flow_timing("bf16 (same call)", x, ns, tm_bf)
+    nl30 = cfg.num_iaf_layers[3]
+    tm_lpc = time_flow(x, enc, nw, nl30, ns, **f32)
+    log_flow_timing(f"f32-cond, one {nl30}-layer call (layers_per_call)", x, nl30, tm_lpc)
+    st0 = torch.zeros((flk.state_rows(0, ns, ns), B, W), device="cuda")
+    tm_carry32 = time_flow(x, enc, nw, ns, ns, state=st0, **f32)
+    log_flow_timing("f32-cond with a carried state, f32 carries", x, ns, tm_carry32)
+    tm_carry = time_flow(x, enc, nw, ns, ns, state=st0, carry_dtype=bf, **f32)
+    log_flow_timing("f32-cond with a carried state, bf16 carries", x, ns, tm_carry)
+    cs = stream_of(enc, sw, 0, ns)
+    del enc
+    tm_s32 = time_flow(x, None, nw, ns, ns, cond=cs, compact=False)
+    log_flow_timing("cond stream f32", x, ns, tm_s32)
+    cs = cs.to(bf)
+    tm_s = time_flow(x, None, cw, ns, ns, cond=cs)
+    log_flow_timing("cond stream bf16", x, ns, tm_s)
+    del x, cs, mels
+
+    # ---- 30. the trained golden tiny_student as f32 ----
+    gpwn, gparams, gdir = golden_student(compute_dtype="float32")
+    n = 12000
+    wavs = [wav_io.read_wav(os.path.join(GOLDEN, f"gen_student_{i}.wav"))[0][:n] for i in range(4)]
+    gmels_np = stft.melspectrogram_np(np.stack(wavs))
+    gmels = torch.from_numpy(gmels_np).cuda()
+    gL = gpwn.sample_length(gmels.shape[1])
+    gin = {"mel": gmels,
+           "base_x": gpwn.base_noise(torch.Generator().manual_seed(7), 4, gL, "cuda")}
+    fused = gpwn._clip_quant_scale(parallelgen.feed_forward_cuda(gpwn, gparams, gin)["x"])
+    plain = gpwn._clip_quant_scale(gpwn.feed_forward(gparams, gin)["x"])
+    corr = float(np.corrcoef(fused.cpu().numpy().ravel(), plain.cpu().numpy().ravel())[0, 1])
+    streamed = parallelgen.StudentStreamer(gpwn, chunk=1024).synthesize(
+        gparams, gmels, base_x=gin["base_x"])
+    sdiff = float((streamed - fused).abs().max())
+    log(f"golden student f32: fused vs plain audio corr {corr:.6f}; streamer (chunk 1024) vs "
+        f"one-shot max|d| {sdiff:.3e}")
+    require(corr > 0.999, "f32 golden student: fused and plain audio differ")
+    require(sdiff <= 5e-3, "f32 golden student: streamer differs from one-shot")
+    audio = parallelgen.synthesize_cuda(gpwn, gparams, gmels,
+                                        torch.Generator().manual_seed(7)).cpu().numpy()
+    require(np.isfinite(audio).all() and np.abs(audio).max() <= 1.0, "f32 golden student audio")
+    matched, mismatched = mel_corr(audio, gmels_np, min(n, gL))
+    log(f"golden student f32 free synthesis mel corr: matched {matched:.4f} "
+        f"mismatched {mismatched:.4f}")
+    require(matched > mismatched + 0.05, "f32 golden student does not track its conditioning")
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(gdir, "meta.json")) as f:
+            meta = json.load(f)
+        meta["config"]["compute_dtype"] = "float32"
+        cfg_path = os.path.join(tmp, "meta.json")
+        with open(cfg_path, "w") as f:
+            json.dump(meta, f)
+        src = os.path.join(tmp, "src")
+        os.makedirs(src)
+        for i in (0, 1):
+            wav_io.write_wav(os.path.join(src, f"utt_{i}.wav"), wavs[i])
+        for chunk in (None, 2000):
+            reset_flow_counts()
+            paths = generate_parallel_wavenet(
+                src, os.path.join(gdir, "params.npz"), cfg_path, os.path.join(tmp, f"gen_{chunk}"),
+                batch_size=4, seed=0, device="cuda", sample_length=8000, streaming_chunk=chunk)
+            modes = flow_counts()
+            require(len(paths) == 2 and list(modes) == ["f32cond"],
+                    f"f32 student eval wrote {len(paths)} files, launches {modes}")
+            for p in paths:
+                wav, sr = wav_io.read_wav(p)
+                require(sr == 16000 and len(wav) >= 8000 and np.isfinite(wav).all()
+                        and np.abs(wav).max() > 0, f"f32 student eval output {p}")
+            log(f"f32 student eval path (streaming_chunk {chunk}) wrote "
+                f"{[os.path.basename(p) for p in paths]}, launches {modes}")
+    del gparams, gmels
+
+    # ---- 31. a width-128 student through the serving path ----
+    pw, pp = student_model(seed=3, width=128)
+    wmel = stft.melspectrogram(torch.from_numpy(synthetic_wavs(8, 16000, 71)).cuda())
+    wL = pw.sample_length(wmel.shape[1])
+    parallelgen.synthesize_cuda(pw, pp, wmel[:, :6], torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()  # warm-up
+    reset_flow_counts()
+    t0 = time.time()
+    audio = parallelgen.synthesize_cuda(pw, pp, wmel, torch.Generator().manual_seed(8))
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    w_launches = flow_counts()
+    require(tuple(audio.shape) == (8, wL) and bool(torch.isfinite(audio).all()),
+            "width-128 student audio")
+    log(f"width-128 student path B=8 L={wL}: {1e3 * dt:.1f} ms, {8 * wL / 16000 / dt:.1f} "
+        f"audio-sec/s; launches by mode {w_launches}")
+    require(w_launches == {"bf16_w128": cycles}, "the width-128 path's launches")
+    winputs = {"mel": wmel, "base_x": pw.base_noise(torch.Generator().manual_seed(9), 8, wL, "cuda")}
+    with deterministic_cudnn():
+        ff_k = parallelgen.feed_forward_cuda(pw, pp, winputs)
+        ff_p = with_plain_flow_kernel(lambda: parallelgen.feed_forward_cuda(pw, pp, winputs))
+    for k in ("x", "mean_tot", "scale_tot", "log_scale_tot"):
+        err = float((ff_k[k] - ff_p[k]).abs().max())
+        scale = max(float(ff_p[k].abs().max()), 1e-3)
+        log(f"width-128 student feed-forward B=8 {k}: max|d| kernel-plain {err:.3e}, scale "
+            f"{scale:.3e}, limit {STUDENT_REL_TOL * scale:.3e}")
+        require(err <= STUDENT_REL_TOL * scale, f"width-128 student feed-forward {k} differs")
+    del pp, ff_k, ff_p
+    by_width = {}
+    for wd, sww in sorted(width_sw.items()):
+        g = torch.Generator().manual_seed(wd)
+        xw = (0.3 * torch.randn((wL, 8, wd), generator=g)).cuda()
+        ew = (0.5 * torch.randn((wL, 8, cfg.deconv_width), generator=g)).to("cuda", bf)
+        by_width[wd] = time_flow(xw, ew, sww, ns, ns)
+        log_flow_timing("bf16", xw, ns, by_width[wd])
+    return [
+        flow_record("flow_stack_f32cond", "nsynth_wavenet_tpu/ops/flow_kernel.py:285", f32_launches,
+                    f32_err, tm32, plain_cpu_vs_card_err=f32_floor,
+                    state_max_abs_err=f32_state_err, fuse_cond_max_abs_err=fuse_err,
+                    probe_share=probe_share, probe_share_tf32=tf32_share,
+                    bf16_same_call=timing_summary(tm_bf),
+                    layers_per_call_30=timing_summary(tm_lpc),
+                    carried_state_f32_carries=timing_summary(tm_carry32),
+                    carried_state_bf16_carries=timing_summary(tm_carry),
+                    launches_by_mode={"default": f32_modes, "layers_per_call_30": lpc_modes,
+                                      "fuse_cond": fc_modes}),
+        flow_record("flow_stack_cond_stream", "nsynth_wavenet_tpu/ops/flow_kernel.py:297",
+                    sum(stream_launches.values()), stream_err, tm_s,
+                    launches_by_mode=stream_launches, f32=timing_summary(tm_s32)),
+        flow_record("flow_stack_width", "nsynth_wavenet_tpu/ops/flow_kernel.py:168",
+                    sum(w_launches.values()), width_err, by_width[128],
+                    launches_by_mode=w_launches,
+                    by_width={str(wd): timing_summary(t) for wd, t in by_width.items()}),
+    ]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1442,7 +1876,8 @@ def main():
 
     del model, params, kw, fg, mels, gmodel, gparams
     torch.cuda.empty_cache()
-    flow_record = student_phases()
+    flow_rec = student_phases()
+    mode_records = flow_mode_phases()
 
     big = timings[MAIN_BATCHES[-1]]
     record = {"kernels": [{
@@ -1459,7 +1894,7 @@ def main():
         "bound_ms": big["bound_ms"],
         "bound_by": big["bound_by"],
         "library_ms": big["library_ms"],
-    }, flow_record, w8a8_record, row_record]}
+    }, flow_rec, w8a8_record, row_record, *mode_records]}
     log(f"timed call: B={MAIN_BATCHES[-1]}, {TIMED_STEPS} steps, full width; "
         f"total {time.time() - T_START:.1f} s")
     print(smi, flush=True)

@@ -6,7 +6,6 @@ one-shot or streamed) or
 parallelgen.synthesize_cuda / StudentStreamer (student) on the device ->
 gen_*.wav."""
 
-import contextlib
 import dataclasses
 import glob
 import logging
@@ -80,7 +79,7 @@ def generate_wavenet(source_path, params_npz, config_json, save_path, batch_size
     the first up to 8 .wav sources (each fitted to 16 000 samples) and the
     fixed gate scale; it needs .wav sources."""
     from nsynth_wavenet_tpu_torch.models.fastgen import Fastgen
-    from nsynth_wavenet_tpu_torch.models.wavenet import Wavenet
+    from nsynth_wavenet_tpu_torch.models.wavenet import Wavenet, no_tf32
     from nsynth_wavenet_tpu_torch.ops import fastgen_kernel as fk
 
     cfg = config_lib.load_config(config_json)
@@ -100,7 +99,7 @@ def generate_wavenet(source_path, params_npz, config_json, save_path, batch_size
             raise ValueError("static activation scales need .wav sources to calibrate on")
         cal_wav = np.stack([_fixed_len(wav_io.read_wav(f, expect_sr=16000)[0], 16000)
                             for f in cal_files])
-        with _no_tf32():  # the calibration forward is f32, as the kernel's residual stream is
+        with no_tf32():  # the calibration forward is f32, as the kernel's residual stream is
             act_amax = fg.calibrate_act_amax(
                 params, torch.from_numpy(cal_wav).to(device),
                 torch.from_numpy(stft_ops.melspectrogram_np(cal_wav)).to(device))
@@ -132,24 +131,12 @@ def _write_batch(save_path, files, audio):
     return outputs
 
 
-@contextlib.contextmanager
-def _no_tf32():
-    """Full-f32 convolutions and matmuls inside the block: cuDNN would run an
-    f32 model's convolutions in TF32 by default, which parts from the CPU
-    results by more than the parity tolerances."""
-    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
-
-
 def generate_parallel_wavenet(source_path, params_npz, config_json, save_path, batch_size=4,
                               seed=0, device="cuda", sample_length=-1, streaming_chunk=None):
     """One-shot student synthesis of every file under source_path with the
     weights of a golden-format params.npz, through the fused serving path
-    (the flow trunks in the CUDA kernel on a CUDA device); writes
+    (the flow trunks in the CUDA kernel on a CUDA device: its compact mode for
+    a bf16 student, its f32-conditioning mode for an f32 one); writes
     gen_<name>.wav files, logs the Delay metric per batch and returns the
     paths.  streaming_chunk: stream the flows in chunks of that many samples
     with carried dilation state (parallelgen.StudentStreamer), for a working
@@ -161,10 +148,6 @@ def generate_parallel_wavenet(source_path, params_npz, config_json, save_path, b
     if not isinstance(cfg, config_lib.ParallelWavenetConfig):
         raise ValueError(f"{config_json} is a teacher config: use generate_wavenet "
                          "(eval_wavenet_torch.py)")
-    if torch.device(device).type == "cuda" and cfg.compute_dtype != "bfloat16":
-        raise NotImplementedError(
-            f"{config_json}: compute_dtype {cfg.compute_dtype!r}; the CUDA flow kernel serves "
-            "bfloat16 students only (an f32 student runs with device='cpu')")
     params = weights.load_npz(params_npz, device=device)
     pwn = ParallelWavenet(cfg)
     streamer = parallelgen.StudentStreamer(pwn, chunk=streaming_chunk) if streaming_chunk else None
@@ -176,11 +159,10 @@ def generate_parallel_wavenet(source_path, params_npz, config_json, save_path, b
         mel = torch.from_numpy(load_mel_batch(chunk, sample_length)).to(device)
         generator = torch.Generator().manual_seed(seed + i)
         t0 = time.time()
-        with _no_tf32():
-            if streamer is not None:
-                audio = streamer.synthesize(params, mel, generator)
-            else:
-                audio = parallelgen.synthesize_cuda(pwn, params, mel, generator)
+        if streamer is not None:
+            audio = streamer.synthesize(params, mel, generator)
+        else:
+            audio = parallelgen.synthesize_cuda(pwn, params, mel, generator)
         audio = audio.cpu().numpy()
         dt = time.time() - t0
         audio_sec = audio.size / 16000.0

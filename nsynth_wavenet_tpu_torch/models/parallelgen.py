@@ -6,10 +6,13 @@ Three compute paths:
   * plain (``synthesize``): ParallelWavenet.feed_forward as it is;
   * fused (``feed_forward_cuda`` / ``synthesize_cuda``), the serving path: each
     flow's dilated trunk runs as chained ops/flow_kernel.flow_stack calls, one
-    per num_stages-layer dilation cycle, with the per-layer mel conditioning
-    computed in the kernel from the raw deconv encoding.  The whole path is
-    time-major ([L, B, ...]) with one transpose of the encoding; the start
-    conv, the out heads and the f32 flow composition are stock PyTorch;
+    per num_stages-layer dilation cycle (``layers_per_call`` fuses whole
+    cycles), with the per-layer mel conditioning computed in the kernel from
+    the raw deconv encoding: in bf16 for a bf16 model (the compact mode), in
+    f32 for an f32 model (``fuse_cond`` folds it into the tap product in bf16
+    for either).  The whole path is time-major ([L, B, ...]) with one
+    transpose of the encoding; the start conv, the out heads and the f32 flow
+    composition are stock PyTorch, run with TF32 off;
   * streaming (``StudentStreamer``): the fused path chunk by chunk with the
     dilation history carried across calls, for any utterance length at a
     bounded working set.
@@ -24,6 +27,7 @@ import torch
 
 from nsynth_wavenet_tpu_torch.models.parallel_wavenet import (SCALE_MAX, ParallelWavenet,
                                                             compose_output)
+from nsynth_wavenet_tpu_torch.models.wavenet import no_tf32
 from nsynth_wavenet_tpu_torch.ops import conv as conv_ops
 from nsynth_wavenet_tpu_torch.ops import flow_kernel as flow_kernel_ops
 
@@ -63,7 +67,7 @@ def _mm_1x1(p, x, dtype, out_dtype=None):
 def _flow_weights(flow_params, compact):
     """Kernel-layout trunk weights of one flow."""
     sw = flow_kernel_ops.stack_flow_weights(flow_params)
-    return flow_kernel_ops.compact_weights(sw) if compact else sw
+    return (flow_kernel_ops.compact_weights if compact else flow_kernel_ops.noncompact_weights)(sw)
 
 
 def _start_conv(flow_params, xh):
@@ -88,20 +92,27 @@ def _flow_heads(pwn, flow_params, l, enc_tm):
     return mean, scale, log_scale
 
 
-def _iaf_flow_cuda(pwn, flow_params, sw, x, xh, enc_tm, flow_idx, compact, state=None):
+def _iaf_flow_cuda(pwn, flow_params, sw, x, xh, enc_tm, flow_idx, compact, state=None, *,
+                   group=0, fuse_cond=False):
     """One IAF flow with the dilated trunk in the flow kernel, time-major.
     x [L, B, 1] f32, xh [3, B, 1] the three samples before it, enc_tm
     [L, B, DW] in the kernel's conditioning dtype, state: the flow's list of
-    per-cycle trunk states or None.  Returns (mean, scale, log_scale,
-    new trunk states)."""
+    per-cycle trunk states or None; group: layers per kernel call (0: one
+    dilation cycle).  Returns (mean, scale, log_scale, new trunk states)."""
     cfg = pwn.cfg
     l = _start_conv(flow_params, torch.cat([xh, x], 0)).contiguous()
     n_layers = cfg.num_iaf_layers[flow_idx]
+    group = group or cfg.num_stages
+    enc_k = enc_tm
+    if fuse_cond:  # its product rounds both to bf16 in every mode: once a flow, not once a call
+        enc_k = enc_tm.to(torch.bfloat16)
+        sw = dict(sw, w_cond=sw["w_cond"].to(torch.bfloat16))
     new_state = []
-    for gi, s in enumerate(range(0, n_layers, cfg.num_stages)):
-        nl = min(cfg.num_stages, n_layers - s)
+    for gi, s in enumerate(range(0, n_layers, group)):
+        nl = min(group, n_layers - s)
         if state is None:
-            l = flow_kernel_ops.flow_stack(l, enc_tm, sw, s, nl, cfg.num_stages, compact=compact)
+            l = flow_kernel_ops.flow_stack(l, enc_k, sw, s, nl, cfg.num_stages, compact=compact,
+                                           fuse_cond=fuse_cond)
         else:
             l, g = flow_kernel_ops.flow_stack(l, enc_tm, sw, s, nl, cfg.num_stages,
                                               state=state[gi], compact=compact)
@@ -120,14 +131,27 @@ def _enc_tm(pwn, params, flow_idx, mel, length, compact):
 def _compact(pwn):
     """The kernel mode follows the model's compute dtype: a bf16 model runs the
     compact kernel (bf16 encoding and weight storage), an f32 model keeps the
-    conditioning product in f32, which only the plain version implements."""
+    conditioning product in f32."""
     return pwn.dtype == torch.bfloat16
 
 
 @torch.no_grad()
-def feed_forward_cuda(pwn: ParallelWavenet, params, inputs, generator=None):
+@no_tf32()
+def feed_forward_cuda(pwn: ParallelWavenet, params, inputs, generator=None, *,
+                      layers_per_call=0, fuse_cond=False):
     """ParallelWavenet.feed_forward with the flow trunks in the flow kernel.
-    Same contract: inputs {'mel'} (+ optional 'base_x'), returns the ff dict."""
+    Same contract: inputs {'mel'} (+ optional 'base_x'), returns the ff dict.
+
+    layers_per_call: layers per kernel call, a multiple of num_stages (0: one
+    dilation cycle); the same arithmetic in fewer calls, so the output is the
+    same bit for bit.  fuse_cond: the reference's single K = 3W + DW bf16
+    product per layer, the encoding and w_cond rounded to bf16 even for an f32
+    model (the kernel's compact arithmetic).  Runs with TF32 off, so an f32
+    model's deconv and heads are f32."""
+    group = layers_per_call or pwn.cfg.num_stages
+    if group % pwn.cfg.num_stages:
+        raise ValueError(f"layers_per_call {layers_per_call} is not a multiple of num_stages "
+                         f"{pwn.cfg.num_stages}")
     compact = _compact(pwn)
     mel = inputs["mel"]
     x = pwn.resolve_base_x(inputs, generator)
@@ -141,7 +165,8 @@ def feed_forward_cuda(pwn: ParallelWavenet, params, inputs, generator=None):
         enc_tm = (shared_enc_tm if shared_enc_tm is not None
                   else _enc_tm(pwn, params, fi, mel, length, compact))
         mean, scale, log_scale, _ = _iaf_flow_cuda(
-            pwn, fp, _flow_weights(fp, compact), iaf_x, xh0, enc_tm, fi, compact)
+            pwn, fp, _flow_weights(fp, compact), iaf_x, xh0, enc_tm, fi, compact, group=group,
+            fuse_cond=fuse_cond)
         iaf_x = iaf_x * scale + mean
         mean_tot = mean + mean_tot * scale
         scale_tot = scale_tot * scale
@@ -152,9 +177,10 @@ def feed_forward_cuda(pwn: ParallelWavenet, params, inputs, generator=None):
 
 
 @torch.no_grad()
-def synthesize_cuda(pwn: ParallelWavenet, params, mel, generator):
-    """Fused twin of ``synthesize`` (same mel -> audio contract)."""
-    return pwn._clip_quant_scale(feed_forward_cuda(pwn, params, {"mel": mel}, generator)["x"])
+def synthesize_cuda(pwn: ParallelWavenet, params, mel, generator, **kw):
+    """Fused twin of ``synthesize`` (same mel -> audio contract); kw:
+    feed_forward_cuda's layers_per_call and fuse_cond."""
+    return pwn._clip_quant_scale(feed_forward_cuda(pwn, params, {"mel": mel}, generator, **kw)["x"])
 
 
 class StudentStreamer:
@@ -231,9 +257,11 @@ class StudentStreamer:
         return pwn._clip_quant_scale(x[..., 0]), new_state
 
     @torch.no_grad()
+    @no_tf32()
     def synthesize(self, params, mel, generator=None, base_x=None):
         """mel [B, T, num_mel] -> audio [B, L] on mel's device (L snapped like
-        the one-shot path).  One streamer object serves every length."""
+        the one-shot path).  One streamer object serves every length.  Runs
+        with TF32 off, as feed_forward_cuda does."""
         pwn = self.pwn
         B, T, _ = mel.shape
         L = pwn.sample_length(T)

@@ -7,12 +7,28 @@ training slice.
 Parameters are the reference's pytree as nested dicts and lists of
 tensors (see weights.py for loading them)."""
 
+import contextlib
+
 import torch
 
 from nsynth_wavenet_tpu_torch.config import WavenetConfig
 from nsynth_wavenet_tpu_torch.ops import conv as conv_ops
 from nsynth_wavenet_tpu_torch.ops import signal as sig
 from nsynth_wavenet_tpu_torch.ops import stft as stft_ops
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """Full-f32 convolutions and matmuls inside the block: cuDNN would run an
+    f32 model's convolutions in TF32 by default (PyTorch's default for
+    convolutions), which parts from the CPU results by more than the parity
+    tolerances."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def condition_add(x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:

@@ -148,29 +148,34 @@ def test_wrapper_runs_the_plain_version_on_cpu_and_counts_nothing():
 
 
 @pytest.mark.parametrize("fault", ["width", "deconv_width", "f32_weights", "enc_dtype", "layers",
-                                   "state_shape", "not_contiguous"])
+                                   "state_shape", "not_contiguous", "stream_and_enc",
+                                   "f32cond_bf16_w_cond"])
 def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(fault):
     """The checks run before anything touches the card, so they can be held
     here: every fault raises ValueError and no launch is counted."""
-    width = 32 if fault == "width" else W
-    DW = 96 if fault == "deconv_width" else 64
+    width = 48 if fault == "width" else W  # the kernel is compiled for 32, 64, 128 and 256
+    DW = 100 if fault == "deconv_width" else 64  # not a multiple of 8
     rng = np.random.RandomState(6)
     t = lambda *shape: torch.from_numpy(rng.randn(*shape).astype(np.float32))
     x, enc = t(8, 2, width), t(8, 2, DW).to(torch.bfloat16)
     sw = {"w_tap": t(3, 3, width, width), "b": t(3, width), "w_cond": t(3, DW, width),
           "b_cond": t(3, width), "w_res": t(3, width // 2, width), "b_res": t(3, width)}
-    if fault != "f32_weights":
+    if fault != "f32_weights":  # an f32 w_tap under compact=True
         sw = tfk.compact_weights(sw)
-    state, n_layers = None, 2
-    if fault == "enc_dtype":
+    state, s, n_layers, kw = None, 0, 2, {}
+    if fault == "enc_dtype":  # an f32 encoding under compact=True
         enc = enc.float()
     elif fault == "layers":
-        n_layers = 3  # more than num_stages = 2
+        s = 2  # layers 2 and 3 of a flow of 3
     elif fault == "state_shape":
         state = torch.zeros((5, 2, width))
     elif fault == "not_contiguous":
         x = t(2, 8, width).transpose(0, 1)
+    elif fault == "stream_and_enc":
+        kw["cond"] = t(8, 2, n_layers * width).to(torch.bfloat16)
+    elif fault == "f32cond_bf16_w_cond":
+        kw["compact"], enc = False, enc.float()
     before = tfk.flow_stack.launches
     with pytest.raises(ValueError):
-        tfk._flow_stack_cuda(x, enc, sw, 0, n_layers, 2, state)
+        tfk._flow_stack_cuda(x, enc, sw, s, n_layers, 2, state, **kw)
     assert tfk.flow_stack.launches == before

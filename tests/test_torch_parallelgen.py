@@ -3,6 +3,7 @@ version) against the JAX package (Pallas in interpret mode): the fused
 feed-forward, the committed golden student, the streamer and the eval
 entry points."""
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -14,11 +15,14 @@ import numpy as np
 import pytest
 import torch
 
+from nsynth_wavenet_tpu import config as jconfig
 from nsynth_wavenet_tpu.models import parallelgen as jparallelgen
+from nsynth_wavenet_tpu.models.parallel_wavenet import ParallelWavenet as JParallelWavenet
 from nsynth_wavenet_tpu_torch import config as tconfig
 from nsynth_wavenet_tpu_torch import weights
 from nsynth_wavenet_tpu_torch.data import wav_io
-from nsynth_wavenet_tpu_torch.evaluation import generate_parallel_wavenet, generate_wavenet
+from nsynth_wavenet_tpu_torch.evaluation import (discover_files, generate_parallel_wavenet,
+                                                 generate_wavenet, load_mel_batch)
 from nsynth_wavenet_tpu_torch.models import parallelgen
 from nsynth_wavenet_tpu_torch.models.parallel_wavenet import ParallelWavenet
 from nsynth_wavenet_tpu_torch.ops import flow_kernel as tfk
@@ -195,17 +199,34 @@ def test_eval_entry_points_refuse_the_other_model(tmp_path):
                          str(tmp_path / "b"), device="cpu")
 
 
-def test_f32_student_is_refused_on_the_card_up_front(tmp_path):
-    """The CUDA flow kernel implements the bf16 mode only: the entry point
-    says so before it loads anything, whether or not a card is present."""
+def test_generate_parallel_wavenet_serves_an_f32_student_like_jax(tmp_path):
+    """The eval entry point on an f32 config (the golden with compute_dtype
+    float32; the card serves it through the f32-conditioning kernel) writes
+    finite wavs, equal up to the 16-bit wav rounding and a quantisation bin to
+    the JAX package's fused path on the same noise and the same mels."""
     with open(os.path.join(student_dir(), "meta.json")) as f:
         meta = json.load(f)
     meta["config"]["compute_dtype"] = "float32"
-    cfg = tmp_path / "meta.json"
-    cfg.write_text(json.dumps(meta))
-    with pytest.raises(NotImplementedError, match="bfloat16 students only"):
-        generate_parallel_wavenet(str(tmp_path), str(tmp_path / "none.npz"), str(cfg),
-                                  str(tmp_path / "gen"), device="cuda")
+    cfg_path = tmp_path / "meta.json"
+    cfg_path.write_text(json.dumps(meta))
+    src = _source_wavs(tmp_path)
+    out = generate_parallel_wavenet(src, os.path.join(student_dir(), "params.npz"), str(cfg_path),
+                                    str(tmp_path / "gen"), batch_size=2, seed=3, device="cpu",
+                                    sample_length=2400)
+    got = np.stack([wav_io.read_wav(p)[0] for p in out])
+    assert got.shape == (2, 2592) and np.isfinite(got).all() and np.abs(got).max() > 0
+
+    pwn = ParallelWavenet(tconfig.load_config(str(cfg_path)))
+    assert pwn.dtype is None  # f32 compute
+    mel = load_mel_batch(discover_files(src), 2400)
+    x = pwn.base_noise(torch.Generator().manual_seed(3), 2, 2592, "cpu").numpy()
+    jpwn = JParallelWavenet(jconfig.ParallelWavenetConfig(**dataclasses.asdict(pwn.cfg)))
+    _, jparams, _ = load_golden("student")
+    want = np.asarray(jpwn._clip_quant_scale(jparallelgen.feed_forward_pallas(
+        jpwn, jparams, {"mel": jnp.asarray(mel), "base_x": x}, interpret=True)["x"]))
+    # readings: 9.2e-5 (a bin of 2 / 65536 where a value sits on an edge, and
+    # the wav's 1 / 32768)
+    np.testing.assert_allclose(got, want, atol=5e-4, rtol=0)
 
 
 def test_student_eval_cli(tmp_path):
