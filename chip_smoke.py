@@ -16,9 +16,16 @@ them.  Phases, each fatal on failure:
      numpy wavs -> mel -> deconv on the card -> Fastgen.generate_cuda, sampled;
      kernel launch counts; the phase 2 checks again at B = 64 and 512,
      L = 48; step time, and per-kernel timings against the plain version,
-     cuBLAS and the card's bound;
+     cuBLAS and the card's bound; the persistent kernel's grid, blocks per SM,
+     registers, spills, shared memory and one barrier's cost; the launches of
+     a call, counted where the wrapper enqueues them and shown by a profile,
+     must each be one persistent launch, and the grid barriers the kernel
+     counted 2 * NL + 3 a step;
   6. evaluation.generate_wavenet over two wavs with the golden tiny_mol weights;
   7. a golden free run that must track its conditioning;
+ 32. (after phase 7) PyTorch's default TF32 settings: generate_wavenet's
+     encoding of the f32 golden tiny_mol equal bit for bit to the deconv with
+     TF32 off, under cudnn.deterministic;
   8. the CUDA flow-stack kernel against its plain PyTorch version at the full
      width of configs/parallel_wavenet.json (10 layers, dilations 1..512, width
      64, deconv width 256), random weights from a seed: one-shot at B = 8 x
@@ -55,7 +62,8 @@ while the teacher is on the card:
      (chunk 500) at B = 64 equal to the one-shot run on the same encoding;
      launch counts by mode;
  16. W8A8 step time and per-kernel timings against the plain version,
-     torch._int_mm on the same products and the card's int8 bound;
+     torch._int_mm on the same products and the card's int8 bound, at
+     B = 64, 512 and the JAX package's shipped batch 896;
  17. a golden W8A8 free run that must track its conditioning;
  18. evaluation.generate_wavenet(int8, int8_static, streaming_chunk) over two wavs.
 Phases 19 to 26 cover the calibration-free W8A8 modes (per-row log8
@@ -116,8 +124,10 @@ follow phase 11:
  31. a width-128 student (configs/parallel_wavenet.json with width 128) through
      synthesize_cuda at B = 8 x 1 s against the same path on the plain kernel;
      one 10-layer call timed at widths 32, 64, 128 and 256.
-The last line is {"ok": true, "device": {...}}; the line before it holds the
-per-kernel JSON record.
+Every teacher generate call is one cooperative launch of the persistent
+kernel fastgen_persistent (after quant_enc_kernel in the int8 modes).
+Phases other than 32 run with TF32 off.  The last line is {"ok": true,
+"device": {...}}; the line before it holds the per-kernel JSON record.
 """
 
 import contextlib
@@ -141,7 +151,7 @@ from nsynth_wavenet_tpu_torch.kernels import build
 from nsynth_wavenet_tpu_torch.models import parallelgen
 from nsynth_wavenet_tpu_torch.models.fastgen import Fastgen
 from nsynth_wavenet_tpu_torch.models.parallel_wavenet import ParallelWavenet
-from nsynth_wavenet_tpu_torch.models.wavenet import Wavenet
+from nsynth_wavenet_tpu_torch.models.wavenet import Wavenet, no_tf32
 from nsynth_wavenet_tpu_torch.ops import fastgen_kernel as fk
 from nsynth_wavenet_tpu_torch.ops import flow_kernel as flk
 from nsynth_wavenet_tpu_torch.ops import stft
@@ -154,6 +164,7 @@ PEAK_F32_FLOPS = 67e12  # FMA on the CUDA cores, not the tensor cores' TF32
 PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 MAIN_BATCHES = (64, 512)
+SHIPPED_BATCH = 896  # the JAX package's shipped W8A8 serving batch (BENCH_r05.json)
 MAIN_LENGTH = 2000
 TIMED_STEPS = 128
 CHECK_STEPS = 48  # kernel-vs-plain length at the main path's batches
@@ -424,31 +435,81 @@ def time_kernel(cfg, kw, enc_t, seed):
 
 def kernel_breakdown(kw, enc_t, seed):
     """Device time per CUDA kernel over one generate call, by torch.profiler:
-    {kernel name: (launches, mean µs)}, plus the call's wall time in µs."""
+    {kernel name: (launches, mean µs)}, the call's wall time in µs, and the
+    launches the wrapper counted at the C entry point in that call.  A call
+    is one launch of fastgen_persistent, after one quant_enc_kernel in the
+    int8 modes.  The profiler keeps only kernels that start and end inside
+    its window, as it places them on the host's clock, and that placement
+    has been seen to drift by milliseconds in a long process: the call
+    therefore sits between two quarter seconds of idle inside the window."""
     from torch.profiler import ProfilerActivity, profile
 
     fk.generate(kw, enc_t, seed)
     torch.cuda.synchronize()
+    fk.generate.kernel_launches = dict.fromkeys(fk.KERNEL_NAMES, 0)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.25)
         t0 = time.time()
         fk.generate(kw, enc_t, seed)
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.time() - t0)
+        time.sleep(0.25)
+    counted = {k: n for k, n in fk.generate.kernel_launches.items() if n}
     out = {}
-    names = "gate_kernel_i8|resskip_kernel_i8|quant_enc_kernel|gate_kernel|resskip_kernel|head_kernel"
+    names = "|".join(fk.KERNEL_NAMES)
     for evt in prof.key_averages():
         # a whole identifier, then its template arguments, its parameters or the end
         found = re.search(rf"\b({names})(?=[<(]|$)", evt.key)
         if found is not None:
             total = getattr(evt, "device_time_total", None) or evt.cuda_time_total
             out[found.group(1)] = (evt.count, total / max(evt.count, 1))
-    return out, wall_us
+    return out, wall_us, counted
+
+
+_BARRIER_US = {}
+
+
+def barrier_us(grid):
+    """Microseconds of one empty grid barrier on ``grid`` blocks: one
+    cooperative launch of 2000 barriers, timed by CUDA events."""
+    if grid not in _BARRIER_US:
+        iters = 2000
+        _BARRIER_US[grid] = 1e3 * cuda_ms(lambda: fk.barrier_probe(grid, iters)) / iters
+    return _BARRIER_US[grid]
+
+
+def log_launch(label, cfg, kw, B):
+    """The persistent kernel's launch at batch B, as the wrapper plans it:
+    grid, blocks per SM, registers and spills, shared memory, and one empty
+    barrier's cost.  Returns the launch info."""
+    mode = fk.kernel_mode(kw)
+    _, out_pad = fk.head_layout(cfg)
+    sched, info = fk.launch_plan(cfg.width, cfg.gate_width, cfg.skip_width, cfg.deconv_width, out_pad,
+                                 B, mode, "cuda")
+    info.update(barrier_us=barrier_us(info["grid"]), smem_bytes=sched.smem_bytes)
+    log(f"launch {label} B={B}: grid {info['grid']} ({info['blocks_per_sm']} blocks/SM x "
+        f"{info['sms']} SMs, {fk.THREADS} threads), {info['registers']} registers and "
+        f"{info['spill_bytes']} B of local memory (spills) a thread, shared memory "
+        f"{sched.smem_bytes} B dynamic ({sched.stage_bytes} B a weight stage, "
+        f"{fk.OPERAND_SLOTS} x "
+        f"{sched.slot_bytes} B operand slots) + {info['static_smem']} B static; items a step: "
+        + ", ".join(f"{ph} {len(v)}" for ph, v in sched.items.items())
+        + f"; one empty grid barrier {info['barrier_us']:.3f} us")
+    return info
 
 
 def log_timing(label, cfg, kw, enc, tm):
-    """The timing line and the profile line of one mode at one batch."""
+    """The launch line, the timing line and the profile line of one mode at
+    one batch.  The profiled call must be one persistent launch after one
+    pre-pass in the int8 modes, exactly, as counted where the C entry point
+    enqueues them, and the profile may show no launch beyond those; the grid
+    barriers the kernel counted must be 2 * NL + 3 a step.  The profile is
+    not held to show every launch: in this long process torch.profiler has
+    lost the int8 calls' kernels (the pre-pass, or all of them) in most runs,
+    as it lost launches of the per-layer kernels' int8 calls before."""
     B = enc.shape[1]
     mode = fk.kernel_mode(kw)
+    info = log_launch(label, cfg, kw, B)
     _, ops, weight_bytes, ring_bytes = step_counts(cfg, B, cfg.out_width, mode)
     library = " + ".join(dict.fromkeys("cuBLAS" if k == "bf16" else "torch._int_mm" for k in mode))
     log(f"timing {label} B={B} {TIMED_STEPS} steps: kernel {tm['ms']:.3f} ms "
@@ -458,12 +519,30 @@ def log_timing(label, cfg, kw, enc, tm):
         f"{tm['stream_bound_ms']:.3f} ms; per step {ops / 1e9:.2f} G operations, "
         f"{weight_bytes / 1e6:.1f} MB weights, {ring_bytes / 1e6:.2f} MB ring")
     steps = 16
-    kernels, wall_us = kernel_breakdown(kw, enc[:steps].contiguous(), seed=1)
+    want = {"fastgen_persistent": 1, **({} if mode.act == "bf16" else {"quant_enc_kernel": 1})}
+    for attempt in range(3):  # a profile that lost a kernel is taken again, at most twice
+        kernels, wall_us, counted = kernel_breakdown(kw, enc[:steps].contiguous(), seed=1)
+        shown = {k: n for k, (n, _) in kernels.items()}
+        if shown == want:
+            break
+        log(f"profile {label} B={B} attempt {attempt + 1} shows {shown}, want {want}")
+    barriers = fk.barriers_counted()
     busy = sum(n * us for n, us in kernels.values())
-    log(f"profile {label} B={B} {steps} steps: " + ", ".join(
+    log(f"profile {label} B={B} one call of {steps} steps: " + ", ".join(
         f"{k} {n} x {us:.1f} us" for k, (n, us) in sorted(kernels.items()))
-        + f"; device busy {busy / steps:.1f} us/step of {wall_us / steps:.1f} us/step wall")
-    return kernels
+        + f"; device busy {busy / steps:.1f} us/step of {wall_us / steps:.1f} us/step wall; "
+        f"launches counted by the wrapper {counted}; grid barriers counted by the kernel "
+        f"{barriers:g} a step = {barriers * info['barrier_us']:.1f} us of empty barriers")
+    require(counted == want, f"{label} B={B}: the wrapper launched {counted}, want {want}")
+    require(all(n <= want.get(k, 0) for k, n in shown.items()),
+            f"{label} B={B}: the profile shows {shown}, more than {want}")
+    if shown != want:
+        log(f"profile {label} B={B}: the profiler lost launches; the count at the C entry point "
+            f"holds them")
+    require(barriers == fk.barriers_per_step(cfg),
+            f"{label} B={B}: {barriers} grid barriers a step, want {fk.barriers_per_step(cfg)}")
+    info["barriers_per_step"] = barriers
+    return info
 
 
 def calibrated_w8a8(model, params, wavs):
@@ -690,7 +769,7 @@ def w8a8_phases(model, params, kw_bf16, gmodel, gparams, gdir, mels):
         log(f"W8A8 main path B={B} L={MAIN_LENGTH}: {dt:.3f} s, {1e6 * dt / MAIN_LENGTH:.1f} us/step, "
             f"{B * MAIN_LENGTH / 16000 / dt:.2f} audio-sec/s, audio std {float(audio.std()):.4f}")
     log(f"W8A8 main path kernel launches: generate {launches}, by mode {by_mode} "
-        f"({2 * cfg.num_layers + 1} CUDA launches per step each, and one pre-pass per call)")
+        f"(one persistent launch a call, after the conditioning pre-pass)")
     require(launches == len(MAIN_BATCHES) and by_mode == {"bf16": 0, "w8a8": launches},
             "the W8A8 main path did not go through the int8 kernels alone")
     # streamed against one-shot on one encoding: the kernels are deterministic, but cuDNN's
@@ -718,18 +797,10 @@ def w8a8_phases(model, params, kw_bf16, gmodel, gparams, gdir, mels):
 
     # ---- 16. timing ----
     timings = {}
-    for B in MAIN_BATCHES:
+    for B in MAIN_BATCHES + (SHIPPED_BATCH,):  # and the JAX package's shipped serving batch
         enc = conditioning(model, params, B=B, L=TIMED_STEPS, seed=10 + B)
         timings[B] = time_kernel(cfg, kw, enc, seed=1)
-        kernels = log_timing("w8a8", cfg, kw, enc, timings[B])
-        if "gate_kernel_i8" in kernels:
-            # every 64-row batch tile reads the layer's int8 w_comb again: 33 MB in all, inside the 50 MB L2
-            tiles = -(-B // 64)
-            layer_bytes = kw["w_comb"][0].numel()
-            us = kernels["gate_kernel_i8"][1]
-            log(f"  gate_kernel_i8 B={B}: {tiles} batch tiles x {layer_bytes / 1e6:.2f} MB of int8 "
-                f"weights per launch = {tiles * layer_bytes / us / 1e6:.2f} TB/s read by the blocks "
-                f"(HBM peak {PEAK_HBM_BYTES / 1e12:.2f} TB/s)")
+        log_timing("w8a8", cfg, kw, enc, timings[B])
 
     # ---- 17. golden W8A8 free run tracks its conditioning ----
     n = gwavs.shape[1]
@@ -929,7 +1000,7 @@ def row_phases(model, params, kw_bf16, kw_static, amax, gmodel, gparams, gdir, m
             f"{1e6 * dt / MAIN_LENGTH:.1f} us/step, {B * MAIN_LENGTH / 16000 / dt:.2f} audio-sec/s, "
             f"audio std {float(audio.std()):.4f}")
     log(f"W8A8 row main path kernel launches: generate {launches}, by mode {by_mode} "
-        f"({2 * cfg.num_layers + 1} CUDA launches per step each, and one pre-pass per call)")
+        f"(one persistent launch a call, after the conditioning pre-pass)")
     require(launches == len(MAIN_BATCHES)
             and by_mode == {"bf16": 0, "w8a8": 0, "w8a8_row": launches},
             "the calibration-free main path did not go through the per-row int8 kernels alone")
@@ -1039,6 +1110,55 @@ def mel_corr(audio, mels, n):
             c = np.corrcoef(gen.ravel(), mels[j, : gen.shape[0]].ravel())[0, 1]
             (matched if i == j else mismatched).append(c)
     return float(np.mean(matched)), float(np.mean(mismatched))
+
+
+def tf32_phase(gdir):
+    """Phase 32: PyTorch's default TF32 settings (cuDNN convolutions may use
+    TF32, matmuls not) for the phase's duration, cuDNN deterministic.
+    evaluation.generate_wavenet on the f32 golden tiny_mol must upsample its
+    mels exactly as the deconv stack does with TF32 off, bit for bit; the
+    same deconv with TF32 allowed is logged beside it."""
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cudnn.deterministic = True
+    seen, orig = [], Wavenet.deconv_stack
+
+    def recording(self, params, mel):
+        enc = orig(self, params, mel)
+        seen.append((self, params, mel.clone(), enc.clone()))
+        return enc
+
+    try:
+        Wavenet.deconv_stack = recording
+        with tempfile.TemporaryDirectory() as tmp:
+            src = os.path.join(tmp, "src")
+            os.makedirs(src)
+            for i in (0, 1):
+                wav, _ = wav_io.read_wav(os.path.join(GOLDEN, f"gen_golden_mol_{i}.wav"))
+                wav_io.write_wav(os.path.join(src, f"utt_{i}.wav"), wav)
+            generate_wavenet(src, os.path.join(gdir, "params.npz"), os.path.join(gdir, "meta.json"),
+                             os.path.join(tmp, "gen"), batch_size=8, seed=0, device="cuda",
+                             sample_length=4000)
+        Wavenet.deconv_stack = orig
+        require(len(seen) == 1 and seen[0][0].cfg.compute_dtype == "float32",
+                f"generate_wavenet upsampled {len(seen)} batches of an f32 golden")
+        require((torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) == (True, False),
+                "generate_wavenet did not give the caller's TF32 settings back")
+        model, params, mel, enc = seen[0]
+        with no_tf32():
+            want = model.deconv_stack(params, mel)
+        tf32 = model.deconv_stack(params, mel)  # TF32 allowed, as the default lets cuDNN
+        same = bool(torch.equal(enc, want))
+        log(f"TF32 defaults: generate_wavenet's encoding of the f32 golden {tuple(enc.shape)} equal to the "
+            f"TF32-off deconv bit for bit: {same} (max|d| {float((enc - want).abs().max()):.3e}); the "
+            f"same deconv with TF32 allowed parts by {float((tf32 - want).abs().max()):.3e}")
+        require(same, "the f32 teacher's eval path upsampled with TF32 on")
+    finally:
+        Wavenet.deconv_stack = orig
+        (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.deterministic) = saved
 
 
 def golden_model():
@@ -1824,7 +1944,7 @@ def main():
         log(f"main path B={B} L={MAIN_LENGTH}: {dt:.3f} s, {1e6 * dt / MAIN_LENGTH:.1f} us/step, "
             f"{B * MAIN_LENGTH / 16000 / dt:.2f} audio-sec/s, audio std {float(audio.std()):.4f}")
     log(f"main path kernel launches: generate {launches}, by mode {fk.generate.launches_by_mode} "
-        f"({2 * cfg.num_layers + 1} CUDA launches per step each)")
+        f"(one persistent launch a call)")
     require(launches > 0 and fk.generate.launches_by_mode == {"bf16": launches, "w8a8": 0},
             "the main path did not launch the bf16 CUDA kernels")
 
@@ -1836,11 +1956,11 @@ def main():
                               seed=8, rel_tol=FULL_WIDTH_REL_TOL)
         full_err = max(full_err, err)
 
-    timings = {}
+    timings, launch = {}, {}
     for B in MAIN_BATCHES:
         enc = conditioning(model, params, B=B, L=TIMED_STEPS, seed=10 + B)
         timings[B] = time_kernel(cfg, kw, enc, seed=1)
-        log_timing("bf16", cfg, kw, enc, timings[B])
+        launch[B] = log_timing("bf16", cfg, kw, enc, timings[B])
 
     # ---- 6. eval CLI path on golden weights ----
     with tempfile.TemporaryDirectory() as tmp:
@@ -1869,6 +1989,9 @@ def main():
     log(f"golden free run mel corr: matched {matched:.4f} mismatched {mismatched:.4f}")
     require(matched > mismatched + 0.05, "golden free run does not track its conditioning")
 
+    # ---- 32. the f32 teacher's eval path under PyTorch's default TF32 settings ----
+    tf32_phase(gdir)
+
     del main_runs
     kw_static, amax, w8a8_record = w8a8_phases(model, params, kw, gmodel, gparams, gdir, mels)
     row_record = row_phases(model, params, kw, kw_static, amax, gmodel, gparams, gdir, mels)
@@ -1894,6 +2017,9 @@ def main():
         "bound_ms": big["bound_ms"],
         "bound_by": big["bound_by"],
         "library_ms": big["library_ms"],
+        "grid": launch[MAIN_BATCHES[-1]]["grid"],
+        "barriers_per_step": launch[MAIN_BATCHES[-1]]["barriers_per_step"],
+        "barrier_us": launch[MAIN_BATCHES[-1]]["barrier_us"],
     }, flow_rec, w8a8_record, row_record, *mode_records]}
     log(f"timed call: B={MAIN_BATCHES[-1]}, {TIMED_STEPS} steps, full width; "
         f"total {time.time() - T_START:.1f} s")

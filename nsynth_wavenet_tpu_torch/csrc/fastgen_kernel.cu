@@ -54,57 +54,72 @@
 // multiplies and adds are kept unfused (__fmul_rn, __fadd_rn) so that they
 // round where the plain version rounds.
 //
-// Design (simple and right first):
-//   gate kernels    one launch per layer: a 64-row x (16 sigmoid + 16 tanh)
-//                   column tile, so the gate is formed in the epilogue; the
-//                   stacked operand is gathered on the fly from the two ring
-//                   rows, l and enc(t).  K = 3W+DW is split over 256-wide
-//                   slices, one block each, so that a block walks 4 chunks
-//                   instead of 28; the last block of a tile to finish sums
-//                   the slices' partial tiles in slice order (deterministic),
-//                   adds the bias and forms the gate.  gate_kernel is the bf16
-//                   product (WMMA 16x16x16), gate_kernel_i8 the int8 one
-//                   (mma.sync.m16n8k32.s8, int32 sums).  The int8 matrices are
-//                   stored with four consecutive k of a column in one 32-bit
-//                   word ([K/4, N, 4]), the B-fragment layout of that
-//                   instruction.  K slices never straddle two sums that
-//                   dequantise differently (ACT_STATIC: the 3W part and the
-//                   enc part; ACT_ROW: each of the four segments is sliced on
-//                   its own), and the partial tiles are int32, so their sums
-//                   are exact in any order.
-//   res/skip kernels one launch per layer: 64x64 tiles of gate @ w_rs
-//                   (resskip_kernel bf16, resskip_kernel_i8 int8); one
-//                   epilogue (rs_epilogue) for both writes the PRE-residual l
-//                   to ring slot t mod 2d (the slot the gate launch just read
-//                   as the t-2d tap, so the read finishes before the write by
-//                   stream order), updates l and s, and leaves the next
-//                   layer's operand in the ring's type.
-//   row maxima      no block sees a whole row of the gate (16 column tiles)
-//                   or of l (8 column tiles), so a per-row quantiser cannot
-//                   sit in the producer's epilogue.  The producer writes f32
-//                   values, and each of its blocks stores the maximum of its
-//                   tile's share of a row in a slot of its own ([tiles, B] f32
-//                   per layer; max is exact in any order, nothing is atomic and
-//                   nothing needs a reset).  The consumer takes the maximum
-//                   over a row's slots once per block, before its product, and
-//                   quantises its A operand while loading it (each res/skip
-//                   block reads all m of its 64 gate rows, each gate block its
-//                   K slice of l); the res/skip epilogue quantises the same l
-//                   once more for the ring row.  Every reader derives the same
-//                   code from the same maximum, so the ring holds exactly what
-//                   the gate product read.
-//   head_kernel     one launch per step, 16 batch rows per block: out head,
-//                   sampler (Philox4x32-10 keyed by seed, t0 + t, row, lane),
-//                   decode, feedback, then conv_start and skip_start of the
-//                   next step and layer 0's operand (bf16 l, static int8 l, or
-//                   the row maximum of l).
-//   quant_enc_kernel  int8 pre-pass, once per call: enc [L, B, DW] bf16 ->
-//                   int8 rows and their f32 scales (a warp per row).
-// The time and layer loops live in fastgen_generate: one host call per
-// utterance or chunk enqueues 2*NL+1 launches per step on PyTorch's current
-// stream, in every mode.  Streaming: the ring and the three input taps come in
-// and go out as state, and every ring phase and random counter runs on
-// t0 + t, so chained calls repeat the one-shot call's arithmetic bit for bit.
+// Design: one persistent cooperative launch per call.
+//   The time loop and the layer loop run on the card.  fastgen_persistent is
+//   launched once per generate call (cudaLaunchCooperativeKernel, grid = the
+//   blocks that fit at once: occupancy x SM count), after quant_enc_kernel in
+//   the int8 modes.  Each step runs its phases in order, a grid-wide barrier
+//   between each two that depend on each other:
+//     gate_i, rs_i for every layer i (layer 0's gate phase also forms
+//     s = skip_start(l)), out1, out2, then sample + start (the sampler,
+//     decode and feedback, and conv_start of the next step with layer 0's
+//     operand): 2 * NL + 3 barriers a step.
+//   The barrier (grid_barrier) is a count in global memory that only grows:
+//   a block adds one (after a fence) and waits until the count reaches
+//   (barriers passed) x grid.  It is zeroed once per call by the wrapper, so
+//   chained chunk calls start clean.
+//   Work table.  ops/fastgen_kernel.py schedule builds it on the host, and
+//   every block copies it to shared memory at the start: every phase's
+//   product is cut into items, an item being a slice of the layer's weight
+//   columns (gate: 32 sigmoid + the 32 matching tanh columns; res/skip: 32;
+//   out1, out2, skip_start: 16 columns), a range of
+//   128-row tiles and, for the gate product, a K slice that never straddles
+//   two sums that dequantise apart (ACT_STATIC: the 3W part and the enc part;
+//   ACT_ROW: tap t-2d, tap t-d, l and enc; 512 operand bytes a row).  Item j
+//   of a phase belongs to block j mod grid.  Where the blocks are enough, an
+//   item walks every batch row, so each weight byte is read by one block,
+//   once a step; where blocks would idle (a large batch), its rows are cut
+//   into up to 4 groups, and a weight slice is read by as many blocks, while
+//   the batch rows, which then outweigh the weights many times, are read by
+//   fewer.
+//   Weight stages.  A block's slice of a phase's weights (at most 24 KB at
+//   full width) sits in one of two shared-memory stages.  Before it arrives
+//   at a barrier, the block starts the copy of its slice of the NEXT phase
+//   into the other stage (cp.async, 16-byte pieces: a slice is rows of 32 or
+//   64 contiguous bytes, too short for a bulk copy each), so the weight stream
+//   overlaps the wait.  The batch rows' operand comes through a ring of
+//   4 chunks of 128 rows x 128 bytes (cp.async, zero-filled past B) that runs on
+//   across the item's row tiles; an f32 operand (ACT_ROW's l, RS_ROW's gate)
+//   is quantised from its chunk into an int8 tile in shared memory.  The
+//   epilogues' own operands (bias, scales, the old l or s) are loaded when a
+//   tile's first chunk arrives, so no epilogue waits on a round trip.
+//   Tensor cores: bf16 WMMA 16x16x16 and int8 mma.sync.m16n8k32.s8 on the
+//   [K/4, N, 4] k4 weights, the fragment layouts of the per-layer kernels
+//   before; a block (8 warps) takes a tile of 128 rows, one 16-row band a warp.  wgmma needs a
+//   64-row band per warpgroup and a shared-memory operand layout of its own;
+//   with 16 or 32 columns an item it would not raise a rate that the operand
+//   stream bounds (every block reads every row), so it is left out.
+//   Split K: a gate item stores its partial 128 x 32 tiles ([column item, row
+//   tile, slice] f32, or int32 in the int8 modes) without waiting; then the
+//   item's slices meet once (a count per column item that only grows), and
+//   slice z sums batch rows z, z + nsplit, ... over all slices in slice order,
+//   so the result does not depend on timing, adds the bias, dequantises
+//   (int8: the segments' sums apart) and forms the gate.
+//   Row maxima: the producer items store the maximum of their share of a row
+//   in a slot of their own ([items, B] f32 per layer), nothing atomic; after
+//   the barrier every block that needs a row's scale takes the maximum over
+//   its slots, for all B rows at once, at the start of the phase, into two
+//   [B] f32 arrays in shared memory for each per-row scale (l's code and
+//   multiplier, the gate's scale and multiplier).  They cap B in those modes
+//   (ops/fastgen_kernel.py launch_plan raises past SMEM_LIMIT); the bf16 and
+//   static modes take any B.
+//   Epilogues: res/skip writes the PRE-residual l to ring slot t mod 2d (the
+//   gate phase read it as the t-2d tap before the barrier), l += rs[:W],
+//   s += rs[W:], the next layer's operand in the ring's type, and after the
+//   last layer bf16(relu(s)) for out1.
+// Streaming: the ring and the three input taps come in and go out as state,
+// and every ring phase and random counter runs on t0 + t, so chained calls
+// repeat the one-shot call's arithmetic bit for bit.
 //
 // Bound per step (MoL teacher, W=512, GW=512, S=256, DW=256, NL=30):
 //   operations 2 * B * 33.4 M (w_comb 30*1792*512 + w_rs 30*256*768 + head);
@@ -116,12 +131,11 @@
 //   ~46 KB * B of int8 ring traffic (one more byte per ring row in ACT_ROW);
 //   at 1979 TOP/s int8 the layer products take half the bf16 time, so the
 //   weight stream (~10 us) bounds B < ~600.
-// Measured on an H100 (chip_smoke.py, see PERF.md): every mode runs far above
-// these bounds: the step is 61 latency-bound launches.  Left on the table:
-// every 64-row batch tile re-reads the layer's weights, the head runs on B/16
-// blocks, the K loop is register-double-buffered but has no cp.async/TMA
-// pipeline, and no wgmma.  A persistent whole-utterance kernel with TMA-fed
-// wgmma, and CUDA graphs of the launches, are later work.
+// What holds this design back (PERF.md has the measurements): each item
+// re-reads its rows' operand from L2 (the gate's 8 column items, res/skip's
+// 24), which bounds a large batch; every phase is a chain of dependent L2
+// round trips (operand wait, split-K meeting and reduction, barrier), which
+// bounds a small one; 2 * NL + 3 barriers a step; one block of 8 warps an SM.
 
 #include "fastgen_kernel.cuh"
 
@@ -179,11 +193,6 @@ __device__ __forceinline__ int log8_code(float amax, const Log8& t) {
   return e - (e > LOG8_MIN && below >= x) + (e < LOG8_MAX && at < x);
 }
 
-// Row maxima across tiles.  No block sees a whole row of the gate or of l, so
-// every producer block stores the maximum of its tile's share of a row in a
-// slot of its own, [tiles, B] f32 per layer, and a consumer takes the maximum
-// over a row's slots (max is exact in any order).  Every slot is written anew
-// in every step before it is read, so nothing is reset and nothing is atomic.
 // In the epilogues below a tile row is owned by LANES neighbouring lanes, a
 // share of its columns each: lanes_max gives all of them the row's maximum.
 template <int LANES>
@@ -193,22 +202,32 @@ __device__ __forceinline__ float lanes_max(float mx) {
   return mx;
 }
 
-__device__ __forceinline__ float row_max(const float* __restrict__ slots, int tiles, int B, int b) {
-  float mx = 0.0f;
-  for (int t = 0; t < tiles; ++t) mx = fmaxf(mx, __ldg(slots + (size_t)t * B + b));
-  return mx;
+// ---------------------------------------------------------------------------
+// int8 x int8 -> int32 on mma.sync.m16n8k32
+// ---------------------------------------------------------------------------
+// One warp-level product: C[16, 8] += A[16, 32] @ B[32, 8], s8 operands, s32
+// sums.  With g = lane / 4 and q = lane % 4 a thread holds
+//   a[0] = A[g, 4q..4q+3]   a[1] = A[g+8, 4q..4q+3]   a[2], a[3]: columns + 16
+//   b0 = B[4q..4q+3, g]     b1 = B[16+4q..16+4q+3, g]
+//   c[0], c[1] = C[g, 2q], C[g, 2q+1]     c[2], c[3] = C[g+8, 2q], C[g+8, 2q+1]
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+      "{%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // ---------------------------------------------------------------------------
 // gate epilogue: the gate in the res/skip product's operand type
 // ---------------------------------------------------------------------------
 // RS_BF16: bf16.  RS_STATIC: int8 rint(gate * 127); |gate| < 1, so no clip.
-// RS_ROW: f32, and the tile's row maxima stored in the tile's slots gmax[b].
-// A thread owns GATE_OUT consecutive columns of one row, a lane pair the row;
-// every thread of the block calls it.
+// RS_ROW: f32, and the tile's row maxima stored in the item's slots gmax[b].
+// A thread owns GATE_OUT consecutive columns of one row, LPR neighbouring
+// lanes the row; every thread of the block calls it.
 constexpr int GATE_OUT = 8;
 
-template <int RS>
+template <int RS, int LPR>
 __device__ __forceinline__ void store_gate(void* __restrict__ gate, float* __restrict__ gmax,
                                            bool valid, int b, int m, int col,
                                            const float (&gv)[GATE_OUT]) {
@@ -216,8 +235,8 @@ __device__ __forceinline__ void store_gate(void* __restrict__ gate, float* __res
     float mx = 0.0f;
 #pragma unroll
     for (int i = 0; i < GATE_OUT; ++i) mx = fmaxf(mx, fabsf(gv[i]));
-    mx = lanes_max<2>(mx);
-    if (valid && threadIdx.x % 2 == 0) gmax[b] = mx;
+    mx = lanes_max<LPR>(mx);
+    if (valid && threadIdx.x % LPR == 0) gmax[b] = mx;
   }
   if (!valid) return;
   const size_t idx = (size_t)b * m + col;
@@ -231,420 +250,1069 @@ __device__ __forceinline__ void store_gate(void* __restrict__ gate, float* __res
 }
 
 // ---------------------------------------------------------------------------
-// gate_kernel: gate[B, m] of one layer, bf16 product
+// layout (mirrored by ops/fastgen_kernel.py schedule)
 // ---------------------------------------------------------------------------
-// Every loop below issues all of a thread's global loads before it uses any
-// of them, and the next K chunk is loaded into registers while the current
-// one is in the tensor cores: a load used right after it is issued would
-// serialize a memory round trip per element.
-constexpr int GA_BM = 64, GA_BN = 16, GA_KC = 64, GA_KSPAN = 256, GA_THREADS = 128;
-constexpr int GA_TILE = GA_BM * 2 * GA_BN;  // floats of one partial tile
-constexpr int GA_LDA = GA_KC + 8;
-constexpr int GA_LDB = 2 * GA_BN + 8;
-constexpr int GA_LDC = 2 * GA_BN + 4;
-constexpr int GA_AV = GA_BM * GA_KC / 8 / GA_THREADS;  // 16-byte A vectors per thread per chunk
-constexpr int GA_BV = GA_KC * 4 / GA_THREADS;          // 16-byte B vectors per thread per chunk
-constexpr int GA_RED = GA_TILE / GA_THREADS;            // partial-tile floats per thread
-constexpr int GA_OUT = GA_BM * GA_BN / GA_THREADS;      // gate values per thread
-static_assert(GA_THREADS == 2 * GA_BM && GA_OUT == GATE_OUT && GA_BN == 2 * GATE_OUT,
-              "the epilogue gives a tile row to a lane pair");
+constexpr int THREADS = 256;  // 8 warps, one 16-row band of a 128-row tile each
+constexpr int TM = 128;       // rows of a tile
+constexpr int KC = 64;        // k of an operand chunk
+constexpr int BN = 16;        // columns of an out1, out2 or skip_start item
+constexpr int RC = 32;        // columns of a res/skip item
+constexpr int RL = RC / 8;    // lanes of a res/skip tile row, 8 columns each
+constexpr int AS_LD = KC + 16;   // bytes of a row of the quantised int8 operand tile
+constexpr int HDR = 16;          // ints of the work table's header
+constexpr int ITEM = 6;          // ints of an item: column item, k_begin, k_end, slice, first and end row tile
+static_assert(THREADS == 2 * TM && TM * BN / THREADS == GATE_OUT, "an epilogue row belongs to a lane pair");
 
-struct GateArgs {
-  const bf16 *tap2, *tap1, *l_bf, *enc, *w;  // ring rows t-2d and t-d, bf16(l), enc(t), w_comb[i]
-  const float* bias;
-  void* gate;       // [B, m] in the RsMode's type
-  float* gmax;      // RS_ROW: [tiles, B] slots of the layer's gate maxima
-  float* part;
-  unsigned* counters;
-  int B, W, DW, GW;
+// work table header (schedule): item counts per phase, the gate's slices, where the slices' segments are
+enum { T_GATE = 0, T_NSPLIT = 1, T_SKIP0 = 2, T_RS = 3, T_OUT1 = 4, T_OUT2 = 5, T_SEGS = 6 };
+enum Phase { PH_GATE = 0, PH_RS = 1, PH_OUT1 = 2, PH_OUT2 = 3 };
+
+__device__ __forceinline__ int phase_count(const int* tab, int ph, int li) {
+  return ph == PH_GATE ? tab[T_GATE] + (li == 0 ? tab[T_SKIP0] : 0)
+       : ph == PH_RS   ? tab[T_RS]
+       : ph == PH_OUT1 ? tab[T_OUT1]
+                       : tab[T_OUT2];
+}
+
+// operand chunk slots (a chunk row is at most 128 bytes: 64 k of bf16 or int8, 32 of f32)
+constexpr int NS = 4;
+
+// A gate item is GNG groups of 16 columns: GC sigmoid columns and the tanh
+// columns m apart; a row of its tile belongs to GLANES neighbouring lanes,
+// GATE_OUT columns each; GTILE words a partial tile.
+constexpr int GNG = 4, GC = GNG * BN / 2, GLANES = GC / GATE_OUT, GTILE = TM * 2 * GC;
+// A gate item's column constants ride at the end of its weight stage, f32
+// [6][GC]: b_comb, s_comb and (ACT_STATIC) s_main of its sigmoid columns,
+// then of its tanh columns, each pair side by side
+constexpr int CST_WORDS = 6 * GC;
+enum { CST_BIAS = 0, CST_SCALE = 2, CST_MAIN = 4 };
+
+// the ITEM ints of item idx of a phase; the gate phase's skip_start items
+// follow its gate items
+__device__ __forceinline__ const int* phase_item(const int* tab, int ph, int idx) {
+  int base = 0;
+  if (ph >= PH_RS) base += tab[T_GATE] + tab[T_SKIP0];
+  if (ph >= PH_OUT1) base += tab[T_RS];
+  if (ph >= PH_OUT2) base += tab[T_OUT1];
+  return tab + HDR + ITEM * (base + idx);
+}
+
+struct Smem {
+  unsigned char* stage[2];  // weight slices: this phase's and the next one's
+  unsigned char* slots;     // NS operand chunks
+  int slot_stride;
+  signed char* As;          // [TM, AS_LD] int8 operand quantised from an f32 chunk
+  float* Cs;                // [TM, GNG * 16 + 4] product tile (f32 or int32)
+  int* l_code;              // ACT_ROW: [B] log8 code of l entering the layer
+  float* l_inv;             // and its multiplier 2^(-code/8)
+  float* g_rg;              // RS_ROW: [B] the gate's row scale amax / 127
+  float* g_mult;            // and its multiplier 127 / amax
+  const int* tab;           // the work table
 };
 
-template <int RS>
-__global__ void __launch_bounds__(GA_THREADS) gate_kernel(const GateArgs g) {
-  __shared__ __align__(32) bf16 As[GA_BM * GA_LDA];
-  __shared__ __align__(32) bf16 Bs[GA_KC * GA_LDB];
-  __shared__ __align__(32) float Cs[GA_BM * GA_LDC];
-  __shared__ float bias_s[2 * GA_BN];
-  __shared__ unsigned is_last;
-  const int B = g.B, W = g.W, DW = g.DW, GW = g.GW;
-  const int m = GW / 2;
-  const int j0 = blockIdx.x * GA_BN;
-  const int row0 = blockIdx.y * GA_BM;
-  const int warp = threadIdx.x / 32;
-  const int K = 3 * W + DW;
-  const int nsplit = gridDim.z;
-  const int k_end = min(K, ((int)blockIdx.z + 1) * GA_KSPAN);
-  if (threadIdx.x < 2 * GA_BN)
-    bias_s[threadIdx.x] = g.bias[threadIdx.x < GA_BN ? j0 + threadIdx.x : m + j0 + threadIdx.x - GA_BN];
+// ---------------------------------------------------------------------------
+// asynchronous copies and the grid barrier
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
 
-  // stacked operand [tap(t-2d) | tap(t-d) | bf16(l) | enc(t)] and the weight
-  // columns j0..j0+15 (sigmoid half) and m+j0..m+j0+15 (tanh half)
-  uint4 ra[GA_AV], rb[GA_BV];
-  auto load_chunk = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < GA_AV; ++i) {
-      const int v = threadIdx.x + i * GA_THREADS;
-      const int b = row0 + v / (GA_KC / 8), k = k0 + (v % (GA_KC / 8)) * 8;
-      const bf16* src = k < W       ? g.tap2 + (size_t)b * W + k
-                        : k < 2 * W ? g.tap1 + (size_t)b * W + (k - W)
-                        : k < 3 * W ? g.l_bf + (size_t)b * W + (k - 2 * W)
-                                    : g.enc + (size_t)b * DW + (k - 3 * W);
-      ra[i] = b < B ? *reinterpret_cast<const uint4*>(src) : make_uint4(0u, 0u, 0u, 0u);
-    }
-#pragma unroll
-    for (int i = 0; i < GA_BV; ++i) {
-      const int v = threadIdx.x + i * GA_THREADS;
-      const int r = v / 4, q = v % 4;
-      const int col = q < 2 ? j0 + q * 8 : m + j0 + (q - 2) * 8;
-      rb[i] = *reinterpret_cast<const uint4*>(g.w + (size_t)(k0 + r) * GW + col);
-    }
-  };
+__device__ __forceinline__ unsigned ld_acquire_u32(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
 
-  FragC acc_sig, acc_tanh;
-  wmma::fill_fragment(acc_sig, 0.0f);
-  wmma::fill_fragment(acc_tanh, 0.0f);
-  load_chunk(blockIdx.z * GA_KSPAN);
-  for (int k0 = blockIdx.z * GA_KSPAN; k0 < k_end; k0 += GA_KC) {
-#pragma unroll
-    for (int i = 0; i < GA_AV; ++i) {
-      const int v = threadIdx.x + i * GA_THREADS;
-      *reinterpret_cast<uint4*>(As + (v / (GA_KC / 8)) * GA_LDA + (v % (GA_KC / 8)) * 8) = ra[i];
-    }
-#pragma unroll
-    for (int i = 0; i < GA_BV; ++i) {
-      const int v = threadIdx.x + i * GA_THREADS;
-      *reinterpret_cast<uint4*>(Bs + (v / 4) * GA_LDB + (v % 4) * 8) = rb[i];
-    }
-    __syncthreads();
-    if (k0 + GA_KC < k_end) load_chunk(k0 + GA_KC);
-#pragma unroll
-    for (int kk = 0; kk < GA_KC; kk += 16) {
-      FragA a;
-      FragB bs, bt;
-      wmma::load_matrix_sync(a, As + warp * 16 * GA_LDA + kk, GA_LDA);
-      wmma::load_matrix_sync(bs, Bs + kk * GA_LDB, GA_LDB);
-      wmma::load_matrix_sync(bt, Bs + kk * GA_LDB + GA_BN, GA_LDB);
-      wmma::mma_sync(acc_sig, a, bs, acc_sig);
-      wmma::mma_sync(acc_tanh, a, bt, acc_tanh);
-    }
-    __syncthreads();
-  }
-  wmma::store_matrix_sync(Cs + warp * 16 * GA_LDC, acc_sig, GA_LDC, wmma::mem_row_major);
-  wmma::store_matrix_sync(Cs + warp * 16 * GA_LDC + GA_BN, acc_tanh, GA_LDC, wmma::mem_row_major);
+__device__ __forceinline__ unsigned long long ld_acquire(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];\n" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// Every block of the grid arrives before any leaves.  count only grows: after
+// the n-th barrier of a call it holds n * gridDim.x, so no reset is needed
+// between barriers, and the wrapper zeroes it once per call.  A wait longer
+// than BARRIER_TIMEOUT clocks (seconds; a barrier takes microseconds) traps,
+// so that a fault shows as a launch error and not as a hung card.
+constexpr long long BARRIER_TIMEOUT = 20000000000LL;
+
+__device__ __forceinline__ void grid_barrier(unsigned long long* count, unsigned long long& target) {
   __syncthreads();
-  if (nsplit > 1) {
-    // publish this slice's partial tile; the last slice to arrive sums all
-    // slices in slice order (deterministic) and forms the gate
-    const unsigned tile = blockIdx.y * gridDim.x + blockIdx.x;
-    float* mine = g.part + ((size_t)tile * nsplit + blockIdx.z) * GA_TILE;
-#pragma unroll
-    for (int i = 0; i < GA_RED; ++i) {
-      const int e = threadIdx.x + i * GA_THREADS;
-      mine[e] = Cs[(e / (2 * GA_BN)) * GA_LDC + e % (2 * GA_BN)];
-    }
+  target += gridDim.x;
+  if (threadIdx.x == 0) {
     __threadfence();
-    __syncthreads();
-    if (threadIdx.x == 0) is_last = atomicAdd(&g.counters[tile], 1u) == (unsigned)nsplit - 1;
-    __syncthreads();
-    if (!is_last) return;
+    atomicAdd(count, 1ull);
+    const long long start = clock64();
+    while (ld_acquire(count) < target)
+      if (clock64() - start > BARRIER_TIMEOUT) __trap();
     __threadfence();
-    const float* tiles = g.part + (size_t)tile * nsplit * GA_TILE;
-    float sum[GA_RED];
-#pragma unroll
-    for (int i = 0; i < GA_RED; ++i) sum[i] = 0.0f;
-    for (int z = 0; z < nsplit; ++z) {
-      float v[GA_RED];
-#pragma unroll
-      for (int i = 0; i < GA_RED; ++i) v[i] = __ldcg(tiles + (size_t)z * GA_TILE + threadIdx.x + i * GA_THREADS);
-#pragma unroll
-      for (int i = 0; i < GA_RED; ++i) sum[i] += v[i];
-    }
-#pragma unroll
-    for (int i = 0; i < GA_RED; ++i) {
-      const int e = threadIdx.x + i * GA_THREADS;
-      Cs[(e / (2 * GA_BN)) * GA_LDC + e % (2 * GA_BN)] = sum[i];
-    }
-    if (threadIdx.x == 0) g.counters[tile] = 0u;  // ready for the next layer
-    __syncthreads();
   }
-  const int r = threadIdx.x / 2, c0 = (threadIdx.x % 2) * GA_OUT, b = row0 + r;
-  float gv[GA_OUT];
-#pragma unroll
-  for (int i = 0; i < GA_OUT; ++i) {
-    const int c = c0 + i;
-    const float xs = Cs[r * GA_LDC + c] + bias_s[c];
-    const float xt = Cs[r * GA_LDC + GA_BN + c] + bias_s[GA_BN + c];
-    gv[i] = (1.0f / (1.0f + expf(-xs))) * tanhf(xt);
-  }
-  store_gate<RS>(g.gate, g.gmax + (size_t)blockIdx.x * B, b < B, b, m, j0 + c0, gv);
+  __syncthreads();
+}
+
+// the grid's share of [p, p + bytes) towards L2 (rows another phase reads soon)
+__device__ __forceinline__ void l2_prefetch(const void* p, size_t bytes) {
+  const char* c = static_cast<const char*>(p);
+  for (size_t off = ((size_t)blockIdx.x * THREADS + threadIdx.x) * 128; off < bytes;
+       off += (size_t)gridDim.x * THREADS * 128)
+    asm volatile("prefetch.global.L2 [%0];\n" ::"l"(c + off));
 }
 
 // ---------------------------------------------------------------------------
-// rs_epilogue: ring write, l += rs[:W], s += rs[W:], the next layer's operand
+// weight stages: a block's slice of a phase's weights, rows of NG * 16 columns
+// padded by 8 (bf16 elements, or 32-bit words of four int8 k)
 // ---------------------------------------------------------------------------
-struct RingOut {
-  void* ring_row;               // slot t mod 2d of this layer: bf16 [B, W], or int8 [B, ring_ld]
-  bf16* l_bf;                   // ACT_BF16: the next layer's bf16 l
-  signed char* q_l;             // ACT_STATIC: this layer's int8 l, replaced by the next layer's
-  const float* inv_next_p;      // ACT_STATIC: the next layer's 127/amax; null for the last layer
-  const float* lmax_cur;        // ACT_ROW: [l_tiles, B] slots of max|l| entering this layer
-  float* lmax_next;             // ACT_ROW: the same for the next layer; null for the last layer
-  int l_tiles;                  // ACT_ROW: W / 64, the res column tiles
-  Log8 log8;                    // ACT_ROW: 2^(k/8), k = 0..7
-  int ring_ld;                  // ACT_ROW: W + ROW_LANES
-};
+template <int NG>
+__host__ __device__ constexpr int w_ld() { return NG * BN + 8; }
 
-struct ResskipArgs {
-  const void* gate;    // [B, m] in the RsMode's type
-  const float* gmax;   // RS_ROW: [g_tiles, B] slots of the gate's row maxima
-  int g_tiles;         // RS_ROW: m / 16, the gate's column tiles
-  const void* w;       // w_rs[i]: bf16 [m, W+S], or int8 [m/4, W+S, 4]
-  const float* s_rs;   // int8: [W+S] column scales
-  const float* bias;
-  float *l, *s;
-  RingOut ring;
-  int B, W, S, m;
-};
+// bf16 [K, ld] rows k0..k1 of NG * 16 columns from col_a, or (PAIR, the gate)
+// of NG * 8 columns from col_a and as many from col_b
+template <int NG, bool PAIR>
+__device__ __forceinline__ void stage_bf16(unsigned char* dst, const bf16* w, int ld, int k0, int k1,
+                                           int col_a, int col_b) {
+  constexpr int VPR = 2 * NG;  // 16-byte pieces a row
+  const int n = (k1 - k0) * VPR;
+  for (int v = threadIdx.x; v < n; v += THREADS) {
+    const int r = v / VPR, p = v % VPR;
+    const int col = PAIR && p >= NG ? col_b + (p - NG) * 8 : col_a + p * 8;
+    cp16(dst + (size_t)r * w_ld<NG>() * 2 + p * 16, w + (size_t)(k0 + r) * ld + col, true);
+  }
+}
 
-// What a 64-row res/skip block needs of each of its rows, worked out once by
-// its first 64 threads before the product (so that neither the slots' loads
-// nor the arithmetic sit in the epilogue, where every instruction of these
-// latency-bound launches shows).
-constexpr int RS_ROWS = 64;
-
-struct RsShared {
-  int code[RS_ROWS];    // ACT_ROW, res tiles: log8 code of l entering this layer
-  float inv[RS_ROWS];   // and its quantising multiplier 2^(-code/8)
-  float rg[RS_ROWS];    // RS_ROW: the gate's row scale amax / 127
-  float mult[RS_ROWS];  // and its quantising multiplier 127 / amax
-};
+// int8 k4 [K/4, ld] words, word rows q0..q1, columns as above
+template <int NG, bool PAIR>
+__device__ __forceinline__ void stage_i8(unsigned char* dst, const uint32_t* w, int ld, int q0, int q1,
+                                         int col_a, int col_b) {
+  constexpr int VPR = 4 * NG;
+  const int n = (q1 - q0) * VPR;
+  for (int v = threadIdx.x; v < n; v += THREADS) {
+    const int r = v / VPR, p = v % VPR;
+    const int col = PAIR && p >= 2 * NG ? col_b + (p - 2 * NG) * 4 : col_a + p * 4;
+    cp16(dst + (size_t)r * w_ld<NG>() * 4 + p * 16, w + (size_t)(q0 + r) * ld + col, true);
+  }
+}
 
 template <int ACT, int RS>
-__device__ __forceinline__ void rs_prepare(RsShared& sh, const ResskipArgs& r, int row0, bool is_l) {
-  if (threadIdx.x < RS_ROWS) {
-    const int b = row0 + threadIdx.x;
-    const bool valid = b < r.B;
-    if (ACT == ACT_ROW && is_l) {
-      const RingOut& ro = r.ring;
-      const int code = valid ? log8_code(row_max(ro.lmax_cur, ro.l_tiles, r.B, b), ro.log8) : 0;
-      sh.code[threadIdx.x] = code;
-      sh.inv[threadIdx.x] = log8_pow(ro.log8, -code);
+__device__ void stage_item(const FastgenArgs& a, const int* tab, int ph, int li, int idx, unsigned char* dst) {
+  const int W = a.W, S = a.S, DW = a.DW, GW = a.GW, m = GW / 2, N = W + S, K = 3 * W + DW;
+  const int* it = phase_item(tab, ph, idx);
+  const int n0 = it[0] * BN;
+  if (ph == PH_GATE && idx < tab[T_GATE]) {
+    const int g0 = it[0] * GC;
+    // the column constants: b_comb, s_comb, s_main rows of GC floats, sigmoid then tanh
+    float* cst = reinterpret_cast<float*>(dst + a.stage_bytes) - CST_WORDS;
+    const float* srcs[3] = {static_cast<const float*>(a.b_comb), static_cast<const float*>(a.s_comb),
+                            static_cast<const float*>(a.s_main)};
+    const int n_src = ACT == ACT_BF16 ? 1 : ACT == ACT_STATIC ? 3 : 2;
+    for (int v = threadIdx.x; v < n_src * 2 * GC / 4; v += THREADS) {
+      const int row = v / (GC / 4), p = v % (GC / 4);  // row: 2 * source + (tanh)
+      cp16(cst + row * GC + p * 4, srcs[row / 2] + (size_t)li * GW + (row % 2) * m + g0 + p * 4, true);
     }
-    if (RS == RS_ROW) {
-      const float amax = valid ? fmaxf(row_max(r.gmax, r.g_tiles, r.B, b), 1e-8f) : 1.0f;
-      sh.rg[threadIdx.x] = __fmul_rn(amax, kInv127);
-      sh.mult[threadIdx.x] = __fdiv_rn(127.0f, amax);
-    }
+    if (ACT == ACT_BF16)
+      stage_bf16<GNG, true>(dst, static_cast<const bf16*>(a.w_comb) + (size_t)li * K * GW, GW, it[1], it[2],
+                            g0, m + g0);
+    else
+      stage_i8<GNG, true>(dst, static_cast<const uint32_t*>(a.w_comb) + (size_t)li * (K / 4) * GW, GW,
+                          it[1] / 4, it[2] / 4, g0, m + g0);
+  } else if (ph == PH_GATE) {
+    stage_bf16<1, false>(dst, static_cast<const bf16*>(a.w_skip0), S, 0, W, n0, 0);
+  } else if (ph == PH_RS) {
+    const int r0 = it[0] * RC;
+    if (RS == RS_BF16)
+      stage_bf16<RC / BN, false>(dst, static_cast<const bf16*>(a.w_rs) + (size_t)li * m * N, N, 0, m, r0, 0);
+    else
+      stage_i8<RC / BN, false>(dst, static_cast<const uint32_t*>(a.w_rs) + (size_t)li * (m / 4) * N, N, 0, m / 4,
+                               r0, 0);
+  } else if (ph == PH_OUT1) {
+    stage_bf16<1, false>(dst, static_cast<const bf16*>(a.w_out1), S, 0, S + DW, n0, 0);
+  } else {
+    stage_bf16<1, false>(dst, static_cast<const bf16*>(a.w_out2), a.out_pad, 0, S, n0, 0);
   }
-  if ((ACT == ACT_ROW && is_l) || RS == RS_ROW) __syncthreads();
+  cp_commit();
 }
 
-// The epilogue of a 64x64 res/skip tile on 128 threads: a thread owns the
-// four columns (tid % 16) * 4 .. + 3 in the RS_GROUPS rows tid / 16 + 8 i, so
-// that 16 neighbouring lanes read and write one row's 256 contiguous bytes.
-constexpr int RS_GROUPS = 8;
+// the block's first item of a phase, into the stage that phase will use
+template <int ACT, int RS>
+__device__ __forceinline__ void prefetch(const FastgenArgs& a, const Smem& sm, int ph, int li, int buf) {
+  if ((int)blockIdx.x < phase_count(sm.tab, ph, li)) stage_item<ACT, RS>(a, sm.tab, ph, li, blockIdx.x, sm.stage[buf]);
+}
 
-__device__ __forceinline__ int rs_tile_row(int i) { return threadIdx.x / 16 + 8 * i; }
-
-struct RsRows {
-  int cc;                  // first of the thread's four columns in the tile
-  bool valid[RS_GROUPS];   // batch row b(i) < B
-  int b[RS_GROUPS];        // batch rows
-  float4 old[RS_GROUPS];   // l (is_l) or s there before this layer
-  float inv_next;          // ACT_STATIC: the next layer's 127/amax (0 for the last layer)
-  float next_mx[RS_GROUPS];  // ACT_ROW: largest |l| leaving this layer over the thread's columns
+// ---------------------------------------------------------------------------
+// run_item: [rows of tiles rt0..rt1, kspan] @ [kspan, NG * 16]
+// ---------------------------------------------------------------------------
+enum SrcKind { SRC_BF16 = 0, SRC_I8 = 1, SRC_F32 = 2 };
+struct Src {
+  const unsigned char* p;  // batch row 0 at the chunk's first column
+  int ld;                  // bytes a batch row
 };
 
-// The thread's rows with what the epilogue needs of them, read before the
-// product so that the latency hides behind the MMAs.
-template <int ACT>
-__device__ __forceinline__ void rs_rows(RsRows& rr, const RingOut& ro, const float* __restrict__ l,
-                                        const float* __restrict__ s, bool is_l, int row0, int n0,
-                                        int B, int W, int S) {
-  rr.cc = (threadIdx.x % 16) * 4;
-  rr.inv_next = ACT == ACT_STATIC && ro.inv_next_p != nullptr ? __ldg(ro.inv_next_p) : 0.0f;
-  const int c = n0 + rr.cc;
-#pragma unroll
-  for (int i = 0; i < RS_GROUPS; ++i) {
-    const int b = row0 + rs_tile_row(i);
-    rr.b[i] = b;
-    rr.valid[i] = b < B;
-    rr.old[i] = b >= B ? make_float4(0.0f, 0.0f, 0.0f, 0.0f)
-                : is_l ? *reinterpret_cast<const float4*>(l + (size_t)b * W + c)
-                       : *reinterpret_cast<const float4*>(s + (size_t)b * S + (c - W));
-    rr.next_mx[i] = 0.0f;
-  }
-}
+// The operand comes in chunks of TM rows x KC columns through NS slots; the
+// chunk sequence runs over the item's row tiles, so the next tile's first
+// chunks are in flight while a tile ends.  The weights are the block's stage
+// wst.  start() runs on every thread once the first chunks are on their way
+// (the phase's own loads; it ends in a barrier of the block if it writes
+// shared memory).  pre(row tile) runs on every thread when a tile's first chunk has
+// arrived (to start the epilogue's own loads early).  After the last chunk of
+// a tile the sums go to sm.Cs ([TM, NG*16 + 4], f32 or int32) and epi(row
+// tile) runs on every thread.  KIND SRC_F32 (int8 product only): each chunk
+// row is quantised with mult[b] into sm.As first.
+template <bool I8, int NG, int KIND, int NS, class SrcFn, class Start, class Pre, class Epi>
+__device__ void run_item(const Smem& sm, int B, int rt0, int rt1, int kspan, const float* mult,
+                         const unsigned char* wst, SrcFn src_of, Start start, Pre pre, Epi epi) {
+  constexpr int LDW = w_ld<NG>();
+  constexpr int CLD = NG * BN + 4;
+  constexpr int ESZ = KIND == SRC_F32 ? 4 : KIND == SRC_BF16 ? 2 : 1;
+  constexpr int KCK = KIND == SRC_F32 ? KC / 2 : KC;  // k of a chunk: 128 bytes a row at most
+  constexpr int VPR = KCK * ESZ / 16;  // 16-byte pieces of a chunk row
+  constexpr int SLD = KCK * ESZ + 16;  // bytes of a slot row
+  static_assert(I8 || KIND == SRC_BF16, "a bf16 product takes a bf16 operand");
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, gq = lane / 4, q = lane % 4;
+  const int n_kc = kspan / KCK, total = (rt1 - rt0) * n_kc;
 
-// Row i of the thread: v holds the rs values of its four columns with their
-// bias.  Writes the ring slot, l or s, and the next layer's operand in the
-// ring's type; ACT_ROW keeps the row's next maximum in rr.
-template <int ACT>
-__device__ __forceinline__ void rs_epilogue(const RingOut& ro, const RsShared& sh, RsRows& rr, int i,
-                                            float* __restrict__ l, float* __restrict__ s, bool is_l,
-                                            int n0, int W, int S, float4 v) {
-  const float4 old = rr.old[i];
-  float4 now;
-  now.x = __fadd_rn(old.x, v.x);
-  now.y = __fadd_rn(old.y, v.y);
-  now.z = __fadd_rn(old.z, v.z);
-  now.w = __fadd_rn(old.w, v.w);
-  if (!rr.valid[i]) return;
-  const int b = rr.b[i], c = n0 + rr.cc;
-  if (!is_l) {  // block-uniform: W % 64 == 0, a tile lies wholly in the res or in the skip columns
-    *reinterpret_cast<float4*>(s + (size_t)b * S + (c - W)) = now;
-    return;
-  }
-  const size_t idx = (size_t)b * W + c;
-  *reinterpret_cast<float4*>(l + idx) = now;
-  if (ACT == ACT_BF16) {
-    bf16* ring = static_cast<bf16*>(ro.ring_row) + idx;
-    *reinterpret_cast<__nv_bfloat162*>(ring) = __floats2bfloat162_rn(old.x, old.y);
-    *reinterpret_cast<__nv_bfloat162*>(ring + 2) = __floats2bfloat162_rn(old.z, old.w);
-    *reinterpret_cast<__nv_bfloat162*>(ro.l_bf + idx) = __floats2bfloat162_rn(now.x, now.y);
-    *reinterpret_cast<__nv_bfloat162*>(ro.l_bf + idx + 2) = __floats2bfloat162_rn(now.z, now.w);
-  }
-  if (ACT == ACT_STATIC) {
-    // copy the current int8 l to the ring and write the next layer's in place
-    *reinterpret_cast<char4*>(static_cast<signed char*>(ro.ring_row) + idx) =
-        *reinterpret_cast<const char4*>(ro.q_l + idx);
-    if (ro.inv_next_p != nullptr)
-      *reinterpret_cast<uint32_t*>(ro.q_l + idx) = quant_i8x4(now, rr.inv_next);
-  }
-  if (ACT == ACT_ROW) {
-    // the ring row is l as this layer's gate product read it: the same code
-    // from the same maximum, and the code itself in lane W
-    signed char* ring = static_cast<signed char*>(ro.ring_row) + (size_t)b * ro.ring_ld;
-    *reinterpret_cast<uint32_t*>(ring + c) = quant_i8x4(old, sh.inv[rs_tile_row(i)]);
-    if (c == 0) ring[W] = (signed char)sh.code[rs_tile_row(i)];
-    rr.next_mx[i] = fmaxf(fmaxf(fabsf(now.x), fabsf(now.y)), fmaxf(fabsf(now.z), fabsf(now.w)));
-  }
-}
-
-// After the last row: ACT_ROW stores the tile's share of the rows' next maxima
-// in the tile's slots (every thread calls it; kept out of the loop above, whose
-// loads and stores a shuffle would fence)
-template <int ACT>
-__device__ __forceinline__ void rs_finish(const RingOut& ro, const RsRows& rr, bool is_l, int B) {
-  if (ACT == ACT_ROW && is_l && ro.lmax_next != nullptr) {
-    float mx[RS_GROUPS];  // the eight shuffle chains side by side, then the stores
+  int issue_rt = rt0, issue_kc = 0;  // the next chunk to issue
+  auto issue = [&](int c) {
+    if (c < total) {
+      const Src s = src_of(issue_kc * KCK);
+      unsigned char* dst = sm.slots + (c % NS) * sm.slot_stride;
 #pragma unroll
-    for (int i = 0; i < RS_GROUPS; ++i) mx[i] = lanes_max<16>(rr.next_mx[i]);
-    if (threadIdx.x % 16 == 0) {
-#pragma unroll
-      for (int i = 0; i < RS_GROUPS; ++i)
-        if (rr.valid[i]) ro.lmax_next[(size_t)blockIdx.x * B + rr.b[i]] = mx[i];
+      for (int i = 0; i < TM * VPR / THREADS; ++i) {
+        const int v = threadIdx.x + i * THREADS;
+        const int r = v / VPR, p = v % VPR, b = issue_rt * TM + r;
+        cp16(dst + r * SLD + p * 16, s.p + (size_t)(b < B ? b : 0) * s.ld + p * 16, b < B);
+      }
+      if (++issue_kc == n_kc) issue_kc = 0, ++issue_rt;
     }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// resskip_kernel: rs = bf16(gate) @ w_rs + b_rs, bf16 product
-// ---------------------------------------------------------------------------
-constexpr int RS_BM = 64, RS_BN = 64, RS_KC = 64, RS_THREADS = 128;
-constexpr int RS_LDA = RS_KC + 8;
-constexpr int RS_LDB = RS_BN + 8;
-constexpr int RS_LDC = RS_BN + 4;
-constexpr int RS_AV = RS_BM * RS_KC / 8 / RS_THREADS;
-constexpr int RS_BV = RS_KC * RS_BN / 8 / RS_THREADS;
-static_assert(RS_THREADS == 128 && RS_BM == RS_ROWS && RS_BM == 8 * RS_GROUPS && RS_BN == 64,
-              "rs_epilogue's tile");
-
-template <int ACT>
-__global__ void __launch_bounds__(RS_THREADS) resskip_kernel(const ResskipArgs r) {
-  __shared__ __align__(32) bf16 As[RS_BM * RS_LDA];
-  __shared__ __align__(32) bf16 Bs[RS_KC * RS_LDB];
-  __shared__ __align__(32) float Cs[RS_BM * RS_LDC];
-  const int B = r.B, W = r.W, S = r.S, m = r.m;
-  const int N = W + S;
-  const int n0 = blockIdx.x * RS_BN;
-  const int row0 = blockIdx.y * RS_BM;
-  const int warp = threadIdx.x / 32;
-  const bool is_l = n0 < W;
-  const bf16* gate = static_cast<const bf16*>(r.gate);
-  const bf16* w = static_cast<const bf16*>(r.w);
-  __shared__ RsShared sh;
-  RsRows rr;
-  rs_rows<ACT>(rr, r.ring, r.l, r.s, is_l, row0, n0, B, W, S);
-  const float4 bi = *reinterpret_cast<const float4*>(r.bias + n0 + rr.cc);
-
-  uint4 ra[RS_AV], rb[RS_BV];
-  auto load_chunk = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < RS_AV; ++i) {
-      const int v = threadIdx.x + i * RS_THREADS;
-      const int b = row0 + v / (RS_KC / 8);
-      ra[i] = b < B ? *reinterpret_cast<const uint4*>(gate + (size_t)b * m + k0 + (v % (RS_KC / 8)) * 8)
-                    : make_uint4(0u, 0u, 0u, 0u);
-    }
-#pragma unroll
-    for (int i = 0; i < RS_BV; ++i) {
-      const int v = threadIdx.x + i * RS_THREADS;
-      rb[i] = *reinterpret_cast<const uint4*>(w + (size_t)(k0 + v / (RS_BN / 8)) * N + n0 +
-                                              (v % (RS_BN / 8)) * 8);
-    }
+    cp_commit();
   };
 
-  FragC acc[RS_BN / 16];
+  FragC acc[NG];
+  int acci[2 * NG][4];
+  auto zero = [&]() {
+    if constexpr (I8) {
 #pragma unroll
-  for (int j = 0; j < RS_BN / 16; ++j) wmma::fill_fragment(acc[j], 0.0f);
-  load_chunk(0);
-  rs_prepare<ACT, RS_BF16>(sh, r, row0, is_l);  // while the first chunk is on its way
-  for (int k0 = 0; k0 < m; k0 += RS_KC) {
+      for (int j = 0; j < 2 * NG; ++j)
 #pragma unroll
-    for (int i = 0; i < RS_AV; ++i) {
-      const int v = threadIdx.x + i * RS_THREADS;
-      *reinterpret_cast<uint4*>(As + (v / (RS_KC / 8)) * RS_LDA + (v % (RS_KC / 8)) * 8) = ra[i];
+        for (int i = 0; i < 4; ++i) acci[j][i] = 0;
+    } else {
+#pragma unroll
+      for (int g = 0; g < NG; ++g) wmma::fill_fragment(acc[g], 0.0f);
     }
+  };
+  zero();
 #pragma unroll
-    for (int i = 0; i < RS_BV; ++i) {
-      const int v = threadIdx.x + i * RS_THREADS;
-      *reinterpret_cast<uint4*>(Bs + (v / (RS_BN / 8)) * RS_LDB + (v % (RS_BN / 8)) * 8) = rb[i];
-    }
+  for (int c = 0; c < NS - 1; ++c) issue(c);
+  start();  // while the first chunks are on their way
+  int rt = rt0, kc = 0;
+  for (int c = 0; c < total; ++c) {
+    cp_wait<NS - 2>();
     __syncthreads();
-    if (k0 + RS_KC < m) load_chunk(k0 + RS_KC);
+    issue(c + NS - 1);
+    if (kc == 0) pre(rt);
+    const unsigned char* slot = sm.slots + (c % NS) * sm.slot_stride;
+    if constexpr (I8) {
+      const unsigned char* at = slot;
+      int ald = SLD;
+      if constexpr (KIND == SRC_F32) {
+        const int r = threadIdx.x / 2, h = threadIdx.x % 2, b = rt * TM + r;
+        const float inv = b < B ? mult[b] : 0.0f;
+        const float4* src = reinterpret_cast<const float4*>(slot + r * SLD + h * 64);
+        uint32_t* dst = reinterpret_cast<uint32_t*>(sm.As + r * AS_LD + h * 16);
 #pragma unroll
-    for (int kk = 0; kk < RS_KC; kk += 16) {
-      FragA a;
-      wmma::load_matrix_sync(a, As + warp * 16 * RS_LDA + kk, RS_LDA);
+        for (int i = 0; i < 4; ++i) dst[i] = quant_i8x4(src[i], inv);
+        __syncthreads();
+        at = reinterpret_cast<const unsigned char*>(sm.As);
+        ald = AS_LD;
+      }
+      const uint32_t* aw = reinterpret_cast<const uint32_t*>(at);
+      const uint32_t* bw = reinterpret_cast<const uint32_t*>(wst);
 #pragma unroll
-      for (int j = 0; j < RS_BN / 16; ++j) {
-        FragB bf;
-        wmma::load_matrix_sync(bf, Bs + kk * RS_LDB + j * 16, RS_LDB);
-        wmma::mma_sync(acc[j], a, bf, acc[j]);
+      for (int kk = 0; kk < KCK; kk += 32) {
+        uint32_t af[4];
+        const uint32_t* ar = aw + (warp * 16 + gq) * (ald / 4) + kk / 4 + q;
+        af[0] = ar[0];
+        af[1] = ar[8 * (ald / 4)];
+        af[2] = ar[4];
+        af[3] = ar[8 * (ald / 4) + 4];
+#pragma unroll
+        for (int j = 0; j < 2 * NG; ++j) {
+          const uint32_t* br = bw + ((kc * KCK + kk) / 4 + q) * LDW + j * 8 + gq;
+          mma_s8(acci[j], af, br[0], br[4 * LDW]);
+        }
+      }
+    } else {
+      const bf16* ab = reinterpret_cast<const bf16*>(slot);
+      const bf16* wb = reinterpret_cast<const bf16*>(wst);
+#pragma unroll
+      for (int kk = 0; kk < KCK; kk += 16) {
+        FragA fa;
+        wmma::load_matrix_sync(fa, ab + warp * 16 * (SLD / 2) + kk, SLD / 2);
+#pragma unroll
+        for (int g = 0; g < NG; ++g) {
+          FragB fb;
+          wmma::load_matrix_sync(fb, wb + (kc * KCK + kk) * LDW + g * BN, LDW);
+          wmma::mma_sync(acc[g], fa, fb, acc[g]);
+        }
       }
     }
-    __syncthreads();
-  }
+    if (kc == n_kc - 1) {
+      if constexpr (I8) {
+        int* ci = reinterpret_cast<int*>(sm.Cs);
 #pragma unroll
-  for (int j = 0; j < RS_BN / 16; ++j)
-    wmma::store_matrix_sync(Cs + warp * 16 * RS_LDC + j * 16, acc[j], RS_LDC, wmma::mem_row_major);
-  __syncthreads();
+        for (int j = 0; j < 2 * NG; ++j) {
+          int* cr = ci + (warp * 16 + gq) * CLD + j * 8 + q * 2;
+          *reinterpret_cast<int2*>(cr) = make_int2(acci[j][0], acci[j][1]);
+          *reinterpret_cast<int2*>(cr + 8 * CLD) = make_int2(acci[j][2], acci[j][3]);
+        }
+      } else {
 #pragma unroll
-  for (int i = 0; i < RS_GROUPS; ++i) {
-    const float4 sums =
-        *reinterpret_cast<const float4*>(Cs + (threadIdx.x / 16 + 8 * i) * RS_LDC + rr.cc);
-    const float4 v = make_float4(__fadd_rn(sums.x, bi.x), __fadd_rn(sums.y, bi.y),
-                                 __fadd_rn(sums.z, bi.z), __fadd_rn(sums.w, bi.w));
-    rs_epilogue<ACT>(r.ring, sh, rr, i, r.l, r.s, is_l, n0, W, S, v);
+        for (int g = 0; g < NG; ++g)
+          wmma::store_matrix_sync(sm.Cs + warp * 16 * CLD + g * BN, acc[g], CLD, wmma::mem_row_major);
+      }
+      zero();
+      __syncthreads();
+      epi(rt);
+      __syncthreads();
+    }
+    if (++kc == n_kc) kc = 0, ++rt;
   }
-  rs_finish<ACT>(r.ring, rr, is_l, B);
+}
+
+// eight values as bf16 in one 16-byte word, and as int8 in one 8-byte word
+__device__ __forceinline__ uint4 pack_bf16x8(const float (&v)[8]) {
+  uint4 w;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&w);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  return w;
+}
+
+__device__ __forceinline__ uint2 pack_i8x8(const float (&v)[8], float inv) {
+  return make_uint2(quant_i8x4(make_float4(v[0], v[1], v[2], v[3]), inv),
+                    quant_i8x4(make_float4(v[4], v[5], v[6], v[7]), inv));
 }
 
 // ---------------------------------------------------------------------------
-// int8 kernels: int8 x int8 -> int32 on mma.sync.m16n8k32
+// per-row scales at the start of a phase, for all B rows: the maximum over a
+// row's slots, then the log8 code (ACT_ROW's l) or the gate's scale (RS_ROW)
 // ---------------------------------------------------------------------------
-// One warp-level product: C[16, 8] += A[16, 32] @ B[32, 8], s8 operands, s32
-// sums.  With g = lane / 4 and q = lane % 4 a thread holds
-//   a[0] = A[g, 4q..4q+3]   a[1] = A[g+8, 4q..4q+3]   a[2], a[3]: columns + 16
-//   b0 = B[4q..4q+3, g]     b1 = B[16+4q..16+4q+3, g]
-//   c[0], c[1] = C[g, 2q], C[g, 2q+1]     c[2], c[3] = C[g+8, 2q], C[g+8, 2q+1]
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-      "{%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ void prep_l_rows(const Smem& sm, const float* slots, int tiles, int B, const Log8& lg) {
+  for (int b = threadIdx.x; b < B; b += THREADS) {
+    float mx = 0.0f;
+#pragma unroll 8
+    for (int t = 0; t < tiles; ++t) mx = fmaxf(mx, __ldcg(slots + (size_t)t * B + b));
+    const int code = log8_code(mx, lg);
+    sm.l_code[b] = code;
+    sm.l_inv[b] = log8_pow(lg, -code);
+  }
+}
+
+__device__ void prep_g_rows(const Smem& sm, const float* slots, int tiles, int B) {
+  for (int b = threadIdx.x; b < B; b += THREADS) {
+    float mx = 0.0f;
+#pragma unroll 8
+    for (int t = 0; t < tiles; ++t) mx = fmaxf(mx, __ldcg(slots + (size_t)t * B + b));
+    const float amax = fmaxf(mx, 1e-8f);
+    sm.g_rg[b] = __fmul_rn(amax, kInv127);
+    sm.g_mult[b] = __fdiv_rn(127.0f, amax);
+  }
+}
+
+// the ring rows of the current layer and step
+struct Step {
+  int t;                      // step of the call
+  const unsigned char* tap1;  // ring row t - d
+  unsigned char* row2;        // ring row t - 2d: read as a tap, then overwritten with this step's l
+};
+
+// ---------------------------------------------------------------------------
+// the gate of one row's 16 + 16 columns from its sums: sig[i], tanh[i] are the
+// products of columns j0 + c0 + i and m + j0 + c0 + i of row b; a thread owns
+// GATE_OUT columns of one row, a lane pair the row; every thread calls it,
+// valid says whether the thread's row is its to write
+// ---------------------------------------------------------------------------
+template <int RS>
+__device__ __forceinline__ void gate_bf16(const FastgenArgs& a, const float* cst, float* gmax_ct, bool valid,
+                                          int b, int j0, int c0, const float (&sig)[GATE_OUT],
+                                          const float (&tnh)[GATE_OUT]) {
+  const int m = a.GW / 2;
+  float gv[GATE_OUT];
+#pragma unroll
+  for (int i = 0; i < GATE_OUT; ++i) {
+    const float xs = sig[i] + cst[CST_BIAS * GC + c0 + i];
+    const float xt = tnh[i] + cst[(CST_BIAS + 1) * GC + c0 + i];
+    gv[i] = (1.0f / (1.0f + expf(-xs))) * tanhf(xt);
+  }
+  store_gate<RS, GLANES>(a.gate, gmax_ct, valid, b, m, j0 + c0, gv);
+}
+
+// int8 product: the segments' exact sums sum[segment][sigmoid | tanh][i],
+// dequantised and combined as the reference does
+// (re: enc(t)'s row scale; ACT_ROW: rl, rt2, rt1 those of l and of the two taps)
+template <int ACT, int RS>
+__device__ __forceinline__ void gate_i8(const FastgenArgs& a, const float* cst, float* gmax_ct, bool valid,
+                                        int b, int j0, int c0,
+                                        const int (&sum)[ACT == ACT_ROW ? 4 : 2][2][GATE_OUT], float re,
+                                        float rl, float rt2, float rt1) {
+  const int m = a.GW / 2;
+  float gv[GATE_OUT];
+#pragma unroll
+  for (int i = 0; i < GATE_OUT; ++i) {
+    float x[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float sc = cst[(CST_SCALE + h) * GC + c0 + i], bi = cst[(CST_BIAS + h) * GC + c0 + i];
+      if constexpr (ACT == ACT_ROW) {
+        // the reference's order: enc, l, tap t-2d, tap t-d; the sums are below 2^24, exact in f32
+        const float se = (float)sum[3][h][i], sl = (float)sum[2][h][i];
+        const float st2 = (float)sum[0][h][i], st1 = (float)sum[1][h][i];
+        if (a.combine_bf16) {
+          float acc = bf_round(__fmul_rn(bf_round(se), bf_round(re)));
+          acc = bf_round(__fadd_rn(acc, bf_round(__fmul_rn(bf_round(sl), bf_round(rl)))));
+          acc = bf_round(__fadd_rn(acc, bf_round(__fmul_rn(bf_round(st2), bf_round(rt2)))));
+          acc = bf_round(__fadd_rn(acc, bf_round(__fmul_rn(bf_round(st1), bf_round(rt1)))));
+          x[h] = bf_round(__fadd_rn(bf_round(__fmul_rn(acc, bf_round(sc))), bf_round(bi)));
+        } else {
+          float acc = __fmul_rn(se, re);
+          acc = __fadd_rn(acc, __fmul_rn(sl, rl));
+          acc = __fadd_rn(acc, __fmul_rn(st2, rt2));
+          acc = __fadd_rn(acc, __fmul_rn(st1, rt1));
+          x[h] = __fadd_rn(__fmul_rn(acc, sc), bi);
+        }
+      } else {
+        const float main_part = __fmul_rn((float)sum[0][h][i], cst[(CST_MAIN + h) * GC + c0 + i]);
+        const float enc_part = __fmul_rn(__fmul_rn((float)sum[1][h][i], re), sc);
+        x[h] = __fadd_rn(__fadd_rn(main_part, enc_part), bi);
+      }
+    }
+    gv[i] = __fmul_rn(1.0f / (1.0f + expf(-x[0])), tanhf(x[1]));
+  }
+  store_gate<RS, GLANES>(a.gate, gmax_ct, valid, b, m, j0 + c0, gv);
+}
+
+// Batch row b of column item ct (mine: the lane pair's row is b): every
+// slice's partial in slice order (the int8 product by segment), then the gate.
+template <int ACT, int RS>
+__device__ void gate_reduce(const FastgenArgs& a, const Smem& sm, const float* cst, const Step& st,
+                            float* gmax_ct, int ct, int b, bool mine, int n_rt, int nsplit) {
+  const int row = b % TM, c0 = (threadIdx.x % GLANES) * GATE_OUT;
+  const size_t tile = (size_t)ct * n_rt + b / TM;
+  if constexpr (ACT == ACT_BF16) {
+    const float* tiles = static_cast<const float*>(a.part) + tile * nsplit * GTILE;
+    float sig[GATE_OUT], tnh[GATE_OUT];
+#pragma unroll
+    for (int i = 0; i < GATE_OUT; ++i) sig[i] = tnh[i] = 0.0f;
+#pragma unroll 4
+    for (int zz = 0; zz < (mine ? nsplit : 0); ++zz) {
+      const float4* p = reinterpret_cast<const float4*>(tiles + (size_t)zz * GTILE + row * 2 * GC + c0);
+      const float4 v4[4] = {__ldcg(p), __ldcg(p + 1), __ldcg(p + GC / 4), __ldcg(p + GC / 4 + 1)};
+      sig[0] += v4[0].x, sig[1] += v4[0].y, sig[2] += v4[0].z, sig[3] += v4[0].w;
+      sig[4] += v4[1].x, sig[5] += v4[1].y, sig[6] += v4[1].z, sig[7] += v4[1].w;
+      tnh[0] += v4[2].x, tnh[1] += v4[2].y, tnh[2] += v4[2].z, tnh[3] += v4[2].w;
+      tnh[4] += v4[3].x, tnh[5] += v4[3].y, tnh[6] += v4[3].z, tnh[7] += v4[3].w;
+    }
+    gate_bf16<RS>(a, cst, gmax_ct, mine, b, ct * GC, c0, sig, tnh);
+  } else {
+    const int* tiles = static_cast<const int*>(a.part) + tile * nsplit * GTILE;
+    // the row's scales, loaded beside the partials: enc(t)'s, and in ACT_ROW
+    // those of l and of the two taps (from their codes)
+    float re = 0.0f, rl = 0.0f, rt2 = 0.0f, rt1 = 0.0f;
+    if (mine) {
+      const int ring_ld = ACT == ACT_ROW ? a.W + ROW_LANES : a.W;
+      re = __ldg(static_cast<const float*>(a.r_enc) + (size_t)st.t * a.B + b);
+      if (ACT == ACT_ROW) {
+        rl = log8_pow(a.log8, sm.l_code[b]);
+        rt2 = log8_pow(a.log8, __ldcg(reinterpret_cast<const signed char*>(st.row2) + (size_t)b * ring_ld + a.W));
+        rt1 = log8_pow(a.log8, __ldcg(reinterpret_cast<const signed char*>(st.tap1) + (size_t)b * ring_ld + a.W));
+      }
+    }
+    // sums by segment: ACT_STATIC [3W part | enc], ACT_ROW [tap t-2d | tap t-d | l | enc]
+    constexpr int NSUM = ACT == ACT_ROW ? 4 : 2;
+    int sum[NSUM][2][GATE_OUT];
+#pragma unroll
+    for (int k = 0; k < NSUM; ++k)
+#pragma unroll
+      for (int i = 0; i < GATE_OUT; ++i) sum[k][0][i] = sum[k][1][i] = 0;
+#pragma unroll 4
+    for (int zz = 0; zz < (mine ? nsplit : 0); ++zz) {
+      const int4* p = reinterpret_cast<const int4*>(tiles + (size_t)zz * GTILE + row * 2 * GC + c0);
+      const int4 v4[4] = {__ldcg(p), __ldcg(p + 1), __ldcg(p + GC / 4), __ldcg(p + GC / 4 + 1)};
+      const int k = sm.tab[sm.tab[T_SEGS] + zz];  // the slice's segment
+#pragma unroll
+      for (int kk = 0; kk < NSUM; ++kk)
+        if (kk == k) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            sum[kk][h][0] += v4[2 * h].x, sum[kk][h][1] += v4[2 * h].y;
+            sum[kk][h][2] += v4[2 * h].z, sum[kk][h][3] += v4[2 * h].w;
+            sum[kk][h][4] += v4[2 * h + 1].x, sum[kk][h][5] += v4[2 * h + 1].y;
+            sum[kk][h][6] += v4[2 * h + 1].z, sum[kk][h][7] += v4[2 * h + 1].w;
+          }
+        }
+    }
+    gate_i8<ACT, RS>(a, cst, gmax_ct, mine, b, ct * GC, c0, sum, re, rl, rt2, rt1);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// gate phase: gate = sigmoid(dpre[:m]) * tanh(dpre[m:]) of layer li (and, in
+// layer 0, s = skip_start(bf16(l)))
+// ---------------------------------------------------------------------------
+template <int ACT, int RS>
+__device__ void gate_phase(const FastgenArgs& a, const Smem& sm, int li, const Step& st, int buf) {
+  const int B = a.B, W = a.W, DW = a.DW, S = a.S, m = a.GW / 2;
+  const int* tab = sm.tab;
+  const int n_gate = tab[T_GATE], nsplit = tab[T_NSPLIT];
+  const int count = phase_count(tab, PH_GATE, li);
+  if ((int)blockIdx.x >= count) return;
+  const int n_rt = (B + TM - 1) / TM;
+  const int ring_ld = ACT == ACT_ROW ? W + ROW_LANES : W;
+  const unsigned char* tap2 = st.row2;
+  const unsigned char* tap1 = st.tap1;
+  float* gmax_li = RS == RS_ROW ? static_cast<float*>(a.gmax) + (size_t)li * (m / GC) * B : nullptr;
+  bool prepped = false;  // ACT_ROW: the rows' l codes, once a phase, behind the first item's first chunks
+  auto start = [&]() {
+    if (ACT == ACT_ROW && !prepped) {
+      prep_l_rows(sm, static_cast<const float*>(a.lmax) + (size_t)li * (W / RC) * B, W / RC, B, a.log8);
+      __syncthreads();
+      prepped = true;
+    }
+  };
+  const int r = threadIdx.x / 2, cc = (threadIdx.x % 2) * 8;
+  for (int idx = blockIdx.x; idx < count; idx += gridDim.x) {
+    unsigned char* wst = sm.stage[buf];
+    if (idx != (int)blockIdx.x) {
+      __syncthreads();
+      stage_item<ACT, RS>(a, tab, PH_GATE, li, idx, wst);
+    }
+    const int* it = phase_item(tab, PH_GATE, idx);
+    const int ct = it[0], k0 = it[1], k1 = it[2], z = it[3], rt0 = it[4], rt1 = it[5];
+    auto nothing = [](int) {};
+    if (idx >= n_gate) {  // s = bf16(l) @ w_skip0 + b_skip0
+      const unsigned char* lb = static_cast<const unsigned char*>(a.l_bf);
+      const int j0 = ct * BN;
+      float bias[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) bias[i] = __ldg(static_cast<const float*>(a.b_skip0) + j0 + cc + i);
+      run_item<false, 1, SRC_BF16, NS>(
+          sm, B, rt0, rt1, W, nullptr, wst, [&](int kk) { return Src{lb + kk * 2, W * 2}; }, start, nothing,
+          [&](int rt) {
+            const int b = rt * TM + r;
+            if (b >= B) return;
+            float* s = static_cast<float*>(a.s) + (size_t)b * S + j0 + cc;
+#pragma unroll
+            for (int i = 0; i < 8; ++i) s[i] = sm.Cs[r * (BN + 4) + cc + i] + bias[i];
+          });
+      continue;
+    }
+    float* gmax_ct = gmax_li + (size_t)ct * B;  // RS_ROW: the column item's slots
+    const float* cst = reinterpret_cast<const float*>(wst + a.stage_bytes) - CST_WORDS;
+    // nsplit > 1: each row tile's partial goes out at once, and the slices meet
+    // after the item's last tile (gate_reduce), so no tile waits on a round trip
+    auto publish = [&](int rt) {
+      const size_t tile = (size_t)ct * n_rt + rt;
+      uint4* mine = reinterpret_cast<uint4*>(static_cast<uint32_t*>(a.part) + (tile * nsplit + z) * GTILE);
+      const uint32_t* cs = reinterpret_cast<const uint32_t*>(sm.Cs);
+#pragma unroll
+      for (int i = 0; i < GTILE / 4 / THREADS; ++i) {  // 16-byte pieces, GC / 2 a row
+        const int e = threadIdx.x + i * THREADS;
+        __stcg(mine + e, *reinterpret_cast<const uint4*>(cs + (e / (GC / 2)) * (2 * GC + 4) + (e % (GC / 2)) * 4));
+      }
+    };
+    if constexpr (ACT == ACT_BF16) {
+      const unsigned char* lb = static_cast<const unsigned char*>(a.l_bf);
+      const unsigned char* enc = static_cast<const unsigned char*>(a.enc) + (size_t)st.t * B * DW * 2;
+      run_item<false, GNG, SRC_BF16, NS>(
+          sm, B, rt0, rt1, k1 - k0, nullptr, wst,
+          [&](int kk) {
+            const int k = k0 + kk;
+            return k < W       ? Src{tap2 + k * 2, W * 2}
+                 : k < 2 * W   ? Src{tap1 + (k - W) * 2, W * 2}
+                 : k < 3 * W   ? Src{lb + (k - 2 * W) * 2, W * 2}
+                               : Src{enc + (k - 3 * W) * 2, DW * 2};
+          },
+          start, nothing,
+          [&](int rt) {
+            if (nsplit > 1) {
+              publish(rt);
+              return;
+            }
+            const int c0 = (threadIdx.x % GLANES) * GATE_OUT;
+            for (int rr = threadIdx.x / GLANES; rr < TM; rr += THREADS / GLANES) {  // block-uniform trips
+              float sig[GATE_OUT], tnh[GATE_OUT];
+#pragma unroll
+              for (int i = 0; i < GATE_OUT; ++i) {
+                sig[i] = sm.Cs[rr * (2 * GC + 4) + c0 + i];
+                tnh[i] = sm.Cs[rr * (2 * GC + 4) + GC + c0 + i];
+              }
+              gate_bf16<RS>(a, cst, gmax_ct, rt * TM + rr < B, rt * TM + rr, ct * GC, c0, sig, tnh);
+            }
+          });
+    } else {
+      const unsigned char* ql = static_cast<const unsigned char*>(a.q_l);
+      const unsigned char* lf = static_cast<const unsigned char*>(a.l);
+      const unsigned char* qe = static_cast<const unsigned char*>(a.q_enc) + (size_t)st.t * B * DW;
+      auto src = [&](int kk) {
+        const int k = k0 + kk;
+        return k < W       ? Src{tap2 + k, ring_ld}
+             : k < 2 * W   ? Src{tap1 + (k - W), ring_ld}
+             : k < 3 * W   ? (ACT == ACT_ROW ? Src{lf + (size_t)(k - 2 * W) * 4, W * 4} : Src{ql + (k - 2 * W), W})
+                           : Src{qe + (k - 3 * W), DW};
+      };
+      if (ACT == ACT_ROW && k0 >= 2 * W && k0 < 3 * W)  // ACT_ROW's l: f32, quantised per row
+        run_item<true, GNG, ACT == ACT_ROW ? SRC_F32 : SRC_I8, NS>(sm, B, rt0, rt1, k1 - k0, sm.l_inv, wst,
+                                                                    src, start, nothing, publish);
+      else
+        run_item<true, GNG, SRC_I8, NS>(sm, B, rt0, rt1, k1 - k0, nullptr, wst, src, start, nothing, publish);
+    }
+    if (nsplit > 1) {
+      // the item's slices meet once: each arrives on the count of its columns
+      // and rows (it only grows, nsplit a gate phase) and waits for the
+      // others; then slice z reduces rows z, z + nsplit, ...  The slices
+      // of an item are nsplit consecutive items, on distinct blocks that are
+      // all resident, so the wait ends.
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        unsigned* count = static_cast<unsigned*>(a.counters) + (size_t)ct * n_rt + rt0;
+        const unsigned target = (unsigned)(st.t * a.NL + li + 1) * (unsigned)nsplit;
+        __threadfence();
+        atomicAdd(count, 1u);
+        const long long start = clock64();
+        while (ld_acquire_u32(count) < target)
+          if (clock64() - start > BARRIER_TIMEOUT) __trap();
+        __threadfence();
+      }
+      __syncthreads();
+      // GLANES lanes a row: rows z, z + nsplit, ... of the item's rows
+      const int r0 = rt0 * TM, span = min(rt1 * TM, B) - r0;
+      const int rows = span > z ? (span - z + nsplit - 1) / nsplit : 0;
+      for (int jb = 0; jb < rows; jb += THREADS / GLANES) {  // block-uniform
+        const int j = jb + threadIdx.x / GLANES;
+        gate_reduce<ACT, RS>(a, sm, cst, st, gmax_ct, ct, r0 + z + nsplit * j, j < rows, n_rt, nsplit);
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// res/skip phase: rs = gate @ w_rs[li] + b_rs[li]; ring write, l += rs[:W],
+// s += rs[W:], the next layer's operand
+// ---------------------------------------------------------------------------
+template <int ACT, int RS>
+__device__ void rs_phase(const FastgenArgs& a, const Smem& sm, int li, const Step& st, int buf) {
+  const int B = a.B, W = a.W, S = a.S, GW = a.GW, m = GW / 2, N = W + S, NL = a.NL;
+  const int* tab = sm.tab;
+  const int count = tab[T_RS];
+  if ((int)blockIdx.x >= count) return;
+  const int ring_ld = ACT == ACT_ROW ? W + ROW_LANES : W;
+  bool prepped = false;  // the rows' l codes and gate scales, once a phase, behind the first chunks
+  auto start = [&]() {
+    if ((ACT == ACT_ROW || RS == RS_ROW) && !prepped) {
+      if (ACT == ACT_ROW)
+        prep_l_rows(sm, static_cast<const float*>(a.lmax) + (size_t)li * (W / RC) * B, W / RC, B, a.log8);
+      if (RS == RS_ROW) prep_g_rows(sm, static_cast<const float*>(a.gmax) + (size_t)li * (m / GC) * B, m / GC, B);
+      __syncthreads();
+      prepped = true;
+    }
+  };
+  const float inv_next = ACT == ACT_STATIC && li + 1 < NL ? __ldg(static_cast<const float*>(a.s_act_inv) + li + 1) : 0.0f;
+  float* lmax_next = ACT == ACT_ROW && li + 1 < NL ? static_cast<float*>(a.lmax) + (size_t)(li + 1) * (W / RC) * B : nullptr;
+  const unsigned char* gate = static_cast<const unsigned char*>(a.gate);
+  // RL lanes a row, 8 columns each; a thread takes rows lr and lr + THREADS / RL of a tile
+  constexpr int RP = TM * RL / THREADS;
+  const int lr = threadIdx.x / RL, cc = (threadIdx.x % RL) * 8;
+  for (int idx = blockIdx.x; idx < count; idx += gridDim.x) {
+    unsigned char* wst = sm.stage[buf];
+    if (idx != (int)blockIdx.x) {
+      __syncthreads();
+      stage_item<ACT, RS>(a, tab, PH_RS, li, idx, wst);
+    }
+    const int* it = phase_item(tab, PH_RS, idx);
+    const int ct = it[0], rt0 = it[4], rt1 = it[5];
+    const int n0 = ct * RC, c = n0 + cc;
+    const bool is_l = n0 < W;  // item-uniform: W % 32 == 0
+    // the thread's columns' bias and scales, and (pre) its rows' old l or s and
+    // static int8 l, loaded when the row tile's first chunk is in
+    float bias[8], scale[8], old[RP][8];
+    uint2 q_old[RP];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      bias[i] = __ldg(static_cast<const float*>(a.b_rs) + (size_t)li * N + c + i);
+      scale[i] = RS == RS_BF16 ? 0.0f : __ldg(static_cast<const float*>(a.s_rs) + (size_t)li * N + c + i);
+    }
+    auto pre = [&](int rt) {
+#pragma unroll
+      for (int p = 0; p < RP; ++p) {
+        const int b = rt * TM + lr + p * (THREADS / RL);
+        if (b >= B) continue;
+        const float4* src = reinterpret_cast<const float4*>(
+            is_l ? static_cast<const float*>(a.l) + (size_t)b * W + c : static_cast<const float*>(a.s) + (size_t)b * S + (c - W));
+        const float4 v0 = __ldcg(src), v1 = __ldcg(src + 1);
+        old[p][0] = v0.x, old[p][1] = v0.y, old[p][2] = v0.z, old[p][3] = v0.w;
+        old[p][4] = v1.x, old[p][5] = v1.y, old[p][6] = v1.z, old[p][7] = v1.w;
+        if (ACT == ACT_STATIC && is_l)
+          q_old[p] = __ldcg(reinterpret_cast<const uint2*>(static_cast<const signed char*>(a.q_l) + (size_t)b * W + c));
+      }
+    };
+    auto epi = [&](int rt) {
+#pragma unroll
+      for (int p = 0; p < RP; ++p) {
+        const int r = lr + p * (THREADS / RL), b = rt * TM + r;
+        const bool valid = b < B;
+        float v[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          if constexpr (RS == RS_BF16) {
+            v[i] = __fadd_rn(sm.Cs[r * (RC + 4) + cc + i], bias[i]);
+          } else {
+            float sc = scale[i];
+            if (RS == RS_ROW) sc = __fmul_rn(valid ? sm.g_rg[b] : 0.0f, sc);  // the row's gate scale meets the column scale first
+            v[i] = __fadd_rn(__fmul_rn((float)reinterpret_cast<const int*>(sm.Cs)[r * (RC + 4) + cc + i], sc), bias[i]);
+          }
+        }
+        float now[8], mx = 0.0f;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) now[i] = __fadd_rn(old[p][i], v[i]);
+        if (valid && !is_l) {
+          float4* sp = reinterpret_cast<float4*>(static_cast<float*>(a.s) + (size_t)b * S + (c - W));
+          sp[0] = make_float4(now[0], now[1], now[2], now[3]);
+          sp[1] = make_float4(now[4], now[5], now[6], now[7]);
+          if (li == NL - 1) {  // the out1 operand
+            float rl[8];
+#pragma unroll
+            for (int i = 0; i < 8; ++i) rl[i] = fmaxf(now[i], 0.0f);
+            *reinterpret_cast<uint4*>(static_cast<bf16*>(a.s_bf) + (size_t)b * S + (c - W)) = pack_bf16x8(rl);
+          }
+        }
+        if (valid && is_l) {
+          const size_t idx_l = (size_t)b * W + c;
+          float4* lp = reinterpret_cast<float4*>(static_cast<float*>(a.l) + idx_l);
+          lp[0] = make_float4(now[0], now[1], now[2], now[3]);
+          lp[1] = make_float4(now[4], now[5], now[6], now[7]);
+          if (ACT == ACT_BF16) {
+            *reinterpret_cast<uint4*>(reinterpret_cast<bf16*>(st.row2) + idx_l) = pack_bf16x8(old[p]);
+            *reinterpret_cast<uint4*>(static_cast<bf16*>(a.l_bf) + idx_l) = pack_bf16x8(now);
+          }
+          if (ACT == ACT_STATIC) {
+            // the current int8 l to the ring, and the next layer's in its place
+            *reinterpret_cast<uint2*>(st.row2 + idx_l) = q_old[p];
+            if (li + 1 < NL)
+              *reinterpret_cast<uint2*>(static_cast<signed char*>(a.q_l) + idx_l) = pack_i8x8(now, inv_next);
+          }
+          if (ACT == ACT_ROW) {
+            // the ring row is l as this layer's gate product read it: the same
+            // code from the same maximum, and the code itself in lane W
+            signed char* ring = reinterpret_cast<signed char*>(st.row2) + (size_t)b * ring_ld;
+            *reinterpret_cast<uint2*>(ring + c) = pack_i8x8(old[p], sm.l_inv[b]);
+            if (c == 0) ring[W] = (signed char)sm.l_code[b];
+#pragma unroll
+            for (int i = 0; i < 8; ++i) mx = fmaxf(mx, fabsf(now[i]));
+          }
+        }
+        if (ACT == ACT_ROW && is_l && lmax_next != nullptr) {
+          mx = lanes_max<RL>(mx);
+          if (valid && threadIdx.x % RL == 0) lmax_next[(size_t)ct * B + b] = mx;
+        }
+      }
+    };
+    if constexpr (RS == RS_BF16)
+      run_item<false, RC / BN, SRC_BF16, NS>(sm, B, rt0, rt1, m, nullptr, wst,
+                                             [&](int kk) { return Src{gate + kk * 2, m * 2}; }, start, pre, epi);
+    else if constexpr (RS == RS_STATIC)
+      run_item<true, RC / BN, SRC_I8, NS>(sm, B, rt0, rt1, m, nullptr, wst,
+                                          [&](int kk) { return Src{gate + kk, m}; }, start, pre, epi);
+    else
+      run_item<true, RC / BN, SRC_F32, NS>(sm, B, rt0, rt1, m, sm.g_mult, wst,
+                                           [&](int kk) { return Src{gate + (size_t)kk * 4, m * 4}; }, start, pre, epi);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// head phases: o1 = bf16(relu([bf16(relu(s)) | enc(t)] @ w_out1 + b_out1)),
+// then out = o1 @ w_out2 + b_out2
+// ---------------------------------------------------------------------------
+template <int ACT, int RS>
+__device__ void out1_phase(const FastgenArgs& a, const Smem& sm, int t, int buf) {
+  const int B = a.B, S = a.S, DW = a.DW;
+  const int* tab = sm.tab;
+  const int count = tab[T_OUT1];
+  const unsigned char* sb = static_cast<const unsigned char*>(a.s_bf);
+  const unsigned char* enc = static_cast<const unsigned char*>(a.enc) + (size_t)t * B * DW * 2;
+  const int r = threadIdx.x / 2, cc = (threadIdx.x % 2) * 8;
+  for (int idx = blockIdx.x; idx < count; idx += gridDim.x) {
+    unsigned char* wst = sm.stage[buf];
+    if (idx != (int)blockIdx.x) {
+      __syncthreads();
+      stage_item<ACT, RS>(a, tab, PH_OUT1, 0, idx, wst);
+    }
+    const int* it = phase_item(tab, PH_OUT1, idx);
+    const int n0 = it[0] * BN;
+    float bias[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) bias[i] = __ldg(static_cast<const float*>(a.b_out1) + n0 + cc + i);
+    run_item<false, 1, SRC_BF16, NS>(
+        sm, B, it[4], it[5], S + DW, nullptr, wst,
+        [&](int kk) { return kk < S ? Src{sb + kk * 2, S * 2} : Src{enc + (kk - S) * 2, DW * 2}; },
+        []() {}, [](int) {},
+        [&](int rt) {
+          const int b = rt * TM + r;
+          if (b >= B) return;
+          bf16* o1 = static_cast<bf16*>(a.o1) + (size_t)b * S + n0 + cc;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) o1[i] = __float2bfloat16(fmaxf(sm.Cs[r * (BN + 4) + cc + i] + bias[i], 0.0f));
+        });
+  }
+}
+
+template <int ACT, int RS>
+__device__ void out2_phase(const FastgenArgs& a, const Smem& sm, int t, int buf) {
+  const int B = a.B, S = a.S, P = a.out_pad;
+  const int* tab = sm.tab;
+  const int count = tab[T_OUT2];
+  const unsigned char* o1 = static_cast<const unsigned char*>(a.o1);
+  float* outp = static_cast<float*>(a.out_params);
+  const int r = threadIdx.x / 2, cc = (threadIdx.x % 2) * 8;
+  for (int idx = blockIdx.x; idx < count; idx += gridDim.x) {
+    unsigned char* wst = sm.stage[buf];
+    if (idx != (int)blockIdx.x) {
+      __syncthreads();
+      stage_item<ACT, RS>(a, tab, PH_OUT2, 0, idx, wst);
+    }
+    const int* it = phase_item(tab, PH_OUT2, idx);
+    const int n0 = it[0] * BN;
+    float bias[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) bias[i] = __ldg(static_cast<const float*>(a.b_out2) + n0 + cc + i);
+    run_item<false, 1, SRC_BF16, NS>(
+        sm, B, it[4], it[5], S, nullptr, wst, [&](int kk) { return Src{o1 + kk * 2, S * 2}; },
+        []() {}, [](int) {},
+        [&](int rt) {
+          const int b = rt * TM + r;
+          if (b >= B) return;
+          float* out = static_cast<float*>(a.outv) + (size_t)b * P + n0 + cc;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const float v = sm.Cs[r * (BN + 4) + cc + i] + bias[i];
+            out[i] = v;
+            if (outp != nullptr) outp[((size_t)t * B + b) * P + n0 + cc + i] = v;
+          }
+        });
+  }
+}
+
+// ---------------------------------------------------------------------------
+// sample + start: one warp per batch row
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void warp_argmax(float& best, int& idx) {
+  for (int off = 16; off; off >>= 1) {
+    const float ob = __shfl_xor_sync(0xffffffffu, best, off);
+    const int oi = __shfl_xor_sync(0xffffffffu, idx, off);
+    if (ob > best || (ob == best && oi < idx)) {
+      best = ob;
+      idx = oi;
+    }
+  }
+}
+
+__device__ __forceinline__ float sign_of(float x) { return (float)((x > 0.0f) - (x < 0.0f)); }
+
+// l = conv_start(x0, x1, x2) of row b, bf16(l) for skip_start (and ACT_BF16's
+// gate), layer 0's operand: ACT_STATIC int8 l, ACT_ROW its row maximum in the
+// first of layer 0's slots (the others hold zero)
+template <int ACT>
+__device__ __forceinline__ void start_row(const FastgenArgs& a, int b, float x0, float x1, float x2) {
+  const int B = a.B, W = a.W, lane = threadIdx.x % 32;
+  const float* ws = static_cast<const float*>(a.w_start);
+  const float* bs = static_cast<const float*>(a.b_start);
+  float* l = static_cast<float*>(a.l) + (size_t)b * W;
+  bf16* l_bf = static_cast<bf16*>(a.l_bf) + (size_t)b * W;
+  signed char* q_l = static_cast<signed char*>(a.q_l) + (size_t)b * W;
+  const float inv0 = ACT == ACT_STATIC ? __ldg(static_cast<const float*>(a.s_act_inv)) : 0.0f;
+  float mx = 0.0f;
+  for (int c = lane; c < W; c += 32) {
+    const float v = x0 * __ldg(ws + c) + x1 * __ldg(ws + W + c) + x2 * __ldg(ws + 2 * W + c) + __ldg(bs + c);
+    l[c] = v;
+    l_bf[c] = __float2bfloat16(v);
+    if (ACT == ACT_STATIC) q_l[c] = quant_i8(v, inv0);
+    mx = fmaxf(mx, fabsf(v));
+  }
+  if (ACT == ACT_ROW) {
+    mx = lanes_max<32>(mx);
+    float* lmax = static_cast<float*>(a.lmax);
+    for (int t = lane; t < W / RC; t += 32) lmax[(size_t)t * B + b] = t == 0 ? mx : 0.0f;
+  }
+}
+
+template <int ACT>
+__device__ void sample_phase(const FastgenArgs& a, int t, bool do_start) {
+  const int B = a.B, P = a.out_pad;
+  const int lane = threadIdx.x % 32;
+  const int nw = gridDim.x * (THREADS / 32);
+  float* xh = static_cast<float*>(a.xh);
+  const uint32_t k0 = (uint32_t)((unsigned long long)a.seed & 0xffffffffull);
+  const uint32_t k1 = (uint32_t)((unsigned long long)a.seed >> 32);
+  const float half = (float)(a.quant_chann / 2);
+  const uint32_t tg = (uint32_t)(a.t0 + t);  // the random counter runs on the global step
+  float* audio = static_cast<float*>(a.audio);
+  const float* tf = static_cast<const float*>(a.tf);
+  for (int b = blockIdx.x * (THREADS / 32) + threadIdx.x / 32; b < B; b += nw) {
+    const float* o = static_cast<const float*>(a.outv) + (size_t)b * P;
+    float qv = 0.0f, x = 0.0f;
+    if (a.head == HEAD_GAUSS) {
+      x = __ldcg(o);
+      if (!a.greedy) {
+        const float u1 = uniform_from_bits(philox_bits(0u, b, tg, 0u, k0, k1));
+        const float u2 = uniform_from_bits(philox_bits(0u, b, tg, 1u, k0, k1));
+        const float z = sqrtf(-2.0f * logf(u1)) * cosf(kTwoPi * u2);
+        x = x + expf(fmaxf(__ldcg(o + 1), -7.0f)) * z;
+      }
+    } else {
+      const int n = a.head == HEAD_MOL ? a.out_seg : P;
+      float best = -INFINITY;
+      int idx = 0x7fffffff;
+      for (int i = lane; i < n; i += 32) {
+        float sc = __ldcg(o + i);
+        if (!a.greedy) sc = sc - logf(-logf(uniform_from_bits(philox_bits(i, b, tg, 0u, k0, k1))));
+        if (sc > best) {
+          best = sc;
+          idx = i;
+        }
+      }
+      warp_argmax(best, idx);
+      if (a.head == HEAD_MOL) {
+        x = __ldcg(o + a.out_seg + idx);
+        if (!a.greedy) {
+          const float log_sc = fminf(fmaxf(__ldcg(o + 2 * a.out_seg + idx), -7.0f), 7.0f);
+          const float u2 = uniform_from_bits(philox_bits(0u, b, tg, 1u, k0, k1));
+          x = x + expf(log_sc) * (logf(u2) - logf(1.0f - u2));
+        }
+      } else {
+        qv = (float)idx - half;
+      }
+    }
+    if (a.head != HEAD_CE) {
+      x = fminf(fmaxf(x, -1.0f), 1.0f - 2.0f / (float)a.quant_chann);
+      qv = floorf(x * half);
+    }
+    float au;
+    if (a.use_mu_law) {
+      const float y = (qv + 0.5f) * 2.0f / 256.0f;
+      au = qv == 0.0f ? 0.0f : sign_of(y) / 255.0f * (powf(256.0f, fabsf(y)) - 1.0f);
+    } else {
+      au = qv / half;
+    }
+    const float fb = tf != nullptr ? __ldg(tf + (size_t)t * B + b) : au;
+    const float xn =
+        a.use_mu_law ? floorf(sign_of(fb) * log1pf(255.0f * fabsf(fb)) / kLog256 * 128.0f) / half : fb;
+    const float x0 = xh[B + b], x1 = xh[2 * B + b];
+    __syncwarp();
+    if (lane == 0) {
+      audio[(size_t)t * B + b] = au;
+      xh[b] = x0;
+      xh[B + b] = x1;
+      xh[2 * B + b] = xn;
+    }
+    if (do_start) start_row<ACT>(a, b, x0, x1, xn);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the persistent kernel: the whole call, every step, every layer
+// ---------------------------------------------------------------------------
+template <int ACT, int RS>
+__global__ void __launch_bounds__(THREADS) fastgen_persistent(const __grid_constant__ FastgenArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  Smem sm;
+  sm.stage[0] = smem;
+  sm.stage[1] = smem + a.stage_bytes;
+  sm.slots = smem + 2 * a.stage_bytes;
+  sm.slot_stride = a.slot_bytes;
+  sm.As = reinterpret_cast<signed char*>(sm.slots + NS * a.slot_bytes);
+  sm.Cs = reinterpret_cast<float*>(sm.slots + NS * a.slot_bytes + TM * AS_LD);
+  // the per-row scales, [B] each, only in the modes that read them; then the table
+  float* rows = sm.Cs + TM * (GNG * BN + 4);
+  sm.l_code = nullptr, sm.l_inv = sm.g_rg = sm.g_mult = nullptr;
+  if (ACT == ACT_ROW) {
+    sm.l_code = reinterpret_cast<int*>(rows);
+    sm.l_inv = rows + a.B;
+    rows += 2 * a.B;
+  }
+  if (RS == RS_ROW) {
+    sm.g_rg = rows;
+    sm.g_mult = rows + a.B;
+    rows += 2 * a.B;
+  }
+  int* stab = reinterpret_cast<int*>(rows);
+  for (int i = threadIdx.x; i < a.table_words; i += THREADS) stab[i] = static_cast<const int*>(a.table)[i];
+  sm.tab = stab;
+  __syncthreads();
+  unsigned long long* bar = static_cast<unsigned long long*>(a.bar);
+  unsigned long long target = 0;
+  const int B = a.B, NL = a.NL;
+  const size_t ring_ld = ACT == ACT_ROW ? a.W + ROW_LANES : a.W;
+  const size_t slot_bytes = (size_t)B * ring_ld * (ACT == ACT_BF16 ? sizeof(bf16) : 1);
+  unsigned char* lbuf = static_cast<unsigned char*>(a.lbuf);
+  float* xh = static_cast<float*>(a.xh);
+
+  int buf = 0;
+  prefetch<ACT, RS>(a, sm, PH_GATE, 0, buf);
+  // the first step's start from the carried input taps
+  for (int b = blockIdx.x * (THREADS / 32) + threadIdx.x / 32; b < B; b += gridDim.x * (THREADS / 32))
+    start_row<ACT>(a, b, xh[b], xh[B + b], xh[2 * B + b]);
+  grid_barrier(bar, target);
+  for (int t = 0; t < a.L; ++t) {
+    const long long tg = (long long)a.t0 + t;
+    size_t base = 0;
+    for (int li = 0; li < NL; ++li) {
+      const int d = 1 << (li % a.num_stages);
+      Step st;
+      st.t = t;
+      st.row2 = lbuf + (base + tg % (2 * d)) * slot_bytes;             // state at t - 2d, overwritten this step
+      st.tap1 = lbuf + (base + (tg + d) % (2 * d)) * slot_bytes;       // state at t - d
+      gate_phase<ACT, RS>(a, sm, li, st, buf);
+      prefetch<ACT, RS>(a, sm, PH_RS, li, buf ^ 1);
+      grid_barrier(bar, target);
+      buf ^= 1;
+      {  // the ring rows the next gate phase reads (cold after 2d steps) towards L2
+        const bool last = li + 1 == NL;
+        const int d2 = last ? 1 : 1 << ((li + 1) % a.num_stages);
+        const size_t base2 = last ? 0 : base + 2 * d;
+        const long long tg2 = last ? tg + 1 : tg;
+        l2_prefetch(lbuf + (base2 + tg2 % (2 * d2)) * slot_bytes, slot_bytes);
+        l2_prefetch(lbuf + (base2 + (tg2 + d2) % (2 * d2)) * slot_bytes, slot_bytes);
+      }
+      rs_phase<ACT, RS>(a, sm, li, st, buf);
+      if (li + 1 < NL)
+        prefetch<ACT, RS>(a, sm, PH_GATE, li + 1, buf ^ 1);
+      else
+        prefetch<ACT, RS>(a, sm, PH_OUT1, 0, buf ^ 1);
+      grid_barrier(bar, target);
+      buf ^= 1;
+      base += 2 * d;
+    }
+    out1_phase<ACT, RS>(a, sm, t, buf);
+    prefetch<ACT, RS>(a, sm, PH_OUT2, 0, buf ^ 1);
+    grid_barrier(bar, target);
+    buf ^= 1;
+    out2_phase<ACT, RS>(a, sm, t, buf);
+    const bool more = t + 1 < a.L;
+    if (more) prefetch<ACT, RS>(a, sm, PH_GATE, 0, buf ^ 1);
+    grid_barrier(bar, target);
+    buf ^= 1;
+    if (more) {  // the next step's conditioning (gate and out1 operands) towards L2
+      l2_prefetch(static_cast<const bf16*>(a.enc) + (size_t)(t + 1) * B * a.DW, (size_t)B * a.DW * 2);
+      if (ACT != ACT_BF16)
+        l2_prefetch(static_cast<const signed char*>(a.q_enc) + (size_t)(t + 1) * B * a.DW, (size_t)B * a.DW);
+    }
+    sample_phase<ACT>(a, t, more);
+    if (more) grid_barrier(bar, target);
+  }
+  cp_wait<0>();
 }
 
 // ---- quant_enc_kernel: per-row dynamic quantisation of the conditioning ----
@@ -672,565 +1340,9 @@ quant_enc_kernel(const bf16* __restrict__ enc, signed char* __restrict__ q_enc,
   if (lane == 0) r_enc[row] = __fmul_rn(amax, kInv127);
 }
 
-// ---- gate_kernel_i8: gate[B, m] of one layer, int8 product ----
-constexpr int GI_BM = 64, GI_BN = 16, GI_KC = 64, GI_KSPAN = 256, GI_THREADS = 128;
-constexpr int GI_TILE = GI_BM * 2 * GI_BN;  // int32 of one partial tile
-constexpr int GI_LDA = GI_KC + 16;          // bytes: 20 words, so the 8 rows of a fragment hit 8 bank groups
-constexpr int GI_LDB = 2 * GI_BN + 8;       // words (4 k each): 40, so 4 k-words x 8 columns hit 32 banks
-constexpr int GI_AV = GI_BM * GI_KC / 16 / GI_THREADS;              // 16-byte A vectors per thread per chunk
-constexpr int GI_BV = (GI_KC / 4) * 2 * GI_BN * 4 / 16 / GI_THREADS;  // 16-byte B vectors per thread per chunk
-constexpr int GI_OUT = GI_BM * GI_BN / GI_THREADS;                  // gate values per thread
-static_assert(GI_BV == 1, "one weight vector per thread per chunk");
-static_assert(GI_THREADS == 2 * GI_BM && GI_OUT == GATE_OUT && GI_BN == 2 * GATE_OUT && GI_BN == GA_BN,
-              "the epilogue gives a tile row to a lane pair");
-
-__host__ __device__ inline int gi_slices(int k) { return (k + GI_KSPAN - 1) / GI_KSPAN; }
-
-// K slices of one gate tile.  A slice never straddles two sums that dequantise
-// with different multipliers.  ACT_STATIC: the 3W part, then the enc part.
-// ACT_ROW: tap t-2d, tap t-d, l and enc, each cut on its own.
-__host__ __device__ inline int gi_nsplit(int act, int W, int DW) {
-  return (act == ACT_ROW ? 3 * gi_slices(W) : gi_slices(3 * W)) + gi_slices(DW);
-}
-
-struct GateI8Args {
-  const signed char *tap2, *tap1;  // ring rows t-2d and t-d, row stride ring_ld
-  const signed char* q_l;          // ACT_STATIC: [B, W] int8 l
-  const float* l;                  // ACT_ROW: [B, W] f32 l, quantised while it is loaded
-  const float* lmax;               // ACT_ROW: [l_tiles, B] slots of max|l| entering this layer
-  int l_tiles;                     // ACT_ROW: W / 64
-  const signed char* q_enc;        // [B, DW] int8 enc(t)
-  const float* r_enc;              // [B] its row scales
-  const uint32_t* w;               // w_comb[i], k4 layout
-  const float *s_main, *s_comb, *bias;
-  Log8 log8;                       // ACT_ROW: 2^(k/8), k = 0..7
-  void* gate;                      // [B, m] in the RsMode's type
-  float* gmax;                     // RS_ROW: [tiles, B] slots of the layer's gate maxima
-  int* part;
-  unsigned* counters;
-  int B, W, DW, GW, ring_ld, combine_bf16;
-};
-
-template <int ACT, int RS>
-__global__ void __launch_bounds__(GI_THREADS) gate_kernel_i8(const GateI8Args g) {
-  __shared__ __align__(16) signed char As[GI_BM * GI_LDA];
-  __shared__ __align__(16) uint32_t Bs[(GI_KC / 4) * GI_LDB];
-  __shared__ float inv_row[GI_BM];  // ACT_ROW, l slices: the quantising multipliers of the block's rows
-  __shared__ unsigned is_last;
-  const int B = g.B, W = g.W, DW = g.DW, GW = g.GW;
-  const int m = GW / 2;
-  const int j0 = blockIdx.x * GI_BN;
-  const int row0 = blockIdx.y * GI_BM;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, gq = lane / 4, q = lane % 4;
-  const int nsplit = gridDim.z;
-  // this block's K slice: segment seg (ACT_STATIC: 0 the 3W part, 3 enc; ACT_ROW:
-  // 0 tap t-2d, 1 tap t-d, 2 l, 3 enc) and the slice's place in it
-  const int nz_seg = ACT == ACT_ROW ? gi_slices(W) : gi_slices(3 * W);
-  const int nz_main = ACT == ACT_ROW ? 3 * nz_seg : nz_seg;
-  const int z = blockIdx.z;
-  const int seg = z >= nz_main ? 3 : ACT == ACT_ROW ? z / nz_seg : 0;
-  const int seg_begin = seg == 3 ? 3 * W : seg * W;
-  const int seg_end = seg == 3 ? 3 * W + DW : ACT == ACT_ROW ? seg_begin + W : 3 * W;
-  const int k_begin = seg_begin + (seg == 3 ? z - nz_main : z - seg * nz_seg) * GI_KSPAN;
-  const int k_end = min(seg_end, k_begin + GI_KSPAN);
-  const bool from_f32 = ACT == ACT_ROW && seg == 2;  // block-uniform
-
-  // stacked operand [tap(t-2d) | tap(t-d) | int8 l | q_enc(t)] and the weight
-  // columns j0..j0+15 (sigmoid half) and m+j0..m+j0+15 (tanh half)
-  uint4 ra[GI_AV], rb;
-  float4 rf[GI_AV][4];   // ACT_ROW, l slices: the f32 l of a vector
-  auto load_chunk = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < GI_AV; ++i) {
-      const int v = threadIdx.x + i * GI_THREADS;
-      const int b = row0 + v / (GI_KC / 16), k = k0 + (v % (GI_KC / 16)) * 16;
-      if (from_f32) {
-        const float4* src = reinterpret_cast<const float4*>(g.l + (size_t)b * W + (k - 2 * W));
-#pragma unroll
-        for (int j = 0; j < 4; ++j) rf[i][j] = b < B ? src[j] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      } else {
-        const signed char* src = k < W       ? g.tap2 + (size_t)b * g.ring_ld + k
-                                 : k < 2 * W ? g.tap1 + (size_t)b * g.ring_ld + (k - W)
-                                 : k < 3 * W ? g.q_l + (size_t)b * W + (k - 2 * W)
-                                             : g.q_enc + (size_t)b * DW + (k - 3 * W);
-        ra[i] = b < B ? *reinterpret_cast<const uint4*>(src) : make_uint4(0u, 0u, 0u, 0u);
-      }
-    }
-    const int r = threadIdx.x / 8, c = threadIdx.x % 8;  // k-word row, 4-column group
-    const int col = c < 4 ? j0 + c * 4 : m + j0 + (c - 4) * 4;
-    rb = *reinterpret_cast<const uint4*>(g.w + (size_t)(k0 / 4 + r) * GW + col);
-  };
-
-  int acc[4][4];  // n-tiles 0, 1: sigmoid columns; 2, 3: tanh columns
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[j][i] = 0;
-  const uint32_t* Aw = reinterpret_cast<const uint32_t*>(As);
-  load_chunk(k_begin);
-  float inv_l[GI_AV];
-  if (from_f32) {  // block-uniform; worked out once per row while the first chunk is on its way
-    if (threadIdx.x < GI_BM) {
-      const int b = row0 + threadIdx.x;
-      inv_row[threadIdx.x] =
-          b < B ? log8_pow(g.log8, -log8_code(row_max(g.lmax, g.l_tiles, B, b), g.log8)) : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < GI_AV; ++i) inv_l[i] = inv_row[(threadIdx.x + i * GI_THREADS) / (GI_KC / 16)];
-  }
-  for (int k0 = k_begin; k0 < k_end; k0 += GI_KC) {
-#pragma unroll
-    for (int i = 0; i < GI_AV; ++i) {
-      const int v = threadIdx.x + i * GI_THREADS;
-      if (from_f32)
-        ra[i] = make_uint4(quant_i8x4(rf[i][0], inv_l[i]), quant_i8x4(rf[i][1], inv_l[i]),
-                           quant_i8x4(rf[i][2], inv_l[i]), quant_i8x4(rf[i][3], inv_l[i]));
-      *reinterpret_cast<uint4*>(As + (v / (GI_KC / 16)) * GI_LDA + (v % (GI_KC / 16)) * 16) = ra[i];
-    }
-    *reinterpret_cast<uint4*>(Bs + (threadIdx.x / 8) * GI_LDB + (threadIdx.x % 8) * 4) = rb;
-    __syncthreads();
-    if (k0 + GI_KC < k_end) load_chunk(k0 + GI_KC);
-#pragma unroll
-    for (int kk = 0; kk < GI_KC; kk += 32) {
-      uint32_t a[4];
-      const uint32_t* ar = Aw + (warp * 16 + gq) * (GI_LDA / 4) + kk / 4 + q;
-      a[0] = ar[0];
-      a[1] = ar[8 * (GI_LDA / 4)];
-      a[2] = ar[4];
-      a[3] = ar[8 * (GI_LDA / 4) + 4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const uint32_t* br = Bs + (kk / 4 + q) * GI_LDB + j * 8 + gq;
-        mma_s8(acc[j], a, br[0], br[4 * GI_LDB]);
-      }
-    }
-    __syncthreads();
-  }
-  // publish this slice's partial tile [64, 32] int32; the last slice to arrive
-  // sums the slices of each segment apart and forms the gate
-  const unsigned tile = blockIdx.y * gridDim.x + blockIdx.x;
-  int* mine = g.part + ((size_t)tile * nsplit + z) * GI_TILE;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int r = warp * 16 + gq, c = j * 8 + q * 2;
-    *reinterpret_cast<int2*>(mine + r * 2 * GI_BN + c) = make_int2(acc[j][0], acc[j][1]);
-    *reinterpret_cast<int2*>(mine + (r + 8) * 2 * GI_BN + c) = make_int2(acc[j][2], acc[j][3]);
-  }
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) is_last = atomicAdd(&g.counters[tile], 1u) == (unsigned)nsplit - 1;
-  __syncthreads();
-  if (!is_last) return;
-  __threadfence();
-  if (threadIdx.x == 0) g.counters[tile] = 0u;  // ready for the next layer
-  const int* tiles = g.part + (size_t)tile * nsplit * GI_TILE;
-  // a thread owns GI_OUT consecutive sigmoid columns of one row and the tanh columns beside them
-  const int row = threadIdx.x / 2, c0 = (threadIdx.x % 2) * GI_OUT, b = row0 + row;
-  const bool valid = b < B;
-  // sums by segment: ACT_STATIC [3W part | enc], ACT_ROW [tap t-2d | tap t-d | l | enc]
-  constexpr int NSUM = ACT == ACT_ROW ? 4 : 2;
-  int sum[NSUM][2][GI_OUT];  // [segment][sigmoid | tanh][value]
-#pragma unroll
-  for (int k = 0; k < NSUM; ++k)
-#pragma unroll
-    for (int i = 0; i < GI_OUT; ++i) sum[k][0][i] = sum[k][1][i] = 0;
-  for (int zz = 0; zz < nsplit; ++zz) {
-    const int4* p = reinterpret_cast<const int4*>(tiles + (size_t)zz * GI_TILE + row * 2 * GI_BN + c0);
-    const int4 v4[4] = {__ldcg(p), __ldcg(p + 1), __ldcg(p + GI_BN / 4), __ldcg(p + GI_BN / 4 + 1)};
-    const int k = zz >= nz_main ? NSUM - 1 : ACT == ACT_ROW ? zz / nz_seg : 0;
-#pragma unroll
-    for (int kk = 0; kk < NSUM; ++kk)
-      if (kk == k) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          sum[kk][h][0] += v4[2 * h].x, sum[kk][h][1] += v4[2 * h].y;
-          sum[kk][h][2] += v4[2 * h].z, sum[kk][h][3] += v4[2 * h].w;
-          sum[kk][h][4] += v4[2 * h + 1].x, sum[kk][h][5] += v4[2 * h + 1].y;
-          sum[kk][h][6] += v4[2 * h + 1].z, sum[kk][h][7] += v4[2 * h + 1].w;
-        }
-      }
-  }
-  // the row's scales: enc(t)'s, and in ACT_ROW those of l and of the two taps (from their codes)
-  float re = 0.0f, rl = 0.0f, rt2 = 0.0f, rt1 = 0.0f;
-  if (valid) {
-    re = __ldg(g.r_enc + b);
-    if (ACT == ACT_ROW) {
-      rl = log8_pow(g.log8, log8_code(row_max(g.lmax, g.l_tiles, B, b), g.log8));
-      rt2 = log8_pow(g.log8, __ldg(g.tap2 + (size_t)b * g.ring_ld + W));
-      rt1 = log8_pow(g.log8, __ldg(g.tap1 + (size_t)b * g.ring_ld + W));
-    }
-  }
-  float gv[GI_OUT];
-#pragma unroll
-  for (int i = 0; i < GI_OUT; ++i) {
-    float x[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int col = h * m + j0 + c0 + i;
-      const float sc = __ldg(g.s_comb + col), bi = __ldg(g.bias + col);
-      if constexpr (ACT == ACT_ROW) {
-        // the reference's order: enc, l, tap t-2d, tap t-d; the sums are below 2^24, exact in f32
-        const float se = (float)sum[3][h][i], sl = (float)sum[2][h][i];
-        const float st2 = (float)sum[0][h][i], st1 = (float)sum[1][h][i];
-        if (g.combine_bf16) {
-          float a = bf_round(__fmul_rn(bf_round(se), bf_round(re)));
-          a = bf_round(__fadd_rn(a, bf_round(__fmul_rn(bf_round(sl), bf_round(rl)))));
-          a = bf_round(__fadd_rn(a, bf_round(__fmul_rn(bf_round(st2), bf_round(rt2)))));
-          a = bf_round(__fadd_rn(a, bf_round(__fmul_rn(bf_round(st1), bf_round(rt1)))));
-          x[h] = bf_round(__fadd_rn(bf_round(__fmul_rn(a, bf_round(sc))), bf_round(bi)));
-        } else {
-          float a = __fmul_rn(se, re);
-          a = __fadd_rn(a, __fmul_rn(sl, rl));
-          a = __fadd_rn(a, __fmul_rn(st2, rt2));
-          a = __fadd_rn(a, __fmul_rn(st1, rt1));
-          x[h] = __fadd_rn(__fmul_rn(a, sc), bi);
-        }
-      } else {
-        const float main_part = __fmul_rn((float)sum[0][h][i], __ldg(g.s_main + col));
-        const float enc_part = __fmul_rn(__fmul_rn((float)sum[1][h][i], re), sc);
-        x[h] = __fadd_rn(__fadd_rn(main_part, enc_part), bi);
-      }
-    }
-    gv[i] = __fmul_rn(1.0f / (1.0f + expf(-x[0])), tanhf(x[1]));
-  }
-  store_gate<RS>(g.gate, g.gmax + (size_t)blockIdx.x * B, valid, b, m, j0 + c0, gv);
-}
-
-// ---- resskip_kernel_i8: rs = q_gate @ w_rs * scale + b_rs, int8 product ----
-constexpr int RI_BM = 64, RI_BN = 64, RI_KC = 64, RI_THREADS = 128;
-constexpr int RI_LDA = RI_KC + 16;  // bytes
-constexpr int RI_LDB = RI_BN + 8;   // words (4 k each)
-constexpr int RI_LDC = RI_BN + 4;   // int32
-constexpr int RI_AV = RI_BM * RI_KC / 16 / RI_THREADS;
-constexpr int RI_BV = (RI_KC / 4) * RI_BN * 4 / 16 / RI_THREADS;
-static_assert(RI_THREADS == 128 && RI_BM == RS_ROWS && RI_BM == 8 * RS_GROUPS && RI_BN == 64,
-              "rs_epilogue's tile");
-
-// RS_STATIC: the gate arrives as int8.  RS_ROW: it arrives as f32 beside its
-// row maxima, and every block quantises all m columns of its 64 rows while
-// loading them: amax = max(the row's slots of gmax, 1e-8), q = clip(rint(gate *
-// (127 / amax)), +-127), and the row's scale amax / 127 joins s_rs in the
-// epilogue (rs_prepare).
-template <int ACT, int RS>
-__global__ void __launch_bounds__(RI_THREADS) resskip_kernel_i8(const ResskipArgs r) {
-  static_assert(RS == RS_STATIC || RS == RS_ROW, "an int8 res/skip product");
-  __shared__ __align__(16) signed char As[RI_BM * RI_LDA];
-  __shared__ __align__(16) uint32_t Bs[(RI_KC / 4) * RI_LDB];
-  __shared__ __align__(16) int Cs[RI_BM * RI_LDC];
-  const int B = r.B, W = r.W, S = r.S, m = r.m;
-  const int N = W + S;
-  const int n0 = blockIdx.x * RI_BN;
-  const int row0 = blockIdx.y * RI_BM;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, gq = lane / 4, q = lane % 4;
-  const bool is_l = n0 < W;
-  const uint32_t* w = static_cast<const uint32_t*>(r.w);
-  __shared__ RsShared sh;
-  RsRows rr;
-  rs_rows<ACT>(rr, r.ring, r.l, r.s, is_l, row0, n0, B, W, S);
-  const float4 s_rs = *reinterpret_cast<const float4*>(r.s_rs + n0 + rr.cc);
-  const float4 bi = *reinterpret_cast<const float4*>(r.bias + n0 + rr.cc);
-
-  uint4 ra[RI_AV], rb[RI_BV];
-  float4 rf[RI_AV][4];  // RS_ROW: the f32 gate of a vector
-  auto load_chunk = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < RI_AV; ++i) {
-      const int v = threadIdx.x + i * RI_THREADS;
-      const int b = row0 + v / (RI_KC / 16);
-      const size_t at = (size_t)b * m + k0 + (v % (RI_KC / 16)) * 16;
-      if (RS == RS_ROW) {
-        const float4* src = reinterpret_cast<const float4*>(static_cast<const float*>(r.gate) + at);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) rf[i][j] = b < B ? src[j] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      } else {
-        ra[i] = b < B ? *reinterpret_cast<const uint4*>(static_cast<const signed char*>(r.gate) + at)
-                      : make_uint4(0u, 0u, 0u, 0u);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < RI_BV; ++i) {
-      const int v = threadIdx.x + i * RI_THREADS;
-      rb[i] = *reinterpret_cast<const uint4*>(w + (size_t)(k0 / 4 + v / (RI_BN / 4)) * N + n0 +
-                                              (v % (RI_BN / 4)) * 4);
-    }
-  };
-
-  int acc[RI_BN / 8][4];
-#pragma unroll
-  for (int j = 0; j < RI_BN / 8; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[j][i] = 0;
-  const uint32_t* Aw = reinterpret_cast<const uint32_t*>(As);
-  load_chunk(0);
-  rs_prepare<ACT, RS>(sh, r, row0, is_l);  // while the first chunk is on its way
-  float mult[RI_AV];  // RS_ROW: the quantising multipliers of the thread's vectors' rows
-#pragma unroll
-  for (int i = 0; i < RI_AV; ++i)
-    mult[i] = RS == RS_ROW ? sh.mult[(threadIdx.x + i * RI_THREADS) / (RI_KC / 16)] : 0.0f;
-  for (int k0 = 0; k0 < m; k0 += RI_KC) {
-#pragma unroll
-    for (int i = 0; i < RI_AV; ++i) {
-      const int v = threadIdx.x + i * RI_THREADS;
-      if (RS == RS_ROW)
-        ra[i] = make_uint4(quant_i8x4(rf[i][0], mult[i]), quant_i8x4(rf[i][1], mult[i]),
-                           quant_i8x4(rf[i][2], mult[i]), quant_i8x4(rf[i][3], mult[i]));
-      *reinterpret_cast<uint4*>(As + (v / (RI_KC / 16)) * RI_LDA + (v % (RI_KC / 16)) * 16) = ra[i];
-    }
-#pragma unroll
-    for (int i = 0; i < RI_BV; ++i) {
-      const int v = threadIdx.x + i * RI_THREADS;
-      *reinterpret_cast<uint4*>(Bs + (v / (RI_BN / 4)) * RI_LDB + (v % (RI_BN / 4)) * 4) = rb[i];
-    }
-    __syncthreads();
-    if (k0 + RI_KC < m) load_chunk(k0 + RI_KC);
-#pragma unroll
-    for (int kk = 0; kk < RI_KC; kk += 32) {
-      uint32_t a[4];
-      const uint32_t* ar = Aw + (warp * 16 + gq) * (RI_LDA / 4) + kk / 4 + q;
-      a[0] = ar[0];
-      a[1] = ar[8 * (RI_LDA / 4)];
-      a[2] = ar[4];
-      a[3] = ar[8 * (RI_LDA / 4) + 4];
-#pragma unroll
-      for (int j = 0; j < RI_BN / 8; ++j) {
-        const uint32_t* br = Bs + (kk / 4 + q) * RI_LDB + j * 8 + gq;
-        mma_s8(acc[j], a, br[0], br[4 * RI_LDB]);
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int j = 0; j < RI_BN / 8; ++j) {
-    int* cr = Cs + (warp * 16 + gq) * RI_LDC + j * 8 + q * 2;
-    *reinterpret_cast<int2*>(cr) = make_int2(acc[j][0], acc[j][1]);
-    *reinterpret_cast<int2*>(cr + 8 * RI_LDC) = make_int2(acc[j][2], acc[j][3]);
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < RS_GROUPS; ++i) {
-    const int4 sums =
-        *reinterpret_cast<const int4*>(Cs + (threadIdx.x / 16 + 8 * i) * RI_LDC + rr.cc);
-    float4 sc = s_rs;
-    if (RS == RS_ROW)  // the row's gate scale meets the column scales before it meets the sum
-      sc = make_float4(__fmul_rn(sh.rg[rs_tile_row(i)], sc.x), __fmul_rn(sh.rg[rs_tile_row(i)], sc.y),
-                       __fmul_rn(sh.rg[rs_tile_row(i)], sc.z), __fmul_rn(sh.rg[rs_tile_row(i)], sc.w));
-    const float4 v = make_float4(__fadd_rn(__fmul_rn((float)sums.x, sc.x), bi.x),
-                                 __fadd_rn(__fmul_rn((float)sums.y, sc.y), bi.y),
-                                 __fadd_rn(__fmul_rn((float)sums.z, sc.z), bi.z),
-                                 __fadd_rn(__fmul_rn((float)sums.w, sc.w), bi.w));
-    rs_epilogue<ACT>(r.ring, sh, rr, i, r.l, r.s, is_l, n0, W, S, v);
-  }
-  rs_finish<ACT>(r.ring, rr, is_l, B);
-}
-
-// ---------------------------------------------------------------------------
-// head_kernel: out head + sampler + feedback, then the next step's start
-// ---------------------------------------------------------------------------
-constexpr int HD_ROWS = 16, HD_THREADS = 256;
-
-// Cs[16, N] = As[16, K] @ Wg[K, N] (Wg row-major bf16 in global memory)
-__device__ void rowtile_gemm(const bf16* As, int lda, const bf16* __restrict__ Wg, int K, int N,
-                             float* Cs, int ldc) {
-  const int warp = threadIdx.x / 32, nwarps = blockDim.x / 32;
-  for (int nt = warp; nt < N / 16; nt += nwarps) {
-    FragC acc;
-    wmma::fill_fragment(acc, 0.0f);
-#pragma unroll 4
-    for (int k = 0; k < K; k += 16) {
-      FragA a;
-      FragB bf;
-      wmma::load_matrix_sync(a, As + k, lda);
-      wmma::load_matrix_sync(bf, Wg + (size_t)k * N + nt * 16, N);
-      wmma::mma_sync(acc, a, bf, acc);
-    }
-    wmma::store_matrix_sync(Cs + nt * 16, acc, ldc, wmma::mem_row_major);
-  }
-}
-
-struct HeadLayout {
-  int lda, ldc, a_bytes, bytes;
-};
-
-__host__ __device__ inline HeadLayout head_layout(const FastgenArgs& a) {
-  HeadLayout h;
-  const int ka = a.S + a.DW > a.W ? a.S + a.DW : a.W;
-  const int nc = a.out_pad > a.S ? a.out_pad : a.S;
-  h.lda = ka + 8;
-  h.ldc = nc + 4;
-  h.a_bytes = (HD_ROWS * h.lda * 2 + 127) / 128 * 128;
-  h.bytes = h.a_bytes + HD_ROWS * h.ldc * 4;
-  return h;
-}
-
-__device__ __forceinline__ void warp_argmax(float& best, int& idx) {
-  for (int off = 16; off; off >>= 1) {
-    const float ob = __shfl_xor_sync(0xffffffffu, best, off);
-    const int oi = __shfl_xor_sync(0xffffffffu, idx, off);
-    if (ob > best || (ob == best && oi < idx)) {
-      best = ob;
-      idx = oi;
-    }
-  }
-}
-
-__device__ __forceinline__ float sign_of(float x) { return (float)((x > 0.0f) - (x < 0.0f)); }
-
-__global__ void __launch_bounds__(HD_THREADS)
-head_kernel(const FastgenArgs a, int t, int do_head, int do_start) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const HeadLayout hl = head_layout(a);
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  float* Cs = reinterpret_cast<float*>(smem + hl.a_bytes);
-  const int B = a.B, W = a.W, S = a.S, DW = a.DW, P = a.out_pad;
-  const int row0 = blockIdx.x * HD_ROWS;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, nwarps = blockDim.x / 32;
-  float* xh = static_cast<float*>(a.xh);
-
-  if (do_head) {
-    const float* s = static_cast<const float*>(a.s);
-    const bf16* enc = static_cast<const bf16*>(a.enc) + (size_t)t * B * DW;
-    for (int e = threadIdx.x; e < HD_ROWS * (S + DW); e += blockDim.x) {
-      const int r = e / (S + DW), c = e % (S + DW), b = row0 + r;
-      bf16 v = __float2bfloat16(0.0f);
-      if (b < B) v = c < S ? __float2bfloat16(fmaxf(s[(size_t)b * S + c], 0.0f))
-                           : enc[(size_t)b * DW + (c - S)];
-      As[r * hl.lda + c] = v;
-    }
-    __syncthreads();
-    rowtile_gemm(As, hl.lda, static_cast<const bf16*>(a.w_out1), S + DW, S, Cs, hl.ldc);
-    __syncthreads();
-    const float* b_out1 = static_cast<const float*>(a.b_out1);
-    for (int e = threadIdx.x; e < HD_ROWS * S; e += blockDim.x) {
-      const int r = e / S, c = e % S;
-      As[r * hl.lda + c] = __float2bfloat16(fmaxf(Cs[r * hl.ldc + c] + b_out1[c], 0.0f));
-    }
-    __syncthreads();
-    rowtile_gemm(As, hl.lda, static_cast<const bf16*>(a.w_out2), S, P, Cs, hl.ldc);
-    __syncthreads();
-    const float* b_out2 = static_cast<const float*>(a.b_out2);
-    float* outp = static_cast<float*>(a.out_params);
-    for (int e = threadIdx.x; e < HD_ROWS * P; e += blockDim.x) {
-      const int r = e / P, c = e % P, b = row0 + r;
-      const float v = Cs[r * hl.ldc + c] + b_out2[c];
-      Cs[r * hl.ldc + c] = v;
-      if (outp != nullptr && b < B) outp[((size_t)t * B + b) * P + c] = v;
-    }
-    __syncthreads();
-
-    // ---- sampling: one warp per batch row ----
-    const uint32_t k0 = (uint32_t)((unsigned long long)a.seed & 0xffffffffull);
-    const uint32_t k1 = (uint32_t)((unsigned long long)a.seed >> 32);
-    const float half = (float)(a.quant_chann / 2);
-    const uint32_t tg = (uint32_t)(a.t0 + t);  // the random counter runs on the global step
-    float* audio = static_cast<float*>(a.audio);
-    const float* tf = static_cast<const float*>(a.tf);
-    for (int r = warp; r < HD_ROWS; r += nwarps) {
-      const int b = row0 + r;
-      if (b >= B) continue;  // warp-uniform
-      const float* o = Cs + r * hl.ldc;
-      float qv = 0.0f, x = 0.0f;
-      if (a.head == HEAD_GAUSS) {
-        x = o[0];
-        if (!a.greedy) {
-          const float u1 = uniform_from_bits(philox_bits(0u, b, tg, 0u, k0, k1));
-          const float u2 = uniform_from_bits(philox_bits(0u, b, tg, 1u, k0, k1));
-          const float z = sqrtf(-2.0f * logf(u1)) * cosf(kTwoPi * u2);
-          x = x + expf(fmaxf(o[1], -7.0f)) * z;
-        }
-      } else {
-        const int n = a.head == HEAD_MOL ? a.out_seg : P;
-        float best = -INFINITY;
-        int idx = 0x7fffffff;
-        for (int i = lane; i < n; i += 32) {
-          float sc = o[i];
-          if (!a.greedy) sc = sc - logf(-logf(uniform_from_bits(philox_bits(i, b, tg, 0u, k0, k1))));
-          if (sc > best) {
-            best = sc;
-            idx = i;
-          }
-        }
-        warp_argmax(best, idx);
-        if (a.head == HEAD_MOL) {
-          x = o[a.out_seg + idx];
-          if (!a.greedy) {
-            const float log_sc = fminf(fmaxf(o[2 * a.out_seg + idx], -7.0f), 7.0f);
-            const float u2 = uniform_from_bits(philox_bits(0u, b, tg, 1u, k0, k1));
-            x = x + expf(log_sc) * (logf(u2) - logf(1.0f - u2));
-          }
-        } else {
-          qv = (float)idx - half;
-        }
-      }
-      if (a.head != HEAD_CE) {
-        x = fminf(fmaxf(x, -1.0f), 1.0f - 2.0f / (float)a.quant_chann);
-        qv = floorf(x * half);
-      }
-      float au;
-      if (a.use_mu_law) {
-        const float y = (qv + 0.5f) * 2.0f / 256.0f;
-        au = qv == 0.0f ? 0.0f : sign_of(y) / 255.0f * (powf(256.0f, fabsf(y)) - 1.0f);
-      } else {
-        au = qv / half;
-      }
-      if (lane == 0) {
-        audio[(size_t)t * B + b] = au;
-        const float fb = tf != nullptr ? tf[(size_t)t * B + b] : au;
-        const float xn =
-            a.use_mu_law ? floorf(sign_of(fb) * log1pf(255.0f * fabsf(fb)) / kLog256 * 128.0f) / half
-                         : fb;
-        xh[b] = xh[B + b];
-        xh[B + b] = xh[2 * B + b];
-        xh[2 * B + b] = xn;
-      }
-    }
-  }
-
-  if (do_start) {
-    __syncthreads();
-    const float* ws = static_cast<const float*>(a.w_start);
-    const float* bs = static_cast<const float*>(a.b_start);
-    float* l = static_cast<float*>(a.l);
-    bf16* l_bf = static_cast<bf16*>(a.l_bf);
-    signed char* q_l = static_cast<signed char*>(a.q_l);
-    const float inv0 = a.act_mode == ACT_STATIC ? static_cast<const float*>(a.s_act_inv)[0] : 0.0f;
-    for (int e = threadIdx.x; e < HD_ROWS * W; e += blockDim.x) {
-      const int r = e / W, c = e % W, b = row0 + r;
-      float v = 0.0f;
-      if (b < B) {
-        v = xh[b] * ws[c] + xh[B + b] * ws[W + c] + xh[2 * B + b] * ws[2 * W + c] + bs[c];
-        l[(size_t)b * W + c] = v;
-        // layer 0's operand: its ring row too
-        if (a.act_mode == ACT_STATIC)
-          q_l[(size_t)b * W + c] = quant_i8(v, inv0);
-        else if (a.act_mode == ACT_BF16)
-          l_bf[(size_t)b * W + c] = __float2bfloat16(v);
-      }
-      As[r * hl.lda + c] = __float2bfloat16(v);
-    }
-    __syncthreads();
-    // ACT_ROW: the row maxima of layer 0's l, in the first of its slots (the
-    // others hold zero): a warp per row reads back what the block just wrote
-    float* lmax = static_cast<float*>(a.lmax);
-    if (lmax != nullptr) {
-      for (int r = warp; r < HD_ROWS; r += nwarps) {
-        const int b = row0 + r;
-        if (b >= B) continue;  // warp-uniform
-        float mx = 0.0f;
-        for (int c = lane; c < W; c += 32) mx = fmaxf(mx, fabsf(l[(size_t)b * W + c]));
-        mx = lanes_max<32>(mx);
-        for (int t = lane; t < W / RS_BN; t += 32) lmax[(size_t)t * B + b] = t == 0 ? mx : 0.0f;
-      }
-    }
-    rowtile_gemm(As, hl.lda, static_cast<const bf16*>(a.w_skip0), W, S, Cs, hl.ldc);
-    __syncthreads();
-    const float* b_skip0 = static_cast<const float*>(a.b_skip0);
-    float* s = static_cast<float*>(a.s);
-    for (int e = threadIdx.x; e < HD_ROWS * S; e += blockDim.x) {
-      const int r = e / S, c = e % S, b = row0 + r;
-      if (b < B) s[(size_t)b * S + c] = Cs[r * hl.ldc + c] + b_skip0[c];
-    }
-  }
+__global__ void __launch_bounds__(THREADS) barrier_probe_kernel(unsigned long long* bar, int iters) {
+  unsigned long long target = 0;
+  for (int i = 0; i < iters; ++i) grid_barrier(bar, target);
 }
 
 __global__ void philox_uniform_kernel(float* out, int rows, int lanes, int t, int draw,
@@ -1242,143 +1354,85 @@ __global__ void philox_uniform_kernel(float* out, int rows, int lanes, int t, in
   }
 }
 
-// every instantiation by its mode codes: [ActMode] or [RsMode]
-typedef void (*GateKernel)(GateArgs);
-typedef void (*GateI8Kernel)(GateI8Args);
-typedef void (*ResskipKernel)(ResskipArgs);
-GateKernel const kGate[3] = {gate_kernel<RS_BF16>, gate_kernel<RS_STATIC>, gate_kernel<RS_ROW>};
-GateI8Kernel const kGateI8[2][3] = {
-    {gate_kernel_i8<ACT_STATIC, RS_BF16>, gate_kernel_i8<ACT_STATIC, RS_STATIC>,
-     gate_kernel_i8<ACT_STATIC, RS_ROW>},
-    {gate_kernel_i8<ACT_ROW, RS_BF16>, gate_kernel_i8<ACT_ROW, RS_STATIC>,
-     gate_kernel_i8<ACT_ROW, RS_ROW>}};
-ResskipKernel const kResskip[3] = {resskip_kernel<ACT_BF16>, resskip_kernel<ACT_STATIC>,
-                                   resskip_kernel<ACT_ROW>};
-ResskipKernel const kResskipI8[3][2] = {
-    {resskip_kernel_i8<ACT_BF16, RS_STATIC>, resskip_kernel_i8<ACT_BF16, RS_ROW>},
-    {resskip_kernel_i8<ACT_STATIC, RS_STATIC>, resskip_kernel_i8<ACT_STATIC, RS_ROW>},
-    {resskip_kernel_i8<ACT_ROW, RS_STATIC>, resskip_kernel_i8<ACT_ROW, RS_ROW>}};
+// every instantiation by its mode codes [ActMode][RsMode]
+typedef void (*GenKernel)(FastgenArgs);
+GenKernel const kGen[3][3] = {
+    {fastgen_persistent<ACT_BF16, RS_BF16>, fastgen_persistent<ACT_BF16, RS_STATIC>,
+     fastgen_persistent<ACT_BF16, RS_ROW>},
+    {fastgen_persistent<ACT_STATIC, RS_BF16>, fastgen_persistent<ACT_STATIC, RS_STATIC>,
+     fastgen_persistent<ACT_STATIC, RS_ROW>},
+    {fastgen_persistent<ACT_ROW, RS_BF16>, fastgen_persistent<ACT_ROW, RS_STATIC>,
+     fastgen_persistent<ACT_ROW, RS_ROW>}};
+
+bool valid_mode(int act, int rs) { return act >= ACT_BF16 && act <= ACT_ROW && rs >= RS_BF16 && rs <= RS_ROW; }
 
 }  // namespace
 
-extern "C" int fastgen_generate(const FastgenArgs* args) {
+// info[0..5]: blocks per SM, SMs, registers a thread, local (spill) bytes a
+// thread, static shared bytes, max dynamic shared bytes the card allows
+extern "C" int fastgen_grid(int act_mode, int rs_mode, int smem_bytes, int device, int* info) {
+  if (!valid_mode(act_mode, rs_mode)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const GenKernel k = kGen[act_mode][rs_mode];
+  err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  int per_sm = 0, sms = 0, optin = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, THREADS, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, k);
+  if (err != cudaSuccess) return (int)err;
+  info[0] = per_sm;
+  info[1] = sms;
+  info[2] = attr.numRegs;
+  info[3] = (int)attr.localSizeBytes;
+  info[4] = (int)attr.sharedSizeBytes;
+  info[5] = optin;
+  return 0;
+}
+
+extern "C" int fastgen_generate(const FastgenArgs* args, int* launched) {
   const FastgenArgs& a = *args;
-  if (a.act_mode < ACT_BF16 || a.act_mode > ACT_ROW || a.rs_mode < RS_BF16 || a.rs_mode > RS_ROW)
-    return (int)cudaErrorInvalidValue;
+  if (!valid_mode(a.act_mode, a.rs_mode) || a.grid <= 0) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(a.device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(a.stream);
-  const int act = a.act_mode, rs = a.rs_mode;
-  const int m = a.GW / 2, K = 3 * a.W + a.DW, N = a.W + a.S;
-  const HeadLayout hl = head_layout(a);
-  if (hl.bytes > 48 * 1024) {
-    err = cudaFuncSetAttribute(head_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, hl.bytes);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const dim3 grid_rs(N / RS_BN, (a.B + RS_BM - 1) / RS_BM);
-  const dim3 grid_head((a.B + HD_ROWS - 1) / HD_ROWS);
-  const dim3 grid_gate = act == ACT_BF16
-      ? dim3(m / GA_BN, (a.B + GA_BM - 1) / GA_BM, (K + GA_KSPAN - 1) / GA_KSPAN)
-      : dim3(m / GI_BN, (a.B + GI_BM - 1) / GI_BM, gi_nsplit(act, a.W, a.DW));
-  // bytes of a ring row of one batch row, and of a whole ring slot
-  const size_t ring_ld = act == ACT_ROW ? a.W + ROW_LANES : a.W;
-  const size_t slot_bytes = (size_t)a.B * ring_ld * (act == ACT_BF16 ? sizeof(bf16) : 1);
-  unsigned char* lbuf = static_cast<unsigned char*>(a.lbuf);
-  const float* b_comb = static_cast<const float*>(a.b_comb);
-  const float* b_rs = static_cast<const float*>(a.b_rs);
-  const float* s_comb = static_cast<const float*>(a.s_comb);
-  const float* s_main = static_cast<const float*>(a.s_main);
-  const float* s_rs = static_cast<const float*>(a.s_rs);
-  const float* s_act_inv = static_cast<const float*>(a.s_act_inv);
-  // row maxima: per layer [tiles, B] slots, one per producer column tile
-  float* lmax = static_cast<float*>(a.lmax);
-  float* gmax = static_cast<float*>(a.gmax);
-  const int l_tiles = a.W / RS_BN, g_tiles = m / GI_BN;
-  const size_t lmax_layer = (size_t)l_tiles * a.B, gmax_layer = (size_t)g_tiles * a.B;
-
-  if (act != ACT_BF16) {
+  const GenKernel k = kGen[a.act_mode][a.rs_mode];
+  err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  if (a.act_mode != ACT_BF16) {
     const long long rows = (long long)a.L * a.B;
     quant_enc_kernel<<<(unsigned)((rows + QE_THREADS / 32 - 1) / (QE_THREADS / 32)), QE_THREADS, 0, st>>>(
         static_cast<const bf16*>(a.enc), static_cast<signed char*>(a.q_enc),
         static_cast<float*>(a.r_enc), rows, a.DW);
-  }
-  head_kernel<<<grid_head, HD_THREADS, hl.bytes, st>>>(a, 0, 0, 1);
-  for (int t = 0; t < a.L; ++t) {
-    const long long tg = (long long)a.t0 + t;
-    size_t base = 0;
-    for (int li = 0; li < a.NL; ++li) {
-      const int d = 1 << (li % a.num_stages);
-      unsigned char* row2 = lbuf + (base + tg % (2 * d)) * slot_bytes;              // state at t - 2d, overwritten this step
-      const unsigned char* row1 = lbuf + (base + (tg + d) % (2 * d)) * slot_bytes;  // state at t - d
-      float* gmax_li = rs == RS_ROW ? gmax + li * gmax_layer : nullptr;
-      if (act == ACT_BF16) {
-        GateArgs g;
-        g.tap2 = reinterpret_cast<const bf16*>(row2);
-        g.tap1 = reinterpret_cast<const bf16*>(row1);
-        g.l_bf = static_cast<const bf16*>(a.l_bf);
-        g.enc = static_cast<const bf16*>(a.enc) + (size_t)t * a.B * a.DW;
-        g.w = static_cast<const bf16*>(a.w_comb) + (size_t)li * K * a.GW;
-        g.bias = b_comb + (size_t)li * a.GW;
-        g.gate = a.gate;
-        g.gmax = gmax_li;
-        g.part = static_cast<float*>(a.part);
-        g.counters = static_cast<unsigned*>(a.counters);
-        g.B = a.B, g.W = a.W, g.DW = a.DW, g.GW = a.GW;
-        kGate[rs]<<<grid_gate, GA_THREADS, 0, st>>>(g);
-      } else {
-        GateI8Args g;
-        g.tap2 = reinterpret_cast<const signed char*>(row2);
-        g.tap1 = reinterpret_cast<const signed char*>(row1);
-        g.q_l = static_cast<const signed char*>(a.q_l);
-        g.l = static_cast<const float*>(a.l);
-        g.lmax = act == ACT_ROW ? lmax + li * lmax_layer : nullptr;
-        g.l_tiles = l_tiles;
-        g.q_enc = static_cast<const signed char*>(a.q_enc) + (size_t)t * a.B * a.DW;
-        g.r_enc = static_cast<const float*>(a.r_enc) + (size_t)t * a.B;
-        g.w = static_cast<const uint32_t*>(a.w_comb) + (size_t)li * (K / 4) * a.GW;
-        g.s_main = act == ACT_STATIC ? s_main + (size_t)li * a.GW : nullptr;
-        g.s_comb = s_comb + (size_t)li * a.GW;
-        g.bias = b_comb + (size_t)li * a.GW;
-        g.log8 = a.log8;
-        g.gate = a.gate;
-        g.gmax = gmax_li;
-        g.part = static_cast<int*>(a.part);
-        g.counters = static_cast<unsigned*>(a.counters);
-        g.B = a.B, g.W = a.W, g.DW = a.DW, g.GW = a.GW;
-        g.ring_ld = (int)ring_ld, g.combine_bf16 = a.combine_bf16;
-        kGateI8[act - ACT_STATIC][rs]<<<grid_gate, GI_THREADS, 0, st>>>(g);
-      }
-      ResskipArgs r;
-      r.gate = a.gate;
-      r.gmax = gmax_li;
-      r.g_tiles = g_tiles;
-      r.w = rs == RS_BF16
-          ? static_cast<const void*>(static_cast<const bf16*>(a.w_rs) + (size_t)li * m * N)
-          : static_cast<const void*>(static_cast<const uint32_t*>(a.w_rs) + (size_t)li * (m / 4) * N);
-      r.s_rs = rs == RS_BF16 ? nullptr : s_rs + (size_t)li * N;
-      r.bias = b_rs + (size_t)li * N;
-      r.l = static_cast<float*>(a.l);
-      r.s = static_cast<float*>(a.s);
-      r.ring.ring_row = row2;
-      r.ring.l_bf = static_cast<bf16*>(a.l_bf);
-      r.ring.q_l = static_cast<signed char*>(a.q_l);
-      r.ring.inv_next_p = act == ACT_STATIC && li + 1 < a.NL ? s_act_inv + li + 1 : nullptr;
-      r.ring.lmax_cur = act == ACT_ROW ? lmax + li * lmax_layer : nullptr;
-      r.ring.lmax_next = act == ACT_ROW && li + 1 < a.NL ? lmax + (li + 1) * lmax_layer : nullptr;
-      r.ring.l_tiles = l_tiles;
-      r.ring.log8 = a.log8;
-      r.ring.ring_ld = (int)ring_ld;
-      r.B = a.B, r.W = a.W, r.S = a.S, r.m = m;
-      if (rs == RS_BF16)
-        kResskip[act]<<<grid_rs, RS_THREADS, 0, st>>>(r);
-      else
-        kResskipI8[act][rs - RS_STATIC]<<<grid_rs, RI_THREADS, 0, st>>>(r);
-      base += 2 * d;
-    }
-    head_kernel<<<grid_head, HD_THREADS, hl.bytes, st>>>(a, t, 1, t + 1 < a.L);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
+    ++launched[1];
   }
+  FastgenArgs copy = a;
+  void* params[] = {&copy};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(k), dim3(a.grid), dim3(THREADS), params,
+                                    (size_t)a.smem_bytes, st);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaGetLastError();
+  if (err == cudaSuccess) ++launched[0];
+  return (int)err;
+}
+
+// iters empty grid barriers on grid blocks of THREADS, for timing one barrier
+extern "C" int fastgen_barrier_probe(int grid, int iters, void* bar, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  unsigned long long* b = static_cast<unsigned long long*>(bar);
+  void* params[] = {&b, &iters};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(barrier_probe_kernel), dim3(grid),
+                                    dim3(THREADS), params, 0, static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -1393,25 +1447,6 @@ extern "C" int philox_uniform(float* out, int rows, int lanes, int t, int draw, 
       out, rows, lanes, t, draw, (uint32_t)((unsigned long long)seed & 0xffffffffull),
       (uint32_t)((unsigned long long)seed >> 32));
   return (int)cudaGetLastError();
-}
-
-extern "C" void fastgen_workspace(int B, int W, int GW, int DW, int act_mode, long long* part_words,
-                                  long long* counters, int* l_tiles, int* g_tiles) {
-  // the slots per batch row and layer of the row maxima of l and of the gate
-  *l_tiles = W / RS_BN;
-  *g_tiles = GW / 2 / GI_BN;
-  // 32-bit words of the split-K partial tiles (f32, or int32 with an int8 gate
-  // product) and the count of per-tile arrival counters
-  if (act_mode != ACT_BF16) {
-    const long long tiles = (long long)(GW / 2 / GI_BN) * ((B + GI_BM - 1) / GI_BM);
-    *part_words = tiles * gi_nsplit(act_mode, W, DW) * GI_TILE;
-    *counters = tiles;
-    return;
-  }
-  const long long tiles = (long long)(GW / 2 / GA_BN) * ((B + GA_BM - 1) / GA_BM);
-  const long long nsplit = (3LL * W + DW + GA_KSPAN - 1) / GA_KSPAN;
-  *part_words = nsplit > 1 ? tiles * nsplit * GA_TILE : 0;
-  *counters = tiles;
 }
 
 extern "C" const char* fastgen_error_string(int code) {

@@ -62,19 +62,24 @@ struct FastgenArgs {
   void* lbuf;           // [sum(2d), B, lrow] ring buffers of every layer's input: bf16 rows of W,
                         // ACT_STATIC int8 rows of W at layer i's scale, ACT_ROW int8 rows of W + ROW_LANES
   void* xh;             // [3, B] f32 input taps x(t-2), x(t-1), x(t)
-  // scratch (allocated by the wrapper; l, s and the layer-0 operand are rebuilt from xh by the first launch)
+  // scratch (allocated by the wrapper; l, s and the layer-0 operand are rebuilt from xh at the start of a call)
   void* l;              // [B, W] f32 residual stream
-  void* l_bf;           // ACT_BF16: [B, W] bf16 copy of l, the current-row operand of the gate product
+  void* l_bf;           // [B, W] bf16 copy of l: ACT_BF16's current-row operand, every mode's skip_start operand
   void* q_l;            // ACT_STATIC: [B, W] int8 l quantised at the current layer's scale
   void* q_enc;          // int8 act: [L, B, DW] int8 per-row quantised conditioning (written by the pre-pass)
   void* r_enc;          // int8 act: [L, B] f32 its per-row scales
-  void* lmax;           // ACT_ROW: [NL, l_tiles, B] f32: per res column tile, max|l| entering layer i
-  void* gmax;           // RS_ROW: [NL, g_tiles, B] f32: per gate column tile, max|gate| of layer i
-                        // (tile counts from fastgen_workspace; every slot is rewritten in every step)
+  void* lmax;           // ACT_ROW: [NL, W/32, B] f32: per res column item, max|l| entering layer i
+  void* gmax;           // RS_ROW: [NL, m/gate_cols, B] f32: per gate column item, max|gate| of layer i
+                        // (every slot is rewritten in every step before it is read)
   void* s;              // [B, S] f32 skip sum
+  void* s_bf;           // [B, S] bf16 relu(s) after the last layer: the out1 operand
+  void* o1;             // [B, S] bf16 relu(out1): the out2 operand
+  void* outv;           // [B, out_pad] f32 head output of the current step
   void* gate;           // [B, m] gated activation of the current layer: bf16, RS_STATIC int8, RS_ROW f32
-  void* part;           // partial tiles of the split-K gate product (fastgen_workspace): f32, int8 act int32
-  void* counters;       // u32 per gate tile, zeroed; each reduction resets its own
+  void* part;           // split-K partial tiles of the gate product: f32, int8 act int32
+  void* counters;       // u32 per (gate column item, row tile), zeroed once per call: its slices' arrivals
+  const void* table;    // int32 work table (ops/fastgen_kernel.py schedule)
+  void* bar;            // u64 grid-barrier count, zeroed once per call; it only grows
   // outputs
   void* audio;          // [L, B] f32
   void* out_params;     // [L, B, out_pad] f32, or null
@@ -88,6 +93,11 @@ struct FastgenArgs {
   int rs_mode;       // RsMode
   int combine_bf16;  // ACT_ROW: combine the four dequantised sums in bf16 (every product and sum rounded)
   Log8 log8;         // ACT_ROW: the fractional powers behind every row scale
+  int grid;          // blocks of the cooperative launch (all resident at once)
+  int stage_bytes;   // bytes of one weight stage in shared memory (schedule)
+  int slot_bytes;    // bytes of one A-chunk slot in shared memory (schedule)
+  int smem_bytes;    // dynamic shared memory of a block (schedule)
+  int table_words;   // ints of the work table, copied to shared memory at the start
 };
 
 // Philox4x32-10 (Salmon et al., SC'11), first output word.  Counter
@@ -118,9 +128,11 @@ __host__ __device__ inline float uniform_from_bits(uint32_t bits) {
 }
 
 extern "C" {
-int fastgen_generate(const FastgenArgs* args);
-void fastgen_workspace(int B, int W, int GW, int DW, int act_mode, long long* part_words,
-                       long long* counters, int* l_tiles, int* g_tiles);
+// launched[0] / [1]: one added for each launch of fastgen_persistent /
+// quant_enc_kernel this call enqueued
+int fastgen_generate(const FastgenArgs* args, int* launched);
+int fastgen_grid(int act_mode, int rs_mode, int smem_bytes, int device, int* info);
+int fastgen_barrier_probe(int grid, int iters, void* bar, int device, void* stream);
 int philox_uniform(float* out, int rows, int lanes, int t, int draw, long long seed,
                    int device, void* stream);
 const char* fastgen_error_string(int code);

@@ -69,8 +69,10 @@ def generate_wavenet(source_path, params_npz, config_json, save_path, batch_size
                      int8_static=False):
     """Teacher synthesis of every file under source_path with the weights of a
     golden-format params.npz; writes gen_<name>.wav files and returns their
-    paths.  sample_length > 0 truncates the input wavs.  Any batch size runs
-    as it is: the CUDA kernel masks the rows past the batch in its tiles.
+    paths.  sample_length > 0 truncates the input wavs.  The CUDA kernel
+    masks the rows past the batch in its tiles; int8 without int8_static
+    (per-row scales) caps batch_size near 1 900 at full width
+    (Fastgen.generate_cuda).
     streaming_chunk: generate in kernel calls of that many samples with the
     state carried, so a call's buffers do not grow with the utterance.
     int8: W8A8, int8 weights and ring rows with per-row activation and gate
@@ -79,7 +81,7 @@ def generate_wavenet(source_path, params_npz, config_json, save_path, batch_size
     the first up to 8 .wav sources (each fitted to 16 000 samples) and the
     fixed gate scale; it needs .wav sources."""
     from nsynth_wavenet_tpu_torch.models.fastgen import Fastgen
-    from nsynth_wavenet_tpu_torch.models.wavenet import Wavenet, no_tf32
+    from nsynth_wavenet_tpu_torch.models.wavenet import Wavenet
     from nsynth_wavenet_tpu_torch.ops import fastgen_kernel as fk
 
     cfg = config_lib.load_config(config_json)
@@ -99,10 +101,9 @@ def generate_wavenet(source_path, params_npz, config_json, save_path, batch_size
             raise ValueError("static activation scales need .wav sources to calibrate on")
         cal_wav = np.stack([_fixed_len(wav_io.read_wav(f, expect_sr=16000)[0], 16000)
                             for f in cal_files])
-        with no_tf32():  # the calibration forward is f32, as the kernel's residual stream is
-            act_amax = fg.calibrate_act_amax(
-                params, torch.from_numpy(cal_wav).to(device),
-                torch.from_numpy(stft_ops.melspectrogram_np(cal_wav)).to(device))
+        act_amax = fg.calibrate_act_amax(
+            params, torch.from_numpy(cal_wav).to(device),
+            torch.from_numpy(stft_ops.melspectrogram_np(cal_wav)).to(device))
         log.info("calibrated static activation scales on %d wavs", len(cal_files))
     kw = fk.build_kernel_weights(cfg, params, weight_dtype="int8" if int8 else "bf16",
                                  act_amax=act_amax, gate_static=int8_static)

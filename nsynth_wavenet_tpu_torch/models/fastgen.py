@@ -11,7 +11,7 @@ per step by one stacked matmul, samplers drawing from a torch.Generator.
 with the state carried (init_carry, carry_in, return_carry).
 
 ``Fastgen.generate_cuda`` is the serving path: mel -> deconv on the device
--> the whole utterance in the CUDA kernels of ops/fastgen_kernel.py (the
+-> the whole utterance in the persistent CUDA kernel of ops/fastgen_kernel.py (the
 counterpart of generate_pallas): bf16, or W8A8 with per-row scales (nothing
 to calibrate) or with static scales from ``Fastgen.calibrate_act_amax``,
 one-shot or in chunks with carried state.
@@ -21,7 +21,7 @@ from typing import Optional
 
 import torch
 
-from nsynth_wavenet_tpu_torch.models.wavenet import Wavenet, condition_add
+from nsynth_wavenet_tpu_torch.models.wavenet import Wavenet, condition_add, no_tf32
 from nsynth_wavenet_tpu_torch.ops import conv as conv_ops
 from nsynth_wavenet_tpu_torch.ops import distributions as dist
 from nsynth_wavenet_tpu_torch.ops import fastgen_kernel as fk
@@ -59,6 +59,7 @@ class Fastgen:
         return (buffers, torch.zeros((batch,), device=device), generator, 0)
 
     @torch.no_grad()
+    @no_tf32()
     def generate(self, params, mel, generator: Optional[torch.Generator] = None,
                  length: Optional[int] = None, *, teacher_force=None, cond_offset: int = 0,
                  collect_out_params: bool = False, encoding=None, carry_in=None,
@@ -149,6 +150,7 @@ class Fastgen:
         return out
 
     @torch.no_grad()
+    @no_tf32()
     def generate_streaming(self, params, mel, generator: torch.Generator,
                            length: Optional[int] = None, *, chunk: int = 2000):
         """The step loop over chunks of ``chunk`` samples with the generation
@@ -172,6 +174,7 @@ class Fastgen:
         return torch.cat(pieces, 1)
 
     @torch.no_grad()
+    @no_tf32()
     def calibrate_act_amax(self, params, wav, mel):
         """Per-layer abs-max of the residual stream entering each dilated
         layer, the quantity the W8A8 static mode quantises, from a
@@ -196,14 +199,20 @@ class Fastgen:
         return torch.stack(amax)
 
     @torch.no_grad()
+    @no_tf32()
     def generate_cuda(self, params, mel, seed: int, length: Optional[int] = None, *,
                       cond_offset: int = 0, kw=None, weight_dtype: str = "bf16", rs_dtype=None,
                       act_amax=None, gate_static: bool = False, int8_combine: str = "f32",
                       greedy: bool = False, chunk: Optional[int] = None, encoding=None):
         """Serving path: deconv on mel's device, then the whole utterance
-        through fastgen_kernel.generate (the CUDA kernels on a CUDA device).
-        Any batch size runs as it is: the kernels mask the rows past B in
-        their tiles.  cond_offset: start of the generated window in the
+        through fastgen_kernel.generate (one launch of the persistent CUDA
+        kernel a call on a CUDA device).  The kernel masks the rows past B in
+        its tiles.  The bf16 and static modes take any B; each per-row scale
+        (of the activations, of the gate) keeps two [B] f32 arrays in a
+        block's shared memory, which caps B at full width near 3 900 rows
+        with one and 1 900 with both (fastgen_kernel.launch_plan raises
+        above).  TF32 is off throughout,
+        the deconv included.  cond_offset: start of the generated window in the
         upsampled conditioning, as in generate.
 
         weight_dtype "int8" is W8A8: int8 weights and ring rows.  Alone it is
@@ -221,10 +230,10 @@ class Fastgen:
         chunk: generate in calls of ``chunk`` samples with the kernel state
         carried, equal to the one-shot call bit for bit in every mode; the
         working buffers of a call then do not grow with the utterance.  The
-        kernels take any length, so the last chunk runs at its own length and
+        kernel takes any length, so the last chunk runs at its own length and
         the encoding is not padded.
         encoding [B, T, DW]: an already upsampled conditioning to use instead
-        of mel.  The kernels are deterministic, so two calls on one encoding
+        of mel.  The kernel is deterministic, so two calls on one encoding
         agree bit for bit, chunked or not; cuDNN's transposed convolution is
         not bit-stable between calls, so two calls on one mel need not.
         Returns audio [B, L] f32."""

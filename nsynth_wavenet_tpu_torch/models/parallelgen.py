@@ -33,9 +33,10 @@ from nsynth_wavenet_tpu_torch.ops import flow_kernel as flow_kernel_ops
 
 
 @torch.no_grad()
+@no_tf32()
 def synthesize(pwn: ParallelWavenet, params, mel, generator):
     """mel [B, T, num_mel] -> audio [B, L], L snapped to a multiple of
-    max_dilation.  The plain path."""
+    max_dilation.  The plain path, with TF32 off as in feed_forward_cuda."""
     return pwn._clip_quant_scale(pwn.feed_forward(params, {"mel": mel}, generator)["x"])
 
 

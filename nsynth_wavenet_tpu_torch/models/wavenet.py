@@ -114,6 +114,7 @@ class Wavenet:
         )
 
     @torch.no_grad()
+    @no_tf32()
     def feed_forward(self, params, inputs):
         """inputs {'wav_scaled': [B, L], 'mel': [B, T, num_mel]} ->
         {'encoding', 'out_params' [B, L, out_width] f32}."""

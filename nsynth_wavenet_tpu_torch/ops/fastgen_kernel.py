@@ -40,7 +40,7 @@ the same products in registers, so kernel and plain version agree on every
 code and every scale whatever ``log2f`` returns in its last bit.  The reference's ceil(8*log2(.)) gives the same code except
 where amax/127 lies within a rounding of a table entry.
 
-``generate`` is the wrapper: on CUDA tensors it launches the kernels (and
+``generate`` is the wrapper: on CUDA tensors it launches the kernel (and
 raises if it cannot), on CPU tensors it runs ``generate_plain``, the plain
 PyTorch version with the same signature and the same arithmetic.  Random
 draws come from a Philox4x32-10 counter generator keyed by (seed, t, batch
@@ -51,7 +51,11 @@ On this card (H100: 3.35 TB/s, 989 TFLOP/s bf16, 1979 TOP/s int8) a step of
 the full-width MoL teacher is bound by its weight stream below a batch of a
 few hundred rows (bf16 67 MB, about 20 us; int8 34 MB, about 10 us, and the
 int8 weights fit the 50 MB L2) and by the tensor cores above.  Every mode
-runs 61 launches per step far above that; PERF.md has the times.
+runs as one persistent cooperative launch a call (plus the int8 modes'
+conditioning pre-pass): the time and layer loops run on the card, with a
+grid-wide barrier between dependent phases (``barriers_per_step``), and
+``schedule`` cuts each phase's products over the blocks.  PERF.md has the
+times.
 """
 
 import ctypes
@@ -594,6 +598,155 @@ def generate_plain(kw, enc_t, seed, *, greedy=False, tf=None, collect_out_params
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# work table of the persistent kernel
+# ---------------------------------------------------------------------------
+
+# layout constants of csrc/fastgen_kernel.cu (THREADS, TM, KC, BN, AS_LD, HDR, ITEM)
+THREADS, TILE_ROWS, KC, BN, AS_LD, HDR, ITEM = 256, 128, 64, 16, 80, 16, 6
+RS_COLS = 32  # columns of a res/skip item (RC)
+GATE_COLS = 32  # sigmoid columns of a gate item, and as many tanh columns (GC)
+OPERAND_SLOTS = 4  # operand chunks of 128 rows x 128 bytes in flight (NS)
+GATE_CONST_BYTES = 6 * 32 * 4  # a gate item's bias and scale columns behind its weights (CST_WORDS)
+TABLE_WORDS = 4096  # most words of a work table (it sits in every block's shared memory)
+GATE_SLICE_BYTES = 512  # operand bytes a batch row of a gate item: k span 256 in bf16
+MAX_ROW_GROUPS = 4  # row groups of a res/skip, out1 or out2 column item
+SMEM_LIMIT = 232448  # shared memory a block may use on an H100 (227 KB)
+PHASES = ("gate", "skip0", "rs", "out1", "out2")  # item order in the table
+
+
+class Schedule(NamedTuple):
+    """How the persistent kernel cuts one step's products (``schedule``)."""
+
+    items: dict        # phase -> [(column item, k_begin, k_end, slice, first row tile, end row tile)]
+    segments: list     # gate product: [(k_begin, k_end)] of the sums that dequantise apart
+    slice_segment: list  # gate slice z -> its segment
+    table: list        # int32 words handed to the kernel
+    stage_bytes: int   # one weight stage in shared memory
+    slot_bytes: int    # one operand chunk slot
+    smem_bytes: int    # dynamic shared memory of a block
+    row_tiles: int     # 128-row tiles of the batch
+    part_words: int    # 32-bit words of the gate's split-K partial tiles
+    counters: int      # arrival counts, one per (gate column item, row tile)
+
+
+def gate_spans(W, DW, act):
+    """Most k of a gate item in each of gate_segments: GATE_SLICE_BYTES of
+    operand a row, so that the items of a phase stream alike.  bf16: 256
+    everywhere.  The per-row mode reads l as f32 (128) and its int8 taps and
+    enc at 512; the static mode's int8 segments stay at 256, so that its
+    items are as many as bf16's (and each streams half the bytes)."""
+    if act == "row":
+        return [GATE_SLICE_BYTES, GATE_SLICE_BYTES, GATE_SLICE_BYTES // 4, GATE_SLICE_BYTES]
+    return [GATE_SLICE_BYTES // 2] * len(gate_segments(W, DW, act))
+
+
+def gate_segments(W, DW, act):
+    """K ranges of the gate product [tap t-2d | tap t-d | l | enc] whose sums
+    are dequantised apart: none in bf16, the 3W part and enc with static
+    scales, all four with per-row scales."""
+    K = 3 * W + DW
+    if act == "bf16":
+        return [(0, K)]
+    if act == "static":
+        return [(0, 3 * W), (3 * W, K)]
+    return [(0, W), (W, 2 * W), (2 * W, 3 * W), (3 * W, K)]
+
+
+def schedule(W, GW, S, DW, out_pad, B, act="bf16", rs="bf16", grid=None):
+    """The persistent kernel's work table for one batch B in mode (act, rs)
+    on ``grid`` blocks (None: as if one block per item).
+
+    Every product of a step is cut into items by its weight columns:
+    GATE_COLS sigmoid + as many tanh columns of w_comb, RS_COLS of w_rs,
+    16 of w_skip0, w_out1 and w_out2.  The gate product is also cut along K
+    into slices (at most gate_spans, and in bf16 finer while a batch of one
+    row tile would leave half the grid idle) that never straddle two
+    segments (gate_segments).  A skip_start item walks all B rows in 128-row tiles,
+    and so does every other item where that keeps the blocks busy, so that
+    each weight byte is read by one block a step.  Where blocks would idle,
+    the rows are cut into up to MAX_ROW_GROUPS groups of whole tiles, one
+    item each: a weight slice (8-36 KB) is then read by as many blocks, and
+    each block streams a share of the batch rows, which at a large batch
+    outweigh the weights many times.  The slices of a gate column item and
+    row group are consecutive items.  Item j of a phase runs on block j mod
+    grid.  ``table`` is what the kernel reads: a
+    header of HDR ints (gate items, slices, skip_start, res/skip, out1, out2
+    items, offset of the slices' segments), ITEM ints an item (column item,
+    k_begin, k_end, slice, first row tile, end row tile) in PHASES order, then
+    the segment of each gate slice."""
+    m, N, K = GW // 2, W + S, 3 * W + DW
+    n_rt = -(-B // TILE_ROWS)
+
+    def groups(n_items):  # row-tile ranges of a column item (and slice)
+        r = 1 if grid is None else max(1, min(n_rt, grid // n_items, MAX_ROW_GROUPS))
+        cut = [n_rt * i // r for i in range(r + 1)]
+        return list(zip(cut, cut[1:]))
+
+    segs = gate_segments(W, DW, act)
+
+    def cut(spans):
+        return [(k, min(k + span, k1), si) for si, ((k0, k1), span) in enumerate(zip(segs, spans))
+                for k in range(k0, k1, span)]
+
+    spans = gate_spans(W, DW, act)
+    slices = cut(spans)
+    # one row tile leaves most blocks idle: a bf16 gate (twice the operand bytes of
+    # an int8 one) is then cut finer along K, which takes 5 % off the bf16 call
+    # at B = 64 (ab_fastgen.py against the tree without it, PERF.md section 6)
+    while (act == "bf16" and grid is not None and n_rt == 1
+           and m // GATE_COLS * len(slices) < grid // 2 and min(spans) >= 2 * KC):
+        spans = [span // 2 for span in spans]
+        slices = cut(spans)
+    items = {
+        "gate": [(ct, k0, k1, z, r0, r1) for ct in range(m // GATE_COLS)
+                 for r0, r1 in groups(m // GATE_COLS * len(slices)) for z, (k0, k1, _) in enumerate(slices)],
+        "skip0": [(ct, 0, W, 0, 0, n_rt) for ct in range(S // BN)],
+        "rs": [(ct, 0, m, 0, r0, r1) for ct in range(N // RS_COLS) for r0, r1 in groups(N // RS_COLS)],
+        "out1": [(ct, 0, S + DW, 0, r0, r1) for ct in range(S // BN) for r0, r1 in groups(S // BN)],
+        "out2": [(ct, 0, S, 0, r0, r1) for ct in range(out_pad // BN)
+                 for r0, r1 in groups(out_pad // BN)],
+    }
+    flat = [w for ph in PHASES for it in items[ph] for w in it]
+    seg_of = [si for _, _, si in slices]
+    header = [len(items["gate"]), len(slices), len(items["skip0"]), len(items["rs"]),
+              len(items["out1"]), len(items["out2"]), HDR + len(flat)]
+    table = header + [0] * (HDR - len(header)) + flat + seg_of
+    table += [0] * (-len(table) % 4)
+    if len(table) > TABLE_WORDS:
+        raise ValueError(f"the work table has {len(table)} words, more than {TABLE_WORDS}")
+
+    def stage(rows, ng, word_bytes):  # rows of ng 16-column groups, padded by 8
+        return rows * (ng * BN + 8) * word_bytes
+
+    span, gng = max(k1 - k0 for k0, k1, _ in slices), GATE_COLS // 8
+    gate_stage = (stage(span, gng, 2) if act == "bf16" else stage(span // 4, gng, 4)) + GATE_CONST_BYTES
+    rs_stage = stage(m, RS_COLS // BN, 2) if rs == "bf16" else stage(m // 4, RS_COLS // BN, 4)
+    stage_bytes = _round_up(max(gate_stage, rs_stage, stage(W, 1, 2), stage(S + DW, 1, 2),
+                                stage(S, 1, 2)), 128)
+    slot_bytes = TILE_ROWS * (KC * 2 + 16)
+    # the layout of fastgen_persistent: two weight stages, the operand slots,
+    # the quantised operand tile, the product tile, two [B] f32 row arrays in
+    # each per-row mode (the l codes and multipliers; the gate's scales and
+    # multipliers), the table
+    row_arrays = 2 * (act == "row") + 2 * (rs == "row")
+    smem = (2 * stage_bytes + OPERAND_SLOTS * slot_bytes + TILE_ROWS * AS_LD
+            + TILE_ROWS * (2 * GATE_COLS + 4) * 4 + 4 * row_arrays * B + 4 * len(table))
+    return Schedule(items, segs, seg_of, table, stage_bytes, slot_bytes, smem, n_rt,
+                    (m // GATE_COLS) * n_rt * len(slices) * TILE_ROWS * 2 * GATE_COLS, (m // GATE_COLS) * n_rt)
+
+
+def barriers_per_step(cfg):
+    """Grid barriers of one step: a gate and a res/skip phase per layer, out1,
+    out2, and sample + start."""
+    return 2 * cfg.num_layers + 3
+
+
+# ---------------------------------------------------------------------------
+# CUDA wrapper
+# ---------------------------------------------------------------------------
+
+
 class _FastgenArgs(ctypes.Structure):
     """Mirror of struct FastgenArgs in csrc/fastgen_kernel.cuh."""
 
@@ -601,16 +754,19 @@ class _FastgenArgs(ctypes.Structure):
         "w_comb", "b_comb", "w_rs", "b_rs", "s_comb", "s_main", "s_rs", "s_act_inv",
         "w_start", "b_start", "w_skip0", "b_skip0",
         "w_out1", "b_out1", "w_out2", "b_out2", "enc", "tf", "lbuf", "xh", "l", "l_bf", "q_l",
-        "q_enc", "r_enc", "lmax", "gmax", "s", "gate", "part", "counters", "audio", "out_params",
-        "stream",
+        "q_enc", "r_enc", "lmax", "gmax", "s", "s_bf", "o1", "outv", "gate", "part", "counters",
+        "table", "bar", "audio", "out_params", "stream",
     )] + [("seed", ctypes.c_longlong)] + [(name, ctypes.c_int) for name in (
         "device", "B", "L", "W", "GW", "S", "DW", "NL", "num_stages",
         "out_pad", "out_seg", "head", "use_mu_law", "quant_chann", "greedy", "t0",
         "act_mode", "rs_mode", "combine_bf16",
-    )] + [("log8_frac", ctypes.c_float * 8)]
+    )] + [("log8_frac", ctypes.c_float * 8)] + [(name, ctypes.c_int) for name in (
+        "grid", "stage_bytes", "slot_bytes", "smem_bytes", "table_words",
+    )]
 
 
 _MODE_CODES = {"bf16": 0, "static": 1, "row": 2}  # ActMode / RsMode in csrc/fastgen_kernel.cuh
+KERNEL_NAMES = ("fastgen_persistent", "quant_enc_kernel")  # fastgen_generate's launched[0], [1]
 
 
 def _lib():
@@ -618,11 +774,13 @@ def _lib():
 
     lib = build.load("fastgen_kernel")
     if not getattr(lib, "_argtypes_set", False):
-        lib.fastgen_generate.argtypes = [ctypes.POINTER(_FastgenArgs)]
+        lib.fastgen_generate.argtypes = [ctypes.POINTER(_FastgenArgs), ctypes.POINTER(ctypes.c_int)]
         lib.fastgen_generate.restype = ctypes.c_int
-        lib.fastgen_workspace.argtypes = ([ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)] * 2
-                                          + [ctypes.POINTER(ctypes.c_int)] * 2)
-        lib.fastgen_workspace.restype = None
+        lib.fastgen_grid.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+        lib.fastgen_grid.restype = ctypes.c_int
+        lib.fastgen_barrier_probe.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                                              ctypes.c_int, ctypes.c_void_p]
+        lib.fastgen_barrier_probe.restype = ctypes.c_int
         lib.philox_uniform.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
@@ -640,12 +798,81 @@ def _check(lib, rc):
         raise RuntimeError(f"CUDA generation kernel failed: {msg} (cudaError {rc})")
 
 
+_GRID = {}
+
+
+def _indexed(device):
+    """torch.device with its index ("cuda" alone means the current card)."""
+    device = torch.device(device)
+    return device if device.index is not None else torch.device("cuda", torch.cuda.current_device())
+
+
+def launch_info(mode, smem_bytes, device):
+    """What the card makes of the persistent kernel of ``mode`` with
+    ``smem_bytes`` of dynamic shared memory: {grid, blocks_per_sm, sms,
+    registers, spill_bytes (local memory a thread), static_smem, smem_limit}.
+    grid is the cooperative launch's: every block that fits at once."""
+    device = _indexed(device)
+    key = (mode, smem_bytes, device.index)
+    if key not in _GRID:
+        lib = _lib()
+        info = (ctypes.c_int * 6)()
+        _check(lib, lib.fastgen_grid(_MODE_CODES[mode.act], _MODE_CODES[mode.rs], smem_bytes,
+                                     device.index, info))
+        per_sm, sms, regs, spill, static, limit = list(info)
+        if per_sm < 1:
+            raise RuntimeError(f"the persistent generation kernel does not fit an SM with "
+                               f"{smem_bytes} bytes of shared memory")
+        _GRID[key] = {"grid": per_sm * sms, "blocks_per_sm": per_sm, "sms": sms, "registers": regs,
+                      "spill_bytes": spill, "static_smem": static, "smem_limit": limit}
+    return dict(_GRID[key])
+
+
+def barrier_probe(grid, iters, device="cuda"):
+    """Launch ``iters`` empty grid barriers on ``grid`` blocks (one cooperative
+    launch, the generation kernel's barrier); for timing one barrier."""
+    device = _indexed(device)
+    bar = torch.zeros((2,), dtype=torch.int64, device=device)
+    lib = _lib()
+    _check(lib, lib.fastgen_barrier_probe(grid, iters, bar.data_ptr(), device.index,
+                                          torch.cuda.current_stream(device).cuda_stream))
+
+
 def _expect(name, t, shape, dtype, device):
     if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: want {dtype} {tuple(shape)} on {device}, "
                          f"got {t.dtype} {tuple(t.shape)} on {t.device}")
     if not t.is_contiguous() or t.data_ptr() % 32:
         raise ValueError(f"{name} must be contiguous and 32-byte aligned")
+
+
+def launch_plan(W, GW, S, DW, out_pad, B, mode, device):
+    """The work table and the launch of one call at batch B: (schedule,
+    launch_info).  The table is cut for the grid it runs on (its row groups
+    and K slices depend on the grid) and its shared memory depends on the
+    table, so the grid starts at the blocks that fit by registers and
+    threads alone and shrinks until every block of its own table fits at
+    once; the shared memory checked against SMEM_LIMIT is the launched one."""
+    grid = launch_info(mode, 0, device)["grid"]
+    while True:
+        sched = schedule(W, GW, S, DW, out_pad, B, mode.act, mode.rs, grid=grid)
+        if sched.smem_bytes > SMEM_LIMIT:
+            raise ValueError(f"batch {B}: the {mode.act}/{mode.rs} kernel needs {sched.smem_bytes} "
+                             f"bytes of shared memory a block, more than {SMEM_LIMIT} (each per-row "
+                             f"mode keeps two [B] f32 arrays there)")
+        info = launch_info(mode, sched.smem_bytes, device)
+        if info["grid"] >= grid:
+            info["grid"] = grid
+            return sched, info
+        grid = info["grid"]
+
+
+def barriers_counted():
+    """Grid barriers a step of the last CUDA generate call, as the kernel
+    counted them: the count its barriers ended at, over grid x steps (a
+    synchronising read)."""
+    bar, grid, L = generate.last_barrier_count
+    return int(bar[0].item()) / (grid * L)
 
 
 def _generate_cuda(kw, enc_t, seed, greedy, tf, collect_out_params, state, return_state,
@@ -660,8 +887,8 @@ def _generate_cuda(kw, enc_t, seed, greedy, tf, collect_out_params, state, retur
         raise ValueError(f"int8_combine {int8_combine!r}: want 'f32' or 'bf16'")
     if DW != cfg.deconv_width:
         raise ValueError(f"enc_t width {DW} != deconv_width {cfg.deconv_width}")
-    # % 64: whole K chunks and column tiles; it also gives the int8 rows (W, DW
-    # and m bytes) the 16-byte alignment of the kernels' vector loads
+    # % 64: whole K chunks and column items; it also gives the int8 rows (W, DW
+    # and m bytes) the 16-byte alignment of the kernel's asynchronous copies
     for name, v in (("width", W), ("skip_width", S), ("deconv_width", DW), ("gate_width/2", m)):
         if v % 64:
             raise ValueError(f"the CUDA kernel needs {name} % 64 == 0, got {v}")
@@ -701,32 +928,33 @@ def _generate_cuda(kw, enc_t, seed, greedy, tf, collect_out_params, state, retur
     if not 0 <= t0 <= 2**31 - 1 - L:
         raise ValueError(f"state t0 {t0} + {L} steps leaves the 32-bit step counter")
 
+    sched, info = launch_plan(W, GW, S, DW, out_pad, B, mode, dev)
     lib = _lib()
-    part_words, n_counters = ctypes.c_longlong(), ctypes.c_longlong()
-    l_tiles, g_tiles = ctypes.c_int(), ctypes.c_int()
-    lib.fastgen_workspace(B, W, GW, DW, _MODE_CODES[mode.act], ctypes.byref(part_words),
-                          ctypes.byref(n_counters), ctypes.byref(l_tiles), ctypes.byref(g_tiles))
     scratch = {
         "l": torch.empty((B, W), device=dev),
+        "l_bf": torch.empty((B, W), dtype=bf, device=dev),
         "s": torch.empty((B, S), device=dev),
+        "s_bf": torch.empty((B, S), dtype=bf, device=dev),
+        "o1": torch.empty((B, S), dtype=bf, device=dev),
+        "outv": torch.empty((B, out_pad), device=dev),
         "gate": torch.empty((B, m), dtype={"bf16": bf, "static": i8, "row": f32}[mode.rs], device=dev),
-        "part": torch.empty((max(part_words.value, 1),),
+        "part": torch.empty((max(sched.part_words, 1),),
                             dtype=f32 if mode.act == "bf16" else torch.int32, device=dev),
-        "counters": torch.zeros((n_counters.value,), dtype=torch.int32, device=dev),
+        "counters": torch.zeros((sched.counters,), dtype=torch.int32, device=dev),
+        "table": torch.tensor(sched.table, dtype=torch.int32).to(dev),
+        "bar": torch.zeros((2,), dtype=torch.int64, device=dev),
         "audio": torch.empty((L, B), device=dev),
     }
-    if mode.act == "bf16":
-        scratch["l_bf"] = torch.empty((B, W), dtype=bf, device=dev)
-    else:
+    if mode.act != "bf16":
         scratch["q_enc"] = torch.empty((L, B, DW), dtype=i8, device=dev)
         scratch["r_enc"] = torch.empty((L, B), device=dev)
     if mode.act == "static":
         scratch["q_l"] = torch.empty((B, W), dtype=i8, device=dev)
-    # per-layer row maxima, one slot per producer column tile; rewritten in every step
+    # per-layer row maxima, one slot per producer column item; rewritten in every step
     if mode.act == "row":
-        scratch["lmax"] = torch.zeros((NL, l_tiles.value, B), device=dev)
+        scratch["lmax"] = torch.zeros((NL, W // RS_COLS, B), device=dev)
     if mode.rs == "row":
-        scratch["gmax"] = torch.zeros((NL, g_tiles.value, B), device=dev)
+        scratch["gmax"] = torch.zeros((NL, m // GATE_COLS, B), device=dev)
     outp = torch.empty((L, B, out_pad), device=dev) if collect_out_params else None
     weights = {name.removesuffix("_k4"): kw[name].data_ptr() for name in want}
     args = _FastgenArgs(
@@ -741,11 +969,17 @@ def _generate_cuda(kw, enc_t, seed, greedy, tf, collect_out_params, state, retur
         t0=t0, act_mode=_MODE_CODES[mode.act], rs_mode=_MODE_CODES[mode.rs],
         combine_bf16=int(int8_combine == "bf16"),
         log8_frac=(ctypes.c_float * 8)(*log8_frac().tolist()),
+        grid=info["grid"], stage_bytes=sched.stage_bytes, slot_bytes=sched.slot_bytes,
+        smem_bytes=sched.smem_bytes, table_words=len(sched.table),
     )
-    rc = lib.fastgen_generate(ctypes.byref(args))
+    launched = (ctypes.c_int * 2)()
+    rc = lib.fastgen_generate(ctypes.byref(args), launched)
     generate.launches += 1
     by_mode = generate.launches_by_mode
     by_mode[mode.family] = by_mode.get(mode.family, 0) + 1
+    for name, n in zip(KERNEL_NAMES, launched):
+        generate.kernel_launches[name] += n
+    generate.last_barrier_count = (scratch["bar"], info["grid"], L)
     _check(lib, rc)
     result = [scratch["audio"].T.contiguous()]
     if collect_out_params:
@@ -787,5 +1021,8 @@ def generate(kw, enc_t, seed, *, greedy=False, tf=None, collect_out_params=False
 
 
 generate.launches = 0
+# by CUDA kernel, counted where csrc/fastgen_kernel.cu fastgen_generate enqueues each launch
+generate.kernel_launches = dict.fromkeys(KERNEL_NAMES, 0)
+generate.last_barrier_count = None  # (barrier count on the card, grid, steps) of the last CUDA call
 # by Mode.family: "bf16", "w8a8" (static + static), "w8a8_row" (row + row), "w8a8_mixed", "bf16_rs8"
 generate.launches_by_mode = {"bf16": 0, "w8a8": 0, "w8a8_row": 0}
