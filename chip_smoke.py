@@ -26,20 +26,31 @@ them.  Phases, each fatal on failure:
  32. (after phase 7) PyTorch's default TF32 settings: generate_wavenet's
      encoding of the f32 golden tiny_mol equal bit for bit to the deconv with
      TF32 off, under cudnn.deterministic;
-  8. the CUDA flow-stack kernel against its plain PyTorch version at the full
-     width of configs/parallel_wavenet.json (10 layers, dilations 1..512, width
-     64, deconv width 256), random weights from a seed: one-shot at B = 8 x
-     L = 8192, B = 32 x L = 4096 and B = 3 x L = 1000 (ragged last tile);
-     chained chunks of 2048 and of 512 (shorter than the largest 2d) equal to
-     the one-shot call bit for bit, and their final state against the plain one;
+  8. the CUDA flow-stack kernel (flow_persist_kernel at W 64) against its
+     plain PyTorch version at the full width of configs/parallel_wavenet.json
+     (10 layers, dilations 1..512, width 64, deconv width 256), random weights
+     from a seed: one-shot at B = 8 x L = 8192, B = 32 x L = 4096 and
+     B = 3 x L = 1000 (ragged last tile); chained chunks of 2048 and of 512
+     (shorter than the largest 2d) equal to the one-shot call bit for bit, and
+     their final state against the plain one.  Every flow check here and in
+     phases 27-28 also requires the call's CUDA launches, counted by kernel
+     name where flow_stack enqueues them, to be exactly one trunk launch a
+     layer of its width's kernel (flow_persist_kernel at W 32 / 64,
+     flow_layer_kernel at W 128 / 256) and, with a state, one
+     flow_state_kernel a layer;
   9. the student path end to end at full width (60 layers in 4 flows), B = 32
      and 8, 4 s of audio: numpy wavs -> mel -> shared deconv on the card ->
-     parallelgen.synthesize_cuda; kernel launch counts; the fused feed-forward
-     against the same path on the plain kernel; StudentStreamer (chunk 32768)
-     against the one-shot path on the same noise; the stack call at the path's
-     own B = 32 x L = 64000 against its plain version for every cycle offset,
-     and timed against it, torch.mm on the same products and the card's bound;
-     device time per CUDA kernel;
+     parallelgen.synthesize_cuda; wrapper calls, and CUDA launches by kernel
+     name (10 flow_persist_kernel a call, nothing else); the fused
+     feed-forward against the same path on the plain kernel; StudentStreamer
+     (chunk 32768) against the one-shot path on the same noise; the stack call
+     at the path's own B = 32 x L = 64000 against its plain version for every
+     cycle offset, and timed against it, torch.mm on the same products and the
+     card's bound; the timed call's last persistent launch: the grid, tiles,
+     tile rows and ring stages it was handed, and what the card then holds
+     for the kernel (registers, spills, static shared memory, the dynamic
+     shared memory the launch opted in to, blocks an SM); device time per
+     CUDA kernel;
  10. the trained golden tiny_student on the card: fused against plain audio,
      streamer against one-shot, and a free synthesis that tracks its mels;
  11. evaluation.generate_parallel_wavenet over two wavs, one-shot and streamed.
@@ -106,23 +117,32 @@ follow phase 11:
      30-layer call equal to three chained 10-layer calls; the f32 precision
      probe (w_tap = 0, x = 0, w_res = [I | 0]: the share of bf16(g) values that
      differ from the plain version with TF32 off, under 1 %);
- 28. widths 32, 128 and 256 (B = 8 x L = 4096, DW 256) and deconv width 136 at
-     W 64, both conditioning modes: one-shot and chained chunks of 512;
+ 28. widths 32 (flow_persist_kernel), 128 and 256 (flow_layer_kernel) at
+     B = 8 x L = 4096, DW 256, and deconv width 136 at W 64, both
+     conditioning modes: one-shot and chained chunks of 512; at the edges of
+     the persistent kernel's 128-byte copy boxes (random weights,
+     B = 3 x L = 600): deconv widths 8 (narrower than a box) and 4096
+     (w_cond streamed with its chunks) at W 32 and 64 in both conditioning
+     modes, and one layer of a W 32 cond stream in bf16 and f32: one-shot
+     and chained chunks of 128, with the exact launches;
  29. the f32 student end to end at full width, B = 32 and 8, 4 s:
      parallelgen.synthesize_cuda through the f32-cond kernel alone (launches by
-     mode), the fused feed-forward against the same path on the plain kernel,
+     mode; CUDA launches by kernel name), the fused feed-forward against the
+     same path on the plain kernel,
      layers_per_call=30 bit for bit equal to the default, fuse_cond within 5e-4
      of it on the mean and scale outputs, StudentStreamer (chunk 32768) against
      one-shot, device time per CUDA kernel; the 10-layer call at B = 32 x
      L = 64000 against its plain version, timed beside the bf16 call, both
      cond streams, one 30-layer call and a call with a carried state (f32 and
-     bf16 carries), torch.mm (bf16, and f32 with TF32 off) and the card's bound;
+     bf16 carries), torch.mm (bf16, and f32 with TF32 off) and the card's
+     bound; the f32-cond kernel's launch facts;
  30. the trained golden tiny_student loaded as f32: fused against plain audio,
      streamer against one-shot, a free synthesis that tracks its mels,
      evaluation.generate_parallel_wavenet on an f32 config, one-shot and
      streamed;
  31. a width-128 student (configs/parallel_wavenet.json with width 128) through
-     synthesize_cuda at B = 8 x 1 s against the same path on the plain kernel;
+     synthesize_cuda at B = 8 x 1 s (flow_layer_kernel alone) against the same
+     path on the plain kernel;
      one 10-layer call timed at widths 32, 64, 128 and 256.
 Every teacher generate call is one cooperative launch of the persistent
 kernel fastgen_persistent (after quant_enc_kernel in the int8 modes).
@@ -1185,12 +1205,27 @@ def flow_inputs(pwn, params, B, L, seed):
     return x, enc
 
 
+def kernel_launches_of(fn):
+    """(fn(), the flow kernels' CUDA launches by name that fn enqueued), from
+    the counts the C entry point keeps (flow_stack.kernel_launches)."""
+    flk.flow_stack.kernel_launches = dict.fromkeys(flk.KERNEL_NAMES, 0)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(flk.flow_stack.kernel_launches)
+
+
+def require_launches(label, got, want):
+    require(got == want and sum(want.values()) > 0,
+            f"{label}: the flow kernels' launches {got}, want {want}")
+
+
 def check_flow(label, x, enc, sw, s, nl, num_stages, cpu_floor=False, **kw):
     """One-shot kernel vs plain version on the same inputs (kw: the mode's
-    flow_stack options); returns (kernel output, largest error, the plain
-    version's CPU-vs-card distance or None)."""
-    out_k = flk.flow_stack(x, enc, sw, s, nl, num_stages, **kw)
-    torch.cuda.synchronize()
+    flow_stack options), and the call's launches by kernel name: exactly one
+    trunk launch a layer, of the kernel of its width; returns (kernel output,
+    largest error, the plain version's CPU-vs-card distance or None)."""
+    out_k, launched = kernel_launches_of(lambda: flk.flow_stack(x, enc, sw, s, nl, num_stages, **kw))
+    require_launches(label, launched, flk.predicted_launches(x.shape[-1], nl, False))
     out_p = flk.flow_stack_plain(x, enc, sw, s, nl, num_stages, **kw)
     require(bool(torch.isfinite(out_k).all()), f"{label}: non-finite kernel output")
     err = float((out_k - out_p).abs().max())
@@ -1212,18 +1247,22 @@ def check_flow(label, x, enc, sw, s, nl, num_stages, cpu_floor=False, **kw):
 def check_flow_streaming(x, enc, sw, nl, num_stages, oneshot, chunk, label="flow", **kw):
     """Chained kernel chunks against the one-shot kernel call (bit for bit: the
     arithmetic of a row does not depend on the call it falls in) and the final
-    state against the plain version's (kw: the mode's flow_stack options);
-    returns (the state's error, the kernel's final state)."""
+    state against the plain version's (kw: the mode's flow_stack options; a
+    cond stream in kw is cut into the same chunks as x); returns (the state's error, the kernel's final state).  Every chunk's call
+    launches one trunk kernel and one state copy a layer."""
     L, B, W = x.shape
     rows = flk.state_rows(0, nl, num_stages)
     state = torch.zeros((rows, B, W), device="cuda")
     state_p = state.clone()
     outs = []
     for c0 in range(0, L, chunk):
-        o, state = flk.flow_stack(x[c0 : c0 + chunk], enc[c0 : c0 + chunk], sw, 0, nl, num_stages,
-                                  state=state, **kw)
-        _, state_p = flk.flow_stack_plain(x[c0 : c0 + chunk], enc[c0 : c0 + chunk], sw, 0, nl,
-                                          num_stages, state=state_p, **kw)
+        e = None if enc is None else enc[c0 : c0 + chunk]
+        ckw = kw if kw.get("cond") is None else dict(kw, cond=kw["cond"][c0 : c0 + chunk])
+        (o, state), launched = kernel_launches_of(lambda: flk.flow_stack(
+            x[c0 : c0 + chunk], e, sw, 0, nl, num_stages, state=state, **ckw))
+        require_launches(f"{label} chunk at {c0}", launched, flk.predicted_launches(W, nl, True))
+        _, state_p = flk.flow_stack_plain(x[c0 : c0 + chunk], e, sw, 0, nl, num_stages,
+                                          state=state_p, **ckw)
         outs.append(o)
     torch.cuda.synchronize()
     same = bool(torch.equal(torch.cat(outs, 0), oneshot))
@@ -1366,6 +1405,7 @@ def student_phases():
     parallelgen.synthesize_cuda(pwn, params, mels[8][:, :6], torch.Generator().manual_seed(0))
     torch.cuda.synchronize()  # warm-up
     flk.flow_stack.launches = 0
+    flk.flow_stack.kernel_launches = dict.fromkeys(flk.KERNEL_NAMES, 0)
     runs = {}
     for B in STUDENT_BATCHES:
         torch.cuda.reset_peak_memory_stats()
@@ -1373,7 +1413,7 @@ def student_phases():
         audio = parallelgen.synthesize_cuda(pwn, params, mels[B], torch.Generator().manual_seed(B))
         torch.cuda.synchronize()
         runs[B] = (audio, time.time() - t0, torch.cuda.max_memory_allocated())
-    launches = flk.flow_stack.launches
+    launches, kernel_launches = flk.flow_stack.launches, dict(flk.flow_stack.kernel_launches)
     for B, (audio, dt, peak) in runs.items():
         require(tuple(audio.shape) == (B, L), f"student path shape {tuple(audio.shape)}")
         require(bool(torch.isfinite(audio).all()) and float(audio.abs().max()) <= 1.0,
@@ -1385,6 +1425,11 @@ def student_phases():
         f"{ns} CUDA launches each)")
     require(launches == cycles * len(STUDENT_BATCHES),
             f"the student path launched the flow kernel {launches} times")
+    log(f"student path CUDA launches by kernel (counted where flow_stack enqueues them): "
+        f"{kernel_launches}")
+    require_launches("the student path", kernel_launches,
+                     {name: n * cycles * len(STUDENT_BATCHES) for name, n in
+                      flk.predicted_launches(cfg.width, ns, False).items()})
     del runs
 
     # fused feed-forward: the kernel against the same path on the plain kernel
@@ -1436,6 +1481,7 @@ def student_phases():
         f"{tm['bound_ms']:.3f} ms ({tm['bound_by']}; operations {tm['ops_ms']:.3f} ms, bytes "
         f"{tm['bytes_ms']:.3f} ms); {tm['flops'] / 1e12:.3f} TFLOP, {tm['io_bytes'] / 1e9:.3f} GB; "
         f"{cycles} calls per synthesis")
+    facts = flow_launch_facts(cfg.width, "bf16")
     del x, enc
 
     # ---- 10. golden tiny_student on the card ----
@@ -1499,12 +1545,44 @@ def student_phases():
         "bound_ms": tm["bound_ms"],
         "bound_by": tm["bound_by"],
         "library_ms": tm["library_ms"],
+        "kernel_launches": kernel_launches,
+        "launch": facts,
     }
+
+
+def flow_launch_facts(width, mode):
+    """The last launch of the persistent kernel: the launch fields that
+    flow_stack handed the C entry point (flow_stack.last_launch: grid, tiles,
+    tile rows, ring stages and slots), and what the card holds for that
+    kernel after it (cudaFuncGetAttributes: registers, spills, static shared
+    memory, and the dynamic shared memory the launch opted in to; the
+    occupancy API: blocks an SM at that); logged."""
+    last = flk.flow_stack.last_launch
+    require(last is not None and (last["width"], last["mode"]) == (width, mode),
+            f"the last flow_persist_kernel launch was {last}, want width {width}, mode {mode}")
+    card = flk.launched_facts(width, mode, "cuda")
+    facts = {"kernel": last["kernel"], "grid": last["grid"], "n_tiles": last["n_tiles"],
+             "blocks_per_sm": card["blocks_per_sm"], "sms": card["sms"],
+             "registers": card["registers"], "spill_bytes": card["spill_bytes"],
+             "static_smem": card["static_smem"], "dynamic_smem": card["dynamic_smem"],
+             "threads": card["threads"], "tile_rows": last["tile_rows"], "stages": last["stages"],
+             "slot_bytes": last["slot_bytes"], "enc_cols": last["enc_cols"],
+             "wc_resident": bool(last["wc_resident"])}
+    log(f"launch flow_persist_kernel<{width}, {mode}>: " + ", ".join(
+        f"{k} {v}" for k, v in facts.items() if k != "kernel"))
+    require(facts["dynamic_smem"] == last["smem_bytes"],
+            f"flow_persist_kernel<{width}, {mode}>: the card holds an opt-in of "
+            f"{facts['dynamic_smem']} bytes, the launch asked for {last['smem_bytes']}")
+    require(facts["registers"] > 0 and facts["blocks_per_sm"] >= 1
+            and 1 <= facts["grid"] <= facts["blocks_per_sm"] * facts["sms"],
+            f"flow_persist_kernel<{width}, {mode}>: launch facts {facts}")
+    return facts
 
 
 def reset_flow_counts():
     flk.flow_stack.launches = 0
     flk.flow_stack.launches_by_mode = dict.fromkeys(flk.flow_stack.launches_by_mode, 0)
+    flk.flow_stack.kernel_launches = dict.fromkeys(flk.KERNEL_NAMES, 0)
 
 
 def flow_counts():
@@ -1523,6 +1601,54 @@ def deterministic_cudnn():
         yield
     finally:
         torch.backends.cudnn.deterministic = saved
+
+
+def edge_shape_checks(num_stages, B=3, L=600):
+    """The persistent kernel at the edges of its copy boxes, random weights
+    from a seed: at W 32 and 64, deconv width 8 (an encoding narrower than
+    one 128-byte box) and 4096 (a w_cond that does not stay in shared memory,
+    so each encoding chunk brings its rows), both conditioning modes, two
+    layers; and one layer of a W 32 cond stream, bf16 (32 columns under a box
+    of 64) and f32.  Each one-shot call against the plain version, and
+    chained chunks of 128 bit for bit against it, with the exact launches;
+    returns the largest one-shot error."""
+    err_max = 0.0
+
+    def weights(W, DW, seed):
+        rng = np.random.RandomState(seed)
+        t = lambda *shape, sc=1.0: torch.from_numpy((sc * rng.randn(*shape)).astype(np.float32)).cuda()
+        nl = 2
+        sw = {"w_tap": t(nl, 3, W, W, sc=0.3 / np.sqrt(3 * W)), "b": t(nl, W, sc=0.1),
+              "w_cond": t(nl, DW, W, sc=0.5 / np.sqrt(DW)), "b_cond": t(nl, W, sc=0.1),
+              "w_res": t(nl, W // 2, W, sc=1.0 / np.sqrt(W)), "b_res": t(nl, W, sc=0.05)}
+        return sw, t(L, B, W, sc=0.3), t(L, B, DW)
+
+    for W in flk.PERSIST_WIDTHS:
+        for DW in (8, 4096):
+            sw, x, enc = weights(W, DW, W + DW)
+            for compact in (True, False):
+                plan = flk.persist_plan(W, "bf16" if compact else "f32cond", DW)
+                require(plan.wc_resident == (DW == 8),
+                        f"deconv width {DW} at W {W}: w_cond resident {plan.wc_resident}")
+                wts = (flk.compact_weights if compact else flk.noncompact_weights)(sw)
+                e = enc.to(torch.bfloat16) if compact else enc
+                name = (f"flow width {W} deconv {DW}, w_cond "
+                        f"{'resident' if plan.wc_resident else 'streamed'} "
+                        f"({'bf16' if compact else 'f32-cond'})")
+                o, err, _ = check_flow(name, x, e, wts, 0, 2, num_stages, compact=compact)
+                check_flow_streaming(x, e, wts, 2, num_stages, o, 128, label=name, compact=compact)
+                err_max = max(err_max, err)
+    sw, x, enc = weights(32, 256, 7)
+    c32 = stream_of(enc, sw, 0, 1)
+    for compact in (True, False):
+        wts = (flk.compact_weights if compact else flk.noncompact_weights)(sw)
+        c = c32.to(torch.bfloat16) if compact else c32
+        name = f"flow width 32, one layer, cond stream ({'bf16' if compact else 'f32'})"
+        o, err, _ = check_flow(name, x, None, wts, 0, 1, num_stages, cond=c, compact=compact)
+        check_flow_streaming(x, None, wts, 1, num_stages, o, 128, label=name, cond=c,
+                             compact=compact)
+        err_max = max(err_max, err)
+    return err_max
 
 
 def stream_of(enc, sw, s, nl):
@@ -1652,6 +1778,7 @@ def flow_mode_phases():
         if "width" in over:
             width_sw[wd] = flk.compact_weights(sww)
         del pp, xw, ew, o
+    width_err = max(width_err, edge_shape_checks(ns))
 
     # ---- 29. the f32 student path end to end ----
     mels = {B: stft.melspectrogram(torch.from_numpy(synthetic_wavs(B, STUDENT_SAMPLES, 40 + B)).cuda())
@@ -1668,6 +1795,7 @@ def flow_mode_phases():
         torch.cuda.synchronize()
         runs[B] = (audio, time.time() - t0, torch.cuda.max_memory_allocated())
     f32_launches, f32_modes = flk.flow_stack.launches, flow_counts()
+    f32_kernel_launches = dict(flk.flow_stack.kernel_launches)
     for B, (audio, dt, peak) in runs.items():
         require(tuple(audio.shape) == (B, L), f"f32 student path shape {tuple(audio.shape)}")
         require(bool(torch.isfinite(audio).all()) and float(audio.abs().max()) <= 1.0,
@@ -1678,6 +1806,10 @@ def flow_mode_phases():
     log(f"f32 student path kernel launches: flow_stack {f32_launches}, by mode {f32_modes}")
     require(f32_modes == {"f32cond": cycles * len(STUDENT_BATCHES)},
             "the f32 student path did not go through the f32-cond kernel alone")
+    log(f"f32 student path CUDA launches by kernel: {f32_kernel_launches}")
+    require_launches("the f32 student path", f32_kernel_launches,
+                     {name: n * cycles * len(STUDENT_BATCHES) for name, n in
+                      flk.predicted_launches(W, ns, False).items()})
     del runs
 
     inputs = {"mel": mels[8], "base_x": pwn32.base_noise(torch.Generator().manual_seed(9), 8, L,
@@ -1737,6 +1869,7 @@ def flow_mode_phases():
                                       **f32)[1])
     tm32 = time_flow(x, enc, nw, ns, ns, **f32)
     log_flow_timing("f32-cond", x, ns, tm32)
+    f32_facts = flow_launch_facts(W, "f32cond")
     tm_bf = time_flow(x, enc.to(bf), cw, ns, ns)
     log_flow_timing("bf16 (same call)", x, ns, tm_bf)
     nl30 = cfg.num_iaf_layers[3]
@@ -1820,12 +1953,14 @@ def flow_mode_phases():
     audio = parallelgen.synthesize_cuda(pw, pp, wmel, torch.Generator().manual_seed(8))
     torch.cuda.synchronize()
     dt = time.time() - t0
-    w_launches = flow_counts()
+    w_launches, w_kernel_launches = flow_counts(), dict(flk.flow_stack.kernel_launches)
     require(tuple(audio.shape) == (8, wL) and bool(torch.isfinite(audio).all()),
             "width-128 student audio")
     log(f"width-128 student path B=8 L={wL}: {1e3 * dt:.1f} ms, {8 * wL / 16000 / dt:.1f} "
-        f"audio-sec/s; launches by mode {w_launches}")
+        f"audio-sec/s; launches by mode {w_launches}, CUDA launches by kernel {w_kernel_launches}")
     require(w_launches == {"bf16_w128": cycles}, "the width-128 path's launches")
+    require_launches("the width-128 path", w_kernel_launches,
+                     {name: n * cycles for name, n in flk.predicted_launches(128, ns, False).items()})
     winputs = {"mel": wmel, "base_x": pw.base_noise(torch.Generator().manual_seed(9), 8, wL, "cuda")}
     with deterministic_cudnn():
         ff_k = parallelgen.feed_forward_cuda(pw, pp, winputs)
@@ -1854,7 +1989,8 @@ def flow_mode_phases():
                     carried_state_f32_carries=timing_summary(tm_carry32),
                     carried_state_bf16_carries=timing_summary(tm_carry),
                     launches_by_mode={"default": f32_modes, "layers_per_call_30": lpc_modes,
-                                      "fuse_cond": fc_modes}),
+                                      "fuse_cond": fc_modes},
+                    kernel_launches=f32_kernel_launches, launch=f32_facts),
         flow_record("flow_stack_cond_stream", "nsynth_wavenet_tpu/ops/flow_kernel.py:297",
                     sum(stream_launches.values()), stream_err, tm_s,
                     launches_by_mode=stream_launches, f32=timing_summary(tm_s32)),

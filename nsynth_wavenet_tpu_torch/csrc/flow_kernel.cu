@@ -13,8 +13,8 @@
 //   STREAM_BF16  the precomputed-conditioning stream (cond_features = 0,
 //   STREAM_F32   :297, :344, :410-412), bf16 when compact, else f32, added
 //                after the tap product with the bias b alone.
-// Widths W = 32, 64, 128 and 256 are compiled (:168-171); any deconv width
-// that is a multiple of 8; any number of layers a call (layers_per_call,
+// Widths W = 32, 64, 128 and 256 (:168-171); any deconv width that is a
+// multiple of 8; any number of layers a call (layers_per_call,
 // nsynth_wavenet_tpu/models/parallelgen.py:126-136); and the bf16 carries
 // (carry_dtype, :104-109, :333-335): a tap is rounded to bf16 at its product
 // anyway, so only the exported state changes, rounded to bf16 and held in
@@ -37,57 +37,91 @@
 // ENC_BF16 sums taps and cond in one accumulator; the other modes add the
 // tap sum, then the cond sum, then the bias, as the plain version does.
 //
-// Design (simple and right first).  The TPU kernel walks the length tiles in
-// order on one core and keeps every layer's window in VMEM.  Here blocks run
-// in any order and one 10-layer cycle's f32 history (2046 rows x W for each
-// batch row) is over twice a block's shared memory, so the stream goes
-// through device memory once per layer:
-//   flow_layer_kernel<W, COND>  one launch per layer, a block per BM
-//                      consecutive rows (128 up to W = 64, else 64).  Time-
-//                      major makes a tap a pure row shift (row r - k*d*B),
-//                      also into the history rows.  The bf16 product runs in
-//                      K chunks of min(W, 64) columns (3W/KC tap chunks
-//                      converted from f32, then, for ENC_BF16, the enc chunks
-//                      with a masked tail when DW % KC != 0) through shared
-//                      memory with the next chunk's loads in flight during
-//                      the MMAs.  8 warps: 16 rows each, and from W = 128 on
-//                      two warps split a row band's columns, so that a warp
-//                      holds at most 8 accumulator tiles.  The gate is formed
-//                      in shared memory, the K = W/2 product follows, and the
-//                      epilogue adds the residual.  A layer never updates l in
-//                      place (other blocks still read rows t-d and t-2d of its
-//                      input): flow_stack alternates between two buffers so
-//                      that the last layer writes out.
-//                      ENC_F32 first runs the cond product on the CUDA cores
-//                      (f32 FMA, SIMT, not TF32: a TF32 product keeps about
-//                      three digits and is not the reference's function): K
-//                      chunks of 32 of the encoding (transposed in shared
-//                      memory) and w_cond, a TM x TN register tile a thread,
-//                      into a second f32 tile in shared memory.  The stream
-//                      modes copy their rows of the layer's cond columns
-//                      there instead.  Shared memory is dynamic (up to
-//                      149 KB at W = 256 with ENC_F32).
-//   flow_state_kernel<ROUND>  with a state, one launch per layer: copies the
-//                      new history out of (old history ++ input), which is a
-//                      shifted copy of the old state where the call is shorter
-//                      than 2d, rounding to bf16 for bf16 carries.  Old and
-//                      new state are different buffers.
-// Products use warp-level WMMA 16x16x16 bf16 tensor-core tiles.
+// What bounds it (W = 64, DW = 256, B = 32 x L = 64 000, a 10-layer call).
+// The whole call must read l once and the encoding once and write l once:
+// 1 024 B a row, 2.1 GB, 0.63 ms at 3.35 TB/s; its 30 720 MACs a row and
+// layer take 1.27 ms at 989 TFLOP/s, so the ideal call is bound by
+// operations (1.27 ms; chip_smoke.time_flow computes it).  A design with one
+// launch a layer must move l(t) in, the encoding in and l' out for EVERY
+// layer: at least 1 024 B a row and layer, 6.26 ms a call at 3.35 TB/s.  The
+// f32 conditioning product's 16 384 f32 MACs a row and layer run on the FMA
+// units (67 TFLOP/s): 10.61 ms a call.  One launch a call, with the stream and
+// the history on chip across layers, does not fit: a 10-layer cycle's
+// history is 2 046 steps x B rows x W (8.4 MB in bf16 at B = 32), a block
+// has 227 KB.  So a layer is one launch, and the kernel for W = 32 and 64 is
+// built to stream at the device's memory rate:
 //
-// Bound (W = 64, DW = 256, a 10-layer call).  ENC_BF16: per row and layer
-// 30 720 MACs = 61 440 FLOP at 989 TFLOP/s against 1 024 bytes that must move
-// for the whole call (l read once, enc read once, l written once): the
-// tensor cores bound the ideal kernel.  ENC_F32: the cond product's
-// 16 384 MACs a row and layer run at the f32 FMA rate, 67 TFLOP/s on the H100
-// SXM, which bounds the call (about 15x the bf16 products' time at these
-// shapes); the f32 encoding doubles the bytes (1 536 a row).  This design does
-// not reach either bound: it moves about 1.5 KB per row for EVERY layer
-// (three f32 tap rows, the enc row, the residual re-read and the write; 2 KB
-// with an f32 encoding), its SIMT product re-reads w_cond from L2 per block,
-// and the measured times are in PERF.md.  Left on the table: several layers
-// per launch with the small-dilation history in shared memory, bf16 tap
-// reads, TMA-fed wgmma, a 3xTF32 cond product, one CUDA graph per synthesis.
+//   flow_persist_kernel<W, COND>  (W = 32, 64) one launch a layer of
+//     persistent blocks: the grid is the blocks that fit at once (the
+//     occupancy API's blocks a SM times the SMs, read by the wrapper), and
+//     block b walks the 64-row tiles b, b + grid, ...  It answers the three
+//     causes that held the per-block design (flow_layer_kernel) well above
+//     torch.mm at W 64 (PERF.md):
+//     1. Weights read once a block, not once a tile.  w_tap, w_cond (bf16, or
+//        f32 for ENC_F32), w_res and the biases are copied into shared memory
+//        when the block starts and stay there (61 952 B at W 64 in bf16,
+//        94 720 B with an f32 w_cond).  A deconv width too wide for that is
+//        streamed with its encoding columns instead (the plan says which).
+//     2. Each row byte read once.  A tile is a sequence of chunks: tap
+//        l(t-2d), tap l(t-d), the conditioning columns (encoding chunks or
+//        the layer's cond-stream columns), and last l(t), which is both the
+//        third tap (rounded to bf16 as it enters the product) and the
+//        residual of the epilogue; no row is read twice by its tile.
+//     3. An asynchronous ring fed by the copy engine.  A producer warp
+//        fills ring slots a chunk at a time with tensor copies (TMA, 2-D
+//        boxes of 64 rows x 128 B from tensor maps the host encodes a
+//        launch, in the 128-byte swizzle; rows before the stream or past it
+//        land as zeros, history rows come from the state's own map),
+//        counted on the slot's `full` mbarrier.  Two groups of four
+//        consumer warps take alternate tiles, each with its own part of
+//        the ring; a group waits on `full`, computes, and frees the slot on
+//        its `empty` mbarrier, so that up to `stages` chunks are in flight
+//        while the tensor cores and the epilogues work.  The stages and the
+//        chunk widths come from the host's plan (ops/flow_kernel.py
+//        persist_plan), which keeps every mode within 227 KB.  What was
+//        tried on the way is in PERF.md: cp.async from every thread, or one
+//        bulk copy a row, streamed no faster than the per-block kernel.
+//     Products are mma.sync m16n8k16 bf16 with f32 sums.  wgmma would need
+//     the operand tiles in its own shared layout, while the tap operand
+//     arrives as f32 and is rounded in registers; PERF.md has what bounds
+//     the kernel now.  Each consumer warp owns 16 rows and all W columns,
+//     so the gate's sigmoid and tanh halves meet in one thread's
+//     accumulators, and the gate, rounded to bf16, is the A operand of the
+//     res product straight from registers (no shared round trip).  B
+//     operands come from the resident weights by ldmatrix.trans, their rows
+//     swizzled at W 64 (padded at W 32) so that no load meets a bank
+//     conflict.  ENC_F32's cond product runs on the FMA units in full f32,
+//     k in order; a lane owns 16 W / 256 rows x 8 columns there, so each
+//     float4 of w_cond read from shared memory serves that many rows (the
+//     accumulator layout's two rows a lane would leave the product bound by
+//     shared-memory loads), and the sums reach the accumulator layout
+//     through the warp's own rows of the l(t) slot once the residual is read.
+//     The stream modes read their cond columns into registers when their
+//     chunk lands.  A row's arithmetic does not depend on the block, tile or
+//     call that computes it, so chained chunk calls equal one-shot calls bit
+//     for bit.
+//   flow_layer_kernel<W, COND>  (W = 128, 256) the per-block design, kept for the
+//     wide widths, whose weights alone fill most of a block's shared memory:
+//     a block per 64 consecutive rows, WMMA 16x16x16 in K chunks of 64 with
+//     the next chunk's loads in registers, the gate in shared memory, and an
+//     ENC_F32 cond product on the CUDA cores into a second f32 tile.
+//   flow_state_kernel<ROUND>  with a state, one launch per layer: copies the
+//     new history out of (old history ++ input), which is a shifted copy of
+//     the old state where the call is shorter than 2d, rounding to bf16 for
+//     bf16 carries.  Old and new state are different buffers.
+// A layer never updates l in place (other blocks still read rows t-d and
+// t-2d of its input): flow_stack alternates between two buffers so that the
+// last layer writes out.  flow_stack counts every launch it enqueues, by
+// kernel.  Measured times are in PERF.md.  Left on the table: several layers a
+// launch with the small-dilation history on chip, TMA-fed wgmma, the W 128 /
+// 256 tiles, the f32 cond product on tensor cores (it must pass the f32
+// precision probe of chip_smoke.py).
 
+#ifndef FLOW_WARPS
+#error "build through nsynth_wavenet_tpu_torch/kernels/build.py: it passes the launch plan's constants"
+#endif
+
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -116,9 +150,19 @@ struct FlowArgs {
   int n_layers, first_layer, num_stages;
   int cond_mode;       // CondMode
   int carry_bf16;      // round the exported state to bf16
+  // the persistent kernel's launch plan (ops/flow_kernel.py persist_plan and
+  // persist_args); unused at W = 128 and 256
+  int grid;
+  int n_tiles;         // row tiles of the stream, the last one ragged: blocks walk b, b + grid, ...
+  int smem_bytes, stages, slot_bytes;
+  int enc_cols;        // conditioning columns a chunk (encoding modes)
+  int wc_resident;     // w_cond resident in shared memory, else streamed with its chunk
+  int off_w_cond, off_w_res, off_bias, off_bars, off_ring, off_wchunk;  // byte offsets in shared memory
 };
 
 enum CondMode { ENC_BF16 = 0, ENC_F32 = 1, STREAM_BF16 = 2, STREAM_F32 = 3 };
+// flow_stack's launched[]: ops/flow_kernel.py KERNEL_NAMES
+enum KernelId { K_PERSIST = 0, K_LAYER = 1, K_STATE = 2 };
 
 namespace {
 
@@ -130,13 +174,13 @@ constexpr int THREADS = 256;
 constexpr int align128(int bytes) { return (bytes + 127) / 128 * 128; }
 constexpr int max3(int a, int b, int c) { return a > b ? (a > c ? a : c) : (b > c ? b : c); }
 
-// Tile shapes and the shared-memory layout of one width.
+// flow_layer_kernel's tile shapes and shared-memory layout of one width (128 or 256).
 template <int W_>
 struct Cfg {
   static constexpr int W = W_, M = W / 2;
-  static constexpr int KC = W < 64 ? W : 64;     // K chunk of the bf16 products
+  static constexpr int KC = 64;                  // K chunk of the bf16 products
   static constexpr int CPT = W / KC;             // K chunks per tap
-  static constexpr int BM = W <= 64 ? 128 : 64;  // rows per block
+  static constexpr int BM = 64;                  // rows per block
   static constexpr int WARPS_M = BM / 16, WARPS_N = THREADS / 32 / WARPS_M;
   static constexpr int NW = W / WARPS_N, NFRAG = NW / 16;  // columns of a warp
   static constexpr int LDA = KC + 8, LDB = W + 8, LDC = W + 4, LDG = M + 8;
@@ -164,6 +208,7 @@ struct Cfg {
   static constexpr int D_OFF = BIAS_OFF + align128(2 * W * 4);
   static constexpr int smem_bytes(int cond) { return D_OFF + (cond == ENC_BF16 ? 0 : C_BYTES); }
 
+  static_assert(W == 128 || W == 256, "flow_persist_kernel serves the narrower widths");
   static_assert(BM == 16 * WARPS_M && W == NW * WARPS_N && NW % 16 == 0, "warp tiling");
   static_assert(W == KC * CPT && KC % 16 == 0 && M % 16 == 0, "K chunks");
   static_assert(TAP_V * THREADS * 4 == BM * KC && ENC_V * THREADS * 8 == BM * KC, "chunk split");
@@ -475,6 +520,532 @@ flow_layer_kernel(const float* __restrict__ l_in, const void* __restrict__ cond_
   }
 }
 
+// ---------------------------------------------------------------------------
+// flow_persist_kernel: W = 32 and 64
+// ---------------------------------------------------------------------------
+
+constexpr int PW = FLOW_WARPS;          // consumer warps of a persistent block
+constexpr int PG = FLOW_GROUPS;         // consumer groups: group i takes the block's tiles i, i + PG, ...
+constexpr int PBM = FLOW_TILE_ROWS;     // rows of a tile: one 16-row band a warp of a group
+constexpr int PT = 32 * (PW + 1);       // threads: the consumers and one producer warp
+static_assert(PBM * PG == 16 * PW, "one m16 row band a consumer warp");
+
+constexpr int BOX = PBM * 128;         // bytes of a copy box: a tile's rows of 128 B
+
+struct PersistParams {
+  const float* l_in;
+  const float* hist;    // the layer's 2 * shift history rows, or null (zeros)
+  const bf16* w_tap;    // [3W, W]
+  const void* w_cond;   // [DW, W], null for a stream
+  const float* bias;    // [W]
+  const bf16* w_res;    // [W/2, W]
+  const float* b_res;   // [W]
+  float* l_out;
+  long long shift;      // d * B rows
+  int n_rows, n_tiles, cond_col0, DW;  // cond_col0: the layer's first cond-stream column
+  int stages, slot_bytes, enc_cols, wc_resident;
+  int off_w_cond, off_w_res, off_bias, off_ring, off_wchunk, off_bars;
+};
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+// bytes (a multiple of 16) global -> shared by the copy engine, counted on mbar
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes, unsigned mbar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(mbar)
+      : "memory");
+}
+
+// one box of a 2-D tensor map (x: column, y: row; rows and columns outside
+// the tensor, negative ones too, land as zeros) into shared memory, counted on mbar
+__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map, int x, int y, unsigned mbar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], "
+      "[%4];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(mbar)
+      : "memory");
+}
+
+// Byte offset of element (row, col) of a chunk in a ring slot.  A chunk is
+// boxes of 128 rows x 128 B (128 / ES columns each) side by side, each
+// written by the copy engine with the 128-byte swizzle: the 16-byte piece c
+// of row r sits at piece c ^ (r % 8), so that the eight rows of a fragment
+// load fall in distinct banks.
+template <int ES>
+__device__ __forceinline__ int sw(int row, int col) {
+  constexpr int BC = 128 / ES;
+  const int b = (col % BC) * ES;
+  return (col / BC) * BOX + row * 128 + ((((b >> 4) ^ row) & 7) << 4) + (b & 15);
+}
+
+__device__ __forceinline__ void mbar_init(unsigned mbar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(mbar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned mbar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(mbar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_tx(unsigned mbar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(mbar), "r"(bytes)
+               : "memory");
+}
+
+// until the phase of parity `parity` of mbar has completed; a wait that
+// never ends (a fault) traps after 2^27 polls instead of hanging the card
+__device__ __forceinline__ void mbar_wait(unsigned mbar, unsigned parity) {
+  for (unsigned polls = 0;; ++polls) {
+    unsigned done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(mbar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls == (1u << 27)) __trap();
+  }
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// Element offset of weight (k, n) of a [K][W] bf16 matrix in shared memory.
+// At W 64 a row is 128 B and its 16-byte pieces are swizzled by k % 8, so
+// that the eight rows an ldmatrix reads fall in distinct banks without
+// padding; at W 32 rows are padded to 40 elements instead.
+template <int W>
+__device__ __forceinline__ int wo(int k, int n) {
+  if constexpr (W == 64)
+    return k * 64 + ((((n >> 3) ^ k) & 7) << 3) + (n & 7);
+  else
+    return k * (W + 8) + n;
+}
+
+// The element offsets, from a step's row k0 (a multiple of 16, so that
+// k0 % 8 == 0 leaves the swizzle alone), of the rows a lane addresses in the
+// ldmatrix.trans loads of one k16 step over all W columns: one a pair of n-tiles.
+template <int W>
+struct BLanes {
+  int off[W / 16];
+  __device__ explicit BLanes(int lane) {
+    const int k = (lane & 7) + ((lane >> 3) & 1) * 8, n = (lane >> 4) * 8;
+#pragma unroll
+    for (int np = 0; np < W / 16; ++np) off[np] = wo<W>(k, n + 16 * np);
+  }
+};
+
+// acc[n-tile] += a (16 rows x k16) @ w[k0 .. k0 + 16, all W columns], w a
+// [K][W] bf16 matrix in shared memory laid out by wo; wk points at its row k0
+template <int W>
+__device__ __forceinline__ void mma_row_band(float (&acc)[W / 8][4], const unsigned (&a)[4],
+                                             const bf16* wk, const BLanes<W>& bl) {
+#pragma unroll
+  for (int np = 0; np < W / 16; ++np) {
+    unsigned b[4];
+    ldsm_x4_t(b, wk + bl.off[np]);
+    mma_bf16(acc[2 * np], a, b[0], b[1]);
+    mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+  }
+}
+
+// One layer over the stream.  A tile is nch chunks (tap t-2d, tap t-d, the
+// conditioning chunks, tap t), each one ring slot; the producer warp (the
+// last) walks the block's tiles in order and fills each chunk into the
+// ring part (SG slots) of the consumer group whose tile it is, with tensor
+// copies of whole boxes counted on the slot's `full` barrier; the group's
+// warps (16 rows each) free a slot on its `empty` barrier when they are
+// done with it.  map_l is the layer's input
+// [n_rows, W] f32 (boxes of 32 columns), map_h its history [2 shift, W] f32
+// (a state only), map_c the encoding [n_rows, DW] or the cond stream
+// [n_rows, n_layers W] (boxes of 128 / ES columns).
+//
+// The accumulator layout of m16n8k16: a consumer thread (g = lane / 4,
+// t4 = lane % 4) holds, for n-tile j, rows g and g + 8 of its warp's band at
+// columns 8j + 2 t4 and 8j + 2 t4 + 1: acc[j] = {(g, c), (g, c + 1), (g + 8, c), (g + 8, c + 1)}.
+template <int W, int COND>
+__global__ void __launch_bounds__(PT, W <= 32 ? 2 : 1)
+    flow_persist_kernel(const PersistParams p, const __grid_constant__ CUtensorMap map_l,
+                        const __grid_constant__ CUtensorMap map_h,
+                        const __grid_constant__ CUtensorMap map_c) {
+  constexpr int M = W / 2, NT = W / 8;
+  constexpr bool F32C = COND == ENC_F32;
+  constexpr bool STREAM = COND == STREAM_BF16 || COND == STREAM_F32;
+  constexpr int ES = COND == ENC_F32 || COND == STREAM_F32 ? 4 : 2;  // cond element bytes
+  // the f32 cond product's own layout: a lane owns CR rows (band + rg + RG i)
+  // and 8 columns (4 cg .. 4 cg + 3 and M + 4 cg .. M + 4 cg + 3)
+  constexpr int CG = W / 8, RG = 32 / CG, CR = 16 / RG;
+  constexpr int RW = W == 64 ? 64 : W + 8;  // elements of a resident weight row (wo)
+  extern __shared__ __align__(1024) unsigned char psmem[];
+  unsigned char* smem = psmem;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const bf16* s_wtap = reinterpret_cast<const bf16*>(smem);
+  unsigned char* s_wc = smem + p.off_w_cond;
+  const bf16* s_wres = reinterpret_cast<const bf16*>(smem + p.off_w_res);
+  const float* s_bias = reinterpret_cast<const float*>(smem + p.off_bias);  // [bias | b_res]
+  unsigned char* ring = smem + p.off_ring;  // 1024-aligned: the swizzle follows address bits 7-9
+  if (smem_addr(ring) & 1023) __trap();
+  const unsigned bars = smem_addr(smem + p.off_bars);  // full[stages], then empty[stages]
+  const int n_cc = STREAM ? 1 : (p.DW + p.enc_cols - 1) / p.enc_cols;  // cond chunks a tile
+  const int nch = 3 + n_cc;                                             // chunks a tile
+  const int SG = p.stages / PG;  // slots of a group's own ring: group g has slots g SG .. g SG + SG - 1
+  const int my_tiles = (p.n_tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+
+  // the layer's weights, once a block, by every thread
+  {
+    bf16* wt = reinterpret_cast<bf16*>(smem);
+    for (int v = tid; v < 3 * W * (W / 8); v += PT) {
+      const int k = v / (W / 8), c = (v % (W / 8)) * 8;
+      cp16(wt + wo<W>(k, c), p.w_tap + k * W + c);
+    }
+    bf16* wr = reinterpret_cast<bf16*>(smem + p.off_w_res);
+    for (int v = tid; v < M * (W / 8); v += PT) {
+      const int k = v / (W / 8), c = (v % (W / 8)) * 8;
+      cp16(wr + wo<W>(k, c), p.w_res + k * W + c);
+    }
+    float* bs = reinterpret_cast<float*>(smem + p.off_bias);
+    for (int v = tid; v < W / 2; v += PT)
+      cp16(bs + 4 * v, v < W / 4 ? p.bias + 4 * v : p.b_res + 4 * (v - W / 4));
+    if (!STREAM && p.wc_resident) {
+      if constexpr (F32C) {  // [DW][W] as it is
+        const float* wc = static_cast<const float*>(p.w_cond);
+        for (int v = tid; v < p.DW * (W / 4); v += PT)
+          cp16(reinterpret_cast<float*>(s_wc) + 4 * v, wc + 4 * v);
+      } else {  // [DW up to 16][W], rows past DW zero
+        const bf16* wc = static_cast<const bf16*>(p.w_cond);
+        bf16* d = reinterpret_cast<bf16*>(s_wc);
+        const int rows16 = (p.DW + 15) & ~15;
+        for (int v = tid; v < rows16 * (W / 8); v += PT) {
+          const int k = v / (W / 8), c = (v % (W / 8)) * 8;
+          if (k < p.DW)
+            cp16(d + wo<W>(k, c), wc + (size_t)k * W + c);
+          else
+            *reinterpret_cast<uint4*>(d + wo<W>(k, c)) = make_uint4(0u, 0u, 0u, 0u);
+        }
+      }
+    }
+    if (tid == 0) {
+      for (int s = 0; s < p.stages; ++s) {
+        mbar_init(bars + 8 * s, 32);                    // full: the producer's lanes
+        mbar_init(bars + 8 * (p.stages + s), PW / PG); // empty: one arrival a warp of a group
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+  }
+
+  if (warp == PW) {
+    // ---- the producer: the block's tiles in order, each chunk into the ring
+    // of the group whose tile it is ----
+    for (int i = 0; i < my_tiles; ++i) {
+      const int gi = i % PG;
+      const long long row0 = ((long long)blockIdx.x + (long long)i * gridDim.x) * PBM;
+      for (int c = 0; c < nch; ++c) {
+        const int qg = (i / PG) * nch + c;  // the chunk's place in its group's walk
+        const int s = gi * SG + qg % SG;
+        const unsigned full = bars + 8 * s;
+        mbar_wait(bars + 8 * (p.stages + s), (unsigned)((qg / SG) & 1) ^ 1u);
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        unsigned char* slot = ring + (size_t)s * p.slot_bytes;
+        unsigned bytes = 0;
+        if (c < 2 || c == nch - 1) {
+          // tap l(t - (2 - tap) d): rows r - (2 - tap) * shift of the input,
+          // rows before it from the 2 * shift history rows, or zeros
+          const long long y = row0 - (long long)(c == nch - 1 ? 0 : 2 - c) * p.shift;
+          if (p.hist == nullptr || y >= 0 || y + PBM <= 0) {
+            if (lane == 0) {
+              const bool hist = p.hist != nullptr && y < 0;  // then every row is a history row
+              for (int h = 0; h < W / 32; ++h)
+                tma_box(slot + h * BOX, hist ? &map_h : &map_l, 32 * h,
+                        (int)(hist ? y + 2 * p.shift : y), full);
+              bytes = W / 32 * BOX;
+            }
+          } else {
+            // the tile straddles the history's end (once a layer at most):
+            // the producer's lanes copy it row by row
+            for (int e = lane; e < PBM * (W / 4); e += 32) {
+              const int row = e / (W / 4), col = (e % (W / 4)) * 4;
+              const long long src = y + row;
+              float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+              if (src < 0)
+                v = *reinterpret_cast<const float4*>(p.hist + (src + 2 * p.shift) * W + col);
+              else if (row0 + row < p.n_rows)
+                v = *reinterpret_cast<const float4*>(p.l_in + src * W + col);
+              *reinterpret_cast<float4*>(slot + sw<4>(row, col)) = v;
+            }
+          }
+        } else if constexpr (STREAM) {
+          // the layer's W columns of each cond-stream row (at W 32 in bf16 the
+          // box also holds the next 32 columns, unused)
+          if (lane == 0) {
+            for (int h = 0; h < (W * ES + 127) / 128; ++h)
+              tma_box(slot + h * BOX, &map_c, p.cond_col0 + h * (128 / ES), (int)row0, full);
+            bytes = (W * ES + 127) / 128 * BOX;
+          }
+        } else {
+          // encoding columns k0 .. k0 + enc_cols (zeros past DW)
+          const int k0 = (c - 2) * p.enc_cols, kc = min(p.enc_cols, p.DW - k0);
+          if (lane == 0) {
+            for (int h = 0; h < p.enc_cols / (128 / ES); ++h)
+              tma_box(slot + h * BOX, &map_c, k0 + h * (128 / ES), (int)row0, full);
+            bytes = p.enc_cols / (128 / ES) * BOX;
+          }
+          if (!p.wc_resident) {  // the chunk's w_cond rows beside its encoding columns
+            unsigned char* wd = slot + p.off_wchunk;
+            if constexpr (F32C) {
+              if (lane == 0) {
+                bulk_copy(wd, static_cast<const float*>(p.w_cond) + (size_t)k0 * W, kc * W * 4, full);
+                bytes += kc * W * 4;
+              }
+            } else {  // laid out by wo, through the producer's registers
+              const bf16* wc = static_cast<const bf16*>(p.w_cond) + (size_t)k0 * W;
+              for (int e = lane; e < ((kc + 15) & ~15) * (W / 8); e += 32) {
+                const int kk = e / (W / 8), n = (e % (W / 8)) * 8;
+                *reinterpret_cast<uint4*>(reinterpret_cast<bf16*>(wd) + wo<W>(kk, n)) =
+                    kk < kc ? *reinterpret_cast<const uint4*>(wc + (size_t)kk * W + n)
+                            : make_uint4(0u, 0u, 0u, 0u);
+              }
+            }
+          }
+        }
+        mbar_arrive_tx(full, bytes);
+      }
+    }
+    return;
+  }
+
+  // ---- the consumers ----
+  const int g = lane >> 2, t4 = lane & 3;
+  const int group = warp / (PW / PG), band = (warp % (PW / PG)) * 16;
+  // fragment row g (and g + 8) is row sg (sg + 8) of the band: with rows
+  // 0, 2, 4, 6 for g = 0..3 the float2 loads of a half warp fall in distinct
+  // pieces of the swizzled boxes (rows g would pair pieces two by two)
+  const int sg = ((g & 3) << 1) | (g >> 2);
+  // byte offset of the f32 element (band + sg, C + 2 t4) of a chunk for a
+  // column C that is a multiple of 8 (known when unrolled); + 1024 for row
+  // band + sg + 8, which has the same swizzle
+  const int rb = (band + sg) * 128 + (t4 & 1) * 8, rp = (t4 >> 1) ^ sg;
+  auto f32_at = [&](int C) { return (C / 32) * BOX + rb + ((rp ^ ((C % 32) / 4)) << 4); };
+  const BLanes<W> bl(lane);
+  const int rg = lane / CG, cg = lane % CG;  // the f32 cond product's layout
+  float acc[NT][4], cnd[NT][4], cl[CR][8];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = cnd[j][e] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < CR; ++i)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) cl[i][e] = 0.0f;
+
+  int cs = 0;          // the group's ring position
+  unsigned cph = 0;    // and the parity of its pass
+  for (int i = group; i < my_tiles; i += PG)  // the group's tiles of this block
+  for (int c = 0; c < nch; ++c) {
+    const int s = group * SG + cs;
+    mbar_wait(bars + 8 * s, cph);
+    unsigned char* slot = ring + (size_t)s * p.slot_bytes;
+    if (c < 2 || c == nch - 1) {
+      // a tap: 16 rows x W of f32, rounded to bf16 as they enter the product
+      const int tap = c == nch - 1 ? 2 : c;
+#pragma unroll
+      for (int kk = 0; kk < W; kk += 16) {
+        const float2 x0 = *reinterpret_cast<const float2*>(slot + f32_at(kk));
+        const float2 x1 = *reinterpret_cast<const float2*>(slot + f32_at(kk) + 1024);
+        const float2 x2 = *reinterpret_cast<const float2*>(slot + f32_at(kk + 8));
+        const float2 x3 = *reinterpret_cast<const float2*>(slot + f32_at(kk + 8) + 1024);
+        const unsigned a[4] = {pack_bf16(x0.x, x0.y), pack_bf16(x1.x, x1.y), pack_bf16(x2.x, x2.y),
+                               pack_bf16(x3.x, x3.y)};
+        mma_row_band<W>(acc, a, s_wtap + (tap * W + kk) * RW, bl);
+      }
+    } else if constexpr (STREAM) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        float2 v0, v1;
+        if constexpr (COND == STREAM_F32) {
+          v0 = *reinterpret_cast<const float2*>(slot + f32_at(8 * j));
+          v1 = *reinterpret_cast<const float2*>(slot + f32_at(8 * j) + 1024);
+        } else {  // bf16 (band + sg, 8j + 2 t4): piece j % 8 of its box
+          const int o = (j / 8) * BOX + (band + sg) * 128 + ((((j & 7) ^ sg)) << 4) + 4 * t4;
+          v0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(slot + o));
+          v1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(slot + o + 1024));
+        }
+        cnd[j][0] = v0.x;
+        cnd[j][1] = v0.y;
+        cnd[j][2] = v1.x;
+        cnd[j][3] = v1.y;
+      }
+    } else {
+      const int k0 = (c - 2) * p.enc_cols, kc = min(p.enc_cols, p.DW - k0);
+      if constexpr (F32C) {
+        // enc @ w_cond in f32 on the FMA units, k in order, CR rows x 8
+        // columns a lane: each float4 of w serves CR rows
+        const float* wk = p.wc_resident ? reinterpret_cast<const float*>(s_wc) + (size_t)k0 * W
+                                        : reinterpret_cast<const float*>(slot + p.off_wchunk);
+        wk += 4 * cg;
+#pragma unroll 2
+        for (int k = 0; k < kc; k += 4) {
+          const int kb = (k >> 5) * BOX, kp = (k >> 2) & 7;
+          float a[CR][4];
+#pragma unroll
+          for (int r = 0; r < CR; ++r) {
+            const int row = band + rg + RG * r;
+            const float4 x = *reinterpret_cast<const float4*>(slot + kb + row * 128 + ((kp ^ (row & 7)) << 4));
+            a[r][0] = x.x;
+            a[r][1] = x.y;
+            a[r][2] = x.z;
+            a[r][3] = x.w;
+          }
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const float4 w0 = *reinterpret_cast<const float4*>(wk + (k + kk) * W);
+            const float4 w1 = *reinterpret_cast<const float4*>(wk + (k + kk) * W + M);
+            const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+            for (int r = 0; r < CR; ++r)
+#pragma unroll
+              for (int e2 = 0; e2 < 8; ++e2) cl[r][e2] = fmaf(a[r][kk], wv[e2], cl[r][e2]);
+          }
+        }
+      } else {
+        // bf16 encoding columns into the tap accumulators (one K = 3W + DW
+        // sum); ldmatrix: lane l gives the address of fragment row l % 16,
+        // row sg-permuted like the rest, at column half l / 16
+        const int erow = band + (lane & 8) + (((lane & 3) << 1) | ((lane >> 2) & 1));
+        const int eb = erow * 128, ep = (lane >> 4) ^ (erow & 7);
+        const bf16* wk = reinterpret_cast<const bf16*>(p.wc_resident ? s_wc : slot + p.off_wchunk) +
+                         (p.wc_resident ? k0 : 0) * RW;
+#pragma unroll 4
+        for (int kk = 0; kk < kc; kk += 16) {
+          unsigned a[4];
+          ldsm_x4(a, slot + (kk >> 6) * BOX + eb + ((((kk >> 3) & 7) ^ ep) << 4));
+          mma_row_band<W>(acc, a, wk + kk * RW, bl);
+        }
+      }
+    }
+
+    if (c == nch - 1) {
+      // the tile's epilogue: l(t), the residual, is still in this slot
+      float2 res_in[NT][2];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        res_in[j][0] = *reinterpret_cast<const float2*>(slot + f32_at(8 * j));
+        res_in[j][1] = *reinterpret_cast<const float2*>(slot + f32_at(8 * j) + 1024);
+      }
+      if constexpr (F32C) {
+        // the f32 cond sums to the accumulator layout through the warp's own
+        // rows of this slot (read above, so free now)
+        __syncwarp();
+#pragma unroll
+        for (int r = 0; r < CR; ++r) {
+          const int row = band + rg + RG * r;
+          *reinterpret_cast<float4*>(slot + sw<4>(row, 4 * cg)) =
+              make_float4(cl[r][0], cl[r][1], cl[r][2], cl[r][3]);
+          *reinterpret_cast<float4*>(slot + sw<4>(row, M + 4 * cg)) =
+              make_float4(cl[r][4], cl[r][5], cl[r][6], cl[r][7]);
+#pragma unroll
+          for (int e2 = 0; e2 < 8; ++e2) cl[r][e2] = 0.0f;
+        }
+        __syncwarp();
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const float2 v0 = *reinterpret_cast<const float2*>(slot + f32_at(8 * j));
+          const float2 v1 = *reinterpret_cast<const float2*>(slot + f32_at(8 * j) + 1024);
+          cnd[j][0] = v0.x;
+          cnd[j][1] = v0.y;
+          cnd[j][2] = v1.x;
+          cnd[j][3] = v1.y;
+        }
+      }
+      unsigned ga[M / 16][4];  // bf16(g) as the A operand of the res product
+#pragma unroll
+      for (int j = 0; j < NT / 2; ++j) {
+        float gv[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float xs = acc[j][e], xt = acc[j + NT / 2][e];
+          if constexpr (COND != ENC_BF16) {
+            xs = xs + cnd[j][e];
+            xt = xt + cnd[j + NT / 2][e];
+          }
+          const int col = 8 * j + 2 * t4 + (e & 1);
+          xs = xs + s_bias[col];
+          xt = xt + s_bias[M + col];
+          gv[e] = __frcp_rn(1.0f + expf(-xs)) * tanhf(xt);  // 1 / x, correctly rounded
+        }
+        ga[j >> 1][(j & 1) * 2] = pack_bf16(gv[0], gv[1]);
+        ga[j >> 1][(j & 1) * 2 + 1] = pack_bf16(gv[2], gv[3]);
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = cnd[j][e] = 0.0f;
+      float res[NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) res[j][e] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < M / 16; ++kk) mma_row_band<W>(res, ga[kk], s_wres + kk * 16 * RW, bl);
+      const long long rA = ((long long)blockIdx.x + (long long)i * gridDim.x) * PBM + band + sg;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int col = 8 * j + 2 * t4;
+        const float2 b = *reinterpret_cast<const float2*>(s_bias + W + col);
+        if (rA < p.n_rows)
+          *reinterpret_cast<float2*>(p.l_out + rA * W + col) =
+              make_float2(res_in[j][0].x + res[j][0] + b.x, res_in[j][0].y + res[j][1] + b.y);
+        if (rA + 8 < p.n_rows)
+          *reinterpret_cast<float2*>(p.l_out + (rA + 8) * W + col) =
+              make_float2(res_in[j][1].x + res[j][2] + b.x, res_in[j][1].y + res[j][3] + b.y);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bars + 8 * (p.stages + s));
+    if (++cs == SG) {
+      cs = 0;
+      cph ^= 1u;
+    }
+  }
+}
+
 // new_hist = the last hist_rows rows of (hist ++ l_in), rows of wv float4
 // vectors; ROUND rounds every value to bf16 (bf16 carries).
 template <bool ROUND>
@@ -498,7 +1069,101 @@ __global__ void flow_state_kernel(const float4* __restrict__ l_in, const float4*
 typedef cudaError_t (*LayerFn)(const FlowArgs&, const float*, const float*, float*, int, long long,
                                cudaStream_t);
 
-// one layer's launch: li is the layer's index within the call
+// the conditioning pointers of layer li: a stream's columns of the layer, or
+// the layer's w_cond
+const char* layer_cond(const FlowArgs& a, int li, int W, bool f32) {
+  const char* cond = static_cast<const char*>(a.cond);
+  if (a.cond_mode == STREAM_BF16 || a.cond_mode == STREAM_F32)
+    cond += (size_t)li * W * (f32 ? 4 : 2);  // the layer's columns of each stream row
+  return cond;
+}
+
+const void* layer_w_cond(const FlowArgs& a, int li, int W, bool f32) {
+  if (a.cond_mode == STREAM_BF16 || a.cond_mode == STREAM_F32) return nullptr;
+  return static_cast<const char*>(a.w_cond) + (size_t)li * a.cond_cols * W * (f32 ? 4 : 2);
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled, through the runtime (no link to libcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// a [rows, cols] row-major tensor in boxes of 128 rows x 128 B, 128-byte swizzle
+cudaError_t box_map(CUtensorMap* map, const void* base, bool f32, long long rows, long long cols) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const int es = f32 ? 4 : 2;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)(cols * es)};
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / es), (cuuint32_t)PBM};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = encode(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                            2, const_cast<void*>(base), dims, strides, box, unit,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// one layer's launch of the persistent kernel: li is the layer's index within the call
+template <int W, int COND>
+cudaError_t launch_persist(const FlowArgs& a, const float* src, const float* hist, float* dst,
+                           int li, long long shift, cudaStream_t st) {
+  auto kernel = flow_persist_kernel<W, COND>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem_bytes);
+  if (err != cudaSuccess) return err;
+  const bool stream = COND == STREAM_BF16 || COND == STREAM_F32;
+  const bool f32 = COND == ENC_F32 || COND == STREAM_F32;
+  const long long n_rows = (long long)a.L * a.B;
+  CUtensorMap map_l, map_h, map_c;
+  err = box_map(&map_l, src, true, n_rows, W);
+  if (err == cudaSuccess) err = box_map(&map_h, hist != nullptr ? hist : src, true,
+                                        hist != nullptr ? 2 * shift : n_rows, W);
+  if (err == cudaSuccess) err = box_map(&map_c, a.cond, f32, n_rows, a.cond_cols);
+  if (err != cudaSuccess) return err;
+  PersistParams p;
+  p.l_in = src;
+  p.hist = hist;
+  p.w_tap = static_cast<const bf16*>(a.w_tap) + (size_t)li * 3 * W * W;
+  p.w_cond = layer_w_cond(a, li, W, f32);
+  p.bias = static_cast<const float*>(a.bias) + (size_t)li * W;
+  p.w_res = static_cast<const bf16*>(a.w_res) + (size_t)li * (W / 2) * W;
+  p.b_res = static_cast<const float*>(a.b_res) + (size_t)li * W;
+  p.l_out = dst;
+  p.shift = shift;
+  p.n_rows = (int)n_rows;
+  p.n_tiles = a.n_tiles;
+  p.cond_col0 = stream ? li * W : 0;
+  p.DW = a.cond_cols;
+  p.stages = a.stages;
+  p.slot_bytes = a.slot_bytes;
+  p.enc_cols = a.enc_cols;
+  p.wc_resident = a.wc_resident;
+  p.off_w_cond = a.off_w_cond;
+  p.off_w_res = a.off_w_res;
+  p.off_bias = a.off_bias;
+  p.off_bars = a.off_bars;
+  p.off_ring = a.off_ring;
+  p.off_wchunk = a.off_wchunk;
+  kernel<<<a.grid, PT, a.smem_bytes, st>>>(p, map_l, map_h, map_c);
+  return cudaGetLastError();
+}
+
+// one layer's launch of the per-block kernel (W = 128, 256)
 template <int W, int COND>
 cudaError_t launch_layer(const FlowArgs& a, const float* src, const float* hist, float* dst,
                          int li, long long shift, cudaStream_t st) {
@@ -513,19 +1178,23 @@ cudaError_t launch_layer(const FlowArgs& a, const float* src, const float* hist,
   const long long n_rows = (long long)a.L * a.B;
   const unsigned grid = (unsigned)((n_rows + C::BM - 1) / C::BM);
   const bool f32 = COND == ENC_F32 || COND == STREAM_F32;
-  const char* cond = static_cast<const char*>(a.cond);
-  const char* w_cond = static_cast<const char*>(a.w_cond);
-  if (COND == STREAM_BF16 || COND == STREAM_F32)
-    cond += (size_t)li * W * (f32 ? 4 : 2);  // the layer's columns of each stream row
-  else
-    w_cond += (size_t)li * a.cond_cols * W * (f32 ? 4 : 2);
   kernel<<<grid, THREADS, smem, st>>>(
-      src, cond, hist, static_cast<const bf16*>(a.w_tap) + (size_t)li * 3 * W * W,
-      COND == STREAM_BF16 || COND == STREAM_F32 ? nullptr : w_cond,
-      static_cast<const float*>(a.bias) + (size_t)li * W,
+      src, layer_cond(a, li, W, f32), hist, static_cast<const bf16*>(a.w_tap) + (size_t)li * 3 * W * W,
+      layer_w_cond(a, li, W, f32), static_cast<const float*>(a.bias) + (size_t)li * W,
       static_cast<const bf16*>(a.w_res) + (size_t)li * (W / 2) * W,
       static_cast<const float*>(a.b_res) + (size_t)li * W, dst, (int)n_rows, shift, a.cond_cols);
   return cudaGetLastError();
+}
+
+template <int W>
+LayerFn persist_fn(int cond_mode) {
+  switch (cond_mode) {
+    case ENC_BF16: return launch_persist<W, ENC_BF16>;
+    case ENC_F32: return launch_persist<W, ENC_F32>;
+    case STREAM_BF16: return launch_persist<W, STREAM_BF16>;
+    case STREAM_F32: return launch_persist<W, STREAM_F32>;
+    default: return nullptr;
+  }
 }
 
 template <int W>
@@ -539,27 +1208,100 @@ LayerFn layer_fn(int cond_mode) {
   }
 }
 
-LayerFn pick_layer_fn(int W, int cond_mode) {
+// The kernel of a width (the dispatch is by width alone): the persistent
+// kernel at W = 32 and 64, the per-block kernel at W = 128 and 256.
+LayerFn pick_layer_fn(int W, int cond_mode, int* kernel_id) {
+  *kernel_id = W <= 64 ? K_PERSIST : K_LAYER;
   switch (W) {
-    case 32: return layer_fn<32>(cond_mode);
-    case 64: return layer_fn<64>(cond_mode);
+    case 32: return persist_fn<32>(cond_mode);
+    case 64: return persist_fn<64>(cond_mode);
     case 128: return layer_fn<128>(cond_mode);
     case 256: return layer_fn<256>(cond_mode);
     default: return nullptr;
   }
 }
 
+typedef void (*PersistKernel)(const PersistParams, const CUtensorMap, const CUtensorMap,
+                              const CUtensorMap);
+
+template <int W>
+PersistKernel persist_kernel(int cond_mode) {
+  switch (cond_mode) {
+    case ENC_BF16: return flow_persist_kernel<W, ENC_BF16>;
+    case ENC_F32: return flow_persist_kernel<W, ENC_F32>;
+    case STREAM_BF16: return flow_persist_kernel<W, STREAM_BF16>;
+    case STREAM_F32: return flow_persist_kernel<W, STREAM_F32>;
+    default: return nullptr;
+  }
+}
+
 }  // namespace
 
-extern "C" int flow_stack(const FlowArgs* args) {
+namespace {
+
+// info[0..7]: blocks per SM at smem_bytes of dynamic shared memory, SMs,
+// registers a thread, local (spill) bytes a thread, static shared bytes, the
+// dynamic shared bytes a block may opt in to, threads a block, and the
+// kernel's dynamic shared memory opt-in as it stands.
+cudaError_t persist_facts(int W, int cond_mode, bool set, int smem_bytes, int device, int* info) {
+  const PersistKernel k = W == 32 ? persist_kernel<32>(cond_mode)
+                        : W == 64 ? persist_kernel<64>(cond_mode) : nullptr;
+  if (k == nullptr) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess && set)
+    err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, k);
+  if (err != cudaSuccess) return err;
+  if (!set) smem_bytes = attr.maxDynamicSharedSizeBytes;
+  int per_sm = 0, sms = 0, optin = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, PT, smem_bytes);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return err;
+  info[0] = per_sm;
+  info[1] = sms;
+  info[2] = attr.numRegs;
+  info[3] = (int)attr.localSizeBytes;
+  info[4] = (int)attr.sharedSizeBytes;
+  info[5] = optin;
+  info[6] = PT;
+  info[7] = attr.maxDynamicSharedSizeBytes;
+  return cudaSuccess;
+}
+
+}  // namespace
+
+// What the card makes of flow_persist_kernel<W, cond_mode> with smem_bytes of
+// dynamic shared memory, opted in to first (persist_facts' info[0..7]).
+extern "C" int flow_persist_info(int W, int cond_mode, int smem_bytes, int device, int* info) {
+  return (int)persist_facts(W, cond_mode, true, smem_bytes, device, info);
+}
+
+// The same facts as the kernel stands, setting nothing: the dynamic shared
+// memory is the opt-in its last launch set, the occupancy taken at it.
+extern "C" int flow_persist_attrs(int W, int cond_mode, int device, int* info) {
+  return (int)persist_facts(W, cond_mode, false, 0, device, info);
+}
+
+// Runs the call's layers; launched[KernelId] counts the launches enqueued.
+extern "C" int flow_stack(const FlowArgs* args, int* launched) {
   const FlowArgs& a = *args;
-  const LayerFn layer = pick_layer_fn(a.W, a.cond_mode);
+  int kid = K_LAYER;
+  const LayerFn layer = pick_layer_fn(a.W, a.cond_mode, &kid);
   const bool stream_mode = a.cond_mode == STREAM_BF16 || a.cond_mode == STREAM_F32;
   if (layer == nullptr || a.L < 1 || a.B < 1 || a.n_layers < 1 || a.num_stages < 1 ||
       a.num_stages > 30 || a.first_layer < 0 ||
       (stream_mode ? (a.cond_cols != a.n_layers * a.W || a.w_cond != nullptr)
                    : (a.cond_cols < 8 || a.cond_cols % 8 || a.w_cond == nullptr)) ||
       (a.n_layers > 1 && a.tmp == nullptr) || (a.state == nullptr) != (a.new_state == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (kid == K_PERSIST &&
+      (a.grid < 1 || a.grid > a.n_tiles || (long long)a.n_tiles * PBM < (long long)a.L * a.B ||
+       (long long)(a.n_tiles - 1) * PBM >= (long long)a.L * a.B || a.stages < 2 * PG ||
+       a.stages % PG || a.slot_bytes < 1 || a.smem_bytes < a.off_ring + a.stages * a.slot_bytes ||
+       (!stream_mode && (a.enc_cols < 1 || a.enc_cols % (a.cond_mode == ENC_F32 ? 32 : 64)))))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(a.device);
   if (err != cudaSuccess) return (int)err;
@@ -579,6 +1321,7 @@ extern "C" int flow_stack(const FlowArgs* args) {
     const float* hist = state == nullptr ? nullptr : state + off * a.B * a.W;
     err = layer(a, src, hist, dst, li, shift, st);
     if (err != cudaSuccess) return (int)err;
+    ++launched[kid];
     if (new_state != nullptr) {
       const long long vecs = 2 * shift * wv;
       const unsigned blocks = (unsigned)((vecs + 255) / 256);
@@ -591,6 +1334,7 @@ extern "C" int flow_stack(const FlowArgs* args) {
         flow_state_kernel<false><<<blocks, 256, 0, st>>>(in4, hist4, out4, n_rows, 2 * shift, wv);
       err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
+      ++launched[K_STATE];
     }
     off += 2 * d;
     src = dst;

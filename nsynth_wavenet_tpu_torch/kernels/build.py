@@ -21,6 +21,11 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 # library name -> its translation unit (headers in csrc/ are hashed with every unit)
 LIBRARIES = {"fastgen_kernel": "fastgen_kernel.cu", "flow_kernel": "flow_kernel.cu"}
+# library name -> the constants it is compiled with (-D flags); the host-side
+# launch plan of its ops module reads them from here, so the two share one set.
+# flow_kernel: consumer warps of a persistent block, consumer groups, and rows
+# of a tile (one 16-row band a warp of a group).
+DEFINES = {"flow_kernel": {"FLOW_WARPS": 8, "FLOW_GROUPS": 2, "FLOW_TILE_ROWS": 16 * 8 // 2}}
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -41,8 +46,12 @@ def nvcc_path() -> str:
     return found
 
 
+def defines(name: str) -> list:
+    return [f"-D{k}={v}" for k, v in DEFINES.get(name, {}).items()]
+
+
 def _digest(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + defines(name)).encode())
     for p in sorted(CSRC.glob("*.cu*")):
         if p.suffix == ".cuh" or p.name == LIBRARIES[name]:
             h.update(p.name.encode())
@@ -65,7 +74,7 @@ def build_all(names=None):
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / LIBRARIES[name])]
+        cmd = [nvcc_path(), *NVCC_FLAGS, *defines(name), "-o", str(tmp), str(CSRC / LIBRARIES[name])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                         text=True), tmp, out)
     reports = {name: (library_path(name), "") for name in names}

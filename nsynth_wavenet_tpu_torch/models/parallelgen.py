@@ -148,7 +148,10 @@ def feed_forward_cuda(pwn: ParallelWavenet, params, inputs, generator=None, *,
     same bit for bit.  fuse_cond: the reference's single K = 3W + DW bf16
     product per layer, the encoding and w_cond rounded to bf16 even for an f32
     model (the kernel's compact arithmetic).  Runs with TF32 off, so an f32
-    model's deconv and heads are f32."""
+    model's deconv and heads are f32.  On the card each trunk layer is one
+    CUDA launch of the kernel of the model's width (flow_stack picks by width
+    alone): flow_persist_kernel at W 32 and 64, flow_layer_kernel at W 128
+    and 256."""
     group = layers_per_call or pwn.cfg.num_stages
     if group % pwn.cfg.num_stages:
         raise ValueError(f"layers_per_call {layers_per_call} is not a multiple of num_stages "

@@ -29,7 +29,11 @@ to bf16 at its product), the returned state is f32 holding bf16 values.
 
 ``flow_stack`` is the wrapper: on CUDA tensors it launches the kernel (and
 raises if it cannot), on CPU tensors it runs ``flow_stack_plain``, the plain
-PyTorch version with the same signature and the same roundings.
+PyTorch version with the same signature and the same roundings.  The kernel
+is picked by width alone: ``flow_persist_kernel`` at W 32 and 64 (persistent
+blocks, weights resident in shared memory, an asynchronous ring of row
+chunks, laid out by ``persist_plan``), ``flow_layer_kernel`` at W 128 and
+256; with a state, ``flow_state_kernel`` writes each layer's new history.
 
 The reference's other options compute the same function: fuse_taps=False
 sums the same bf16 products in another order, tile / b_tile are TPU grid
@@ -37,14 +41,28 @@ parameters, and time_major=False is a transpose around the call.
 """
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
+from nsynth_wavenet_tpu_torch.kernels import build
 from nsynth_wavenet_tpu_torch.ops.conv import effective_kernel
 
 MATRICES = ("w_tap", "w_cond", "w_res")
 WIDTHS = (32, 64, 128, 256)  # the widths csrc/flow_kernel.cu is compiled for
 COND_MODES = ("bf16", "f32cond", "stream", "stream_f32")  # index = CondMode in the source
+# flow_stack's launched[] in the source (KernelId), the keys of flow_stack.kernel_launches
+KERNEL_NAMES = ("flow_persist_kernel", "flow_layer_kernel", "flow_state_kernel")
+PERSIST_WIDTHS = (32, 64)  # flow_persist_kernel's; the wider widths run flow_layer_kernel
+
+# The persistent kernel's constants, as kernels/build.py compiles them into
+# the source (-D flags), so that persist_plan and the kernel share one set.
+_DEFINES = build.DEFINES["flow_kernel"]
+WARPS = _DEFINES["FLOW_WARPS"]  # consumer warps of a block (and one producer warp)
+GROUPS = _DEFINES["FLOW_GROUPS"]  # consumer groups, taking alternate tiles of the block
+TILE_ROWS = _DEFINES["FLOW_TILE_ROWS"]  # rows of a tile: one 16-row band a warp of a group
+MAX_STAGES = 8  # ring slots at most
+SMEM_LIMIT = 232448  # shared memory one block may use on the H100 (227 KB)
 
 
 def stack_flow_weights(flow_params):
@@ -94,6 +112,119 @@ def mode_key(mode: str, width: int) -> str:
     """Key of flow_stack.launches_by_mode: the conditioning mode (COND_MODES),
     with the width appended when it is not 64."""
     return mode if width == 64 else f"{mode}_w{width}"
+
+
+def kernel_name(width: int) -> str:
+    """The flow-trunk kernel that serves a width: the dispatch is by width alone."""
+    return KERNEL_NAMES[0] if width in PERSIST_WIDTHS else KERNEL_NAMES[1]
+
+
+def predicted_launches(width: int, n_layers: int, with_state: bool) -> dict:
+    """flow_stack.kernel_launches added by one call: a trunk launch a layer and,
+    with a state, a state copy a layer."""
+    out = dict.fromkeys(KERNEL_NAMES, 0)
+    out[kernel_name(width)] = n_layers
+    if with_state:
+        out["flow_state_kernel"] = n_layers
+    return out
+
+
+def _up(n, k):
+    return -(-n // k) * k
+
+
+BOX = TILE_ROWS * 128  # bytes of one copy box: a tile's rows x 128 bytes
+
+
+@dataclass(frozen=True)
+class PersistPlan:
+    """The shared-memory layout of flow_persist_kernel for one (width, mode,
+    deconv width); byte offsets as the kernel reads them from FlowArgs.
+    Shared memory holds w_tap [3W] rows, w_cond (bf16 [DW up to 16] rows,
+    or f32 [DW][W]; absent when not resident), w_res [W/2] rows, bf16 rows
+    of ld_w elements (W 64: 64, swizzled; W 32: padded to 40), the biases
+    [2W] f32, the ring's barriers (a full and an empty mbarrier a slot),
+    then, 1024-byte aligned, the ring: ``stages`` slots of ``slot_bytes``,
+    stages / GROUPS of them for each consumer group.  A slot holds one chunk of a tile as boxes of
+    TILE_ROWS x 128 B side by side (BOX bytes each, in the copy engine's
+    128-byte swizzle): a tap (W / 32 boxes of f32), a cond-stream chunk, or
+    ``enc_cols`` encoding columns followed, when w_cond is not resident, by
+    the chunk's w_cond rows at ``off_wchunk``."""
+
+    width: int
+    mode: str
+    deconv_width: int
+    stages: int
+    slot_bytes: int
+    enc_cols: int
+    wc_resident: bool
+    ld_w: int
+    off_w_cond: int
+    off_w_res: int
+    off_bias: int
+    off_bars: int
+    off_ring: int
+    off_wchunk: int
+    smem_bytes: int
+    tile_rows: int = TILE_ROWS
+
+
+def persist_plan(width: int, mode: str, deconv_width: int = 0) -> PersistPlan:
+    """flow_persist_kernel's layout at ``width`` (32 or 64) in conditioning
+    mode ``mode`` (COND_MODES) with a deconv width that is a multiple of 8
+    (ignored for a cond stream).  A slot is one tap chunk; an encoding chunk
+    fills it (W * 4 / element bytes columns, fewer when the deconv width is
+    narrower).  w_cond stays resident when two slots still fit beside it,
+    else each encoding chunk of one box brings its own w_cond rows; the ring
+    gets as many slots as fit, up to MAX_STAGES."""
+    if width not in PERSIST_WIDTHS or mode not in COND_MODES:
+        raise ValueError(f"no persistent plan for width {width}, mode {mode}")
+    W, DW = width, deconv_width
+    stream, f32c = mode in ("stream", "stream_f32"), mode == "f32cond"
+    if not stream and (DW < 8 or DW % 8):
+        raise ValueError(f"deconv width {DW} is not a positive multiple of 8")
+    ld_w = 64 if W == 64 else W + 8  # W 64: 128-byte rows swizzled, W 32: padded
+    tap = TILE_ROWS * W * 4  # W / 32 boxes
+    w_tap, w_res, bias = _up(3 * W * ld_w * 2, 128), _up(W // 2 * ld_w * 2, 128), _up(8 * W, 128)
+
+    def layout(wc_bytes, enc_cols, off_wchunk, slot):
+        off_w_res = w_tap + wc_bytes
+        off_bars = off_w_res + w_res + bias
+        off_ring = _up(off_bars + 16 * MAX_STAGES, 1024)
+        # each consumer group has a ring of its own, of at least two slots
+        stages = min(MAX_STAGES, (SMEM_LIMIT - off_ring) // slot) // GROUPS * GROUPS
+        if stages < 2 * GROUPS:
+            return None
+        return PersistPlan(W, mode, 0 if stream else DW, stages, slot, enc_cols, off_wchunk == 0,
+                           ld_w, w_tap, off_w_res, off_w_res + w_res, off_bars, off_ring,
+                           off_wchunk, off_ring + stages * slot)
+
+    if stream:
+        return layout(0, 0, 0, tap)
+    es = 4 if f32c else 2
+    box_cols = 128 // es
+    wc_rows = (lambda k: k * W * 4) if f32c else (lambda k: _up(k, 16) * ld_w * 2)
+    enc_cols = min(tap // (TILE_ROWS * es), _up(DW, box_cols))
+    plan = layout(_up(wc_rows(DW), 128), enc_cols, 0, tap)
+    if plan is not None:
+        return plan
+    # w_cond too wide to stay: a chunk of one box and its w_cond rows share a slot
+    return layout(0, box_cols, BOX, _up(max(tap, BOX + wc_rows(box_cols)), 1024))
+
+
+def persist_args(plan: PersistPlan, n_rows: int, card_blocks: int) -> dict:
+    """The launch fields of FlowArgs for one layer of flow_persist_kernel over
+    n_rows rows with ``plan``: the grid (every block the card holds at once,
+    ``card_blocks``, cut to the tiles there are) and n_tiles (tiles of
+    TILE_ROWS rows, the last one ragged), which the kernel's blocks walk as
+    block, block + grid, ..."""
+    n_tiles = -(-n_rows // TILE_ROWS)
+    return dict(
+        grid=min(card_blocks, n_tiles), n_tiles=n_tiles, smem_bytes=plan.smem_bytes,
+        stages=plan.stages, slot_bytes=plan.slot_bytes, enc_cols=plan.enc_cols,
+        wc_resident=int(plan.wc_resident), off_w_cond=plan.off_w_cond, off_w_res=plan.off_w_res,
+        off_bias=plan.off_bias, off_bars=plan.off_bars, off_ring=plan.off_ring,
+        off_wchunk=plan.off_wchunk)
 
 
 def _bf(x):
@@ -157,21 +288,74 @@ class _FlowArgs(ctypes.Structure):
         "out", "stream",
     )] + [(name, ctypes.c_int) for name in (
         "device", "L", "B", "W", "cond_cols", "n_layers", "first_layer", "num_stages",
-        "cond_mode", "carry_bf16",
+        "cond_mode", "carry_bf16", "grid", "n_tiles", "smem_bytes", "stages", "slot_bytes", "enc_cols",
+        "wc_resident", "off_w_cond", "off_w_res", "off_bias",
+        "off_bars", "off_ring", "off_wchunk",
     )]
 
 
 def _lib():
-    from nsynth_wavenet_tpu_torch.kernels import build
-
     lib = build.load("flow_kernel")
     if not getattr(lib, "_argtypes_set", False):
-        lib.flow_stack.argtypes = [ctypes.POINTER(_FlowArgs)]
+        lib.flow_stack.argtypes = [ctypes.POINTER(_FlowArgs), ctypes.POINTER(ctypes.c_int)]
         lib.flow_stack.restype = ctypes.c_int
+        lib.flow_persist_info.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+        lib.flow_persist_attrs.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+        lib.flow_persist_info.restype = lib.flow_persist_attrs.restype = ctypes.c_int
         lib.flow_error_string.argtypes = [ctypes.c_int]
         lib.flow_error_string.restype = ctypes.c_char_p
         lib._argtypes_set = True
     return lib
+
+
+def _check(lib, rc):
+    if rc != 0:
+        raise RuntimeError(f"CUDA flow kernel failed: {lib.flow_error_string(rc).decode()} "
+                           f"(cudaError {rc})")
+
+
+_INFO = {}
+_FACTS = ("blocks_per_sm", "sms", "registers", "spill_bytes", "static_smem", "smem_limit",
+          "threads", "dynamic_smem")
+
+
+def _card_facts(fn, width, mode, device, *smem_bytes):
+    """fn(width, mode, *smem_bytes, device, info) of the C side, as a dict."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    lib = _lib()
+    info = (ctypes.c_int * len(_FACTS))()
+    _check(lib, getattr(lib, fn)(width, COND_MODES.index(mode), *smem_bytes, device.index, info))
+    facts = dict(zip(_FACTS, info))
+    if facts["smem_limit"] < SMEM_LIMIT:
+        raise RuntimeError(f"the card lets a block opt in to {facts['smem_limit']} bytes of shared "
+                           f"memory; persist_plan lays out up to {SMEM_LIMIT}")
+    return facts
+
+
+def launch_info(width, mode, smem_bytes, device):
+    """What the card makes of flow_persist_kernel at ``width`` in ``mode`` with
+    ``smem_bytes`` of dynamic shared memory (opted in to here): {blocks_per_sm,
+    sms, registers, spill_bytes (local memory a thread), static_smem,
+    smem_limit (the card's opt-in limit a block), threads, dynamic_smem}, read
+    from the occupancy API and cudaFuncGetAttributes."""
+    key = (width, mode, smem_bytes, str(device))
+    if key not in _INFO:
+        info = _card_facts("flow_persist_info", width, mode, device, smem_bytes)
+        if info["blocks_per_sm"] < 1:
+            raise RuntimeError(f"flow_persist_kernel does not fit an SM with {smem_bytes} bytes "
+                               "of shared memory")
+        _INFO[key] = info
+    return dict(_INFO[key])
+
+
+def launched_facts(width, mode, device):
+    """launch_info's facts of flow_persist_kernel at ``width`` in ``mode`` as
+    the card holds them now, setting nothing: dynamic_smem is the opt-in its
+    last launch set (cudaFuncGetAttributes' maxDynamicSharedSizeBytes), and
+    blocks_per_sm the occupancy at that shared memory."""
+    return _card_facts("flow_persist_attrs", width, mode, device)
 
 
 def _expect(name, t, shape, dtype, device):
@@ -260,6 +444,11 @@ def _flow_stack_cuda(x, enc, sw, s, n_layers, num_stages, state=None, compact=Tr
 
     out = torch.empty_like(x)
     tmp = torch.empty_like(x) if n_layers > 1 else None
+    plan_args = {}
+    if W in PERSIST_WIDTHS:
+        plan = persist_plan(W, mode, 0 if mode in ("stream", "stream_f32") else cond_t.shape[-1])
+        info = launch_info(W, mode, plan.smem_bytes, dev)
+        plan_args = persist_args(plan, L * B, info["blocks_per_sm"] * info["sms"])
     args = _FlowArgs(
         x=x.data_ptr(), cond=cond_t.data_ptr(), w_tap=sw["w_tap"][sl].data_ptr(),
         w_cond=None if w_cond is None else w_cond.data_ptr(), bias=bias.data_ptr(),
@@ -270,13 +459,17 @@ def _flow_stack_cuda(x, enc, sw, s, n_layers, num_stages, state=None, compact=Tr
         stream=torch.cuda.current_stream(dev).cuda_stream,
         device=dev.index, L=L, B=B, W=W, cond_cols=cond_t.shape[-1], n_layers=n_layers,
         first_layer=s, num_stages=num_stages, cond_mode=COND_MODES.index(mode),
-        carry_bf16=int(carry_bf16),
+        carry_bf16=int(carry_bf16), **plan_args,
     )
     lib = _lib()
-    rc = lib.flow_stack(ctypes.byref(args))
-    if rc != 0:
-        raise RuntimeError(f"CUDA flow kernel failed: {lib.flow_error_string(rc).decode()} "
-                           f"(cudaError {rc})")
+    launched = (ctypes.c_int * len(KERNEL_NAMES))()
+    rc = lib.flow_stack(ctypes.byref(args), launched)
+    for name, n in zip(KERNEL_NAMES, launched):
+        flow_stack.kernel_launches[name] += n
+    _check(lib, rc)
+    if plan_args:
+        flow_stack.last_launch = dict(kernel=KERNEL_NAMES[0], width=W, mode=mode,
+                                      tile_rows=TILE_ROWS, **plan_args)
     flow_stack.launches += 1
     key = mode_key(mode, W)
     flow_stack.launches_by_mode[key] = flow_stack.launches_by_mode.get(key, 0) + 1
@@ -298,8 +491,12 @@ def flow_stack(x, enc, sw, s, n_layers, num_stages, state=None, compact=True, *,
     compact_weights or noncompact_weights for the card).  state
     [state_rows, B, W] f32 (or bf16 with bf16 carries) or None.  Returns l
     [L, B, W] f32, and with a state (l, new_state).  Any B >= 1, L >= 1 and
-    n_layers >= 1.  CUDA tensors run the CUDA kernel (widths in WIDTHS, a
-    deconv width that is a multiple of 8); CPU tensors run the plain version."""
+    n_layers >= 1.  CUDA tensors run the CUDA kernels (widths in WIDTHS, a
+    deconv width that is a multiple of 8), picked by width alone: every layer
+    is one launch of flow_persist_kernel at W 32 and 64 and of
+    flow_layer_kernel at W 128 and 256, and with a state one launch of
+    flow_state_kernel; flow_stack.kernel_launches counts them by name where
+    they are enqueued.  CPU tensors run the plain version."""
     if x.device.type == "cuda":
         return _flow_stack_cuda(x, enc, sw, s, n_layers, num_stages, state, compact, fuse_cond,
                                 carry_dtype, cond)
@@ -310,5 +507,10 @@ def flow_stack(x, enc, sw, s, n_layers, num_stages, state=None, compact=True, *,
 
 
 flow_stack.launches = 0
+# CUDA launches by kernel name (KERNEL_NAMES), counted where the C entry point enqueues them
+flow_stack.kernel_launches = dict.fromkeys(KERNEL_NAMES, 0)
 # by mode_key: the conditioning mode, "_w<width>" appended for widths other than 64
 flow_stack.launches_by_mode = {mode_key(m, w): 0 for w in WIDTHS for m in COND_MODES}
+# FlowArgs' launch fields of the last call that ran flow_persist_kernel (persist_args),
+# with the kernel, width, mode and tile rows, as flow_stack handed them to the C entry point
+flow_stack.last_launch = None
