@@ -144,6 +144,25 @@ follow phase 11:
      synthesize_cuda at B = 8 x 1 s (flow_layer_kernel alone) against the same
      path on the plain kernel;
      one 10-layer call timed at widths 32, 64, 128 and 256.
+Phases T1 to T5 train the teacher (training/); they follow phase 31:
+ T1. one training step on the card against the same step on the CPU:
+     configs/wavenet_mol.json cut to 4 layers, f32 compute, TF32 off, dropout
+     off, B = 2 x 7680, the same params and batch: the loss, every gradient
+     leaf, the params after Adam and the EMA;
+ T2. runner.train_wavenet at full size (configs/wavenet_mol.json unchanged:
+     30 layers, bf16, dropout on) on a speech-like corpus the port builds in
+     a temporary directory, B = 4 x 7680, 40 steps, a checkpoint every 20:
+     every loss finite, the checkpoints land; and 40 steps on one fixed batch
+     whose last 5 losses average under the first 5;
+ T3. resume by logdir bit for bit: a one-record dataset whose record is
+     exactly wave_length (every crop the same), the full config cut to 4
+     layers, cuDNN deterministic: 3 steps, then resumed to 6, equal to an
+     uninterrupted 6-step run in every tensor of the state;
+ T4. export_ema of T2's run, then evaluation.generate_wavenet(ckpt_dir=run)
+     over two short wavs: one fastgen_persistent launch a call, audio finite
+     and not silent;
+ T5. step time, steps/s, utterances/s and peak memory at full size, B = 4,
+     B = 16 and B = 16 with remat, against the step's FLOP bound.
 Every teacher generate call is one cooperative launch of the persistent
 kernel fastgen_persistent (after quant_enc_kernel in the int8 modes).
 Phases other than 32 run with TF32 off.  The last line is {"ok": true,
@@ -175,6 +194,11 @@ from nsynth_wavenet_tpu_torch.models.wavenet import Wavenet, no_tf32
 from nsynth_wavenet_tpu_torch.ops import fastgen_kernel as fk
 from nsynth_wavenet_tpu_torch.ops import flow_kernel as flk
 from nsynth_wavenet_tpu_torch.ops import stft
+from nsynth_wavenet_tpu_torch.training import checkpoint as ckpt_lib
+from nsynth_wavenet_tpu_torch.training import optimizer as opt_lib
+from nsynth_wavenet_tpu_torch.training import runner
+from nsynth_wavenet_tpu_torch.training import train_lib
+from nsynth_wavenet_tpu_torch.utils import tree as tree_lib
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(REPO, "tests", "golden")
@@ -2001,6 +2025,338 @@ def flow_mode_phases():
     ]
 
 
+# ---- T1-T5: teacher training ---------------------------------------------------
+
+# T1, card step against the CPU step (f32, TF32 off), as shares of each
+# gradient leaf's own max |value|, and for the params and EMA after the
+# update ||card - cpu|| / ||cpu - init|| over each leaf that has a gradient
+# (Adam moves every element by about the learning rate whatever its
+# gradient's size, so a per-element maximum would read roundoff as a full
+# step).  The MoL head at quant_chann 65536 cancels 15 bits in its bin
+# probability, so summation-order differences of 1e-7 in the head outputs
+# come out as 1e-3 of a gradient leaf (tests/test_torch_train_step.py: JAX
+# against the port on the CPU reads 1.5e-3 and 2.2e-2 at 4 layers, width 16).
+TRAIN_LOSS_REL_TOL = 1e-5
+TRAIN_GRAD_REL_TOL = 1e-2
+TRAIN_UPDATE_REL_TOL = 1e-1
+TRAIN_STEPS = 40  # T2, and the fixed-batch run
+TIMED_TRAIN_STEPS = 10  # T5, after 2 warm-up steps
+
+
+def leaf_err(want, got):
+    """Largest max |got - want| over the leaves of two trees, each as a share
+    of the leaf's own max |want| (0 where the leaf is all zero on both)."""
+    errs = []
+    for w, g in zip(tree_lib.leaves(want), tree_lib.leaves(got)):
+        w, g = w.detach().cpu().float(), g.detach().cpu().float()
+        scale = float(w.abs().max())
+        errs.append(float((g - w).abs().max()) / scale if scale > 0 else float(g.abs().max()))
+    return max(errs)
+
+
+def update_err(init, want, got, grads):
+    errs = []
+    for i, w, g, gr in zip(*(tree_lib.leaves(t) for t in (init, want, got, grads))):
+        if float(gr.abs().max()) == 0:
+            continue
+        i, w, g = (x.detach().cpu().float() for x in (i, w, g))
+        errs.append(float(torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w - i)))
+    return max(errs)
+
+
+def to_device(tree, device):
+    return tree_lib.tree_map(lambda x: x.detach().to(device), tree)
+
+
+def train_flops(cfg, B):
+    """FLOPs of one training step, counted from the convolutions the step
+    runs: every product's forward MACs x 2, times 3 for the forward and the
+    two backward products (input and weight gradients).  The layers' and the
+    head's conditioning products run over the whole encoding
+    (mel frames x frame_shift samples), the rest over wave_length."""
+    L = cfg.wave_length
+    frames = 1 + L // stft.MEL_PARAMS.hop_length
+    enc_len = frames * cfg.frame_shift
+    m = cfg.gate_width // 2
+    W, G, S, DW = cfg.width, cfg.gate_width, cfg.skip_width, cfg.deconv_width
+    per_layer = L * (cfg.filter_length * W * G + m * W + m * S) + enc_len * DW * G
+    macs = cfg.num_layers * per_layer
+    macs += L * (cfg.filter_length * W + W * S + S * S + S * cfg.out_width) + enc_len * DW * S
+    t, cin = frames, stft.MEL_PARAMS.num_mel
+    for fl, stride in cfg.deconv_config:
+        macs += t * fl * cin * DW
+        t, cin = t * stride, DW
+    return 6.0 * B * macs
+
+
+def speechlike_dataset(path, n_utts=24, seed=0):
+    from nsynth_wavenet_tpu_torch.data import dataset as data_lib
+    from nsynth_wavenet_tpu_torch.data import synthetic
+
+    waves, ids = synthetic.make_speechlike_corpus(n_utts=n_utts, duration=2.0, seed=seed)
+    data_lib.build_dataset_from_arrays(waves, ids, path)
+    return path
+
+
+def recording_steps(losses):
+    """Context: train_lib.make_wavenet_train_step wrapped to record every
+    step's loss, as the runner builds its step function."""
+    make = train_lib.make_wavenet_train_step
+
+    def recording(model, optimizer):
+        step_fn = make(model, optimizer)
+
+        def fn(state, wav, seed=None):
+            state, metrics = step_fn(state, wav, seed)
+            losses.append(metrics["loss"])
+            return state, metrics
+
+        return fn
+
+    @contextlib.contextmanager
+    def patched():
+        train_lib.make_wavenet_train_step = recording
+        try:
+            yield
+        finally:
+            train_lib.make_wavenet_train_step = make
+
+    return patched()
+
+
+def t1_card_vs_cpu():
+    cfg = config_lib.load_config(os.path.join(REPO, "configs/wavenet_mol.json"), num_layers=4,
+                                 compute_dtype="float32", dropout_inputs=False)
+    model = Wavenet(cfg)
+    params = model.init_params(0, device="cpu")
+    wav = torch.from_numpy(synthetic_wavs(2, cfg.wave_length, 31))
+    out = {}
+    for device in ("cuda", "cpu"):
+        w = wav.to(device)
+        p = to_device(params, device)
+        t0 = time.time()
+        with no_tf32():
+            loss, grads = train_lib.loss_and_grads(model, p, w, stft.melspectrogram(w))
+        optimizer = opt_lib.make_optimizer(cfg.lr_schedule)
+        state = train_lib.make_train_state(p, optimizer)
+        state, metrics = train_lib.make_wavenet_train_step(model, optimizer)(state, w)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        out[device] = (float(loss), grads, state, float(metrics["loss"]), time.time() - t0)
+    (l_g, g_g, s_g, sl_g, t_g), (l_c, g_c, s_c, sl_c, t_c) = out["cuda"], out["cpu"]
+    loss_err = max(abs(l_g - l_c), abs(sl_g - sl_c)) / max(abs(l_c), 1.0)
+    grad_err = leaf_err(g_c, g_g)
+    p_err = update_err(params, s_c["params"], s_g["params"], g_c)
+    e_err = update_err(params, s_c["ema"], s_g["ema"], g_c)
+    log(f"T1 train step card vs CPU (mol, 4 layers, f32, B=2 x {cfg.wave_length}): loss "
+        f"{l_g:.6f} / {l_c:.6f} (rel {loss_err:.2e}, limit {TRAIN_LOSS_REL_TOL:.0e}); gradient "
+        f"leaves max {grad_err:.3e} of scale (limit {TRAIN_GRAD_REL_TOL:.0e}); params after Adam "
+        f"{p_err:.3e}, EMA {e_err:.3e} (L2 of the update, limit {TRAIN_UPDATE_REL_TOL:.0e}); "
+        f"card {t_g:.1f} s, CPU {t_c:.1f} s")
+    require(loss_err <= TRAIN_LOSS_REL_TOL, "T1: loss card vs CPU")
+    require(grad_err <= TRAIN_GRAD_REL_TOL, "T1: gradients card vs CPU")
+    require(p_err <= TRAIN_UPDATE_REL_TOL and e_err <= TRAIN_UPDATE_REL_TOL,
+            "T1: params / EMA after the update card vs CPU")
+    require(s_g["step"] == s_c["step"] == 1, "T1: step count")
+    return {"loss_rel": loss_err, "grad": grad_err, "params": p_err, "ema": e_err}
+
+
+def t2_full_training(tmp):
+    cfg_path = os.path.join(REPO, "configs/wavenet_mol.json")
+    cfg = config_lib.load_config(cfg_path)
+    ds = speechlike_dataset(os.path.join(tmp, "speech"))
+    losses = []
+    t0 = time.time()
+    with recording_steps(losses):
+        run_dir, state = runner.train_wavenet(
+            ds, config_path=cfg_path, log_root=os.path.join(tmp, "runs"), total_batch_size=4,
+            num_steps=TRAIN_STEPS, ckpt_every_steps=TRAIN_STEPS // 2, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    losses = [float(x) for x in losses]
+    steps = ckpt_lib.CheckpointManager(os.path.join(run_dir, "ckpt")).all_steps()
+    log(f"T2 runner.train_wavenet full size ({cfg.num_layers} layers, W {cfg.width}, "
+        f"{cfg.compute_dtype}, dropout_inputs {cfg.dropout_inputs}), B=4 x {cfg.wave_length}, "
+        f"{TRAIN_STEPS} steps in {dt:.1f} s (checkpoints and start-up included): losses "
+        f"{losses[0]:.4f} .. {losses[-1]:.4f}, checkpoints at {steps}")
+    require(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)), "T2: a loss is not finite")
+    require(steps == [TRAIN_STEPS // 2, TRAIN_STEPS] and state["step"] == TRAIN_STEPS,
+            "T2: checkpoints")
+    # one fixed batch, TRAIN_STEPS steps: the loss falls
+    model = Wavenet(cfg)
+    optimizer = opt_lib.make_optimizer(cfg.lr_schedule, grad_clip=cfg.grad_clip)
+    fstate = train_lib.make_train_state(model.init_params(1, device="cuda"), optimizer)
+    step_fn = train_lib.make_wavenet_train_step(model, optimizer)
+    from nsynth_wavenet_tpu_torch.data import dataset as data_lib
+
+    batch = torch.from_numpy(data_lib.Dataset(ds).random_crop_batch(
+        np.random.default_rng(3), 4, cfg.wave_length)).cuda()
+    fixed = []
+    for _ in range(TRAIN_STEPS):
+        fstate, metrics = step_fn(fstate, batch, 2)
+        fixed.append(metrics["loss"])
+    fixed = [float(x) for x in fixed]
+    first, last = float(np.mean(fixed[:5])), float(np.mean(fixed[-5:]))
+    log(f"T2 one fixed batch, {TRAIN_STEPS} steps: mean loss of the first 5 {first:.4f}, of the "
+        f"last 5 {last:.4f}")
+    require(all(np.isfinite(fixed)) and last < first, "T2: the loss does not fall on a fixed batch")
+    del fstate
+    return run_dir, state, {"losses": losses, "fixed_first5": first, "fixed_last5": last,
+                            "seconds": dt}
+
+
+def t3_resume(tmp):
+    from nsynth_wavenet_tpu_torch.data import dataset as data_lib
+
+    cfg = config_lib.load_config(os.path.join(REPO, "configs/wavenet_mol.json"), num_layers=4)
+    cfg_path = os.path.join(tmp, "mol_4_layers.json")
+    with open(cfg_path, "wt") as f:
+        f.write(config_lib.config_to_json(cfg))
+    ds = os.path.join(tmp, "one")
+    data_lib.build_dataset_from_arrays(synthetic_wavs(1, cfg.wave_length, 41), ["one"], ds)
+    kw = dict(total_batch_size=4, ckpt_every_steps=3, seed=0, device="cuda")
+    with deterministic_cudnn():
+        _, full = runner.train_wavenet(ds, config_path=cfg_path,
+                                       log_root=os.path.join(tmp, "full"), num_steps=6, **kw)
+        part_dir, _ = runner.train_wavenet(ds, config_path=cfg_path,
+                                           log_root=os.path.join(tmp, "part"), num_steps=3, **kw)
+        _, resumed = runner.train_wavenet(ds, logdir=part_dir, num_steps=6, **kw)
+    same = {name: all(torch.equal(a, b) for a, b in zip(tree_lib.leaves(full[name]),
+                                                      tree_lib.leaves(resumed[name])))
+            for name in ("params", "ema")}
+    for name in ("mu", "nu"):
+        same[name] = all(torch.equal(a, b) for a, b in zip(
+            tree_lib.leaves(full["opt_state"][name]), tree_lib.leaves(resumed["opt_state"][name])))
+    same["step"] = full["step"] == resumed["step"] == 6 and \
+        full["opt_state"]["count"] == resumed["opt_state"]["count"] == 6
+    log(f"T3 resume by logdir (4 layers, bf16, dropout on, cuDNN deterministic): 3 steps + "
+        f"resumed to 6 == 6 steps bit for bit: {same}")
+    require(all(same.values()), "T3: a resumed run differs from the uninterrupted one")
+    return same
+
+
+def t4_serve(run_dir, state, tmp):
+    cfg = config_lib.load_config(runner.find_config_json(run_dir))
+    ckpt_lib.export_ema(state, os.path.join(run_dir, "ema"), cfg)
+    src, out = os.path.join(tmp, "src"), os.path.join(tmp, "gen")
+    os.makedirs(src)
+    for i, w in enumerate(synthetic_wavs(2, 4000, 51)):
+        wav_io.write_wav(os.path.join(src, f"utt_{i}.wav"), w)
+    fk.generate.launches = 0
+    fk.generate.kernel_launches = dict.fromkeys(fk.KERNEL_NAMES, 0)
+    t0 = time.time()
+    paths = generate_wavenet(src, None, None, out, batch_size=8, seed=0, device="cuda",
+                             ckpt_dir=run_dir)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    calls, counted = fk.generate.launches, {k: n for k, n in fk.generate.kernel_launches.items() if n}
+    audio = np.stack([wav_io.read_wav(p)[0] for p in paths])
+    log(f"T4 export_ema + generate_wavenet(ckpt_dir) over 2 wavs: {len(paths)} files, "
+        f"{audio.shape[1]} samples each, {dt:.2f} s; generate calls {calls}, CUDA launches "
+        f"{counted}; audio std {float(audio.std()):.4f}, max |x| {float(np.abs(audio).max()):.4f}")
+    require(len(paths) == 2 and calls == 1 and counted == {"fastgen_persistent": 1},
+            "T4: the trained weights were not served through one fastgen_persistent launch")
+    require(np.isfinite(audio).all() and float(audio.std()) > 1e-3, "T4: audio not finite or silent")
+    return {"calls": calls, "kernel_launches": counted, "audio_std": float(audio.std())}
+
+
+KERNEL_CLASSES = (  # (class, substrings of a CUDA kernel's name), first match wins
+    ("gemm", ("nvjet", "gemm", "xmma", "cutlass")),
+    ("cudnn_conv", ("cudnn", "convolve", "wgrad", "dgrad")),
+    ("concat", ("CatArray",)),
+    ("reduce", ("reduce_kernel",)),
+    ("fill", ("FillFunctor",)),
+    ("optimizer", ("multi_tensor_apply",)),
+    ("strided_elementwise", ("gpu_kernel_impl_nocast", "unrolled_elementwise")),
+    ("elementwise", ("elementwise",)),
+)
+
+
+def train_breakdown(step_fn, state, batch):
+    """Device time of one training step by kernel class (KERNEL_CLASSES), by
+    torch.profiler: ({class: ms}, busy ms, wall ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        step_fn(state, batch, 2)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.time() - t0)
+    by_class = {}
+    for evt in prof.key_averages():
+        if str(getattr(evt, "device_type", "")).endswith("CUDA"):
+            total = getattr(evt, "self_device_time_total", None)
+            if total is None:
+                total = evt.self_cuda_time_total
+            cls = next((c for c, keys in KERNEL_CLASSES if any(k in evt.key for k in keys)),
+                       "other")
+            by_class[cls] = by_class.get(cls, 0.0) + total / 1e3
+    require(by_class, "torch.profiler recorded no CUDA kernel in a training step")
+    return by_class, sum(by_class.values()), wall_ms
+
+
+def t5_timing(card):
+    cfg0 = config_lib.load_config(os.path.join(REPO, "configs/wavenet_mol.json"))
+    rows = {}
+    for B, remat in ((4, False), (16, False), (16, True)):
+        cfg = dataclasses.replace(cfg0, remat=remat)
+        model = Wavenet(cfg)
+        optimizer = opt_lib.make_optimizer(cfg.lr_schedule, grad_clip=cfg.grad_clip)
+        state = train_lib.make_train_state(model.init_params(2, device="cuda"), optimizer)
+        step_fn = train_lib.make_wavenet_train_step(model, optimizer)
+        batch = torch.from_numpy(synthetic_wavs(B, cfg.wave_length, 61 + B)).cuda()
+        for _ in range(2):
+            state, _ = step_fn(state, batch, 2)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.time()
+        start.record()
+        for _ in range(TIMED_TRAIN_STEPS):
+            state, metrics = step_fn(state, batch, 2)
+        end.record()
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) / TIMED_TRAIN_STEPS
+        ms = start.elapsed_time(end) / TIMED_TRAIN_STEPS
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        flops = train_flops(cfg, B)
+        bound = 1e3 * flops / PEAK_BF16_FLOPS
+        rows[f"B{B}{'_remat' if remat else ''}"] = row = {
+            "ms": ms, "wall_ms": 1e3 * wall, "steps_per_s": 1e3 / ms, "utt_per_s": 1e3 * B / ms,
+            "peak_gib": peak, "tflop": flops / 1e12, "bound_ms": bound,
+            "loss": float(metrics["loss"])}
+        log(f"T5 train step B={B} x {cfg.wave_length} remat={remat}: {ms:.2f} ms a step (events; "
+            f"{row['wall_ms']:.2f} ms wall), {row['steps_per_s']:.2f} steps/s, "
+            f"{row['utt_per_s']:.1f} utterances/s, peak memory {peak:.2f} GiB; "
+            f"{flops / 1e12:.2f} TFLOP a step, bound {bound:.2f} ms at the bf16 peak "
+            f"({bound / ms:.1%} of it); {card}")
+        require(np.isfinite(row["loss"]), "T5: loss not finite")
+        if not remat:
+            by_class, busy, wall_ms = train_breakdown(step_fn, state, batch)
+            row["profile_ms"] = by_class
+            log(f"T5 profile of one step B={B}: device busy {busy:.1f} ms of {wall_ms:.1f} ms "
+                f"wall; " + ", ".join(f"{k} {v:.2f} ms" for k, v in
+                                      sorted(by_class.items(), key=lambda kv: -kv[1])))
+        del state, step_fn, batch
+        torch.cuda.empty_cache()
+    return rows
+
+
+def training_phases(card):
+    """T1-T5; card: nvidia-smi's name and power limit, printed beside the timings."""
+    t0 = time.time()
+    out = {"T1": t1_card_vs_cpu()}
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dir, state, out["T2"] = t2_full_training(tmp)
+        out["T4"] = t4_serve(run_dir, state, tmp)
+        del state
+        torch.cuda.empty_cache()
+        out["T3"] = t3_resume(tmp)
+    out["T5"] = t5_timing(card)
+    log(f"training phases T1-T5: {time.time() - t0:.1f} s")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2137,6 +2493,8 @@ def main():
     torch.cuda.empty_cache()
     flow_rec = student_phases()
     mode_records = flow_mode_phases()
+    torch.cuda.empty_cache()
+    training_phases(smi)
 
     big = timings[MAIN_BATCHES[-1]]
     record = {"kernels": [{

@@ -6,7 +6,9 @@
 
 --params is a golden-format params.npz (int8 '#q'/'#s' pairs allowed);
 --config a teacher config JSON or a golden meta.json (a student config is
-refused: eval_parallel_wavenet_torch.py serves the student).  Runs on the
+refused: eval_parallel_wavenet_torch.py serves the student).  Instead of
+both, --ckpt_dir <run> reads a run directory of train_wavenet_torch.py: its
+EMA export (<run>/ema) or else the EMA of its latest checkpoint.  Runs on the
 first CUDA device unless --device cpu.  --int8 serves W8A8 (int8 weights and
 ring rows) with per-row activation and gate scales: nothing is calibrated, so
 mel-only .npy sources work too; --int8 --int8_static calibrates static
@@ -23,8 +25,10 @@ from nsynth_wavenet_tpu_torch.evaluation import generate_wavenet
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--source_path", required=True, help="a .wav/.npy file or a directory")
-    ap.add_argument("--params", required=True, help="golden-format params.npz")
-    ap.add_argument("--config", required=True, help="teacher config json or golden meta.json")
+    ap.add_argument("--params", help="golden-format params.npz")
+    ap.add_argument("--config", help="teacher config json or golden meta.json")
+    ap.add_argument("--ckpt_dir", help="a train_wavenet_torch.py run directory (instead of "
+                                       "--params and --config)")
     ap.add_argument("--save_path", required=True)
     ap.add_argument("--batch_size", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
@@ -39,12 +43,14 @@ def main():
                     help="with --int8: static per-layer activation scales calibrated on the "
                          "first source wavs and the fixed gate scale (needs .wav inputs)")
     args = ap.parse_args()
+    if (args.ckpt_dir is None) == (args.params is None or args.config is None):
+        ap.error("pass --ckpt_dir, or --params and --config")
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     for path in generate_wavenet(args.source_path, args.params, args.config, args.save_path,
                                  batch_size=args.batch_size, seed=args.seed, device=args.device,
                                  sample_length=args.sample_length,
                                  streaming_chunk=args.streaming_chunk or None, int8=args.int8,
-                                 int8_static=args.int8_static):
+                                 int8_static=args.int8_static, ckpt_dir=args.ckpt_dir):
         print(path)
 
 

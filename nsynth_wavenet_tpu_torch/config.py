@@ -83,6 +83,12 @@ class WavenetConfig:
         return out
 
     @property
+    def resolved_dropout_rate(self) -> float:
+        if self.dropout_rate is not None:
+            return self.dropout_rate
+        return 0.5 if self.dropout_inputs else 0.05
+
+    @property
     def max_dilation(self) -> int:
         return 2 ** (self.num_stages - 1)
 
@@ -185,3 +191,78 @@ def load_config(path: str, **overrides):
     if "num_iaf_layers" in d:
         return pwn_config_from_dict(d, **overrides)
     return wavenet_config_from_dict(d, **overrides)
+
+
+def config_to_json(cfg) -> str:
+    return json.dumps(dataclasses.asdict(cfg), indent=2)
+
+
+def _git_branch() -> str:
+    """The working directory's git branch, '' outside a repo or on the
+    default branch (the run slug names a branch only when it is not the
+    default one)."""
+    import subprocess
+
+    try:
+        out = subprocess.run(["git", "rev-parse", "--abbrev-ref", "HEAD"],
+                             capture_output=True, text=True, timeout=5)
+        branch = out.stdout.strip()
+    except Exception:
+        return ""
+    if out.returncode != 0 or branch in ("master", "main", "HEAD", ""):
+        return ""
+    return branch
+
+
+def config_slug(cfg, model_tag: str, exp_tag: str = "") -> str:
+    """Run-directory slug in the reference's tag vocabulary (the same string
+    as nsynth_wavenet_tpu.config.config_slug): ns_ prefix, wn/pwn (+tag),
+    MU/n_MU, WN_DDI[_mfinit]/n_WN, RS/TS, upsample act, the student's
+    LOGS/CLIP/feature/MEL/L1-L2/PFS/deconv-sharing tags or the teacher's
+    DIN/DA/n_DO dropout tag, the loss type; then power and contrastive
+    factors, GC, and a non-default git branch."""
+    is_pwn = hasattr(cfg, "num_iaf_layers")
+    extras = []
+    model_str = "pwn" if is_pwn else "wn"
+    if exp_tag:
+        model_str = f"{model_str}_{exp_tag}"
+    parts = ["ns_" + model_str, "MU" if cfg.use_mu_law else "n_MU"]
+    if cfg.use_weight_norm:
+        parts.append("WN_DDI_mfinit" if is_pwn and cfg.manual_final_init else "WN_DDI")
+    else:
+        parts.append("n_WN")
+    parts.append("RS" if cfg.use_resize_conv else "TS")
+    parts.append(cfg.upsample_act)
+    if is_pwn:
+        parts.append("LOGS" if cfg.use_log_scale else "n_LOGS")
+        parts.append("CLIP" if cfg.clip else "n_CLIP")
+        sef_tag = {0: "LABS", 1: "ABS", 2: "POW", 3: "COM"}[cfg.spec_enhance_factor]
+        parts.append(("N" if cfg.norm_feat else "") + sef_tag)
+        parts.append("MEL" if cfg.use_mel else "n_MEL")
+        parts.append("L1" if cfg.use_l1_loss else "L2")
+        parts.append("PFS" if cfg.use_priority_freq else "n_PFS")
+        if cfg.use_share_deconv:
+            parts.append("SHA_DC")
+        elif cfg.use_teacher_deconv:
+            parts.append("TEA_DC")
+        else:
+            parts.append("SEP_DC")
+        if cfg.power_loss_factor:
+            extras.append(f"pl{cfg.power_loss_factor:g}")
+        if cfg.contrastive_loss_factor:
+            extras.append(f"cl{cfg.contrastive_loss_factor:g}")
+    elif cfg.dropout_inputs:
+        parts.append("DIN")
+    elif cfg.dropout_all:
+        parts.append("DA")
+    else:
+        parts.append("n_DO")
+    if cfg.grad_clip:
+        extras.append("GC")
+    if cfg.loss_type:
+        parts.append(cfg.loss_type.upper())
+    parts += extras
+    branch = _git_branch()
+    if branch:
+        parts.append(branch.replace("/", "_"))
+    return "-".join(parts)

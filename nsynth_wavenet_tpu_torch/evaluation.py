@@ -64,11 +64,32 @@ def _fixed_len(w, n):
     return out
 
 
+def load_eval_model(ckpt_dir: str, device="cuda"):
+    """(cfg, params) of a training run directory written by the port's
+    trainer: the EMA export under <ckpt_dir>/ema (params.npz, meta.json) when
+    there is one, else the EMA of the latest checkpoint under <ckpt_dir>/ckpt
+    with the run's config json."""
+    from nsynth_wavenet_tpu_torch.training import checkpoint as ckpt_lib
+    from nsynth_wavenet_tpu_torch.training.runner import find_config_json
+
+    ema_dir = os.path.join(ckpt_dir, "ema")
+    if os.path.isfile(os.path.join(ema_dir, "params.npz")):
+        return (config_lib.load_config(os.path.join(ema_dir, "meta.json")),
+                ckpt_lib.load_params(ema_dir, device=device))
+    cfg = config_lib.load_config(find_config_json(ckpt_dir))
+    state = ckpt_lib.CheckpointManager(os.path.join(ckpt_dir, "ckpt")).restore(device=device)
+    if state is None:
+        raise FileNotFoundError(f"no EMA export and no checkpoint under {ckpt_dir}")
+    return cfg, state["ema"]
+
+
 def generate_wavenet(source_path, params_npz, config_json, save_path, batch_size=8, seed=0,
                      device="cuda", sample_length=-1, streaming_chunk=None, int8=False,
-                     int8_static=False):
+                     int8_static=False, ckpt_dir=None):
     """Teacher synthesis of every file under source_path with the weights of a
-    golden-format params.npz; writes gen_<name>.wav files and returns their
+    golden-format params.npz and its config json, or (ckpt_dir, with
+    params_npz and config_json None) of a training run directory
+    (load_eval_model); writes gen_<name>.wav files and returns their
     paths.  sample_length > 0 truncates the input wavs.  The CUDA kernel
     masks the rows past the batch in its tiles; int8 without int8_static
     (per-row scales) caps batch_size near 1 900 at full width
@@ -84,11 +105,17 @@ def generate_wavenet(source_path, params_npz, config_json, save_path, batch_size
     from nsynth_wavenet_tpu_torch.models.wavenet import Wavenet
     from nsynth_wavenet_tpu_torch.ops import fastgen_kernel as fk
 
-    cfg = config_lib.load_config(config_json)
+    if ckpt_dir is not None:
+        if params_npz is not None or config_json is not None:
+            raise ValueError("pass either ckpt_dir or params_npz and config_json")
+        cfg, params = load_eval_model(ckpt_dir, device=device)
+    else:
+        cfg = config_lib.load_config(config_json)
     if not isinstance(cfg, config_lib.WavenetConfig):
-        raise ValueError(f"{config_json} is a student config: use generate_parallel_wavenet "
-                         "(eval_parallel_wavenet_torch.py)")
-    params = weights.load_npz(params_npz, device=device)
+        raise ValueError(f"{config_json or ckpt_dir} is a student config: use "
+                         "generate_parallel_wavenet (eval_parallel_wavenet_torch.py)")
+    if ckpt_dir is None:
+        params = weights.load_npz(params_npz, device=device)
     if int8_static and not int8:
         raise ValueError("int8_static needs int8")
     fg = Fastgen(Wavenet(dataclasses.replace(cfg, use_as_teacher=True)))

@@ -1,8 +1,11 @@
-"""Teacher WaveNet, inference only (counterpart of
-nsynth_wavenet_tpu/models/wavenet.py): mel-upsampling deconv stack, gated
-dilated-conv stack with residual and skip paths, and the CE / MoL / Gauss
-output head.  No dropout and no data-dependent init: those belong to the
-training slice.
+"""Teacher WaveNet (counterpart of nsynth_wavenet_tpu/models/wavenet.py):
+mel-upsampling deconv stack, gated dilated-conv stack with residual and skip
+paths, and the CE / MoL / Gauss output head.
+
+``feed_forward`` is the inference forward (no gradients).  Training goes
+through ``feed_forward_train``: gradients on, dropout at the reference's
+points, optional rematerialization of each layer, and the data-dependent
+init pass of weight-normed models.
 
 Parameters are the reference's pytree as nested dicts and lists of
 tensors (see weights.py for loading them)."""
@@ -10,9 +13,11 @@ tensors (see weights.py for loading them)."""
 import contextlib
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from nsynth_wavenet_tpu_torch.config import WavenetConfig
 from nsynth_wavenet_tpu_torch.ops import conv as conv_ops
+from nsynth_wavenet_tpu_torch.ops import distributions as dist
 from nsynth_wavenet_tpu_torch.ops import signal as sig
 from nsynth_wavenet_tpu_torch.ops import stft as stft_ops
 
@@ -40,6 +45,33 @@ def condition_add(x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
     return x + cond[:, left : left + x_len]
 
 
+def _dropout(generator, x, rate):
+    """Inverted dropout: keep each value with probability 1 - rate and scale
+    the kept ones by 1 / (1 - rate); the mask comes from ``generator``."""
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class _Gate(torch.autograd.Function):
+    """sigmoid(d[..., :m]) * tanh(d[..., m:]) for d [B, T, 2m].  The same
+    values and gradient as autograd's, which would fill and copy two
+    d-sized buffers for the halves' gradients: here one concatenation."""
+
+    @staticmethod
+    def forward(ctx, d):
+        m = d.shape[-1] // 2
+        a, b = torch.sigmoid(d[..., :m]), torch.tanh(d[..., m:])
+        ctx.save_for_backward(a, b)
+        return a * b
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        return torch.cat([torch.ops.aten.sigmoid_backward(g * b, a),
+                          torch.ops.aten.tanh_backward(g * a, b)], dim=-1)
+
+
 def apply_deconv_stack(params, mel, *, deconv_config, upsample_act, use_resize_conv,
                        dtype=None, out_dtype=None):
     """mel [B, T, num_mel] -> encoding [B, T * frame_shift, deconv_width]."""
@@ -54,11 +86,32 @@ def apply_deconv_stack(params, mel, *, deconv_config, upsample_act, use_resize_c
     return h
 
 
-def init_deconv_stack(generator, deconv_config, num_mel, deconv_width, *, device="cuda"):
+def _deconv_stack_train(params, mel, *, deconv_config, upsample_act, use_resize_conv, init,
+                        dtype, native):
+    """apply_deconv_stack with gradients; init=True rescales weight-normed
+    layers from their pre-activation moments.  Returns (encoding, new_params)."""
+    if use_resize_conv:
+        raise NotImplementedError("resize-conv upsampling is not ported yet")
+    act = conv_ops.get_upsample_act(upsample_act)
+    new_params, h = dict(params), mel
+    for i, (_, stride) in enumerate(deconv_config):
+        name = f"up_{i + 1}"
+        if init:
+            h, new_params[name] = conv_ops.trans_conv1d_ddi(params[name], h, stride=stride)
+        else:
+            h = conv_ops.trans_conv1d(params[name], h, stride=stride, dtype=dtype,
+                                      out_dtype=dtype, native=native)
+        h = act(h)
+    return h, new_params
+
+
+def init_deconv_stack(generator, deconv_config, num_mel, deconv_width, *, device="cuda",
+                      use_weight_norm=False):
     """{'up_1', 'up_2', ...} with N(0, 0.05) kernels drawn from ``generator``."""
     params, in_ch = {}, num_mel
     for i, (fl, _) in enumerate(deconv_config):
-        params[f"up_{i + 1}"] = conv_ops.conv1d_init(generator, in_ch, deconv_width, fl, device=device)
+        params[f"up_{i + 1}"] = conv_ops.conv1d_init(generator, in_ch, deconv_width, fl,
+                                                     device=device, use_weight_norm=use_weight_norm)
         in_ch = deconv_width
     return params
 
@@ -72,16 +125,17 @@ class Wavenet:
 
     def init_params(self, seed: int = 0, *, device="cuda", num_mel=stft_ops.MEL_PARAMS.num_mel):
         """Random parameters in the reference layout, N(0, 0.05) kernels and
-        zero biases, drawn from a CPU generator seeded with ``seed``."""
+        zero biases ({'v', 'g', 'b'} with g = ||v|| under weight norm), drawn
+        from a CPU generator seeded with ``seed``."""
         cfg = self.cfg
-        if cfg.use_weight_norm:
-            raise NotImplementedError("weight-normed init belongs to the training slice")
+        wn = cfg.use_weight_norm
         g = torch.Generator().manual_seed(seed)
 
         def conv(cin, cout, fl=1):
-            return conv_ops.conv1d_init(g, cin, cout, fl, device=device)
+            return conv_ops.conv1d_init(g, cin, cout, fl, device=device, use_weight_norm=wn)
 
-        deconv = init_deconv_stack(g, cfg.deconv_config, num_mel, cfg.deconv_width, device=device)
+        deconv = init_deconv_stack(g, cfg.deconv_config, num_mel, cfg.deconv_width, device=device,
+                                   use_weight_norm=wn)
         m = cfg.gate_width // 2
         return {
             "deconv": deconv,
@@ -138,3 +192,128 @@ class Wavenet:
         s = torch.relu(condition_add(s, apply(params["mel_cond_out1"], mel_en)))
         out = apply(params["out2"], s)
         return {"encoding": mel_en, "out_params": out.float()}
+
+    # -- training ------------------------------------------------------------
+
+    def feed_forward_train(self, params, inputs, *, generator=None, init=False):
+        """The forward with gradients.  inputs {'wav_scaled': [B, L], 'mel':
+        [B, T, num_mel]} -> ({'encoding', 'out_params' f32}, new_params).
+
+        Dropout (dropout_inputs: rate 0.5 on l and s after skip_start;
+        dropout_all: rate 0.05 after conv_start and after each layer's
+        residual) runs when a ``generator`` is given and the model is not a
+        frozen teacher.  cfg.remat recomputes each layer's gate and products
+        in the backward pass (torch.utils.checkpoint).  init=True is the
+        data-dependent init pass of a weight-normed model, in f32: new_params
+        then holds the rescaled g and b.  The trunk's and the head's
+        convolutions are matmuls over the stacked taps (conv_ops.conv1d_taps),
+        the deconv stack's cuDNN's.  bf16 compute keeps the f32 master params;
+        on a CUDA device its products take bf16 operands."""
+        cfg = self.cfg
+        if cfg.detail_log and not init:
+            raise NotImplementedError(
+                "detail_log histograms need device_histogram (ROADMAP Queue 1 item 7)")
+        if init and not cfg.use_weight_norm:
+            raise ValueError("data-dependent init requires weight norm")
+        dtype = None if init else self.dtype
+        native = dtype is not None and inputs["wav_scaled"].is_cuda
+        use_dropout = ((cfg.dropout_inputs or cfg.dropout_all) and not cfg.use_as_teacher
+                       and generator is not None)
+        rate = cfg.resolved_dropout_rate
+        new_params = dict(params)
+        new_params["layers"] = list(params["layers"])
+
+        def conv(p, x, dilation=1):
+            return conv_ops.conv1d_taps(p, x, dilation=dilation, dtype=dtype, out_dtype=dtype,
+                                        native=native)
+
+        def apply(p, x, dilation=1):
+            if init:
+                return conv_ops.conv1d_ddi(p, x, dilation=dilation)
+            return conv(p, x, dilation), p
+
+        mel_en, new_params["deconv"] = _deconv_stack_train(
+            params["deconv"], inputs["mel"], deconv_config=cfg.deconv_config,
+            upsample_act=cfg.upsample_act, use_resize_conv=cfg.use_resize_conv, init=init,
+            dtype=dtype, native=native)
+
+        l = conv_ops.shift_right(inputs["wav_scaled"][..., None])
+        l, new_params["conv_start"] = apply(params["conv_start"], l)
+        if use_dropout and cfg.dropout_all:
+            l = _dropout(generator, l, rate)
+        s, new_params["skip_start"] = apply(params["skip_start"], l)
+        if use_dropout and cfg.dropout_inputs:
+            l = _dropout(generator, l, rate)
+            s = _dropout(generator, s, rate)
+
+        m = cfg.gate_width // 2
+        # the 1x1 conditioning products are pointwise in time: take the
+        # centre of the encoding once instead of trimming every product
+        if not init:
+            if mel_en.shape[1] < l.shape[1]:
+                raise ValueError(f"conditioning shorter than input ({mel_en.shape[1]} < "
+                                 f"{l.shape[1]})")
+            left = (mel_en.shape[1] - l.shape[1]) // 2
+            mel_c = mel_en[:, left : left + l.shape[1]].contiguous()
+
+        def layer_body(lp, l, mel_c, dilation):
+            d = conv(lp["dilated"], l, dilation) + conv(lp["mel_cond"], mel_c)
+            d = _Gate.apply(d)
+            return conv(lp["res"], d), conv(lp["skip"], d)
+
+        for i, lp in enumerate(params["layers"]):
+            dilation = 2 ** (i % cfg.num_stages)
+            lp = dict(lp)
+            if init:
+                d, lp["dilated"] = apply(lp["dilated"], l, dilation)
+                c, lp["mel_cond"] = apply(lp["mel_cond"], mel_en)
+                d = condition_add(d, c)
+                d = torch.sigmoid(d[:, :, :m]) * torch.tanh(d[:, :, m:])
+                r, lp["res"] = apply(lp["res"], d)
+                sk, lp["skip"] = apply(lp["skip"], d)
+            elif cfg.remat:
+                r, sk = checkpoint(layer_body, lp, l, mel_c, dilation, use_reentrant=False,
+                                   preserve_rng_state=False)
+            else:
+                r, sk = layer_body(lp, l, mel_c, dilation)
+            l = l + r
+            s = s + sk
+            if use_dropout and cfg.dropout_all:
+                l = _dropout(generator, l, rate)
+            new_params["layers"][i] = lp
+
+        s, new_params["out1"] = apply(params["out1"], torch.relu(s))
+        c, new_params["mel_cond_out1"] = apply(params["mel_cond_out1"],
+                                               mel_en if init else mel_c)
+        s = torch.relu(condition_add(s, c))
+        out, new_params["out2"] = apply(params["out2"], s)
+        # the distribution heads need f32
+        return {"encoding": mel_en, "out_params": out.float()}, new_params
+
+    def calculate_loss(self, ff_dict):
+        """{'loss'} from 'out_params' and encode_signal's targets."""
+        cfg = self.cfg
+        out = ff_dict["out_params"]
+        if cfg.loss_type == "ce":
+            loss = dist.ce_loss(out, ff_dict["cate_targets"])
+        elif cfg.loss_type == "mol":
+            loss = dist.mol_loss(out, ff_dict["real_targets"], cfg.quant_chann)
+        else:
+            loss = dist.gauss_loss(out, ff_dict["real_targets"])
+        return {"loss": loss}
+
+    def forward_loss(self, params, wav, mel, generator=None):
+        """wav [B, L], mel [B, T, num_mel] -> {'loss'} (a scalar tensor)."""
+        enc = self.encode_signal(wav)
+        ff, _ = self.feed_forward_train(params, {"wav_scaled": enc["wav_scaled"], "mel": mel},
+                                        generator=generator)
+        ff.update(enc)
+        return self.calculate_loss(ff)
+
+    @torch.no_grad()
+    @no_tf32()
+    def data_dep_init(self, params, wav, mel, generator=None):
+        """The data-dependent init pass: returns (ff_dict, rescaled params)."""
+        enc = self.encode_signal(wav)
+        return self.feed_forward_train(params, {"wav_scaled": enc["wav_scaled"], "mel": mel},
+                                       generator=generator, init=True)

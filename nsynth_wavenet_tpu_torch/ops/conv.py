@@ -8,7 +8,15 @@ convolutions go to cuDNN / the CPU library through ``F.conv1d`` and
 
 ``dtype=torch.bfloat16`` mirrors the reference's mixed precision: operands
 rounded to bf16, the product accumulated in f32 and rounded to bf16, then
-held as ``out_dtype`` (f32 when None).
+held as ``out_dtype`` (f32 when None).  By default the product runs in f32 on
+the rounded operands; ``native=True`` (the training forward, on the card)
+hands cuDNN / cuBLAS the bf16 operands instead, which accumulate in f32 and
+round the output once: the same values in another summation order at the
+tensor cores' rate.
+
+Weight norm's data-dependent init is a pure pass: the ``*_ddi`` functions
+return ``(y, new_params)`` with g and b rescaled so that the layer's output
+has mean 0 and standard deviation WN_INIT_SCALE over the init batch.
 """
 
 from functools import partial
@@ -16,6 +24,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+WN_INIT_SCALE = 1.0
 
 
 def get_upsample_act(act_str: str):
@@ -34,11 +44,19 @@ def shift_right(x: torch.Tensor) -> torch.Tensor:
     return F.pad(x, (0, 0, 1, 0))[:, :-1, :]
 
 
+def _l2_norm(v, dim):
+    return torch.sqrt(torch.sum(v * v, dim=dim))
+
+
 def conv1d_init(generator, in_ch, out_ch, filter_length, *, device="cuda",
-                kernel_stddev=0.05, bias_init=0.0):
-    """{'w', 'b'} with w ~ N(0, kernel_stddev) drawn from ``generator``."""
-    w = torch.randn((filter_length, in_ch, out_ch), generator=generator) * kernel_stddev
-    return {"w": w.to(device), "b": torch.full((out_ch,), bias_init, device=device)}
+                use_weight_norm=False, kernel_stddev=0.05, bias_init=0.0):
+    """{'w', 'b'} with w ~ N(0, kernel_stddev) drawn from ``generator``; with
+    weight norm {'v', 'g', 'b'}, v that draw and g = ||v|| over axes (0, 1)."""
+    w = (torch.randn((filter_length, in_ch, out_ch), generator=generator) * kernel_stddev).to(device)
+    b = torch.full((out_ch,), bias_init, device=device)
+    if use_weight_norm:
+        return {"v": w, "g": _l2_norm(w, (0, 1)), "b": b}
+    return {"w": w, "b": b}
 
 
 def effective_kernel(params) -> torch.Tensor:
@@ -50,8 +68,10 @@ def effective_kernel(params) -> torch.Tensor:
     return params["w"]
 
 
-def _operands(x, w, dtype):
+def _operands(x, w, dtype, native=False):
     if dtype is not None:
+        if native:
+            return x.to(dtype), w.to(dtype)
         x, w = x.to(dtype).float(), w.to(dtype).float()
     return x.float(), w.float()
 
@@ -76,8 +96,82 @@ def conv1d(params, x: torch.Tensor, *, dilation: int = 1, causal: bool = True,
     return _finish(y, params["b"], dtype, out_dtype)
 
 
+class _StackTaps(torch.autograd.Function):
+    """[B, T, C] -> [B, T, fl * C]: tap k is x delayed by (fl - 1 - k) *
+    dilation, zeros before the start.  Its backward adds the taps' gradients
+    back in place (autograd's own, through a padded copy and fl slices,
+    fills and copies fl full-size buffers)."""
+
+    @staticmethod
+    def forward(ctx, x, fl, dilation):
+        ctx.fl, ctx.dilation = fl, dilation
+        B, T, C = x.shape
+        out = x.new_empty((B, T, fl * C))
+        for k in range(fl):
+            s = min((fl - 1 - k) * dilation, T)
+            dst = out[:, :, k * C : (k + 1) * C]
+            dst[:, :s].zero_()
+            dst[:, s:].copy_(x[:, : T - s])
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        fl, dilation = ctx.fl, ctx.dilation
+        T, C = g.shape[1], g.shape[2] // fl
+        dx = g[:, :, (fl - 1) * C :].contiguous()
+        for k in range(fl - 1):
+            s = (fl - 1 - k) * dilation
+            if s < T:
+                dx[:, : T - s] += g[:, s:, k * C : (k + 1) * C]
+        return dx, None, None
+
+
+def conv1d_taps(params, x: torch.Tensor, *, dilation: int = 1,
+                dtype: Optional[torch.dtype] = None, out_dtype: Optional[torch.dtype] = None,
+                native: bool = False):
+    """The causal conv1d as one matmul over [B, T, C]: the taps
+    [x(t - (fl-1)d), ..., x(t)] stacked on the channel axis times the kernel
+    reshaped to [fl * Cin, Cout].  The same sums as ``conv1d(causal=True)``
+    in another order; the activations stay channels-last, and the products
+    are plain GEMMs (cuDNN's 1-D convolutions transpose every activation,
+    and its weight gradient of a dilated convolution is not a tensor-core
+    kernel)."""
+    w = effective_kernel(params)
+    fl, cin, cout = w.shape
+    x, w = _operands(x, w, dtype, native)
+    if fl > 1:
+        x = _StackTaps.apply(x, fl, dilation)
+    return _finish(x @ w.reshape(fl * cin, cout), params["b"], dtype, out_dtype)
+
+
+def _ddi_rescale(params, y, init_scale: float = WN_INIT_SCALE):
+    """Data-dependent init of (g, b) from the pre-activation y: s =
+    init_scale / sqrt(var(y) + 1e-10), g' = g s, b' = b - mean(y) s, and y
+    recomputed in closed form as s (y - b) + b'.  Returns (y', new_params)."""
+    if "v" not in params:
+        raise ValueError("data-dependent init requires weight norm")
+    dims = tuple(range(y.ndim - 1))
+    m = y.mean(dim=dims)
+    var = y.var(dim=dims, unbiased=False)
+    scale = init_scale / torch.sqrt(var + 1e-10)
+    new_b = params["b"] - m * scale
+    new_params = {"v": params["v"], "g": params["g"] * scale, "b": new_b}
+    return scale * (y - params["b"]) + new_b, new_params
+
+
+def conv1d_ddi(params, x, *, dilation: int = 1, causal: bool = True):
+    """conv1d + data-dependent init; returns (y, new_params)."""
+    return _ddi_rescale(params, conv1d(params, x, dilation=dilation, causal=causal))
+
+
+def trans_conv1d_ddi(params, x, *, stride: int):
+    """trans_conv1d + data-dependent init (pre-activation moments)."""
+    return _ddi_rescale(params, trans_conv1d(params, x, stride=stride))
+
+
 def trans_conv1d(params, x: torch.Tensor, *, stride: int,
-                 dtype: Optional[torch.dtype] = None, out_dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, out_dtype: Optional[torch.dtype] = None,
+                 native: bool = False):
     """Transposed conv with SAME semantics: [B, L, Cin] -> [B, stride*L, Cout].
 
     The reference computes an lhs-dilated cross-correlation with the
@@ -90,7 +184,7 @@ def trans_conv1d(params, x: torch.Tensor, *, stride: int,
         raise ValueError("upsampling filters must be at least as long as the stride")
     p = (fl - stride) // 2
     length = x.shape[1]
-    x, w = _operands(x, w, dtype)
+    x, w = _operands(x, w, dtype, native)
     y = F.conv_transpose1d(x.transpose(1, 2), w.flip(0).permute(1, 2, 0), stride=stride)
     y = y[..., p : p + stride * length].transpose(1, 2)
     return _finish(y, params["b"], dtype, out_dtype)

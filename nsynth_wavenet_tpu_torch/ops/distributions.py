@@ -1,15 +1,82 @@
-"""Samplers of the three output heads and the student's base noise
-(counterpart of the sampler half of nsynth_wavenet_tpu/ops/distributions.py).
+"""Log-probs, losses and samplers of the three output heads, and the
+student's base noise (counterpart of nsynth_wavenet_tpu/ops/distributions.py;
+the mixture-of-Gaussians functions belong to the student's training).
 Each head sampler returns int32 quantized samples in
 [-quant_chann/2, quant_chann/2).  Randomness comes from an explicit
 ``torch.Generator``; uniforms lie on the open interval [1e-5, 1 - 1e-5] like
-the reference's."""
+the reference's.
+
+softplus is ``logaddexp(x, 0)``, as JAX writes it: ``F.softplus`` turns
+linear above 20, which would part the two where a gradient meets it."""
+
+import math
 
 import torch
 
 from nsynth_wavenet_tpu_torch.ops import signal as sig
 
 U_MIN = 1e-5
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def mol_log_probs(mol_params, targets, quant_chann, use_log_scales=True):
+    """Log-likelihood of a mixture of discretized logistics.
+
+    mol_params [..., 3 * nr_mix] (logit_probs | means | scale_params),
+    targets [...] rescaled to [-1, 1); returns log-probs shaped as targets."""
+    logit_probs, means, scale_params = torch.chunk(mol_params, 3, dim=-1)
+    if use_log_scales:
+        inv_stdv = torch.exp(-torch.clamp(scale_params, min=-7.0))
+    else:
+        inv_stdv = 1.0 / torch.clamp(softplus(scale_params), min=math.exp(-7.0))
+    t = targets[..., None]
+    centered = t - means
+    plus_in = inv_stdv * (centered + 1.0 / quant_chann)
+    min_in = inv_stdv * (centered - 1.0 / quant_chann)
+    cdf_delta = torch.sigmoid(plus_in) - torch.sigmoid(min_in)
+    log_cdf_plus = plus_in - softplus(plus_in)  # log sigmoid(plus_in)
+    log_one_minus_cdf_min = -softplus(min_in)
+    # edge bins: below the lowest / above the highest level the discretized
+    # logistic takes the whole tail
+    max_thres = (quant_chann - 1.5) / (quant_chann / 2.0) - 1.0
+    min_thres = 0.5 / (quant_chann / 2.0) - 1.0
+    log_probs = torch.where(
+        t < min_thres, log_cdf_plus,
+        torch.where(t > max_thres, log_one_minus_cdf_min,
+                    torch.log(torch.clamp(cdf_delta, min=1e-12))))
+    log_probs = log_probs + torch.log_softmax(logit_probs, dim=-1)
+    return torch.logsumexp(log_probs, dim=-1)
+
+
+def mean_std_from_out_params(gauss_params, use_log_scales=True):
+    """Split [..., 2] Gaussian head params into (mean, std), both [...]."""
+    mean, std_param = gauss_params[..., 0], gauss_params[..., 1]
+    if use_log_scales:
+        return mean, torch.exp(torch.clamp(std_param, min=-7.0))
+    return mean, torch.clamp(softplus(std_param), min=math.exp(-7.0))
+
+
+def gauss_log_prob(gauss_params, targets, use_log_scales=True):
+    mean, std = mean_std_from_out_params(gauss_params, use_log_scales)
+    var = std**2.0
+    return -0.5 * torch.log(2.0 * math.pi * var) - (targets - mean) ** 2.0 / (2.0 * var)
+
+
+def ce_loss(logits, cate_targets):
+    """Mean sparse softmax cross entropy; targets int in [0, quant_chann)."""
+    log_probs = torch.log_softmax(logits, dim=-1)
+    return -torch.gather(log_probs, -1, cate_targets[..., None].long())[..., 0].mean()
+
+
+def mol_loss(mol_params, real_targets, quant_chann):
+    return -mol_log_probs(mol_params, real_targets, quant_chann).mean()
+
+
+def gauss_loss(gauss_params, real_targets):
+    return -gauss_log_prob(gauss_params, real_targets).mean()
 
 
 def uniform_open(generator: torch.Generator, shape, device) -> torch.Tensor:

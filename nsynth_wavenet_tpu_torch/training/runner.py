@@ -1,0 +1,249 @@
+"""The teacher's training run (counterpart of train_wavenet in
+nsynth_wavenet_tpu/training/runner.py, without its mesh and multi-host
+parts): run directory (a new one under ``log_root`` named by the config
+slug, or resume from ``logdir``), data-dependent init of weight-normed
+models, the step loop on one device, metrics every LOG_EVERY steps with the
+conditioning gap, checkpoints every ``ckpt_every_steps`` and at the target,
+a checkpoint on SIGTERM / SIGINT, and an optional torch.profiler window.
+
+On resume the state comes from the latest checkpoint and the data iterator
+restarts from its seed, as the JAX runner's does; the dropout masks of a
+step depend on (seed + 2, step) alone.
+"""
+
+import glob
+import os
+import shutil
+import time
+
+import numpy as np
+import torch
+
+from nsynth_wavenet_tpu_torch import config as config_lib
+from nsynth_wavenet_tpu_torch.data import dataset as data_lib
+from nsynth_wavenet_tpu_torch.utils import logging_utils
+
+LOG_EVERY = 100
+
+
+class GracefulShutdown:
+    """The first SIGTERM / SIGINT sets ``requested``: the loop ends the step
+    in flight, saves a checkpoint and returns.  A second signal falls back to
+    the previous handler.  A no-op off the main thread."""
+
+    def __init__(self):
+        self.requested = False
+        self._prev = {}
+
+    def __enter__(self):
+        import signal
+        import threading
+
+        if threading.current_thread() is not threading.main_thread():
+            return self
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                self._prev[sig] = signal.signal(sig, self._handle)
+            except (ValueError, OSError):
+                pass
+        return self
+
+    def _handle(self, sig, frame):
+        import signal
+
+        if self.requested:
+            prev = self._prev.get(sig, signal.SIG_DFL)
+            if prev is signal.SIG_IGN:
+                return
+            signal.signal(sig, prev)
+            if callable(prev):
+                prev(sig, frame)
+                return
+            raise KeyboardInterrupt
+        self.requested = True
+
+    def __exit__(self, *exc):
+        import signal
+
+        for sig, prev in self._prev.items():
+            try:
+                signal.signal(sig, prev)
+            except (ValueError, OSError):
+                pass
+        return False
+
+
+class Profiler:
+    """torch.profiler over steps [start_step, start_step + num_steps); the
+    trace goes to <run_dir>/profile/trace.json (chrome trace format)."""
+
+    def __init__(self, run_dir, start_step, num_steps):
+        self.dir = os.path.join(run_dir, "profile")
+        self.start_step = start_step
+        self.stop_step = start_step + num_steps if num_steps else 0
+        self._prof = None
+
+    def maybe_update(self, step):
+        if self.stop_step and self._prof is None and step == self.start_step:
+            from torch.profiler import ProfilerActivity, profile
+
+            acts = [ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                acts.append(ProfilerActivity.CUDA)
+            self._prof = profile(activities=acts)
+            self._prof.__enter__()
+        elif self._prof is not None and step >= self.stop_step:
+            self.close()
+
+    def close(self):
+        if self._prof is not None:
+            prof, self._prof = self._prof, None
+            prof.__exit__(None, None, None)
+            os.makedirs(self.dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(self.dir, "trace.json"))
+            self.stop_step = 0
+
+
+def find_config_json(run_dir: str) -> str:
+    jsons = [j for j in glob.glob(os.path.join(run_dir, "*.json"))
+             if not os.path.basename(j).startswith("norm_stats")]
+    if len(jsons) != 1:
+        raise FileNotFoundError(f"expected exactly one config json in {run_dir}: {jsons}")
+    return jsons[0]
+
+
+def resolve_run_dir(log_root: str, logdir: str, config_path: str, model_tag: str):
+    """New run: <log_root>/<slug>-<time> with a copy of the config json.
+    Resume: ``logdir`` and the config json inside it.  Returns (run_dir, cfg,
+    resumed)."""
+    if log_root:
+        if not config_path:
+            raise ValueError("a new run under --log_root needs --config")
+        cfg = config_lib.load_config(config_path)
+        slug = config_lib.config_slug(cfg, model_tag)
+        run_dir = os.path.join(log_root, f"{slug}-{time.strftime('%m%d_%H%M%S')}")
+        os.makedirs(run_dir, exist_ok=True)
+        shutil.copy(config_path, run_dir)
+        return run_dir, cfg, False
+    return logdir, config_lib.load_config(find_config_json(logdir)), True
+
+
+def _init_logging(log, array, name):
+    array = np.asarray(array)
+    log.info("initial %s.m %.5f, %s.std %.5f, %s.min %.5f, %s.max %.5f",
+             name, array.mean(), name, array.std(), name, array.min(), name, array.max())
+
+
+def _log_teacher_init_stats(log, loss_type, out_params):
+    out = out_params.cpu().numpy()
+    if loss_type == "mol":
+        _, mean, log_scale = np.split(out, 3, axis=2)
+        _init_logging(log, mean, "mean")
+        _init_logging(log, np.exp(np.maximum(log_scale, -7.0)), "scale")
+    elif loss_type == "gauss":
+        mean, log_std = np.split(out, 2, axis=2)
+        _init_logging(log, mean, "mean")
+        _init_logging(log, np.exp(np.maximum(log_std, -7.0)), "std")
+
+
+def _check_device(device):
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("training on cuda needs a CUDA device; pass device='cpu' for the CPU")
+    return device
+
+
+def train_wavenet(
+    train_path: str,
+    config_path: str = "",
+    log_root: str = "",
+    logdir: str = "/tmp/nsynth_wavenet_tpu_torch",
+    total_batch_size: int = 4,
+    num_steps: int = None,
+    ckpt_every_steps: int = 2000,
+    seed: int = 0,
+    multihost: bool = False,
+    profile_steps: int = 0,
+    n_model: int = 1,
+    n_seq: int = 1,
+    device="cuda",
+):
+    """Teacher training on one device; returns (run_dir, state)."""
+    if multihost or n_model != 1 or n_seq != 1:
+        raise NotImplementedError(
+            "multi-device training (multihost, n_model, n_seq) is not ported yet (ROADMAP Queue 1 "
+            "item 6); run with the defaults")
+    device = _check_device(device)
+    from nsynth_wavenet_tpu_torch.models.wavenet import Wavenet
+    from nsynth_wavenet_tpu_torch.ops import stft as stft_ops
+    from nsynth_wavenet_tpu_torch.training import checkpoint as ckpt_lib
+    from nsynth_wavenet_tpu_torch.training import optimizer as opt_lib
+    from nsynth_wavenet_tpu_torch.training import train_lib
+
+    run_dir, cfg, resumed = resolve_run_dir(log_root, logdir, config_path, "wavenet")
+    log = logging_utils.add_log_file(run_dir)
+    if resumed:
+        log.info("Continue running in %s", run_dir)
+    log.info("\n%s", logging_utils.config_summary(cfg))
+
+    model = Wavenet(cfg)
+    ds = data_lib.Dataset(train_path)
+    mgr = ckpt_lib.CheckpointManager(os.path.join(run_dir, "ckpt"))
+    optimizer = opt_lib.make_optimizer(cfg.lr_schedule, grad_clip=cfg.grad_clip)
+    state = mgr.restore(device=device)
+    if state is not None:
+        log.info("Restored checkpoint at step %d", state["step"])
+    else:
+        params = model.init_params(seed, device=device)
+        if cfg.use_weight_norm:
+            log.info("Calculate initial statistics (data-dependent init).")
+            init_wav = ds.get_init_batch(total_batch_size, cfg.wave_length, seed=seed)
+            init_mel = torch.from_numpy(stft_ops.melspectrogram_np(init_wav)).to(device)
+            gen = train_lib.dropout_generator(seed + 1, 0, device)
+            out_params, params = train_lib.run_data_dep_init(
+                model, params, torch.from_numpy(init_wav).to(device), init_mel, gen)
+            _log_teacher_init_stats(log, cfg.loss_type, out_params)
+        state = train_lib.make_train_state(params, optimizer)
+
+    step_fn = train_lib.make_wavenet_train_step(model, optimizer)
+    cond_gap_fn = train_lib.make_cond_gap_fn(model)
+    writer = logging_utils.MetricsWriter(run_dir)
+    it = ds.batch_iterator(total_batch_size, cfg.wave_length, seed=seed)
+    target = num_steps if num_steps is not None else cfg.num_iters
+    step = state["step"]
+    profiler = Profiler(run_dir, step + 10, profile_steps)
+    t_last, s_last = time.time(), step
+    try:
+        with GracefulShutdown() as stop:
+            stopped = False
+            while step < target:
+                if stop.requested:
+                    stopped = True
+                    break
+                profiler.maybe_update(step)
+                wav = torch.from_numpy(next(it)).to(device)
+                state, metrics = step_fn(state, wav, seed + 2)
+                step = state["step"]
+                if step % LOG_EVERY == 0 or step == target:
+                    m = {"loss": float(metrics["loss"]), "learning_rate": metrics["learning_rate"]}
+                    now = time.time()
+                    sps = (step - s_last) / max(now - t_last, 1e-9)
+                    t_last, s_last = now, step
+                    m["steps_per_sec"] = sps
+                    m["utterances_per_sec"] = sps * total_batch_size
+                    if total_batch_size > 1:
+                        m["cond_gap"] = cond_gap_fn(state["params"], wav)
+                    writer.write(step, m)
+                    log.info("step %d loss %.4f lr %.2e cond_gap %.4f (%.2f steps/s)",
+                             step, m["loss"], m["learning_rate"], m.get("cond_gap", 0.0), sps)
+                if step % ckpt_every_steps == 0 or step == target:
+                    mgr.save(step, state)
+            if stopped and step % ckpt_every_steps != 0 and step != target:
+                log.info("shutdown signal: saving checkpoint at step %d", step)
+                mgr.save(step, state)
+    finally:
+        profiler.close()
+        it.close()
+        writer.close()
+        logging_utils.remove_log_file(run_dir)
+    return run_dir, state

@@ -9,8 +9,14 @@ The committed golden format (``tests/golden/tiny_*/params.npz``) stores
 each leaf under its pytree key path, e.g. ``['layers'][0]['dilated']['w']``.
 Large leaves are stored int8 with a per-last-axis scale as a pair of keys
 ``<path>#q`` (int8) and ``<path>#s`` (f32); the value is q * s in f32.
+``save_npz`` writes plain f32 keys only (the training export).
+
+``to_jax_params`` is the inverse of ``from_jax_params``: the port's params,
+gradients or EMA as the same nesting of float32 numpy arrays, the JAX
+package's layout.
 """
 
+import os
 import re
 
 import numpy as np
@@ -31,6 +37,41 @@ def from_jax_params(tree, device="cuda"):
     if isinstance(tree, (list, tuple)):
         return [from_jax_params(v, device) for v in tree]
     return _to_tensor(tree, device)
+
+
+def to_jax_params(tree):
+    """Nested dicts / lists of tensors -> the same nesting of float32 numpy
+    arrays on the host."""
+    if isinstance(tree, dict):
+        return {k: to_jax_params(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [to_jax_params(v) for v in tree]
+    return tree.detach().to("cpu", torch.float32).numpy()
+
+
+def flatten(tree, prefix: str = "") -> dict:
+    """Nested dicts / lists -> {key path: leaf}, paths like
+    ``['layers'][0]['dilated']['w']``."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(flatten(v, f"{prefix}['{k}']"))
+        return out
+    if isinstance(tree, (list, tuple)):
+        out = {}
+        for i, v in enumerate(tree):
+            out.update(flatten(v, f"{prefix}[{i}]"))
+        return out
+    return {prefix: tree}
+
+
+def save_npz(path: str, tree):
+    """Write a parameter pytree as a golden-format params.npz of plain f32
+    keys (a temporary file renamed into place)."""
+    flat = flatten(to_jax_params(tree))
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, **flat)
+    os.replace(tmp, path)
 
 
 def dequantize_npz(stored: dict) -> dict:
