@@ -163,6 +163,32 @@ Phases T1 to T5 train the teacher (training/); they follow phase 31:
      and not silent;
  T5. step time, steps/s, utterances/s and peak memory at full size, B = 4,
      B = 16 and B = 16 with remat, against the step's FLOP bound.
+Phases S1 to S5 distill the student (training/), with T2's run as the teacher:
+ S1. one distillation step on the card against the same step on the CPU, f32,
+     TF32 off: configs/parallel_wavenet.json cut to flows of 2 / 2 layers
+     under configs/wavenet_mol.json cut to 4 layers (logistic KL,
+     contrastive, power loss), and configs/parallel_wavenet_gauss.json under
+     configs/wavenet_gauss.json likewise; B = 2 x 7680, the same params,
+     batch and draws: every metric, every gradient leaf, the params after
+     Adam and the EMA;
+ S2. runner.train_parallel_wavenet at full size (configs/parallel_wavenet.json
+     unchanged: 4 flows of 10 / 10 / 10 / 30 layers, W 64, bf16, 100 samples,
+     contrastive 0.3, power 1.0, shared deconv), B = 4 x 7680, 20 steps, a
+     checkpoint every 10: every loss finite, the checkpoints land; 30 steps on
+     one fixed batch with fixed draws whose last 5 losses average under the
+     first 5; 3 steps with use_teacher_deconv, whose stack stays bit-equal to
+     the teacher's and holds no Adam moments;
+ S3. resume by logdir bit for bit (students flows 2 / 2, T3's one-record
+     dataset, cuDNN deterministic): 3 steps, resumed to 6, equal to 6
+     uninterrupted steps in every tensor of the state;
+ S4. export_ema of S2's run, then evaluation.generate_parallel_wavenet(
+     ckpt_dir=run) over two short wavs: 6 flow_stack calls, 60
+     flow_persist_kernel launches counted at the C entry point, audio finite
+     and not silent;
+ S5. step time, steps/s, utterances/s and peak memory at full size, B = 4,
+     B = 8 and B = 8 with remat_teacher, against the step's FLOP bound, with
+     a torch.profiler split of one step's device time (student, teacher
+     forward and backward, MoL log-probs, STFTs, optimizer).
 Every teacher generate call is one cooperative launch of the persistent
 kernel fastgen_persistent (after quant_enc_kernel in the int8 modes).
 Phases other than 32 run with TF32 off.  The last line is {"ok": true,
@@ -189,7 +215,10 @@ from nsynth_wavenet_tpu_torch.evaluation import generate_parallel_wavenet, gener
 from nsynth_wavenet_tpu_torch.kernels import build
 from nsynth_wavenet_tpu_torch.models import parallelgen
 from nsynth_wavenet_tpu_torch.models.fastgen import Fastgen
-from nsynth_wavenet_tpu_torch.models.parallel_wavenet import ParallelWavenet
+from nsynth_wavenet_tpu_torch.models.parallel_wavenet import (
+    ParallelWavenet,
+    transplant_teacher_deconv,
+)
 from nsynth_wavenet_tpu_torch.models.wavenet import Wavenet, no_tf32
 from nsynth_wavenet_tpu_torch.ops import fastgen_kernel as fk
 from nsynth_wavenet_tpu_torch.ops import flow_kernel as flk
@@ -2098,16 +2127,16 @@ def speechlike_dataset(path, n_utts=24, seed=0):
     return path
 
 
-def recording_steps(losses):
-    """Context: train_lib.make_wavenet_train_step wrapped to record every
-    step's loss, as the runner builds its step function."""
-    make = train_lib.make_wavenet_train_step
+def recording_steps(losses, maker="make_wavenet_train_step"):
+    """Context: train_lib.<maker> wrapped to record every step's loss, as the
+    runner builds its step function."""
+    make = getattr(train_lib, maker)
 
-    def recording(model, optimizer):
-        step_fn = make(model, optimizer)
+    def recording(*args, **kw):
+        step_fn = make(*args, **kw)
 
-        def fn(state, wav, seed=None):
-            state, metrics = step_fn(state, wav, seed)
+        def fn(*a, **k):
+            state, metrics = step_fn(*a, **k)
             losses.append(metrics["loss"])
             return state, metrics
 
@@ -2115,11 +2144,11 @@ def recording_steps(losses):
 
     @contextlib.contextmanager
     def patched():
-        train_lib.make_wavenet_train_step = recording
+        setattr(train_lib, maker, recording)
         try:
             yield
         finally:
-            train_lib.make_wavenet_train_step = make
+            setattr(train_lib, maker, make)
 
     return patched()
 
@@ -2343,7 +2372,9 @@ def t5_timing(card):
 
 
 def training_phases(card):
-    """T1-T5; card: nvidia-smi's name and power limit, printed beside the timings."""
+    """T1-T5, then S1-S5 with T2's run as the teacher; card: nvidia-smi's
+    name and power limit, printed beside the timings.  Returns the phases'
+    results and the flow kernel's launches on S4's path."""
     t0 = time.time()
     out = {"T1": t1_card_vs_cpu()}
     with tempfile.TemporaryDirectory() as tmp:
@@ -2352,9 +2383,419 @@ def training_phases(card):
         del state
         torch.cuda.empty_cache()
         out["T3"] = t3_resume(tmp)
-    out["T5"] = t5_timing(card)
-    log(f"training phases T1-T5: {time.time() - t0:.1f} s")
+        out["T5"] = t5_timing(card)
+        log(f"training phases T1-T5: {time.time() - t0:.1f} s")
+        t0 = time.time()
+        out["S1"] = s1_card_vs_cpu()
+        s_run, s_state, out["S2"] = s2_full_distillation(tmp, run_dir)
+        out["S4"] = s4_serve(s_run, s_state, tmp)
+        del s_state
+        torch.cuda.empty_cache()
+        out["S3"] = s3_resume(tmp, run_dir)
+        out["S5"] = s5_timing(card, run_dir)
+    log(f"distillation phases S1-S5: {time.time() - t0:.1f} s")
     return out
+
+
+# ---- S1-S5: student distillation ------------------------------------------------
+
+# S1 holds the card's step to the CPU's with T1's limits: the student's KL
+# scores the same MoL teacher head at 65 536 levels (its bin probabilities
+# cancel 15 bits), averaged over num_samples x L draws.
+DISTILL_STEPS = 20  # S2, a checkpoint every 10
+FIXED_DISTILL_STEPS = 30  # S2's fixed batch
+TIMED_DISTILL_STEPS = 10  # S5, after 2 warm-up steps
+S_PAIRS = (("configs/parallel_wavenet.json", "configs/wavenet_mol.json"),
+           ("configs/parallel_wavenet_gauss.json", "configs/wavenet_gauss.json"))
+
+
+class GradTap:
+    """An optimizer that keeps a copy of the gradients it is handed."""
+
+    def __init__(self, optimizer):
+        self.optimizer, self.lr_fn, self.grads = optimizer, optimizer.lr_fn, None
+
+    def init(self, params):
+        return self.optimizer.init(params)
+
+    def update(self, grads, opt_state, params):
+        self.grads = tree_lib.tree_map(torch.clone, grads)
+        return self.optimizer.update(grads, opt_state, params)
+
+
+def distill_student(cfg, teacher, te, seed, device="cuda"):
+    """(ParallelWavenet of cfg taught by teacher, its params from a seed
+    with the teacher's deconv weights te['deconv'] copied in)."""
+    pwn = ParallelWavenet(cfg, teacher)
+    return pwn, transplant_teacher_deconv(pwn.init_params(seed, device=device), te)
+
+
+def s1_card_vs_cpu():
+    out = {}
+    for student_path, teacher_path in S_PAIRS:
+        teacher = Wavenet(config_lib.load_config(
+            os.path.join(REPO, teacher_path), num_layers=4, compute_dtype="float32",
+            dropout_inputs=False, use_as_teacher=True))
+        te_cpu = teacher.init_params(0, device="cpu")
+        cfg = config_lib.load_config(os.path.join(REPO, student_path), num_iaf_layers=(2, 2),
+                                     compute_dtype="float32")
+        wav = torch.from_numpy(synthetic_wavs(2, cfg.wave_length, 71))
+        wav_rand = torch.from_numpy(synthetic_wavs(2, cfg.wave_length, 72))
+        res = {}
+        for device in ("cuda", "cpu"):
+            t0 = time.time()
+            te = to_device(te_cpu, device)
+            pwn, params = distill_student(cfg, teacher, te, 1, device)
+            L = pwn.sample_length(stft.num_mel_frames(cfg.wave_length))
+            draws = train_lib.student_draws(pwn, torch.Generator().manual_seed(5), 2, L, "cpu")
+            tap = GradTap(train_lib.make_student_optimizer(cfg, params))
+            state = train_lib.make_train_state(params, tap)
+            init = tree_lib.tree_map(lambda t: t.detach().cpu().clone(), state["params"])
+            state, metrics = train_lib.make_pwn_train_step(pwn, te, tap)(
+                state, wav.to(device), wav_rand.to(device), None,
+                draws={k: v.to(device) for k, v in draws.items()})
+            if device == "cuda":
+                torch.cuda.synchronize()
+            res[device] = (metrics, tap.grads, state, time.time() - t0)
+        (m_g, g_g, s_g, t_g), (m_c, g_c, s_c, t_c) = res["cuda"], res["cpu"]
+        metric_err = max(abs(float(m_g[k]) - float(m_c[k])) / max(abs(float(m_c[k])), 1.0)
+                         for k in m_c)
+        grad_err = leaf_err(g_c, g_g)
+        p_err = update_err(init, s_c["params"], s_g["params"], g_c)
+        e_err = update_err(init, s_c["ema"], s_g["ema"], g_c)
+        name = f"{cfg.loss_type}{' + contrastive' if cfg.contrastive_loss_factor else ''}"
+        log(f"S1 distill step card vs CPU ({name} + power, teacher {teacher.cfg.loss_type} 4 "
+            f"layers, student flows 2/2, f32, B=2 x {cfg.wave_length}): loss "
+            f"{float(m_g['loss']):.6f} / {float(m_c['loss']):.6f}, metrics max rel {metric_err:.2e} "
+            f"(limit {TRAIN_LOSS_REL_TOL:.0e}); gradient leaves max {grad_err:.3e} of scale "
+            f"(limit {TRAIN_GRAD_REL_TOL:.0e}); params after Adam {p_err:.3e}, EMA {e_err:.3e} "
+            f"(L2 of the update, limit {TRAIN_UPDATE_REL_TOL:.0e}); card {t_g:.1f} s, CPU "
+            f"{t_c:.1f} s")
+        require(metric_err <= TRAIN_LOSS_REL_TOL, f"S1 {name}: metrics card vs CPU")
+        require(grad_err <= TRAIN_GRAD_REL_TOL, f"S1 {name}: gradients card vs CPU")
+        require(p_err <= TRAIN_UPDATE_REL_TOL and e_err <= TRAIN_UPDATE_REL_TOL,
+                f"S1 {name}: params / EMA after the update card vs CPU")
+        require(s_g["step"] == s_c["step"] == 1, f"S1 {name}: step count")
+        out[cfg.loss_type] = {"metrics_rel": metric_err, "grad": grad_err, "params": p_err,
+                              "ema": e_err}
+    return out
+
+
+def write_config(path, cfg):
+    with open(path, "wt") as f:
+        f.write(config_lib.config_to_json(cfg))
+    return path
+
+
+def s2_full_distillation(tmp, teacher_dir):
+    cfg_path = os.path.join(REPO, "configs/parallel_wavenet.json")
+    cfg = config_lib.load_config(cfg_path)
+    ds = os.path.join(tmp, "speech")
+    losses = []
+    t0 = time.time()
+    with recording_steps(losses, "make_pwn_train_step"):
+        run_dir, state = runner.train_parallel_wavenet(
+            ds, teacher_dir, config_path=cfg_path, log_root=os.path.join(tmp, "pwn_runs"),
+            total_batch_size=4, num_steps=DISTILL_STEPS, ckpt_every_steps=DISTILL_STEPS // 2,
+            seed=0, device="cuda")
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    losses = [float(x) for x in losses]
+    steps = ckpt_lib.CheckpointManager(os.path.join(run_dir, "ckpt")).all_steps()
+    log(f"S2 runner.train_parallel_wavenet full size (flows {cfg.num_iaf_layers}, W {cfg.width}, "
+        f"{cfg.compute_dtype}, num_samples {cfg.num_samples}, contrastive "
+        f"{cfg.contrastive_loss_factor}, power {cfg.power_loss_factor}; teacher: T2's run), "
+        f"B=4 x {cfg.wave_length}, {DISTILL_STEPS} steps in {dt:.1f} s (teacher load, "
+        f"checkpoints and start-up included): losses {losses[0]:.4f} .. {losses[-1]:.4f}, "
+        f"checkpoints at {steps}")
+    require(len(losses) == DISTILL_STEPS and all(np.isfinite(losses)), "S2: a loss is not finite")
+    require(steps == [DISTILL_STEPS // 2, DISTILL_STEPS] and state["step"] == DISTILL_STEPS,
+            "S2: checkpoints")
+
+    # one fixed batch and fixed draws: the loss falls
+    teacher, te = runner.load_teacher(teacher_dir, device="cuda")
+    pwn, params = distill_student(cfg, teacher, te, 2)
+    optimizer = train_lib.make_student_optimizer(pwn.cfg, params)
+    fstate = train_lib.make_train_state(params, optimizer)
+    step_fn = train_lib.make_pwn_train_step(pwn, te, optimizer)
+    from nsynth_wavenet_tpu_torch.data import dataset as data_lib
+
+    crops = data_lib.Dataset(ds).random_crop_batch(np.random.default_rng(4), 8, cfg.wave_length)
+    wav, wav_rand = (torch.from_numpy(c).cuda() for c in (crops[:4], crops[4:]))
+    draws = train_lib.student_draws(pwn, train_lib.dropout_generator(2, 0, "cuda"), 4,
+                                    pwn.sample_length(stft.num_mel_frames(cfg.wave_length)), "cuda")
+    fixed = []
+    for _ in range(FIXED_DISTILL_STEPS):
+        fstate, metrics = step_fn(fstate, wav, wav_rand, None, draws=draws)
+        fixed.append(metrics["loss"])
+    fixed = [float(x) for x in fixed]
+    first, last = float(np.mean(fixed[:5])), float(np.mean(fixed[-5:]))
+    log(f"S2 one fixed batch and draws, {FIXED_DISTILL_STEPS} steps: mean loss of the first 5 "
+        f"{first:.4f}, of the last 5 {last:.4f}")
+    require(all(np.isfinite(fixed)) and last < first,
+            "S2: the loss does not fall on a fixed batch")
+    del fstate, step_fn
+
+    # the teacher's frozen deconv
+    tea_cfg = dataclasses.replace(cfg, use_share_deconv=False, use_teacher_deconv=True)
+    tea_path = write_config(os.path.join(tmp, "pwn_teacher_deconv.json"), tea_cfg)
+    _, tstate = runner.train_parallel_wavenet(
+        ds, teacher_dir, config_path=tea_path, log_root=os.path.join(tmp, "pwn_tea"),
+        total_batch_size=4, num_steps=3, ckpt_every_steps=3, seed=0, device="cuda")
+    frozen = all(torch.equal(a, b) for a, b in zip(tree_lib.leaves(tstate["params"]["deconv_share"]),
+                                                   tree_lib.leaves(te["deconv"])))
+    n_moments, n_leaves = len(tstate["opt_state"]["mu"]), len(tree_lib.leaves(tstate["params"]))
+    log(f"S2 use_teacher_deconv, 3 steps: deconv_share bit-equal to the teacher's {frozen}, "
+        f"Adam moments over {n_moments} of {n_leaves} leaves")
+    require(frozen and n_moments == n_leaves - len(tree_lib.leaves(te["deconv"])),
+            "S2: the teacher's deconv did not stay frozen")
+    del tstate, te, teacher
+    return run_dir, state, {"losses": losses, "fixed_first5": first, "fixed_last5": last,
+                            "seconds": dt}
+
+
+def s3_resume(tmp, teacher_dir):
+    cfg = config_lib.load_config(os.path.join(REPO, "configs/parallel_wavenet.json"),
+                                 num_iaf_layers=(2, 2))
+    cfg_path = write_config(os.path.join(tmp, "pwn_2_2.json"), cfg)
+    ds = os.path.join(tmp, "one")  # T3's one-record dataset, exactly wave_length long
+    kw = dict(total_batch_size=4, ckpt_every_steps=3, seed=0, device="cuda")
+    with deterministic_cudnn():
+        _, full = runner.train_parallel_wavenet(ds, teacher_dir, config_path=cfg_path,
+                                                log_root=os.path.join(tmp, "s3_full"),
+                                                num_steps=6, **kw)
+        part_dir, _ = runner.train_parallel_wavenet(ds, teacher_dir, config_path=cfg_path,
+                                                    log_root=os.path.join(tmp, "s3_part"),
+                                                    num_steps=3, **kw)
+        _, resumed = runner.train_parallel_wavenet(ds, teacher_dir, logdir=part_dir,
+                                                   num_steps=6, **kw)
+    same = {name: all(torch.equal(a, b) for a, b in zip(tree_lib.leaves(full[name]),
+                                                      tree_lib.leaves(resumed[name])))
+            for name in ("params", "ema")}
+    for name in ("mu", "nu"):
+        same[name] = all(torch.equal(a, b) for a, b in zip(
+            tree_lib.leaves(full["opt_state"][name]), tree_lib.leaves(resumed["opt_state"][name])))
+    same["step"] = full["step"] == resumed["step"] == 6 and \
+        full["opt_state"]["count"] == resumed["opt_state"]["count"] == 6
+    log(f"S3 distillation resume by logdir (student flows 2/2, bf16, teacher T2's run, cuDNN "
+        f"deterministic): 3 steps + resumed to 6 == 6 steps bit for bit: {same}")
+    require(all(same.values()), "S3: a resumed run differs from the uninterrupted one")
+    return same
+
+
+def s4_serve(run_dir, state, tmp):
+    """The student's EMA export served from its run directory: 6 flow calls
+    a synthesis (4 flows of 10 / 10 / 10 / 30 layers, a call a dilation
+    cycle), each 10 flow_persist_kernel launches."""
+    cfg = config_lib.load_config(runner.find_config_json(run_dir))
+    ckpt_lib.export_ema(state, os.path.join(run_dir, "ema"), cfg)
+    src, out = os.path.join(tmp, "s4_src"), os.path.join(tmp, "s4_gen")
+    os.makedirs(src)
+    for i, w in enumerate(synthetic_wavs(2, 4000, 81)):
+        wav_io.write_wav(os.path.join(src, f"utt_{i}.wav"), w)
+    reset_flow_counts()
+    t0 = time.time()
+    paths = generate_parallel_wavenet(src, None, None, out, batch_size=4, seed=0, device="cuda",
+                                      ckpt_dir=run_dir)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    calls, counted = flk.flow_stack.launches, {k: n for k, n in
+                                               flk.flow_stack.kernel_launches.items() if n}
+    audio = np.stack([wav_io.read_wav(p)[0] for p in paths])
+    want_calls = sum(-(-n // cfg.num_stages) for n in cfg.num_iaf_layers)
+    log(f"S4 export_ema + generate_parallel_wavenet(ckpt_dir) over 2 wavs: {len(paths)} files, "
+        f"{audio.shape[1]} samples each, {dt:.2f} s; flow_stack calls {calls} (want "
+        f"{want_calls}), CUDA launches {counted}; audio std {float(audio.std()):.4f}, max |x| "
+        f"{float(np.abs(audio).max()):.4f}")
+    require(len(paths) == 2 and calls == want_calls
+            and counted == {"flow_persist_kernel": sum(cfg.num_iaf_layers)},
+            "S4: the distilled weights were not served through flow_persist_kernel")
+    require(np.isfinite(audio).all() and float(audio.std()) > 1e-3,
+            "S4: audio not finite or silent")
+    return {"calls": calls, "kernel_launches": counted, "audio_std": float(audio.std())}
+
+
+def distill_flops(pcfg, tcfg, B):
+    """FLOPs of one distillation step, counted from the products the step
+    runs (MACs x 2): the teacher's scoring forward over the 2B batch (B
+    with no contrastive term) and its backward to the sample alone (the
+    input gradients of the trunk and head products; the conditioning
+    products and the deconv get none), the student's forward and backward
+    (x 3: input and weight gradients), every product over the sample length
+    L (the port takes the encoding's centre before the 1x1 products)."""
+    frames = stft.num_mel_frames(pcfg.wave_length)
+    L = (frames * pcfg.frame_shift // pcfg.max_dilation) * pcfg.max_dilation
+
+    def deconv_macs(cfg):
+        macs, t, cin = 0, frames, stft.MEL_PARAMS.num_mel
+        for fl, stride in cfg.deconv_config:
+            macs += t * fl * cin * cfg.deconv_width
+            t, cin = t * stride, cfg.deconv_width
+        return macs
+
+    W, G, S, DW, m = tcfg.width, tcfg.gate_width, tcfg.skip_width, tcfg.deconv_width, \
+        tcfg.gate_width // 2
+    trunk = tcfg.num_layers * (tcfg.filter_length * W * G + m * W + m * S)
+    cond = tcfg.num_layers * DW * G + DW * S
+    head = tcfg.filter_length * W + W * S + S * S + S * tcfg.out_width
+    tb = 2 * B if pcfg.loss_type == "logistic" and pcfg.contrastive_loss_factor > 0 else B
+    teacher = tb * (L * (2 * (trunk + head) + cond) + deconv_macs(tcfg))
+    w = pcfg.width
+    student = 0
+    for n in pcfg.num_iaf_layers:
+        student += pcfg.filter_length * w + n * (pcfg.filter_length * w * w + pcfg.deconv_width * w
+                                                 + (w // 2) * w) \
+            + w * w + pcfg.deconv_width * w + 2 * w
+    n_deconv = 1 if (pcfg.use_share_deconv or pcfg.use_teacher_deconv) else len(pcfg.num_iaf_layers)
+    student = 3 * B * (L * student + n_deconv * deconv_macs(pcfg))
+    return 2.0 * (teacher + student), 2.0 * teacher, 2.0 * student
+
+
+@contextlib.contextmanager
+def distill_spans():
+    """torch.profiler spans around the distillation step's parts, by
+    wrapping the functions the step calls: the student's forward, the
+    teacher's scoring forward, the MoL log-probs, the STFTs (the mels and
+    the power loss) and the optimizer with the EMA."""
+    from torch.profiler import record_function
+
+    from nsynth_wavenet_tpu_torch.ops import distributions as dist_lib
+    from nsynth_wavenet_tpu_torch.ops import stft as stft_lib
+
+    def span(name, fn):
+        def wrapped(*a, **k):
+            with record_function(name):
+                return fn(*a, **k)
+        return wrapped
+
+    targets = [(ParallelWavenet, "feed_forward_train", "student"),
+               (ParallelWavenet, "_teacher_out_params", "teacher"),
+               (dist_lib, "mol_log_probs", "mol_log_probs"),
+               (stft_lib, "stft_pad_end", "stft"), (stft_lib, "stft_center", "stft"),
+               (opt_lib.MultiTransform, "update", "optimizer"), (opt_lib, "ema_update", "optimizer")]
+    saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in targets]
+    try:
+        for (obj, attr, name), (_, _, fn) in zip(targets, saved):
+            setattr(obj, attr, span(name, fn))
+        yield {name for _, _, name in targets}
+    finally:
+        for obj, attr, fn in saved:
+            setattr(obj, attr, fn)
+
+
+def distill_breakdown(step_fn, state, wav, wav_rand):
+    """Device time of one distillation step, by torch.profiler.  Each kernel
+    counts once, for the op that launched it: a forward kernel for the span
+    (distill_spans) around its op, a backward kernel for the span whose
+    forward op made its autograd node (the sequence number links the two),
+    the rest as 'other'.  The spans' own GPU annotations are not kernels.
+    Returns ({part: ms}, {kernel class: ms}, the top kernels [(name, ms,
+    launches)], busy ms, wall ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with distill_spans() as names:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            step_fn(state, wav, wav_rand, 2)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.time() - t0)
+    events = list(prof.events())
+    seq_part = {}
+    for evt in events:  # forward ops under a span: their sequence numbers
+        seq = getattr(evt, "sequence_nr", -1)
+        if seq is None or seq < 0 or evt.name.startswith("autograd::"):
+            continue
+        parent = evt.cpu_parent
+        while parent is not None and parent.name not in names:
+            parent = parent.cpu_parent
+        if parent is not None:
+            seq_part.setdefault(seq, parent.name)
+
+    def part_of(evt):
+        while evt is not None:
+            if evt.name in names:
+                return evt.name
+            if evt.name.startswith("autograd::engine::evaluate_function"):
+                part = seq_part.get(getattr(evt, "sequence_nr", -1))
+                return f"{part} backward" if part else "other backward"
+            evt = evt.cpu_parent
+        return "other"
+
+    by_part = {}
+    for evt in events:
+        own = sum(k.duration for k in getattr(evt, "kernels", ()) if k.name not in names) / 1e3
+        if own:
+            part = part_of(evt)
+            by_part[part] = by_part.get(part, 0.0) + own
+    by_name = {}
+    for evt in events:
+        if (str(getattr(evt, "device_type", "")).endswith("CUDA") and evt.name not in names
+                and not getattr(evt, "is_user_annotation", False)):
+            ms, n = by_name.get(evt.name, (0.0, 0))
+            by_name[evt.name] = (ms + (evt.time_range.end - evt.time_range.start) / 1e3, n + 1)
+    busy = sum(ms for ms, _ in by_name.values())
+    require(busy > 0, "torch.profiler recorded no CUDA kernel in a distillation step")
+    by_class = {}
+    for name, (ms, _) in by_name.items():
+        cls = next((c for c, keys in KERNEL_CLASSES if any(k in name for k in keys)), "other")
+        by_class[cls] = by_class.get(cls, 0.0) + ms
+    top = sorted(((k, ms, n) for k, (ms, n) in by_name.items()), key=lambda t: -t[1])[:8]
+    return by_part, by_class, top, busy, wall_ms
+
+
+def s5_timing(card, teacher_dir):
+    teacher, te = runner.load_teacher(teacher_dir, device="cuda")
+    cfg0 = config_lib.load_config(os.path.join(REPO, "configs/parallel_wavenet.json"))
+    rows = {}
+    for B, remat in ((4, False), (8, False), (8, True)):
+        cfg = dataclasses.replace(cfg0, remat_teacher=remat)
+        pwn, params = distill_student(cfg, teacher, te, 3)
+        optimizer = train_lib.make_student_optimizer(cfg, params)
+        state = train_lib.make_train_state(params, optimizer)
+        step_fn = train_lib.make_pwn_train_step(pwn, te, optimizer)
+        wav = torch.from_numpy(synthetic_wavs(B, cfg.wave_length, 91 + B)).cuda()
+        wav_rand = torch.from_numpy(synthetic_wavs(B, cfg.wave_length, 191 + B)).cuda()
+        for _ in range(2):
+            state, _ = step_fn(state, wav, wav_rand, 2)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.time()
+        start.record()
+        for _ in range(TIMED_DISTILL_STEPS):
+            state, metrics = step_fn(state, wav, wav_rand, 2)
+        end.record()
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) / TIMED_DISTILL_STEPS
+        ms = start.elapsed_time(end) / TIMED_DISTILL_STEPS
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        flops, t_flops, s_flops = distill_flops(cfg, teacher.cfg, B)
+        bound = 1e3 * flops / PEAK_BF16_FLOPS
+        rows[f"B{B}{'_remat' if remat else ''}"] = row = {
+            "ms": ms, "wall_ms": 1e3 * wall, "steps_per_s": 1e3 / ms, "utt_per_s": 1e3 * B / ms,
+            "peak_gib": peak, "tflop": flops / 1e12, "teacher_tflop": t_flops / 1e12,
+            "student_tflop": s_flops / 1e12, "bound_ms": bound, "loss": float(metrics["loss"])}
+        log(f"S5 distill step B={B} x {cfg.wave_length} remat_teacher={remat}: {ms:.2f} ms a step "
+            f"(events; {row['wall_ms']:.2f} ms wall), {row['steps_per_s']:.2f} steps/s, "
+            f"{row['utt_per_s']:.1f} utterances/s, peak memory {peak:.2f} GiB; "
+            f"{flops / 1e12:.2f} TFLOP a step (teacher {t_flops / 1e12:.2f}, student "
+            f"{s_flops / 1e12:.2f}), bound {bound:.2f} ms at the bf16 peak ({bound / ms:.1%} of "
+            f"it); {card}")
+        require(np.isfinite(row["loss"]), "S5: loss not finite")
+        if not remat:
+            by_part, by_class, top, busy, wall_ms = distill_breakdown(step_fn, state, wav,
+                                                                      wav_rand)
+            row["profile_ms"], row["profile_class_ms"] = by_part, by_class
+            log(f"S5 profile of one step B={B}: device busy {busy:.1f} ms of {wall_ms:.1f} ms "
+                f"wall, {sum(by_part.values()):.1f} ms attributed; by part: " + ", ".join(
+                    f"{k} {v:.2f} ms" for k, v in sorted(by_part.items(), key=lambda kv: -kv[1])))
+            log(f"S5 profile B={B} by kernel class: " + ", ".join(
+                f"{k} {v:.2f} ms" for k, v in sorted(by_class.items(), key=lambda kv: -kv[1])))
+            log(f"S5 profile B={B} top kernels: " + "; ".join(
+                f"{name[:70]} {ms:.2f} ms x{n}" for name, ms, n in top))
+        del state, step_fn, wav, wav_rand, params, optimizer
+        torch.cuda.empty_cache()
+    return rows
 
 
 def main():
@@ -2494,7 +2935,8 @@ def main():
     flow_rec = student_phases()
     mode_records = flow_mode_phases()
     torch.cuda.empty_cache()
-    training_phases(smi)
+    trained = training_phases(smi)
+    flow_rec["launches_distill_serve"] = trained["S4"]["kernel_launches"]["flow_persist_kernel"]
 
     big = timings[MAIN_BATCHES[-1]]
     record = {"kernels": [{

@@ -3,10 +3,14 @@
     python eval_parallel_wavenet_torch.py --source_path wavs/ \
         --params tests/golden/tiny_student/params.npz \
         --config tests/golden/tiny_student/meta.json --save_path gen/
+    python eval_parallel_wavenet_torch.py --source_path wavs/ \
+        --ckpt_dir runs/<student-run> --save_path gen/
 
 --params is a golden-format params.npz (int8 '#q'/'#s' pairs allowed);
---config a student config JSON or a golden meta.json.  Runs on the first
-CUDA device unless --device cpu.
+--config a student config JSON or a golden meta.json.  Instead of both,
+--ckpt_dir <run> reads a run directory of train_parallel_wavenet_torch.py:
+its EMA export (<run>/ema) when there is one, else the EMA of its latest
+checkpoint.  Runs on the first CUDA device unless --device cpu.
 """
 
 import argparse
@@ -18,8 +22,10 @@ from nsynth_wavenet_tpu_torch.evaluation import generate_parallel_wavenet
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--source_path", required=True, help="a .wav/.npy file or a directory")
-    ap.add_argument("--params", required=True, help="golden-format params.npz")
-    ap.add_argument("--config", required=True, help="student config json or golden meta.json")
+    ap.add_argument("--params", help="golden-format params.npz")
+    ap.add_argument("--config", help="student config json or golden meta.json")
+    ap.add_argument("--ckpt_dir", help="a train_parallel_wavenet_torch.py run directory "
+                                       "(instead of --params and --config)")
     ap.add_argument("--save_path", required=True)
     ap.add_argument("--batch_size", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
@@ -28,11 +34,14 @@ def main():
                     help="stream the flows in chunks of this many samples")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
+    if (args.ckpt_dir is None) == (args.params is None or args.config is None):
+        ap.error("pass --ckpt_dir, or --params and --config")
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     for path in generate_parallel_wavenet(
             args.source_path, args.params, args.config, args.save_path,
             batch_size=args.batch_size, seed=args.seed, device=args.device,
-            sample_length=args.sample_length, streaming_chunk=args.streaming_chunk):
+            sample_length=args.sample_length, streaming_chunk=args.streaming_chunk,
+            ckpt_dir=args.ckpt_dir):
         print(path)
 
 

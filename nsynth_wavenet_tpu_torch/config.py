@@ -95,9 +95,7 @@ class WavenetConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ParallelWavenetConfig:
-    """IAF student hparams; field names and defaults as the reference.  The
-    loss and training fields are carried so that every student JSON loads;
-    the inference port reads only the model fields."""
+    """IAF student hparams; field names and defaults as the reference."""
 
     num_iters: int = 400000
     wave_length: int = 7680
@@ -160,6 +158,11 @@ class ParallelWavenetConfig:
     @property
     def max_dilation(self) -> int:
         return 2 ** (self.num_stages - 1)
+
+    @property
+    def effective_use_priority_freq(self) -> bool:
+        """The power loss's priority band, off whenever use_mel is on."""
+        return False if self.use_mel else self.use_priority_freq
 
 
 def _from_dict(cls, d: dict, **overrides):

@@ -8,6 +8,7 @@ seeded numpy random crops; records and starts come from the same numpy
 generator calls as the JAX package's, so one seed gives the same crops on
 both sides.  The mel is computed on the device inside the training step.
 The gather is numpy (the JAX package's C++ sampler is not ported).
+``spec_feat_mean_std`` gives the student's power-loss statistics.
 """
 
 import glob
@@ -180,6 +181,34 @@ class Dataset:
         spans = np.maximum(self._lengths[chosen] - seq_len + 1, 1)
         starts = rng.integers(0, spans, size=batch_size).astype(np.int64)
         return self._gather(chosen, starts, seq_len)
+
+
+def spec_feat_mean_std(train_path: str, feat_fn, batch_size: int = 4096, seq_len: int = 7680,
+                       first_n: int = 10000, chunk: int = 256, seed: int = 0, device="cuda"):
+    """Per-frequency (mean, std), f32 numpy, of an STFT feature over an init
+    batch of crops (the student's power-loss normalisation): feat_fn of
+    stft_pad_end, on ``device`` in chunks of ``chunk`` crops, the moments
+    merged chunk by chunk in f64."""
+    import torch
+
+    from nsynth_wavenet_tpu_torch.ops import stft as stft_ops
+
+    waves = Dataset(train_path).get_init_batch(batch_size, seq_len, first_n=first_n, seed=seed)
+    count, mean, m2 = 0, None, None
+    for i in range(0, batch_size, chunk):
+        with torch.no_grad():
+            w = torch.from_numpy(waves[i : i + chunk]).to(device)
+            feat = feat_fn(stft_ops.stft_pad_end(w)).cpu().numpy()
+        f2 = feat.reshape(-1, feat.shape[-1]).astype(np.float64)
+        n, cm, cv = f2.shape[0], f2.mean(axis=0), f2.var(axis=0)
+        if mean is None:
+            count, mean, m2 = n, cm, cv * n
+        else:
+            delta, tot = cm - mean, count + n
+            mean = mean + delta * n / tot
+            m2 = m2 + cv * n + delta**2 * count * n / tot
+            count = tot
+    return mean.astype(np.float32), np.sqrt(m2 / count).astype(np.float32)
 
 
 def make_synthetic_dataset(save_dir, n_records=32, length=32000, sr=16000, seed=0):

@@ -65,8 +65,8 @@ def _fixed_len(w, n):
 
 
 def load_eval_model(ckpt_dir: str, device="cuda"):
-    """(cfg, params) of a training run directory written by the port's
-    trainer: the EMA export under <ckpt_dir>/ema (params.npz, meta.json) when
+    """(cfg, params) of a teacher or student run directory written by the
+    port's trainers: the EMA export under <ckpt_dir>/ema (params.npz, meta.json) when
     there is one, else the EMA of the latest checkpoint under <ckpt_dir>/ckpt
     with the run's config json."""
     from nsynth_wavenet_tpu_torch.training import checkpoint as ckpt_lib
@@ -105,17 +105,10 @@ def generate_wavenet(source_path, params_npz, config_json, save_path, batch_size
     from nsynth_wavenet_tpu_torch.models.wavenet import Wavenet
     from nsynth_wavenet_tpu_torch.ops import fastgen_kernel as fk
 
-    if ckpt_dir is not None:
-        if params_npz is not None or config_json is not None:
-            raise ValueError("pass either ckpt_dir or params_npz and config_json")
-        cfg, params = load_eval_model(ckpt_dir, device=device)
-    else:
-        cfg = config_lib.load_config(config_json)
+    cfg, params = _model_and_params(params_npz, config_json, ckpt_dir, device)
     if not isinstance(cfg, config_lib.WavenetConfig):
         raise ValueError(f"{config_json or ckpt_dir} is a student config: use "
                          "generate_parallel_wavenet (eval_parallel_wavenet_torch.py)")
-    if ckpt_dir is None:
-        params = weights.load_npz(params_npz, device=device)
     if int8_static and not int8:
         raise ValueError("int8_static needs int8")
     fg = Fastgen(Wavenet(dataclasses.replace(cfg, use_as_teacher=True)))
@@ -159,10 +152,23 @@ def _write_batch(save_path, files, audio):
     return outputs
 
 
+def _model_and_params(params_npz, config_json, ckpt_dir, device):
+    """(cfg, params) from a golden-format params.npz and its config json, or
+    from a training run directory (load_eval_model)."""
+    if ckpt_dir is None:
+        return config_lib.load_config(config_json), weights.load_npz(params_npz, device=device)
+    if params_npz is not None or config_json is not None:
+        raise ValueError("pass either ckpt_dir or params_npz and config_json")
+    return load_eval_model(ckpt_dir, device=device)
+
+
 def generate_parallel_wavenet(source_path, params_npz, config_json, save_path, batch_size=4,
-                              seed=0, device="cuda", sample_length=-1, streaming_chunk=None):
+                              seed=0, device="cuda", sample_length=-1, streaming_chunk=None,
+                              ckpt_dir=None):
     """One-shot student synthesis of every file under source_path with the
-    weights of a golden-format params.npz, through the fused serving path
+    weights of a golden-format params.npz and its config json, or (ckpt_dir,
+    with params_npz and config_json None) of a student run directory
+    (load_eval_model), through the fused serving path
     (the flow trunks in the CUDA kernel on a CUDA device: its compact mode for
     a bf16 student, its f32-conditioning mode for an f32 one); writes
     gen_<name>.wav files, logs the Delay metric per batch and returns the
@@ -172,11 +178,10 @@ def generate_parallel_wavenet(source_path, params_npz, config_json, save_path, b
     from nsynth_wavenet_tpu_torch.models import parallelgen
     from nsynth_wavenet_tpu_torch.models.parallel_wavenet import ParallelWavenet
 
-    cfg = config_lib.load_config(config_json)
+    cfg, params = _model_and_params(params_npz, config_json, ckpt_dir, device)
     if not isinstance(cfg, config_lib.ParallelWavenetConfig):
-        raise ValueError(f"{config_json} is a teacher config: use generate_wavenet "
+        raise ValueError(f"{config_json or ckpt_dir} is a teacher config: use generate_wavenet "
                          "(eval_wavenet_torch.py)")
-    params = weights.load_npz(params_npz, device=device)
     pwn = ParallelWavenet(cfg)
     streamer = parallelgen.StudentStreamer(pwn, chunk=streaming_chunk) if streaming_chunk else None
     os.makedirs(save_path, exist_ok=True)

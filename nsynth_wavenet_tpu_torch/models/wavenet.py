@@ -86,7 +86,7 @@ def apply_deconv_stack(params, mel, *, deconv_config, upsample_act, use_resize_c
     return h
 
 
-def _deconv_stack_train(params, mel, *, deconv_config, upsample_act, use_resize_conv, init,
+def deconv_stack_train(params, mel, *, deconv_config, upsample_act, use_resize_conv, init,
                         dtype, native):
     """apply_deconv_stack with gradients; init=True rescales weight-normed
     layers from their pre-activation moments.  Returns (encoding, new_params)."""
@@ -232,7 +232,7 @@ class Wavenet:
                 return conv_ops.conv1d_ddi(p, x, dilation=dilation)
             return conv(p, x, dilation), p
 
-        mel_en, new_params["deconv"] = _deconv_stack_train(
+        mel_en, new_params["deconv"] = deconv_stack_train(
             params["deconv"], inputs["mel"], deconv_config=cfg.deconv_config,
             upsample_act=cfg.upsample_act, use_resize_conv=cfg.use_resize_conv, init=init,
             dtype=dtype, native=native)

@@ -73,7 +73,9 @@ def _operands(x, w, dtype, native=False):
         if native:
             return x.to(dtype), w.to(dtype)
         x, w = x.to(dtype).float(), w.to(dtype).float()
-    return x.float(), w.float()
+    # f32, or f64 when either operand is (the parity tests hold losses in f64)
+    wide = torch.float64 if torch.float64 in (x.dtype, w.dtype) else torch.float32
+    return x.to(wide), w.to(wide)
 
 
 def _finish(y, b, dtype, out_dtype):

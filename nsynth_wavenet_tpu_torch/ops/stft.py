@@ -1,7 +1,17 @@
-"""Mel-spectrogram frontend (counterpart of nsynth_wavenet_tpu/ops/stft.py):
-librosa-centred STFT, Slaney mel filterbank, normalised dB.  A numpy twin
-serves host-side file loading; the torch version runs on the card with
-``torch.fft.rfft``."""
+"""Mel-spectrogram frontend and the student's power-loss STFT (counterpart
+of nsynth_wavenet_tpu/ops/stft.py):
+
+  * ``stft_center``: librosa semantics (centred frames, reflect padding,
+    hann(win_length) centred in an n_fft frame), for the mel features;
+  * ``stft_pad_end``: tf.signal.stft(pad_end=True) semantics (frames from
+    the start, zero padding at the end, hann(win_length) frames right-padded
+    to n_fft), for the power loss.
+
+Slaney mel filterbank, normalised dB.  A numpy twin of the mel serves
+host-side file loading.  The torch functions run on their input's device,
+keep float64 input in float64 and are differentiable; the JAX package
+computes the rfft as a DFT matmul, the port with ``torch.fft.rfft`` (the
+same sums in another order)."""
 
 import dataclasses
 from functools import lru_cache
@@ -37,6 +47,8 @@ class MelParams:
 
 
 MEL_PARAMS = MelParams()
+# the 3 kHz bin: the power loss weighs the bins below it twice
+PRIORITY_FREQ = int(3000 / (MEL_PARAMS.sample_rate * 0.5) * MEL_PARAMS.num_freq)
 
 
 def hann_window(win_length: int) -> np.ndarray:
@@ -116,18 +128,64 @@ def melspectrogram_np(y: np.ndarray, p: MelParams = MEL_PARAMS) -> np.ndarray:
     return np.clip((db - p.min_level_db) / -p.min_level_db, 0.0, 1.0).astype(np.float32)
 
 
-def melspectrogram(y: torch.Tensor, p: MelParams = MEL_PARAMS) -> torch.Tensor:
-    """Torch twin of :func:`melspectrogram_np` on y's device: [B, L] -> [B, T, num_mel]."""
+def _float(y: torch.Tensor) -> torch.Tensor:
+    return y if y.dtype == torch.float64 else y.to(torch.float32)
+
+
+def stft_center(y: torch.Tensor, p: MelParams = MEL_PARAMS) -> torch.Tensor:
+    """librosa-style STFT: [..., L] -> complex [..., 1 + L // hop, num_freq]."""
     n_fft, hop = p.n_fft, p.hop_length
     pad = n_fft // 2
-    y = y.to(torch.float32)
-    y_padded = torch.nn.functional.pad(y[:, None, :], (pad, pad), mode="reflect")[:, 0]
-    frames = y_padded.unfold(-1, n_fft, hop)  # [B, T, n_fft]
+    y = _float(y)
+    lead = y.shape[:-1]
+    flat = y.reshape(-1, 1, y.shape[-1])
+    y_padded = torch.nn.functional.pad(flat, (pad, pad), mode="reflect")[:, 0]
+    frames = y_padded.reshape(*lead, -1).unfold(-1, n_fft, hop)  # [..., T, n_fft]
     window = torch.from_numpy(_centred_window(p)).to(y.device)
-    spec = torch.abs(torch.fft.rfft(frames * window, n=n_fft))
+    return torch.fft.rfft(frames * window, n=n_fft)
+
+
+def stft_pad_end(y: torch.Tensor, p: MelParams = MEL_PARAMS) -> torch.Tensor:
+    """tf.signal.stft(pad_end=True) semantics: [..., L] -> complex
+    [..., ceil(L / hop), num_freq]; hann(win_length) frames, zero-padded at
+    the signal's end and on each frame's right to n_fft."""
+    n_fft, hop, win = p.n_fft, p.hop_length, p.win_length
+    y = _float(y)
+    length = y.shape[-1]
+    n_frames = -(-length // hop)
+    pad_amt = max(0, (n_frames - 1) * hop + win - length)
+    frames = torch.nn.functional.pad(y, (0, pad_amt)).unfold(-1, win, hop)  # [..., n_frames, win]
+    window = torch.from_numpy(hann_window(win)).to(y.device)
+    return torch.fft.rfft(frames * window, n=n_fft)
+
+
+def amp_to_db(x: torch.Tensor, p: MelParams = MEL_PARAMS) -> torch.Tensor:
+    return 20.0 * torch.log10(torch.clamp(x, min=p.min_amp))
+
+
+def db_normalize(s: torch.Tensor, p: MelParams = MEL_PARAMS) -> torch.Tensor:
+    return torch.clamp((s - p.min_level_db) / -p.min_level_db, 0.0, 1.0)
+
+
+def melspec_from_spec(spec: torch.Tensor, p: MelParams = MEL_PARAMS) -> torch.Tensor:
+    """The mel filterbank applied to a magnitude spectrogram [..., num_freq]."""
     basis = torch.from_numpy(
         mel_filterbank(p.sample_rate, p.n_fft, p.num_mel, p.mel_fmin, p.mel_fmax).copy()
-    ).to(y.device)
-    mel = spec @ basis.T
-    db = 20.0 * torch.log10(torch.clamp(mel, min=p.min_amp))
-    return torch.clamp((db - p.min_level_db) / -p.min_level_db, 0.0, 1.0)
+    ).to(spec.device)
+    return spec @ basis.T.to(spec.dtype)
+
+
+def melspectrogram(y: torch.Tensor, p: MelParams = MEL_PARAMS) -> torch.Tensor:
+    """Torch twin of :func:`melspectrogram_np` on y's device: [B, L] -> [B, T, num_mel]."""
+    return db_normalize(amp_to_db(melspec_from_spec(torch.abs(stft_center(y, p)), p), p), p)
+
+
+def melspectrogram2(y: torch.Tensor, p: MelParams = MEL_PARAMS) -> torch.Tensor:
+    """The reference's alternate mel extractor: the pad-end STFT instead of
+    the centred one, then mel, dB and normalisation."""
+    return db_normalize(amp_to_db(melspec_from_spec(torch.abs(stft_pad_end(y, p)), p), p), p)
+
+
+def num_mel_frames(length: int, p: MelParams = MEL_PARAMS) -> int:
+    """Frames that :func:`melspectrogram` makes of ``length`` samples."""
+    return 1 + length // p.hop_length

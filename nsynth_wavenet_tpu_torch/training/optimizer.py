@@ -91,6 +91,34 @@ def make_optimizer(lr_schedule, grad_clip: bool = False) -> Optimizer:
     return Optimizer(lr_schedule, grad_clip=grad_clip)
 
 
+class MultiTransform:
+    """optax.multi_transform over the labels 'train' (``inner``) and 'freeze'
+    (optax.set_to_zero): the inner optimizer sees only the trained leaves,
+    so they alone hold Adam moments and make up the clip's global norm, and
+    a frozen leaf never moves.  labels: a tree of the two strings shaped as
+    the params.  State: the inner optimizer's, over the trained leaves in
+    ``tree.leaves`` order."""
+
+    def __init__(self, inner: Optimizer, labels):
+        self.inner = inner
+        self.lr_fn = inner.lr_fn
+        self.labels = tree_lib.leaves(labels)
+        if not set(self.labels) <= {"train", "freeze"}:
+            raise ValueError(f"labels must be 'train' or 'freeze': {sorted(set(self.labels))}")
+
+    def _trained(self, tree) -> list:
+        flat = tree_lib.leaves(tree)
+        if len(flat) != len(self.labels):
+            raise ValueError(f"{len(flat)} leaves against {len(self.labels)} labels")
+        return [x for x, label in zip(flat, self.labels) if label == "train"]
+
+    def init(self, params):
+        return self.inner.init(self._trained(params))
+
+    def update(self, grads, opt_state, params):
+        return self.inner.update(self._trained(grads), opt_state, self._trained(params))
+
+
 def ema_decay_at(step) -> np.float32:
     """TF's ExponentialMovingAverage decay with num_updates warm-up, in f32."""
     t = np.float32(step)

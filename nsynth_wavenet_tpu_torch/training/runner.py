@@ -1,16 +1,20 @@
-"""The teacher's training run (counterpart of train_wavenet in
-nsynth_wavenet_tpu/training/runner.py, without its mesh and multi-host
-parts): run directory (a new one under ``log_root`` named by the config
-slug, or resume from ``logdir``), data-dependent init of weight-normed
-models, the step loop on one device, metrics every LOG_EVERY steps with the
-conditioning gap, checkpoints every ``ckpt_every_steps`` and at the target,
-a checkpoint on SIGTERM / SIGINT, and an optional torch.profiler window.
+"""Training runs (counterparts of train_wavenet, load_teacher and
+train_parallel_wavenet in nsynth_wavenet_tpu/training/runner.py, without
+their mesh and multi-host parts): the run directory (a new one under
+``log_root`` named by the config slug, or resume from ``logdir``),
+data-dependent init of weight-normed models, the step loop on one device,
+metrics every LOG_EVERY steps, checkpoints every ``ckpt_every_steps`` and at
+the target, a checkpoint on SIGTERM / SIGINT, and an optional torch.profiler
+window.
 
-On resume the state comes from the latest checkpoint and the data iterator
-restarts from its seed, as the JAX runner's does; the dropout masks of a
-step depend on (seed + 2, step) alone.
+On resume the state comes from the latest checkpoint and the data iterators
+restart from their seeds, as the JAX runner's do; a step's random draws
+(the teacher's dropout, the student's noise) depend on (seed + 2, step)
+alone.  The student's run reads a teacher run directory that train_wavenet
+wrote and keeps its power-loss statistics in norm_stats.npz.
 """
 
+import dataclasses
 import glob
 import os
 import shutil
@@ -153,6 +157,13 @@ def _check_device(device):
     return device
 
 
+def _refuse_multi_device(multihost, n_model, n_seq):
+    if multihost or n_model != 1 or n_seq != 1:
+        raise NotImplementedError(
+            "multi-device training (multihost, n_model, n_seq) is not ported yet (ROADMAP Queue 1 "
+            "item 6); run with the defaults")
+
+
 def train_wavenet(
     train_path: str,
     config_path: str = "",
@@ -169,10 +180,7 @@ def train_wavenet(
     device="cuda",
 ):
     """Teacher training on one device; returns (run_dir, state)."""
-    if multihost or n_model != 1 or n_seq != 1:
-        raise NotImplementedError(
-            "multi-device training (multihost, n_model, n_seq) is not ported yet (ROADMAP Queue 1 "
-            "item 6); run with the defaults")
+    _refuse_multi_device(multihost, n_model, n_seq)
     device = _check_device(device)
     from nsynth_wavenet_tpu_torch.models.wavenet import Wavenet
     from nsynth_wavenet_tpu_torch.ops import stft as stft_ops
@@ -207,9 +215,35 @@ def train_wavenet(
 
     step_fn = train_lib.make_wavenet_train_step(model, optimizer)
     cond_gap_fn = train_lib.make_cond_gap_fn(model)
-    writer = logging_utils.MetricsWriter(run_dir)
     it = ds.batch_iterator(total_batch_size, cfg.wave_length, seed=seed)
-    target = num_steps if num_steps is not None else cfg.num_iters
+
+    def run_step(state):
+        wav = torch.from_numpy(next(it)).to(device)
+        state, metrics = step_fn(state, wav, seed + 2)
+        return state, metrics, wav
+
+    def report(state, metrics, wav, m):
+        m["loss"], m["learning_rate"] = float(metrics["loss"]), metrics["learning_rate"]
+        if total_batch_size > 1:
+            m["cond_gap"] = cond_gap_fn(state["params"], wav)
+        log.info("step %d loss %.4f lr %.2e cond_gap %.4f (%.2f steps/s)", state["step"],
+                 m["loss"], m["learning_rate"], m.get("cond_gap", 0.0), m["steps_per_sec"])
+
+    state = _step_loop(run_dir, log, mgr, state, run_step, report, [it],
+                       target=num_steps if num_steps is not None else cfg.num_iters,
+                       ckpt_every_steps=ckpt_every_steps, profile_steps=profile_steps,
+                       batch_size=total_batch_size)
+    return run_dir, state
+
+
+def _step_loop(run_dir, log, mgr, state, run_step, report, iterators, *, target,
+               ckpt_every_steps, profile_steps, batch_size):
+    """Steps until ``target``: run_step(state) -> (state, metrics, wav);
+    every LOG_EVERY steps and at the target report(state, metrics, wav, m)
+    fills m (which holds steps_per_sec and utterances_per_sec) and logs it,
+    and m goes to metrics.jsonl; checkpoints as the module docstring says.
+    Closes the iterators, the metrics writer and train.log's handler."""
+    writer = logging_utils.MetricsWriter(run_dir)
     step = state["step"]
     profiler = Profiler(run_dir, step + 10, profile_steps)
     t_last, s_last = time.time(), step
@@ -221,21 +255,15 @@ def train_wavenet(
                     stopped = True
                     break
                 profiler.maybe_update(step)
-                wav = torch.from_numpy(next(it)).to(device)
-                state, metrics = step_fn(state, wav, seed + 2)
+                state, metrics, wav = run_step(state)
                 step = state["step"]
                 if step % LOG_EVERY == 0 or step == target:
-                    m = {"loss": float(metrics["loss"]), "learning_rate": metrics["learning_rate"]}
                     now = time.time()
                     sps = (step - s_last) / max(now - t_last, 1e-9)
                     t_last, s_last = now, step
-                    m["steps_per_sec"] = sps
-                    m["utterances_per_sec"] = sps * total_batch_size
-                    if total_batch_size > 1:
-                        m["cond_gap"] = cond_gap_fn(state["params"], wav)
+                    m = {"steps_per_sec": sps, "utterances_per_sec": sps * batch_size}
+                    report(state, metrics, wav, m)
                     writer.write(step, m)
-                    log.info("step %d loss %.4f lr %.2e cond_gap %.4f (%.2f steps/s)",
-                             step, m["loss"], m["learning_rate"], m.get("cond_gap", 0.0), sps)
                 if step % ckpt_every_steps == 0 or step == target:
                     mgr.save(step, state)
             if stopped and step % ckpt_every_steps != 0 and step != target:
@@ -243,7 +271,127 @@ def train_wavenet(
                 mgr.save(step, state)
     finally:
         profiler.close()
-        it.close()
+        for it in iterators:
+            it.close()
         writer.close()
         logging_utils.remove_log_file(run_dir)
+    return state
+
+
+def load_teacher(teacher_dir: str, device="cuda"):
+    """(Wavenet with use_as_teacher=True, EMA params of the latest
+    checkpoint) of a teacher run directory written by train_wavenet: the
+    reference restores the teacher from its EMA shadow."""
+    from nsynth_wavenet_tpu_torch.models.wavenet import Wavenet
+    from nsynth_wavenet_tpu_torch.training import checkpoint as ckpt_lib
+
+    cfg = config_lib.load_config(find_config_json(teacher_dir))
+    if not isinstance(cfg, config_lib.WavenetConfig):
+        raise ValueError(f"{teacher_dir} holds a student's config, not a teacher's")
+    cfg = dataclasses.replace(cfg, use_as_teacher=True)
+    ckpt_dir = os.path.join(teacher_dir, "ckpt")
+    state = (ckpt_lib.CheckpointManager(ckpt_dir).restore(device=device)
+             if os.path.isdir(ckpt_dir) else None)
+    if state is None:
+        raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
+    return Wavenet(cfg), state["ema"]
+
+
+def train_parallel_wavenet(
+    train_path: str,
+    teacher_dir: str,
+    config_path: str = "",
+    log_root: str = "",
+    logdir: str = "/tmp/nsynth_pwn_torch",
+    total_batch_size: int = 4,
+    num_steps: int = None,
+    ckpt_every_steps: int = 2000,
+    seed: int = 0,
+    multihost: bool = False,
+    profile_steps: int = 0,
+    n_model: int = 1,
+    n_seq: int = 1,
+    device="cuda",
+):
+    """Student distillation on one device from the teacher run directory
+    ``teacher_dir``; returns (run_dir, state).  A new run restores the
+    teacher, runs the data-dependent init of a weight-normed student on an
+    init batch, then copies the teacher's deconv weights into the student."""
+    _refuse_multi_device(multihost, n_model, n_seq)
+    device = _check_device(device)
+    from nsynth_wavenet_tpu_torch.models.parallel_wavenet import (
+        ParallelWavenet,
+        transplant_teacher_deconv,
+    )
+    from nsynth_wavenet_tpu_torch.ops import stft as stft_ops
+    from nsynth_wavenet_tpu_torch.training import checkpoint as ckpt_lib
+    from nsynth_wavenet_tpu_torch.training import train_lib
+
+    run_dir, cfg, resumed = resolve_run_dir(log_root, logdir, config_path, "parallel_wavenet")
+    log = logging_utils.add_log_file(run_dir)
+    if resumed:
+        log.info("Continue running in %s", run_dir)
+    log.info("\n%s", logging_utils.config_summary(cfg))
+    teacher, te_params = load_teacher(teacher_dir, device)
+    log.info("teacher from %s\n%s", teacher_dir, logging_utils.config_summary(teacher.cfg))
+    pwn = ParallelWavenet(cfg, teacher)
+    ds = data_lib.Dataset(train_path)
+    mgr = ckpt_lib.CheckpointManager(os.path.join(run_dir, "ckpt"))
+    state = mgr.restore(device=device)
+    if state is not None:
+        log.info("Restored checkpoint at step %d", state["step"])
+        params = state["params"]
+    else:
+        params = pwn.init_params(seed, device=device)
+        if cfg.use_weight_norm:
+            log.info("Calculate initial statistics (data-dependent init).")
+            init_wav = ds.get_init_batch(total_batch_size, cfg.wave_length, seed=seed)
+            init_mel = torch.from_numpy(stft_ops.melspectrogram_np(init_wav)).to(device)
+            ff, params = pwn.data_dep_init(params, init_mel,
+                                           train_lib.dropout_generator(seed + 1, 0, device))
+            _init_logging(log, ff["x"].cpu(), "new_x")
+            _init_logging(log, ff["mean_tot"].cpu(), "mean")
+            _init_logging(log, ff["scale_tot"].cpu(), "scale")
+        params = transplant_teacher_deconv(params, te_params)
+    optimizer = train_lib.make_student_optimizer(cfg, params)
+    if state is None:
+        state = train_lib.make_train_state(params, optimizer)
+
+    # the power loss's feature statistics, kept with the run so that a
+    # resumed run uses the same ones
+    norm_stats = None
+    if cfg.norm_feat:
+        stats_path = os.path.join(run_dir, "norm_stats.npz")
+        if os.path.exists(stats_path):
+            with np.load(stats_path) as z:
+                norm_stats = (z["mean"], z["std"])
+        else:
+            log.info("Calculating STFT feature mean/std for power-loss norm.")
+            norm_stats = data_lib.spec_feat_mean_std(train_path, pwn.stft_feat, device=device)
+            np.savez(stats_path, mean=norm_stats[0], std=norm_stats[1])
+
+    step_fn = train_lib.make_pwn_train_step(pwn, te_params, optimizer, norm_stats)
+    # two crop streams, both advanced every step
+    it = ds.batch_iterator(total_batch_size, cfg.wave_length, seed=seed)
+    it_rand = ds.batch_iterator(total_batch_size, cfg.wave_length, seed=seed + 12345)
+
+    def run_step(state):
+        wav = torch.from_numpy(next(it)).to(device)
+        wav_rand = torch.from_numpy(next(it_rand)).to(device)
+        state, metrics = step_fn(state, wav, wav_rand, seed + 2)
+        return state, metrics, wav
+
+    def report(state, metrics, wav, m):
+        m.update({k: float(v) for k, v in metrics.items()})
+        # hpt, the teacher's cross-entropy term of the KL, can fall at smoke
+        # scale where the KL itself is floored by the teacher's own NLL
+        hpt = (" hpt %.4f" % m["H_Ps_Pt"]) if "H_Ps_Pt" in m else ""
+        log.info("step %d loss %.4f kl %.4f power %.4f%s (%.2f steps/s)", state["step"],
+                 m["loss"], m["kl_loss"], m.get("power_loss", float("nan")), hpt,
+                 m["steps_per_sec"])
+
+    state = _step_loop(run_dir, log, mgr, state, run_step, report, [it, it_rand],
+                       target=num_steps if num_steps is not None else cfg.num_iters,
+                       ckpt_every_steps=ckpt_every_steps, profile_steps=profile_steps,
+                       batch_size=total_batch_size)
     return run_dir, state

@@ -1,12 +1,15 @@
-"""The teacher's training step (counterpart of
-nsynth_wavenet_tpu/training/train_lib.py):
+"""The training steps (counterpart of
+nsynth_wavenet_tpu/training/train_lib.py).
 
-    wav crop -> mel on the device -> forward (dropout) -> loss -> autograd
-    -> Adam (optional clip) -> EMA
+Teacher:  wav crop -> mel on the device -> forward (dropout) -> loss ->
+          autograd -> Adam (optional clip) -> EMA
+Student:  wav crops -> mels -> base noise -> IAF flows -> frozen teacher's
+          scoring -> KL (+ power, contrastive) -> autograd -> Adam on the
+          trained leaves -> EMA over every leaf
 
 State: {'params', 'opt_state', 'ema', 'step'}, the params and EMA in the
 reference's pytree layout (f32 master weights whatever the compute dtype).
-The step updates the state's tensors in place and returns the state.
+A step updates the state's tensors in place and returns the state.
 """
 
 import torch
@@ -28,24 +31,35 @@ def make_train_state(params, optimizer: opt_lib.Optimizer):
 
 
 def dropout_generator(seed: int, step: int, device) -> torch.Generator:
-    """The dropout masks' generator of one step, seeded from (seed, step), so
-    that a resumed run draws the masks an uninterrupted one would."""
+    """A step's generator (the teacher's dropout masks, the student's noise),
+    seeded from (seed, step), so that a resumed run draws what an
+    uninterrupted one would."""
     g = torch.Generator(device=device)
     g.manual_seed(((int(seed) & 0xFFFFFFFF) << 32) | (int(step) & 0xFFFFFFFF))
     return g
 
 
-def loss_and_grads(model, params, wav, mel, generator=None):
-    """(loss, grads): the scalar loss tensor and the gradient of every leaf,
-    shaped as params (zeros for a leaf the loss does not reach: the last
-    layer's residual product)."""
+def grads_of(loss_fn, params):
+    """(aux, grads): loss_fn(params) -> a dict holding the scalar 'loss';
+    aux is that dict detached, grads the gradient of every leaf shaped as
+    params (zeros for a leaf the loss does not reach)."""
     flat = tree_lib.leaves(params)
     req = [p.detach().requires_grad_() for p in flat]
     with torch.enable_grad():
-        loss = model.forward_loss(tree_lib.unflatten(params, req), wav, mel, generator)["loss"]
-        grads = torch.autograd.grad(loss, req, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)]
-    return loss.detach(), tree_lib.unflatten(params, grads)
+        aux = loss_fn(tree_lib.unflatten(params, req))
+        grads = torch.autograd.grad(aux["loss"], req, allow_unused=True)
+    # contiguous, as the params and the Adam moments are: a strided gradient
+    # (the deconv's) would send every torch._foreach_* op of the update down
+    # its per-tensor path
+    grads = [torch.zeros_like(p) if g is None else g.contiguous() for p, g in zip(flat, grads)]
+    return {k: v.detach() for k, v in aux.items()}, tree_lib.unflatten(params, grads)
+
+
+def loss_and_grads(model, params, wav, mel, generator=None):
+    """The teacher's (loss, grads); the last layer's residual product gets a
+    zero gradient (the loss does not reach it)."""
+    aux, grads = grads_of(lambda p: model.forward_loss(p, wav, mel, generator), params)
+    return aux["loss"], grads
 
 
 def make_wavenet_train_step(model, optimizer: opt_lib.Optimizer):
@@ -94,3 +108,82 @@ def run_data_dep_init(model, params, wav, mel, generator=None):
     """The data-dependent init pass: (out_params, rescaled params)."""
     ff, new_params = model.data_dep_init(params, wav, mel, generator=generator)
     return ff["out_params"], new_params
+
+
+# ---- the student ---------------------------------------------------------------
+
+
+def student_param_labels(pwn_cfg, params):
+    """'train' / 'freeze' for every leaf, shaped as params: with
+    use_teacher_deconv the shared deconv stack stays at the teacher's
+    weights."""
+    labels = tree_lib.tree_map(lambda _: "train", params)
+    if pwn_cfg.use_teacher_deconv and "deconv_share" in params:
+        labels["deconv_share"] = tree_lib.tree_map(lambda _: "freeze", params["deconv_share"])
+    return labels
+
+
+def make_student_optimizer(pwn_cfg, params) -> opt_lib.MultiTransform:
+    inner = opt_lib.make_optimizer(pwn_cfg.lr_schedule, grad_clip=pwn_cfg.grad_clip)
+    return opt_lib.MultiTransform(inner, student_param_labels(pwn_cfg, params))
+
+
+def student_draws(pwn, generator, batch_size: int, length: int, device) -> dict:
+    """A step's random draws in the reference's order: the base noise
+    'base_x' [B, L], then the KL's and the contrastive term's logistic
+    samples (ParallelWavenet.loss_noise)."""
+    draws = {"base_x": pwn.base_noise(generator, batch_size, length, device)}
+    draws.update(pwn.loss_noise(generator, batch_size, length, device))
+    return draws
+
+
+def student_loss(pwn, teacher_params, params, batch, draws, norm_stats=None):
+    """The distillation loss dict of params on batch {'mel', 'wav'
+    (+ 'mel_rand')} with ``draws`` (student_draws), and the reference's
+    statistics of the sample: new_x, new_x_std, new_x_abs, new_x_abs_std,
+    mean_tot, scale_tot, log_scale_tot."""
+    ff, _ = pwn.feed_forward_train(params, {"mel": batch["mel"], "base_x": draws["base_x"]})
+    ff.update(batch)
+    loss_dict = pwn.calculate_loss(teacher_params, ff, draws, norm_stats)
+    x = ff["x"].detach()
+    loss_dict.update(
+        new_x=x.mean(), new_x_std=x.std(unbiased=False), new_x_abs=x.abs().mean(),
+        new_x_abs_std=x.abs().std(unbiased=False), mean_tot=ff["mean_tot"].detach().mean(),
+        scale_tot=ff["scale_tot"].detach().mean(),
+        log_scale_tot=ff["log_scale_tot"].detach().mean())
+    return loss_dict
+
+
+def make_pwn_train_step(pwn, teacher_params, optimizer, norm_stats=None):
+    """step_fn(state, wav, wav_rand, seed, draws=None) -> (state, metrics).
+
+    wav, wav_rand: [B, wave_length] float audio on the training device;
+    wav_rand feeds the contrastive term's mismatched mel (unused without
+    it).  The draws come from dropout_generator(seed, step) (the runner
+    passes seed + 2) unless ``draws`` gives them (student_draws' keys).
+    metrics: the loss dict as 0-d tensors and 'learning_rate', the schedule
+    at the step before the update."""
+    lr_fn = opt_lib.piecewise_constant_lr(pwn.cfg.lr_schedule)
+    use_cl = pwn.cfg.loss_type == "logistic" and pwn.cfg.contrastive_loss_factor > 0.0
+
+    def step_fn(state, wav, wav_rand, seed, draws=None):
+        step = state["step"]
+        with no_tf32():
+            batch = {"mel": stft_ops.melspectrogram(wav), "wav": wav}
+            if use_cl:
+                batch["mel_rand"] = stft_ops.melspectrogram(wav_rand)
+            if draws is None:
+                draws = student_draws(pwn, dropout_generator(seed, step, wav.device),
+                                      wav.shape[0], pwn.sample_length(batch["mel"].shape[1]),
+                                      wav.device)
+            metrics, grads = grads_of(
+                lambda p: student_loss(pwn, teacher_params, p, batch, draws, norm_stats),
+                state["params"])
+            state["opt_state"] = optimizer.update(grads, state["opt_state"], state["params"])
+            opt_lib.ema_update(state["ema"], state["params"], step)
+        state["step"] = step + 1
+        metrics["learning_rate"] = float(lr_fn(step))
+        return state, metrics
+
+    return step_fn
+

@@ -23,7 +23,7 @@ from nsynth_wavenet_tpu.ops import stft as jstft
 from nsynth_wavenet_tpu_torch import config as tconfig
 from nsynth_wavenet_tpu_torch import weights
 from nsynth_wavenet_tpu_torch.data import wav_io
-from nsynth_wavenet_tpu_torch.evaluation import generate_wavenet
+from nsynth_wavenet_tpu_torch.evaluation import discover_files, generate_wavenet, load_mel_batch
 from nsynth_wavenet_tpu_torch.models.fastgen import Fastgen
 from nsynth_wavenet_tpu_torch.models.wavenet import Wavenet
 from nsynth_wavenet_tpu_torch.ops import fastgen_kernel as fk
@@ -359,18 +359,26 @@ def test_eval_path_row_mode_writes_finite_wavs_from_wav_and_mel_sources(tmp_path
     paths = generate_wavenet(str(src), *args, str(tmp_path / "gen"), device="cpu",
                              sample_length=400, int8=True, streaming_chunk=250)
     assert [os.path.basename(p) for p in paths] == ["gen_utt_0.wav", "gen_utt_1.wav"]
+    # the mel files hold the rows of the very batch the wav-source run made: a
+    # mel computed from a batch of another shape sums in another order, and
+    # the per-row log8 step function turns its last-bit differences into
+    # flips that cascade through the run
     mels = tmp_path / "mels"
     mels.mkdir()
-    wav, _ = wav_io.read_wav(str(src / "utt_0.wav"))
-    np.save(str(mels / "utt_0.npy"), tstft.melspectrogram_np(wav[None, :400])[0])
-    paths += generate_wavenet(str(mels), *args, str(tmp_path / "gen_mel"), device="cpu", int8=True)
-    assert os.path.basename(paths[-1]) == "gen_utt_0.wav"
-    for p in paths:
+    batch = load_mel_batch(discover_files(str(src)), 400)
+    for i, row in enumerate(batch):
+        np.save(str(mels / f"utt_{i}.npy"), row)
+    mel_paths = generate_wavenet(str(mels), *args, str(tmp_path / "gen_mel"), device="cpu",
+                                 int8=True)
+    assert [os.path.basename(p) for p in mel_paths] == ["gen_utt_0.wav", "gen_utt_1.wav"]
+    for p in paths + mel_paths:
         out, sr = wav_io.read_wav(p)
         assert sr == 16000 and out.shape == (600,)
         assert np.isfinite(out).all() and np.abs(out).max() > 0
-    # the same conditioning and seed through the mel file: the one-shot call equals the streamed one
-    np.testing.assert_array_equal(wav_io.read_wav(paths[0])[0], wav_io.read_wav(paths[-1])[0])
+    # the same conditioning and seed through the mel files: the one-shot call
+    # equals the streamed one
+    for streamed, one_shot in zip(paths, mel_paths):
+        np.testing.assert_array_equal(wav_io.read_wav(streamed)[0], wav_io.read_wav(one_shot)[0])
 
 
 def test_golden_freerun_row_mode_tracks_conditioning():

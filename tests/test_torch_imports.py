@@ -23,14 +23,15 @@ def _port_modules():
 
 def test_port_and_chip_smoke_import_no_jax():
     modules = _port_modules() + ["chip_smoke", "eval_wavenet_torch", "eval_parallel_wavenet_torch",
-                                 "train_wavenet_torch", "build_dataset_torch"]
+                                 "train_wavenet_torch", "train_parallel_wavenet_torch",
+                                 "build_dataset_torch"]
     assert "nsynth_wavenet_tpu_torch.ops.fastgen_kernel" in modules
     assert "nsynth_wavenet_tpu_torch.kernels.build" in modules
     assert "nsynth_wavenet_tpu_torch.ops.flow_kernel" in modules
     assert "nsynth_wavenet_tpu_torch.models.parallelgen" in modules
     for name in ("training.optimizer", "training.train_lib", "training.checkpoint",
                  "training.runner", "data.dataset", "data.synthetic", "utils.logging_utils",
-                 "utils.tree"):
+                 "utils.tree", "models.parallel_wavenet", "ops.stft"):
         assert f"nsynth_wavenet_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
