@@ -189,6 +189,44 @@ Phases S1 to S5 distill the student (training/), with T2's run as the teacher:
      B = 8 and B = 8 with remat_teacher, against the step's FLOP bound, with
      a torch.profiler split of one step's device time (student, teacher
      forward and backward, MoL log-probs, STFTs, optimizer).
+Phases 33 to 38 follow S5:
+ 33. the MoL teacher at the full width of configs/wavenet_mol.json with
+     use_resize_conv (nearest-neighbour repeats, then a SAME convolution),
+     random weights from a seed: its encoding on the card against the CPU at
+     B = 2 x 1 s in f32 (TF32 off, cuDNN deterministic) and in bf16,
+     Fastgen.precompute_conditioning on the card against the CPU, phase 2's
+     kernel checks from that encoding at B = 8, L = 256, a sampled
+     generate_cuda at B = 64, L = 2000 in one fastgen_persistent launch, and
+     the resize upsampler timed against the transposed one on the same
+     weights, beside its FLOP bound;
+ 34. the student at the full width of configs/parallel_wavenet.json with
+     use_resize_conv, B = 8 x 4 s: synthesize_cuda's launches by kernel name
+     (6 calls, 60 flow_persist_kernel), and the fused feed-forward against the
+     same path on the plain kernel on the same noise;
+ 35. weight-normed resize-conv teachers cut to 4 layers and a resize-conv
+     Gauss student of flows 2 / 2 under the Gauss one, f32: the
+     data-dependent init on the card against the CPU's, then the gradients
+     and one step from the CPU's init on both, with T1's and S1's limits
+     (the MoL teacher's gradients a reading only), each teacher's gradients
+     also against f64 on the CPU with the first upsampler's pre-activations
+     that land across the leaky ReLU's kink from f64's, and one bf16 step of
+     the Gauss teacher (cuDNN on bf16 operands) that must be finite;
+ 36. Fastgen.generate_from_wav at full width, B = 8, equal bit for bit to the
+     card mel -> generate_cuda with the same seed and batch shape, in one
+     fastgen_persistent launch; parallelgen.synthesize_from_wav equal bit for
+     bit to the card mel -> synthesize_cuda, with 60 flow_persist_kernel
+     launches; evaluation.generate_wavenet(npy_only=True) over a directory of
+     .wav files and .npy mels serving the mels;
+ 37. the JAX package's golden gate (tests/test_golden_regression.py: matched
+     corr > mismatched corr + 0.05 and > the recorded one - 0.2, or - 0.15
+     for the student, and matched MCD < mismatched MCD; utils/quality.py) on
+     the card: tiny_mol through fastgen_persistent in bf16, W8A8 static,
+     per-row and per-row with bf16 res/skip, tiny_ce and tiny_gauss in bf16
+     (one launch a call, after quant_enc_kernel in the int8 modes), and
+     tiny_student through 10 flow_persist_kernel launches;
+ 38. the native crop sampler built by g++ into _build/ and loaded, its crops
+     equal to the numpy gather, and the T2 and S2 runners' train.log naming
+     it as their crop gather.
 Every teacher generate call is one cooperative launch of the persistent
 kernel fastgen_persistent (after quant_enc_kernel in the int8 modes).
 Phases other than 32 run with TF32 off.  The last line is {"ok": true,
@@ -220,6 +258,7 @@ from nsynth_wavenet_tpu_torch.models.parallel_wavenet import (
     transplant_teacher_deconv,
 )
 from nsynth_wavenet_tpu_torch.models.wavenet import Wavenet, no_tf32
+from nsynth_wavenet_tpu_torch.ops import conv as conv_ops
 from nsynth_wavenet_tpu_torch.ops import fastgen_kernel as fk
 from nsynth_wavenet_tpu_torch.ops import flow_kernel as flk
 from nsynth_wavenet_tpu_torch.ops import stft
@@ -227,6 +266,7 @@ from nsynth_wavenet_tpu_torch.training import checkpoint as ckpt_lib
 from nsynth_wavenet_tpu_torch.training import optimizer as opt_lib
 from nsynth_wavenet_tpu_torch.training import runner
 from nsynth_wavenet_tpu_torch.training import train_lib
+from nsynth_wavenet_tpu_torch.utils import quality
 from nsynth_wavenet_tpu_torch.utils import tree as tree_lib
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -2072,13 +2112,14 @@ TRAIN_STEPS = 40  # T2, and the fixed-batch run
 TIMED_TRAIN_STEPS = 10  # T5, after 2 warm-up steps
 
 
-def leaf_err(want, got):
+def leaf_err(want, got, floor=0.0):
     """Largest max |got - want| over the leaves of two trees, each as a share
-    of the leaf's own max |want| (0 where the leaf is all zero on both)."""
+    of the leaf's own max |want|, at least ``floor`` (0 where the leaf is all
+    zero on both)."""
     errs = []
     for w, g in zip(tree_lib.leaves(want), tree_lib.leaves(got)):
         w, g = w.detach().cpu().float(), g.detach().cpu().float()
-        scale = float(w.abs().max())
+        scale = max(float(w.abs().max()), floor)
         errs.append(float((g - w).abs().max()) / scale if scale > 0 else float(g.abs().max()))
     return max(errs)
 
@@ -2379,6 +2420,7 @@ def training_phases(card):
     out = {"T1": t1_card_vs_cpu()}
     with tempfile.TemporaryDirectory() as tmp:
         run_dir, state, out["T2"] = t2_full_training(tmp)
+        out["T2"]["gather"] = runner_gather(run_dir)
         out["T4"] = t4_serve(run_dir, state, tmp)
         del state
         torch.cuda.empty_cache()
@@ -2388,6 +2430,7 @@ def training_phases(card):
         t0 = time.time()
         out["S1"] = s1_card_vs_cpu()
         s_run, s_state, out["S2"] = s2_full_distillation(tmp, run_dir)
+        out["S2"]["gather"] = runner_gather(s_run)
         out["S4"] = s4_serve(s_run, s_state, tmp)
         del s_state
         torch.cuda.empty_cache()
@@ -2798,6 +2841,555 @@ def s5_timing(card, teacher_dir):
     return rows
 
 
+# ---- 33-38: resize-conv upsampling, serving from wavs, the golden gate, the native sampler ----
+
+# the f32 resize-conv encoding on the card against the CPU, as a share of
+# max |CPU|: the same f32 FMAs in another summation order (up to 80 taps x
+# 256 channels a sum) with TF32 off.  In bf16 each layer's output is rounded
+# to bf16 on both sides, so a value may land one bf16 step (up to 2^-7 of the
+# largest value) away, and a flip in the first layer moves the second by a
+# little more: two steps.
+RESIZE_F32_REL_TOL = 1e-4
+RESIZE_BF16_REL_TOL = 2.0 ** -6
+RESIZE_TEACHER_BATCH = 64  # and MAIN_LENGTH samples
+RESIZE_STUDENT_BATCH = 8  # x STUDENT_SAMPLES: the resize conv is some 20x the transposed conv's work
+# (head, label, generate_cuda options) of phase 37: every serving mode on tiny_mol
+GATE_MODES = (("mol", "bf16", {}),
+              ("mol", "w8a8_static", dict(weight_dtype="int8", gate_static=True)),
+              ("mol", "w8a8_row", dict(weight_dtype="int8")),
+              ("mol", "w8a8_row_rs_bf16", dict(weight_dtype="int8", rs_dtype="bf16")),
+              ("ce", "bf16", {}), ("gauss", "bf16", {}))
+GATE_SAMPLES = 8000  # tests/test_golden_regression.py's teacher free run
+
+
+def upsampler_flops(cfg, frames, B, resize):
+    """Multiply-adds x 2 of the deconv stack over B mels of ``frames`` frames:
+    a transposed conv takes ceil(fl / stride) taps an output sample, a resize
+    conv all fl taps on the repeated input."""
+    flops, t, cin = 0.0, frames, stft.MEL_PARAMS.num_mel
+    for fl, stride in cfg.deconv_config:
+        t *= stride
+        taps = fl if resize else -(-fl // stride)
+        flops += 2.0 * B * t * taps * cin * cfg.deconv_width
+        cin = cfg.deconv_width
+    return flops
+
+
+def require_ar_launches(label, calls, counted, want_calls, want_kernels):
+    log(f"{label}: generate calls {calls}, CUDA launches {counted}")
+    require(calls == want_calls and counted == want_kernels,
+            f"{label}: launches {calls} / {counted}, want {want_calls} / {want_kernels}")
+
+
+def reset_ar_counts():
+    fk.generate.launches = 0
+    fk.generate.kernel_launches = dict.fromkeys(fk.KERNEL_NAMES, 0)
+
+
+def ar_counts():
+    return fk.generate.launches, {k: n for k, n in fk.generate.kernel_launches.items() if n}
+
+
+def enc_err(label, card, cpu, rel_tol):
+    err = float((card.float().cpu() - cpu.float()).abs().max())
+    scale = float(cpu.float().abs().max())
+    log(f"{label}: max|d| card-CPU {err:.3e}, scale {scale:.3f}, limit {rel_tol * scale:.3e} "
+        f"({rel_tol:g} x scale)")
+    require(err <= rel_tol * scale, f"{label}: card and CPU differ")
+    return err / scale
+
+
+def resize_teacher_phase(card):
+    """Phase 33: the MoL teacher at full width with resize-conv upsampling."""
+    model, params, kw = full_model("configs/wavenet_mol.json", seed=3, use_resize_conv=True)
+    cfg = model.cfg
+    out = {}
+    mel = stft.melspectrogram(torch.from_numpy(synthetic_wavs(2, 16000, 33)).cuda())
+    m32 = Wavenet(dataclasses.replace(cfg, compute_dtype="float32"))
+    cpu_params = to_device(params, "cpu")
+    with deterministic_cudnn(), no_tf32():
+        out["enc_f32"] = enc_err("33 resize encoding f32 B=2 x 1 s", m32.deconv_stack(params, mel),
+                                 m32.deconv_stack(cpu_params, mel.cpu()), RESIZE_F32_REL_TOL)
+        out["enc_bf16"] = enc_err("33 resize encoding bf16 B=2 x 1 s", model.deconv_stack(params, mel),
+                                  model.deconv_stack(cpu_params, mel.cpu()), RESIZE_BF16_REL_TOL)
+        # a quarter second of conditioning: [30, 2, 4 200, 512] f32 on the CPU
+        conds = zip(("encoding", "cond", "cond_out1"),
+                    Fastgen(m32).precompute_conditioning(params, mel[:, :21]),
+                    Fastgen(m32).precompute_conditioning(cpu_params, mel[:, :21].cpu()))
+        out["conditioning"] = max(enc_err(f"33 precompute_conditioning {name}", g, c,
+                                          RESIZE_F32_REL_TOL) for name, g, c in conds)
+    del cpu_params
+    out["kernel_err"], _ = check_kernel("33 resize mol full width", cfg, kw,
+                                        conditioning(model, params, B=8, L=256, seed=34), seed=5,
+                                        rel_tol=FULL_WIDTH_REL_TOL)
+
+    B = RESIZE_TEACHER_BATCH
+    mel = stft.melspectrogram(torch.from_numpy(synthetic_wavs(B, MAIN_LENGTH, 35)).cuda())
+    fg = Fastgen(model)
+    fg.generate_cuda(params, mel, seed=0, length=16, kw=kw)  # warm-up
+    torch.cuda.synchronize()
+    reset_ar_counts()
+    t0 = time.time()
+    audio = fg.generate_cuda(params, mel, seed=1, length=MAIN_LENGTH, kw=kw)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    calls, counted = ar_counts()
+    require_ar_launches(f"33 resize main path B={B} L={MAIN_LENGTH}", calls, counted, 1,
+                        {"fastgen_persistent": 1})
+    require(tuple(audio.shape) == (B, MAIN_LENGTH) and bool(torch.isfinite(audio).all())
+            and float(audio.abs().max()) <= 1.0, "33 resize main path audio")
+    log(f"33 resize main path B={B} L={MAIN_LENGTH}: {dt:.3f} s with the upsampler, audio std "
+        f"{float(audio.std()):.4f}")
+    out["launches"] = calls
+
+    # the upsampler alone, resize against transposed on the same weights (the
+    # kernels of both are [fl, in, out]), in the model's arithmetic: operands
+    # rounded to bf16, f32 products with TF32 off
+    trans = Wavenet(dataclasses.replace(cfg, use_resize_conv=False))
+    frames = mel.shape[1]
+    resize_ms = cuda_ms(lambda: model.deconv_stack(params, mel))
+    trans_ms = cuda_ms(lambda: trans.deconv_stack(params, mel))
+    fl_resize, fl_trans = (upsampler_flops(cfg, frames, B, r) for r in (True, False))
+    bound_ms = 1e3 * fl_resize / PEAK_F32_FLOPS
+    log(f"33 upsampler B={B} x {frames} frames ({frames * cfg.frame_shift} samples): resize "
+        f"{resize_ms:.2f} ms ({fl_resize / 1e12:.2f} TFLOP, bound {bound_ms:.2f} ms at the f32 "
+        f"peak, {1e3 * fl_resize / PEAK_BF16_FLOPS:.2f} ms at the bf16 peak; "
+        f"{fl_resize / resize_ms / 1e9:.1f} TFLOP/s), transposed {trans_ms:.2f} ms "
+        f"({fl_trans / 1e12:.3f} TFLOP, bound {1e3 * fl_trans / PEAK_F32_FLOPS:.2f} ms); "
+        f"{card}")
+    out.update(resize_ms=resize_ms, transposed_ms=trans_ms, bound_ms=bound_ms,
+               tflop=fl_resize / 1e12)
+    return out
+
+
+def resize_student_phase():
+    """Phase 34: the student at full width with resize-conv upsampling."""
+    pwn, params = student_model(seed=4, use_resize_conv=True)
+    cfg = pwn.cfg
+    B = RESIZE_STUDENT_BATCH
+    mel = stft.melspectrogram(torch.from_numpy(synthetic_wavs(B, STUDENT_SAMPLES, 36)).cuda())
+    L = pwn.sample_length(mel.shape[1])
+    cycles = sum(-(-n // cfg.num_stages) for n in cfg.num_iaf_layers)
+    parallelgen.synthesize_cuda(pwn, params, mel[:, :6], torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()  # warm-up
+    reset_flow_counts()
+    t0 = time.time()
+    audio = parallelgen.synthesize_cuda(pwn, params, mel, torch.Generator().manual_seed(1))
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    calls, counted = flk.flow_stack.launches, dict(flk.flow_stack.kernel_launches)
+    log(f"34 resize student B={B} L={L}: {1e3 * dt:.1f} ms, flow_stack calls {calls} (want "
+        f"{cycles}), CUDA launches {counted}; audio std {float(audio.std()):.4f}")
+    require(calls == cycles, "34: flow_stack calls")
+    require_launches("34 resize student", counted,
+                     {k: n * cycles for k, n in flk.predicted_launches(cfg.width, cfg.num_stages,
+                                                                        False).items()})
+    require(tuple(audio.shape) == (B, L) and bool(torch.isfinite(audio).all())
+            and float(audio.abs().max()) <= 1.0, "34 resize student audio")
+    inputs = {"mel": mel, "base_x": pwn.base_noise(torch.Generator().manual_seed(9), B, L, "cuda")}
+    with deterministic_cudnn():  # one encoding for both runs
+        ff_k = parallelgen.feed_forward_cuda(pwn, params, inputs)
+        ff_p = with_plain_flow_kernel(lambda: parallelgen.feed_forward_cuda(pwn, params, inputs))
+    worst = 0.0
+    for k in ("x", "mean_tot", "scale_tot", "log_scale_tot"):
+        err = float((ff_k[k] - ff_p[k]).abs().max())
+        scale = max(float(ff_p[k].abs().max()), 1e-3)
+        log(f"34 resize student feed-forward {k}: max|d| kernel-plain {err:.3e}, scale {scale:.3e}, "
+            f"limit {STUDENT_REL_TOL * scale:.3e}")
+        require(err <= STUDENT_REL_TOL * scale, f"34 resize student feed-forward {k} differs")
+        worst = max(worst, err / scale)
+    return {"launches": calls, "kernel_launches": counted["flow_persist_kernel"], "ff_err": worst,
+            "ms": 1e3 * dt}
+
+
+@contextlib.contextmanager
+def first_upsampler_taps(store):
+    """Inside the block, keep the first resize conv's output (its
+    pre-activation, 'pre') and the gradient reaching its activation's output
+    ('dx', at the second resize conv's input), as f64 on the CPU."""
+    real = conv_ops.resize_conv1d
+
+    def tap(params, x, **kw):
+        y = real(params, x, **kw)
+        if not store:
+            store["pre"] = y.detach().double().cpu()
+        elif "dx" not in store and x.requires_grad:
+            x.register_hook(lambda g: store.__setitem__("dx", g.detach().double().cpu()))
+        return y
+
+    conv_ops.resize_conv1d = tap
+    try:
+        yield
+    finally:
+        conv_ops.resize_conv1d = real
+
+
+@contextlib.contextmanager
+def conv_kernels_of(device):
+    """On the card, the names of the cuDNN convolution kernels (and any FFT
+    kernel) that ran inside the block, filled in at its end, by
+    torch.profiler; elsewhere an empty list."""
+    names = []
+    if device != "cuda":
+        yield names
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        yield names
+        torch.cuda.synchronize()
+    names += sorted({evt.key[:90] for evt in prof.key_averages()
+                     if any(k in evt.key.lower() for k in ("conv", "grad", "fft", "winograd"))})
+
+
+def kink_readings(taps, layer, slope):
+    """Where the first upsampler's gain gradient parts from f64: the
+    pre-activations that sit on the other side of 0 from the f64 run's (so
+    that the leaky ReLU's derivative is 1 on one side and ``slope`` on the
+    other), and the gain gradient rebuilt from each run's own tensors with
+    its own derivative mask and with the f64 run's, each against f64.
+    taps: {run: first_upsampler_taps' store}, 'f64' among them."""
+    g = layer["g"].detach().double().cpu()
+    b = layer["b"].detach().double().cpu()
+    ref = taps["f64"]
+
+    def gain_grad(t, mask_of):
+        gy = t["dx"] * torch.where(mask_of["pre"] > 0, 1.0, slope)
+        return (gy * (t["pre"] - b) / g).sum(dim=(0, 1))
+
+    want = gain_grad(ref, ref)
+    scale = float(want.abs().max())
+    out = {}
+    for run in ("card", "cpu"):
+        t = taps[run]
+        flipped = (t["pre"] > 0) != (ref["pre"] > 0)
+        near = float(ref["pre"][flipped].abs().max()) if bool(flipped.any()) else 0.0
+        out[run] = {"flipped": int(flipped.sum()),
+                    "largest_flipped_pre": near / float(ref["pre"].abs().max()),
+                    "own_mask": float((gain_grad(t, t) - want).abs().max()) / scale,
+                    "f64_mask": float((gain_grad(t, ref) - want).abs().max()) / scale}
+    return out
+
+
+def resize_teacher_step(head, gated=True):
+    """A weight-normed resize-conv teacher with the ``head`` loss, cut to 4
+    layers, f32, TF32 off: the data-dependent init on the card and on the
+    CPU, then the gradients from one point, the CPU's init, on the card, on
+    the CPU and in f64 on the CPU, and (gated) one step on the card and on
+    the CPU.  Returns (readings, model, the CPU's init, the card's loss): the
+    distances card-CPU (DDI, loss, gradients, update), card-f64 and CPU-f64
+    over all leaves and on the leaf where card and CPU part most, and
+    kink_readings of the first upsampler.  ``gated``: hold the card to the
+    CPU with T1's limits; else the distances are a reading only."""
+    cfg = config_lib.load_config(os.path.join(REPO, f"configs/wavenet_{head}.json"), num_layers=4,
+                                 compute_dtype="float32", dropout_inputs=False,
+                                 use_resize_conv=True, use_weight_norm=True)
+    model = Wavenet(cfg)
+    params = model.init_params(0, device="cpu")
+    wav = torch.from_numpy(synthetic_wavs(2, cfg.wave_length, 37))
+    ddi = {}
+    for device in ("cuda", "cpu") if gated else ("cpu",):
+        w = wav.to(device)
+        with no_tf32():
+            _, ddi[device] = train_lib.run_data_dep_init(model, to_device(params, device), w,
+                                                         stft.melspectrogram(w))
+    p = ddi["cpu"]
+    res, taps = {}, {}
+    for run, device, dtype in (("card", "cuda", torch.float32), ("cpu", "cpu", torch.float32),
+                               ("f64", "cpu", torch.float64)):
+        w = wav.to(device, dtype)
+        p_d = tree_lib.tree_map(lambda t: t.detach().to(device, dtype), p)
+        taps[run] = {}
+        with no_tf32():
+            mel = stft.melspectrogram(w)
+            with first_upsampler_taps(taps[run]), conv_kernels_of(device) as convs:
+                loss, grads = train_lib.loss_and_grads(model, p_d, w, mel)
+            tf32 = (torch.backends.cudnn.allow_tf32, getattr(
+                getattr(torch.backends.cudnn, "conv", None), "fp32_precision", None))
+        if device == "cuda":
+            log(f"35 resize teacher ({head}) on the card under no_tf32: cudnn.allow_tf32 "
+                f"{tf32[0]}, cudnn.conv.fp32_precision {tf32[1]}; the convolution kernels of "
+                f"the step's forward and backward: {convs}")
+        state = None
+        if gated and dtype == torch.float32:
+            optimizer = opt_lib.make_optimizer(cfg.lr_schedule)
+            state, _ = train_lib.make_wavenet_train_step(model, optimizer)(
+                train_lib.make_train_state(p_d, optimizer), w)
+        res[run] = (float(loss), grads, state)
+    (l_g, g_g, s_g), (l_c, g_c, s_c), (_, g_64, _) = res["card"], res["cpu"], res["f64"]
+    fg, fc, f64 = (weights.flatten(t) for t in (g_g, g_c, g_64))
+    worst = max(((leaf_err([fc[k]], [fg[k]]), k, leaf_err([f64[k]], [fg[k]]),
+                  leaf_err([f64[k]], [fc[k]])) for k in fg), key=lambda r: r[0])
+    out = {"loss_rel": abs(l_g - l_c) / max(abs(l_c), 1.0), "grad": leaf_err(g_c, g_g),
+           "grad_card_f64": leaf_err(g_64, g_g), "grad_cpu_f64": leaf_err(g_64, g_c),
+           "worst_leaf": worst[1], "worst_card_f64": worst[2], "worst_cpu_f64": worst[3],
+           "kink": kink_readings(taps, p["deconv"]["up_1"], 0.4)}
+    log(f"35 resize teacher ({head}, 4 layers, weight norm, f32) from the CPU's init, card vs "
+        f"CPU: loss rel {out['loss_rel']:.2e}, gradients {out['grad']:.3e}; card-f64 "
+        f"{out['grad_card_f64']:.3e}, CPU f32-f64 {out['grad_cpu_f64']:.3e}; the leaf furthest "
+        f"card-CPU {worst[1]}: card-f64 {worst[2]:.3e}, CPU f32-f64 {worst[3]:.3e}")
+    for run, k in out["kink"].items():
+        log(f"35 resize teacher ({head}) first upsampler, {run}: {k['flipped']} pre-activations "
+            f"across 0 from f64's (the largest {k['largest_flipped_pre']:.2e} of max |pre|); the "
+            f"gain gradient rebuilt with its own leaky-ReLU mask {k['own_mask']:.3e} from f64, "
+            f"with f64's mask {k['f64_mask']:.3e}")
+    if not gated:
+        return out, model, p, l_g
+    out["ddi"] = leaf_err(ddi["cpu"], ddi["cuda"], floor=1e-2)  # b = -mean * scale: roundoff at mean 0
+    out["params"] = update_err(p, s_c["params"], s_g["params"], g_c)
+    out["ema"] = update_err(p, s_c["ema"], s_g["ema"], g_c)
+    log(f"35 resize teacher ({head}) card vs CPU: DDI params max {out['ddi']:.3e} of a leaf's "
+        f"scale (at least 1e-2), loss rel {out['loss_rel']:.2e}, gradients {out['grad']:.3e}, "
+        f"params after Adam {out['params']:.3e}, EMA {out['ema']:.3e} (limits "
+        f"{TRAIN_GRAD_REL_TOL:.0e}, {TRAIN_LOSS_REL_TOL:.0e}, {TRAIN_GRAD_REL_TOL:.0e}, "
+        f"{TRAIN_UPDATE_REL_TOL:.0e})")
+    require(out["ddi"] <= TRAIN_GRAD_REL_TOL and out["loss_rel"] <= TRAIN_LOSS_REL_TOL
+            and out["grad"] <= TRAIN_GRAD_REL_TOL
+            and max(out["params"], out["ema"]) <= TRAIN_UPDATE_REL_TOL,
+            f"35: the resize-conv {head} teacher's init and step differ between card and CPU")
+    return out, model, p, l_g
+
+
+def resize_training_phase():
+    """Phase 35, f32, TF32 off, card against CPU with T1's and S1's limits:
+    weight-normed resize-conv teachers cut to 4 layers, MoL and Gauss (the
+    data-dependent init, then one step from one point, as T1), a
+    weight-normed resize-conv Gauss student of flows 2 / 2 under the Gauss
+    teacher (the init), and the same student without weight norm (one step,
+    as S1).  A weight-normed student's freshly rescaled leaves take
+    roundoff-sized gradients, which Adam steps by the learning rate whatever
+    their size, so its step is taken without weight norm."""
+    out = {}
+    out["teacher_mol"], *_ = resize_teacher_step("mol", gated=False)
+    out["teacher"], model, p_c, l_g = resize_teacher_step("gauss")
+    cfg = model.cfg
+    wav = torch.from_numpy(synthetic_wavs(2, cfg.wave_length, 37))
+    # the bf16 training forward hands cuDNN bf16 operands (conv1d native=True)
+    bmodel = Wavenet(dataclasses.replace(cfg, compute_dtype="bfloat16"))
+    optimizer = opt_lib.make_optimizer(cfg.lr_schedule)
+    _, metrics = train_lib.make_wavenet_train_step(bmodel, optimizer)(
+        train_lib.make_train_state(to_device(p_c, "cuda"), optimizer), wav.cuda())
+    log(f"35 resize teacher bf16 step on the card: loss {float(metrics['loss']):.4f} (f32 {l_g:.4f})")
+    require(bool(torch.isfinite(metrics["loss"])), "35: the bf16 resize-conv step is not finite")
+
+    teacher = Wavenet(dataclasses.replace(cfg, use_weight_norm=False, use_as_teacher=True))
+    te_cpu = teacher.init_params(0, device="cpu")
+    wav_rand = torch.from_numpy(synthetic_wavs(2, cfg.wave_length, 38))
+    res = {}
+    for device in ("cuda", "cpu"):
+        te = to_device(te_cpu, device)
+        mel = stft.melspectrogram(wav.to(device))
+        row = []
+        for wn in (True, False):
+            scfg = config_lib.load_config(os.path.join(REPO, "configs/parallel_wavenet_gauss.json"),
+                                          num_iaf_layers=(2, 2), compute_dtype="float32",
+                                          use_resize_conv=True, use_weight_norm=wn)
+            pwn = ParallelWavenet(scfg, teacher)
+            p = pwn.init_params(1, device=device)
+            L = pwn.sample_length(mel.shape[1])
+            draws = train_lib.student_draws(pwn, torch.Generator().manual_seed(5), 2, L, "cpu")
+            draws = {k: v.to(device) for k, v in draws.items()}
+            if wn:
+                _, p = pwn.data_dep_init(p, mel, base_x=draws["base_x"])
+                row.append(p)
+                continue
+            p = transplant_teacher_deconv(p, te)
+            tap = GradTap(train_lib.make_student_optimizer(scfg, p))
+            state, metrics = train_lib.make_pwn_train_step(pwn, te, tap)(
+                train_lib.make_train_state(p, tap), wav.to(device), wav_rand.to(device), None,
+                draws=draws)
+            row += [p, metrics, tap.grads, state]
+        res[device] = row
+    (d_g, p_g, m_g, g_g, s_g), (d_c, p_c, m_c, g_c, s_c) = res["cuda"], res["cpu"]
+    ddi_err, grad_err = leaf_err(d_c, d_g, floor=1e-2), leaf_err(g_c, g_g)
+    metric_err = max(abs(float(m_g[k]) - float(m_c[k])) / max(abs(float(m_c[k])), 1.0) for k in m_c)
+    p_err = update_err(p_c, s_c["params"], s_g["params"], g_c)
+    e_err = update_err(p_c, s_c["ema"], s_g["ema"], g_c)
+    log(f"35 resize student (gauss + power, flows 2/2, f32) card vs CPU: DDI params (weight "
+        f"norm) max {ddi_err:.3e}; step: metrics max rel {metric_err:.2e}, gradients "
+        f"{grad_err:.3e}, params after Adam {p_err:.3e}, EMA {e_err:.3e}")
+    require(ddi_err <= TRAIN_GRAD_REL_TOL and metric_err <= TRAIN_LOSS_REL_TOL
+            and grad_err <= TRAIN_GRAD_REL_TOL and max(p_err, e_err) <= TRAIN_UPDATE_REL_TOL,
+            "35: the resize-conv student's init and step differ between card and CPU")
+    out["student"] = {"ddi": ddi_err, "metrics_rel": metric_err, "grad": grad_err,
+                      "params": p_err, "ema": e_err}
+    return out
+
+
+def from_wav_phase(tmp):
+    """Phase 36: synthesis from raw wavs at full width, and npy_only."""
+    out = {}
+    model, params, kw = full_model("configs/wavenet_mol.json")
+    fg = Fastgen(model)
+    wav = torch.from_numpy(synthetic_wavs(8, 8000, 39)).cuda()
+    with deterministic_cudnn():  # one encoding for both runs
+        reset_ar_counts()
+        got = fg.generate_from_wav(params, wav, 3, length=2000, kw=kw)
+        torch.cuda.synchronize()
+        calls, counted = ar_counts()
+        want = fg.generate_cuda(params, stft.melspectrogram(wav), 3, length=2000, kw=kw)
+    require_ar_launches("36 Fastgen.generate_from_wav B=8 L=2000", calls, counted, 1,
+                        {"fastgen_persistent": 1})
+    same = bool(torch.equal(got, want))
+    log(f"36 generate_from_wav equal bit for bit to the card mel -> generate_cuda: {same}; audio "
+        f"std {float(got.std()):.4f}")
+    require(same and bool(torch.isfinite(got).all()), "36: generate_from_wav differs")
+    out["teacher_launches"] = calls
+    del model, params, kw, fg
+
+    pwn, sparams = student_model(seed=5)
+    cycles = sum(-(-n // pwn.cfg.num_stages) for n in pwn.cfg.num_iaf_layers)
+    swav = torch.from_numpy(synthetic_wavs(8, 16000, 40)).cuda()
+    with deterministic_cudnn():
+        got, counted = kernel_launches_of(lambda: parallelgen.synthesize_from_wav(
+            pwn, sparams, swav, torch.Generator().manual_seed(4)))
+        want = parallelgen.synthesize_cuda(pwn, sparams, stft.melspectrogram(swav),
+                                           torch.Generator().manual_seed(4))
+    require_launches("36 parallelgen.synthesize_from_wav B=8 x 1 s", counted,
+                     {k: n * cycles for k, n in flk.predicted_launches(
+                         pwn.cfg.width, pwn.cfg.num_stages, False).items()})
+    same = bool(torch.equal(got, want))
+    log(f"36 synthesize_from_wav equal bit for bit to the card mel -> synthesize_cuda: {same}; "
+        f"CUDA launches {counted}")
+    require(same and bool(torch.isfinite(got).all()), "36: synthesize_from_wav differs")
+    out["student_launches"] = counted["flow_persist_kernel"]
+    del pwn, sparams
+
+    gdir = os.path.join(GOLDEN, "tiny_mol")
+    src = os.path.join(tmp, "npy_src")
+    os.makedirs(src)
+    wavs = synthetic_wavs(2, 1000, 41)
+    for i, w in enumerate(wavs):
+        wav_io.write_wav(os.path.join(src, f"utt_{i}.wav"), w)
+    mels = stft.melspectrogram_np(wavs[:, :600])  # 4 frames
+    np.save(os.path.join(src, "mel_a.npy"), mels[0])
+    np.save(os.path.join(src, "mel_b.npy"), mels[1, :3])
+    reset_ar_counts()
+    paths = generate_wavenet(src, os.path.join(gdir, "params.npz"), os.path.join(gdir, "meta.json"),
+                             os.path.join(tmp, "npy_gen"), device="cuda", npy_only=True)
+    calls, counted = ar_counts()
+    names = [os.path.basename(p) for p in paths]
+    lengths = [len(wav_io.read_wav(p)[0]) for p in paths]
+    log(f"36 generate_wavenet(npy_only=True) over 2 wavs and 2 .npy mels: wrote {names}, "
+        f"{lengths} samples; generate calls {calls}, CUDA launches {counted}")
+    require(names == ["gen_mel_a.wav", "gen_mel_b.wav"] and lengths == [800, 800]
+            and calls == 1 and counted == {"fastgen_persistent": 1}, "36: npy_only")
+    return out
+
+
+def gate_phase(card):
+    """Phase 37: the JAX package's golden gate (tests/test_golden_regression.py)
+    on the card: every serving mode of the AR kernel on tiny_mol, bf16 on
+    tiny_ce and tiny_gauss, and the golden student through the flow kernel."""
+    readings = {}
+    calls_total, launches_total = 0, {}
+    for head, mode, kw in GATE_MODES:
+        d = os.path.join(GOLDEN, f"tiny_{head}")
+        with open(os.path.join(d, "meta.json")) as f:
+            meta = json.load(f)
+        model = Wavenet(config_lib.load_config(os.path.join(d, "meta.json")))
+        params = weights.load_npz(os.path.join(d, "params.npz"), device="cuda")
+        fg = Fastgen(model)
+        mels, wavs = quality.eval_mels(meta["eval_seeds"][:2])
+        mels = mels[:, : 1 + GATE_SAMPLES // model.cfg.frame_shift]
+        if mode == "w8a8_static":
+            kw = dict(kw, act_amax=fg.calibrate_act_amax(
+                params, torch.from_numpy(wavs).cuda(),
+                torch.from_numpy(stft.melspectrogram_np(wavs)).cuda()))
+        reset_ar_counts()
+        audio = fg.generate_cuda(params, torch.from_numpy(mels).cuda(), seed=7, **kw).cpu().numpy()
+        calls, counted = ar_counts()
+        want = {"fastgen_persistent": 1, **({"quant_enc_kernel": 1} if mode != "bf16" else {})}
+        require_ar_launches(f"37 gate {head} {mode}", calls, counted, 1, want)
+        calls_total += calls
+        for k, n in counted.items():
+            launches_total[k] = launches_total.get(k, 0) + n
+        require(np.isfinite(audio).all() and np.abs(audio).max() <= 1.0, f"37 {head} {mode} audio")
+        mt = quality.mel_track_metrics(audio, mels, GATE_SAMPLES)
+        ok, reading = quality.golden_gate(mt, meta["matched_corr"], quality.TEACHER_MARGIN)
+        log(f"37 gate tiny_{head} {mode}: {reading}; {card}")
+        require(ok, f"37: tiny_{head} {mode} fails the golden gate")
+        readings[f"{head}_{mode}"] = {"matched_corr": mt["corr"][0], "mismatched_corr": mt["corr"][1],
+                                      "gate": meta["matched_corr"] - quality.TEACHER_MARGIN,
+                                      "mcd": mt["mcd"], "generate_calls": calls,
+                                      "kernel_launches": counted}
+    readings["teacher_generate_calls"] = calls_total
+    readings["teacher_kernel_launches"] = launches_total
+    pwn, sparams, sdir = golden_student()
+    cycles = sum(-(-n // pwn.cfg.num_stages) for n in pwn.cfg.num_iaf_layers)
+    with open(os.path.join(sdir, "meta.json")) as f:
+        meta = json.load(f)
+    mels, _ = quality.eval_mels(meta["eval_seeds"])
+    audio, counted = kernel_launches_of(lambda: parallelgen.synthesize_cuda(
+        pwn, sparams, torch.from_numpy(mels).cuda(), torch.Generator().manual_seed(7)))
+    audio = audio.cpu().numpy()
+    require_launches("37 gate tiny_student", counted,
+                     {k: n * cycles for k, n in flk.predicted_launches(
+                         pwn.cfg.width, pwn.cfg.num_stages, False).items()})
+    log(f"37 gate tiny_student: CUDA launches {counted}")
+    require(np.isfinite(audio).all() and np.abs(audio).max() <= 1.0, "37 tiny_student audio")
+    mt = quality.mel_track_metrics(audio, mels, meta["gen_samples"])
+    ok, reading = quality.golden_gate(mt, meta["matched_corr"], quality.STUDENT_MARGIN)
+    log(f"37 gate tiny_student: {reading}; {card}")
+    require(ok, "37: tiny_student fails the golden gate")
+    readings["student"] = {"matched_corr": mt["corr"][0], "mismatched_corr": mt["corr"][1],
+                           "gate": meta["matched_corr"] - quality.STUDENT_MARGIN, "mcd": mt["mcd"],
+                           "kernel_launches": counted}
+    return readings
+
+
+def runner_gather(run_dir):
+    """The crop gather a runner names in its train.log."""
+    with open(os.path.join(run_dir, "train.log")) as f:
+        return re.findall(r"crop gather: (.*)", f.read())
+
+
+def native_sampler_phase(tmp, trained):
+    """Phase 38: the native crop sampler built by g++ into _build/, its crops
+    equal to the numpy gather, and T2's and S2's runners gathering with it."""
+    from nsynth_wavenet_tpu_torch.data import dataset as data_lib
+    from nsynth_wavenet_tpu_torch.data.native import native as native_lib
+
+    t0 = time.time()
+    lib = native_lib.load()
+    path = native_lib.library_path()
+    log(f"38 native sampler: {'loaded' if lib is not None else 'NOT built'} "
+        f"{os.path.relpath(path, REPO)} ({time.time() - t0:.2f} s)")
+    require(lib is not None and path.parent == build.BUILD_DIR, "38: the native sampler did not build")
+    ds = speechlike_dataset(os.path.join(tmp, "native_ds"), n_utts=8)
+    a, b = data_lib.Dataset(ds), data_lib.Dataset(ds, use_native=False)
+    require(a.native and not b.native, "38: Dataset did not take the native sampler")
+    for seed, (B, n) in enumerate(((4, 7680), (64, 7680), (300, 16000))):
+        require(np.array_equal(a.random_crop_batch(np.random.default_rng(seed), B, n),
+                               b.random_crop_batch(np.random.default_rng(seed), B, n)),
+                f"38: native crops B={B} x {n} differ from numpy's")
+    for xa, xb in zip(a.sequential_batches(3, 40000), b.sequential_batches(3, 40000)):
+        require(np.array_equal(xa, xb), "38: native sequential batches differ")
+    out = {"crops_equal": True}
+    for name in ("T2", "S2"):
+        gather = trained[name]["gather"]
+        log(f"38 {name} runner's train.log: crop gather {gather}")
+        require(gather == ["the native C++ sampler"], f"38: the {name} runner did not gather natively")
+        out[name] = gather[0]
+    return out
+
+
+def serving_leftover_phases(card, trained):
+    """Phases 33 to 38, after the training phases."""
+    t0 = time.time()
+    out = {"33": resize_teacher_phase(card)}
+    torch.cuda.empty_cache()
+    out["34"] = resize_student_phase()
+    torch.cuda.empty_cache()
+    out["35"] = resize_training_phase()
+    with tempfile.TemporaryDirectory() as tmp:
+        out["36"] = from_wav_phase(tmp)
+        out["37"] = gate_phase(card)
+        out["38"] = native_sampler_phase(tmp, trained)
+    log(f"phases 33-38: {time.time() - t0:.1f} s")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2937,6 +3529,11 @@ def main():
     torch.cuda.empty_cache()
     trained = training_phases(smi)
     flow_rec["launches_distill_serve"] = trained["S4"]["kernel_launches"]["flow_persist_kernel"]
+    torch.cuda.empty_cache()
+    leftover = serving_leftover_phases(smi, trained)
+    flow_rec["launches_resize"] = leftover["34"]["kernel_launches"]
+    flow_rec["launches_from_wav"] = leftover["36"]["student_launches"]
+    flow_rec["launches_gate"] = leftover["37"]["student"]["kernel_launches"]["flow_persist_kernel"]
 
     big = timings[MAIN_BATCHES[-1]]
     record = {"kernels": [{
@@ -2956,6 +3553,13 @@ def main():
         "grid": launch[MAIN_BATCHES[-1]]["grid"],
         "barriers_per_step": launch[MAIN_BATCHES[-1]]["barriers_per_step"],
         "barrier_us": launch[MAIN_BATCHES[-1]]["barrier_us"],
+        "launches_resize": leftover["33"]["launches"],
+        "launches_from_wav": leftover["36"]["teacher_launches"],
+        "gate_generate_calls": leftover["37"]["teacher_generate_calls"],
+        "launches_gate": leftover["37"]["teacher_kernel_launches"],
+        "resize_upsampler": {k: leftover["33"][k] for k in ("resize_ms", "transposed_ms",
+                                                             "bound_ms", "tflop")},
+        "gate": leftover["37"],
     }, flow_rec, w8a8_record, row_record, *mode_records]}
     log(f"timed call: B={MAIN_BATCHES[-1]}, {TIMED_STEPS} steps, full width; "
         f"total {time.time() - T_START:.1f} s")

@@ -10,7 +10,10 @@
 --config a student config JSON or a golden meta.json.  Instead of both,
 --ckpt_dir <run> reads a run directory of train_parallel_wavenet_torch.py:
 its EMA export (<run>/ema) when there is one, else the EMA of its latest
-checkpoint.  Runs on the first CUDA device unless --device cpu.
+checkpoint.  Runs on the first CUDA device unless --device cpu.  --npy_only
+serves the .npy mels of a source directory that holds .wav files as well.
+A JAX run directory serves through --ckpt_dir once
+tools/jax_run_to_torch.py has written its EMA in the port's layout.
 """
 
 import argparse
@@ -32,6 +35,8 @@ def main():
     ap.add_argument("--sample_length", type=int, default=-1, help="truncate input wavs")
     ap.add_argument("--streaming_chunk", type=int, default=None,
                     help="stream the flows in chunks of this many samples")
+    ap.add_argument("--npy_only", action="store_true",
+                    help="use only the .npy (precomputed mel) inputs of the source directory")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
     if (args.ckpt_dir is None) == (args.params is None or args.config is None):
@@ -41,7 +46,7 @@ def main():
             args.source_path, args.params, args.config, args.save_path,
             batch_size=args.batch_size, seed=args.seed, device=args.device,
             sample_length=args.sample_length, streaming_chunk=args.streaming_chunk,
-            ckpt_dir=args.ckpt_dir):
+            ckpt_dir=args.ckpt_dir, npy_only=args.npy_only):
         print(path)
 
 

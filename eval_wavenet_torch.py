@@ -13,7 +13,10 @@ first CUDA device unless --device cpu.  --int8 serves W8A8 (int8 weights and
 ring rows) with per-row activation and gate scales: nothing is calibrated, so
 mel-only .npy sources work too; --int8 --int8_static calibrates static
 activation scales on the first source wavs instead.  --streaming_chunk N
-generates in kernel calls of N samples with the state carried.
+generates in kernel calls of N samples with the state carried.  --npy_only
+serves the .npy mels of a source directory that holds .wav files as well.
+A JAX run directory serves through --ckpt_dir once
+tools/jax_run_to_torch.py has written its EMA in the port's layout.
 """
 
 import argparse
@@ -33,6 +36,8 @@ def main():
     ap.add_argument("--batch_size", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--sample_length", type=int, default=-1, help="truncate input wavs")
+    ap.add_argument("--npy_only", action="store_true",
+                    help="use only the .npy (precomputed mel) inputs of the source directory")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--streaming_chunk", type=int, default=0,
                     help="chunk size in samples: chained kernel calls with carried state "
@@ -50,7 +55,8 @@ def main():
                                  batch_size=args.batch_size, seed=args.seed, device=args.device,
                                  sample_length=args.sample_length,
                                  streaming_chunk=args.streaming_chunk or None, int8=args.int8,
-                                 int8_static=args.int8_static, ckpt_dir=args.ckpt_dir):
+                                 int8_static=args.int8_static, ckpt_dir=args.ckpt_dir,
+                                 npy_only=args.npy_only):
         print(path)
 
 

@@ -7,8 +7,9 @@ length) record per utterance.  The loader memory-maps ``data.bin`` and takes
 seeded numpy random crops; records and starts come from the same numpy
 generator calls as the JAX package's, so one seed gives the same crops on
 both sides.  The mel is computed on the device inside the training step.
-The gather is numpy (the JAX package's C++ sampler is not ported).
-``spec_feat_mean_std`` gives the student's power-loss statistics.
+The gather runs in the native C++ sampler (data/native) when it builds, else
+in numpy; the two give the same bits.  ``spec_feat_mean_std`` gives the
+student's power-loss statistics.
 """
 
 import glob
@@ -19,6 +20,7 @@ import threading
 
 import numpy as np
 
+from nsynth_wavenet_tpu_torch.data.native import native as native_lib
 from nsynth_wavenet_tpu_torch.data.wav_io import read_wav
 
 INDEX_NAME = "index.json"
@@ -77,9 +79,12 @@ def build_dataset_from_arrays(waves, ids, save_dir, sample_rate: int = 16000):
 
 class Dataset:
     """Memory-mapped random-crop loader over one process's share of the
-    records (``process_index::process_count``)."""
+    records (``process_index::process_count``).  use_native: gather the crops
+    in the C++ sampler, single-threaded, when it builds and loads
+    (``self.native``), else in numpy."""
 
-    def __init__(self, path: str, process_index: int = 0, process_count: int = 1):
+    def __init__(self, path: str, process_index: int = 0, process_count: int = 1,
+                 use_native: bool = True):
         if path.endswith(".json"):
             path = os.path.dirname(path)
         self.dir = path
@@ -92,6 +97,7 @@ class Dataset:
         self.data = np.memmap(os.path.join(path, DATA_NAME), dtype=np.float32, mode="r")
         self._offsets = np.array([r["offset"] for r in self.records], np.int64)
         self._lengths = np.array([r["length"] for r in self.records], np.int64)
+        self.native = use_native and native_lib.load() is not None
 
     def __len__(self):
         return len(self.records)
@@ -104,6 +110,10 @@ class Dataset:
         """Rows idx cropped at starts; records not longer than ``length`` are
         taken whole and zero-padded at the end."""
         out = np.empty((len(idx), length), np.float32)
+        if self.native:
+            native_lib.crop_gather(self.data, self._offsets, self._lengths, idx, starts, length,
+                                   out)
+            return out
         for j, i in enumerate(idx):
             o, l = int(self._offsets[i]), int(self._lengths[i])
             if l <= length:
@@ -161,12 +171,7 @@ class Dataset:
         n = len(self.records)
         for start in range(0, n, batch_size):
             idx = np.arange(start, min(start + batch_size, n), dtype=np.int64)
-            out = np.zeros((len(idx), length), np.float32)
-            for j, i in enumerate(idx):
-                o, l = int(self._offsets[i]), int(self._lengths[i])
-                take = min(l, length)
-                out[j, :take] = self.data[o : o + take]
-            yield out
+            yield self._gather(idx, np.zeros(len(idx), np.int64), length)
 
     def get_init_batch(self, batch_size: int, seq_len: int, first_n: int = 1000, seed: int = 0):
         """Random crops from the first ``first_n`` records, for the

@@ -23,13 +23,13 @@ from nsynth_wavenet_tpu_torch.ops import stft as stft_ops
 log = logging.getLogger(__name__)
 
 
-def discover_files(source_path: str):
+def discover_files(source_path: str, npy_only: bool = False):
     """source_path: a .wav/.npy file or a directory of them; .wav preferred
-    when both exist."""
+    when both exist, unless npy_only (then the .npy mels alone)."""
     if os.path.isdir(source_path):
         wavs = sorted(glob.glob(os.path.join(source_path, "*.wav")))
         npys = sorted(glob.glob(os.path.join(source_path, "*.npy")))
-        files = wavs or npys
+        files = npys if (npy_only or not wavs) else wavs
     else:
         files = [source_path]
     if not files:
@@ -85,7 +85,7 @@ def load_eval_model(ckpt_dir: str, device="cuda"):
 
 def generate_wavenet(source_path, params_npz, config_json, save_path, batch_size=8, seed=0,
                      device="cuda", sample_length=-1, streaming_chunk=None, int8=False,
-                     int8_static=False, ckpt_dir=None):
+                     int8_static=False, ckpt_dir=None, npy_only=False):
     """Teacher synthesis of every file under source_path with the weights of a
     golden-format params.npz and its config json, or (ckpt_dir, with
     params_npz and config_json None) of a training run directory
@@ -100,7 +100,8 @@ def generate_wavenet(source_path, params_npz, config_json, save_path, batch_size
     scales; nothing is calibrated, so mel-only .npy sources serve as well.
     int8 with int8_static: static per-layer activation scales calibrated on
     the first up to 8 .wav sources (each fitted to 16 000 samples) and the
-    fixed gate scale; it needs .wav sources."""
+    fixed gate scale; it needs .wav sources.  npy_only: serve the .npy mels
+    of a directory that holds .wav files as well (discover_files)."""
     from nsynth_wavenet_tpu_torch.models.fastgen import Fastgen
     from nsynth_wavenet_tpu_torch.models.wavenet import Wavenet
     from nsynth_wavenet_tpu_torch.ops import fastgen_kernel as fk
@@ -113,7 +114,7 @@ def generate_wavenet(source_path, params_npz, config_json, save_path, batch_size
         raise ValueError("int8_static needs int8")
     fg = Fastgen(Wavenet(dataclasses.replace(cfg, use_as_teacher=True)))
     os.makedirs(save_path, exist_ok=True)
-    files = discover_files(source_path)
+    files = discover_files(source_path, npy_only)
     act_amax = None
     if int8_static:
         cal_files = [f for f in files if f.endswith(".wav")][:8]
@@ -164,7 +165,7 @@ def _model_and_params(params_npz, config_json, ckpt_dir, device):
 
 def generate_parallel_wavenet(source_path, params_npz, config_json, save_path, batch_size=4,
                               seed=0, device="cuda", sample_length=-1, streaming_chunk=None,
-                              ckpt_dir=None):
+                              ckpt_dir=None, npy_only=False):
     """One-shot student synthesis of every file under source_path with the
     weights of a golden-format params.npz and its config json, or (ckpt_dir,
     with params_npz and config_json None) of a student run directory
@@ -174,7 +175,9 @@ def generate_parallel_wavenet(source_path, params_npz, config_json, save_path, b
     gen_<name>.wav files, logs the Delay metric per batch and returns the
     paths.  streaming_chunk: stream the flows in chunks of that many samples
     with carried dilation state (parallelgen.StudentStreamer), for a working
-    set that does not grow with the utterance.  Any batch size runs as it is."""
+    set that does not grow with the utterance.  Any batch size runs as it is.
+    npy_only: serve the .npy mels of a directory that holds .wav files as
+    well (discover_files)."""
     from nsynth_wavenet_tpu_torch.models import parallelgen
     from nsynth_wavenet_tpu_torch.models.parallel_wavenet import ParallelWavenet
 
@@ -185,7 +188,7 @@ def generate_parallel_wavenet(source_path, params_npz, config_json, save_path, b
     pwn = ParallelWavenet(cfg)
     streamer = parallelgen.StudentStreamer(pwn, chunk=streaming_chunk) if streaming_chunk else None
     os.makedirs(save_path, exist_ok=True)
-    files = discover_files(source_path)
+    files = discover_files(source_path, npy_only)
     outputs = []
     for i in range(0, len(files), batch_size):
         chunk = files[i : i + batch_size]

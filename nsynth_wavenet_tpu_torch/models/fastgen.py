@@ -14,7 +14,8 @@ with the state carried (init_carry, carry_in, return_carry).
 -> the whole utterance in the persistent CUDA kernel of ops/fastgen_kernel.py (the
 counterpart of generate_pallas): bf16, or W8A8 with per-row scales (nothing
 to calibrate) or with static scales from ``Fastgen.calibrate_act_amax``,
-one-shot or in chunks with carried state.
+one-shot or in chunks with carried state.  ``Fastgen.generate_from_wav``
+puts the card mel in front of it.
 """
 
 from typing import Optional
@@ -26,6 +27,7 @@ from nsynth_wavenet_tpu_torch.ops import conv as conv_ops
 from nsynth_wavenet_tpu_torch.ops import distributions as dist
 from nsynth_wavenet_tpu_torch.ops import fastgen_kernel as fk
 from nsynth_wavenet_tpu_torch.ops import signal as sig
+from nsynth_wavenet_tpu_torch.ops import stft as stft_ops
 
 
 def _mat(p, dtype):
@@ -57,6 +59,19 @@ class Fastgen:
                        for i in range(cfg.num_layers)],
         }
         return (buffers, torch.zeros((batch,), device=device), generator, 0)
+
+    @torch.no_grad()
+    @no_tf32()
+    def precompute_conditioning(self, params, mel):
+        """mel [B, T, num_mel] -> every layer's conditioning at every step:
+        (encoding [B, Te, deconv_width], cond [num_layers, B, Te, gate_width],
+        cond_out1 [B, Te, skip_width]), the 1x1 products in the model's
+        compute dtype, held in f32 with their biases."""
+        encoding = self.model.deconv_stack(params, mel)
+        dtype = self.model.dtype
+        conds = [conv_ops.conv1d(lp["mel_cond"], encoding, dtype=dtype) for lp in params["layers"]]
+        cond_out1 = conv_ops.conv1d(params["mel_cond_out1"], encoding, dtype=dtype)
+        return encoding, torch.stack(conds), cond_out1
 
     @torch.no_grad()
     @no_tf32()
@@ -257,3 +272,9 @@ class Fastgen:
                                        state=state, return_state=True, int8_combine=int8_combine)
             pieces.append(audio)
         return torch.cat(pieces, 1)
+
+    def generate_from_wav(self, params, wav, seed: int, **kw):
+        """Raw wav batch [B, N] -> the mel on wav's device (stft.melspectrogram)
+        -> generate_cuda(params, mel, seed, **kw): the kernel path on a CUDA
+        tensor, its plain version on a CPU one."""
+        return self.generate_cuda(params, stft_ops.melspectrogram(wav), seed, **kw)

@@ -4,7 +4,8 @@ clip / quantize -> audio.
 
 Three compute paths:
   * plain (``synthesize``): ParallelWavenet.feed_forward as it is;
-  * fused (``feed_forward_cuda`` / ``synthesize_cuda``), the serving path: each
+  * fused (``feed_forward_cuda`` / ``synthesize_cuda``, and
+    ``synthesize_from_wav`` with the card mel in front), the serving path: each
     flow's dilated trunk runs as chained ops/flow_kernel.flow_stack calls, one
     per num_stages-layer dilation cycle (``layers_per_call`` fuses whole
     cycles), with the per-layer mel conditioning computed in the kernel from
@@ -30,6 +31,7 @@ from nsynth_wavenet_tpu_torch.models.parallel_wavenet import (SCALE_MAX, Paralle
 from nsynth_wavenet_tpu_torch.models.wavenet import no_tf32
 from nsynth_wavenet_tpu_torch.ops import conv as conv_ops
 from nsynth_wavenet_tpu_torch.ops import flow_kernel as flow_kernel_ops
+from nsynth_wavenet_tpu_torch.ops import stft as stft_ops
 
 
 @torch.no_grad()
@@ -185,6 +187,12 @@ def synthesize_cuda(pwn: ParallelWavenet, params, mel, generator, **kw):
     """Fused twin of ``synthesize`` (same mel -> audio contract); kw:
     feed_forward_cuda's layers_per_call and fuse_cond."""
     return pwn._clip_quant_scale(feed_forward_cuda(pwn, params, {"mel": mel}, generator, **kw)["x"])
+
+
+def synthesize_from_wav(pwn: ParallelWavenet, params, wav, generator, **kw):
+    """Raw wav batch [B, N] -> the mel on wav's device (stft.melspectrogram)
+    -> synthesize_cuda(pwn, params, mel, generator, **kw)."""
+    return synthesize_cuda(pwn, params, stft_ops.melspectrogram(wav), generator, **kw)
 
 
 class StudentStreamer:

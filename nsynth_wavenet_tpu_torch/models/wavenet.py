@@ -74,15 +74,14 @@ class _Gate(torch.autograd.Function):
 
 def apply_deconv_stack(params, mel, *, deconv_config, upsample_act, use_resize_conv,
                        dtype=None, out_dtype=None):
-    """mel [B, T, num_mel] -> encoding [B, T * frame_shift, deconv_width]."""
-    if use_resize_conv:
-        raise NotImplementedError("resize-conv upsampling is not ported yet")
+    """mel [B, T, num_mel] -> encoding [B, T * frame_shift, deconv_width]:
+    transposed convolutions, or with use_resize_conv nearest-neighbour
+    repeats each followed by a SAME convolution."""
     act = conv_ops.get_upsample_act(upsample_act)
+    up = conv_ops.resize_conv1d if use_resize_conv else conv_ops.trans_conv1d
     h = mel
     for i, (_, stride) in enumerate(deconv_config):
-        h = conv_ops.trans_conv1d(params[f"up_{i + 1}"], h, stride=stride, dtype=dtype,
-                                  out_dtype=out_dtype)
-        h = act(h)
+        h = act(up(params[f"up_{i + 1}"], h, stride=stride, dtype=dtype, out_dtype=out_dtype))
     return h
 
 
@@ -90,17 +89,18 @@ def deconv_stack_train(params, mel, *, deconv_config, upsample_act, use_resize_c
                         dtype, native):
     """apply_deconv_stack with gradients; init=True rescales weight-normed
     layers from their pre-activation moments.  Returns (encoding, new_params)."""
-    if use_resize_conv:
-        raise NotImplementedError("resize-conv upsampling is not ported yet")
     act = conv_ops.get_upsample_act(upsample_act)
+    if use_resize_conv:
+        up, up_ddi = conv_ops.resize_conv1d, conv_ops.resize_conv1d_ddi
+    else:
+        up, up_ddi = conv_ops.trans_conv1d, conv_ops.trans_conv1d_ddi
     new_params, h = dict(params), mel
     for i, (_, stride) in enumerate(deconv_config):
         name = f"up_{i + 1}"
         if init:
-            h, new_params[name] = conv_ops.trans_conv1d_ddi(params[name], h, stride=stride)
+            h, new_params[name] = up_ddi(params[name], h, stride=stride)
         else:
-            h = conv_ops.trans_conv1d(params[name], h, stride=stride, dtype=dtype,
-                                      out_dtype=dtype, native=native)
+            h = up(params[name], h, stride=stride, dtype=dtype, out_dtype=dtype, native=native)
         h = act(h)
     return h, new_params
 

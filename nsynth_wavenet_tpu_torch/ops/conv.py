@@ -85,14 +85,16 @@ def _finish(y, b, dtype, out_dtype):
 
 
 def conv1d(params, x: torch.Tensor, *, dilation: int = 1, causal: bool = True,
-           dtype: Optional[torch.dtype] = None, out_dtype: Optional[torch.dtype] = None):
+           dtype: Optional[torch.dtype] = None, out_dtype: Optional[torch.dtype] = None,
+           native: bool = False):
     """Length-preserving dilated conv over [B, T, Cin] -> [B, T, Cout].
-    causal left-pads (fl-1)*dilation; otherwise SAME padding."""
+    causal left-pads (fl-1)*dilation; otherwise SAME padding, the odd pad on
+    the right (an even filter of 80 pads (39, 40)), padded explicitly."""
     w = effective_kernel(params)
     fl = w.shape[0]
     total = (fl - 1) * dilation
     pad = (total, 0) if causal else (total // 2, total - total // 2)
-    x, w = _operands(x, w, dtype)
+    x, w = _operands(x, w, dtype, native)
     xt = F.pad(x.transpose(1, 2), pad)
     y = F.conv1d(xt, w.permute(2, 1, 0), dilation=dilation).transpose(1, 2)
     return _finish(y, params["b"], dtype, out_dtype)
@@ -190,3 +192,19 @@ def trans_conv1d(params, x: torch.Tensor, *, stride: int,
     y = F.conv_transpose1d(x.transpose(1, 2), w.flip(0).permute(1, 2, 0), stride=stride)
     y = y[..., p : p + stride * length].transpose(1, 2)
     return _finish(y, params["b"], dtype, out_dtype)
+
+
+def resize_conv1d(params, x: torch.Tensor, *, stride: int,
+                  dtype: Optional[torch.dtype] = None, out_dtype: Optional[torch.dtype] = None,
+                  native: bool = False):
+    """Nearest-neighbour x``stride`` upsampling followed by a SAME conv:
+    [B, L, Cin] -> [B, stride*L, Cout].  Each input frame is repeated
+    ``stride`` times along time, then ``conv1d(causal=False)`` pads
+    (fl-1)//2 on the left and the rest on the right, as the reference's."""
+    return conv1d(params, torch.repeat_interleave(x, stride, dim=1), causal=False, dtype=dtype,
+                  out_dtype=out_dtype, native=native)
+
+
+def resize_conv1d_ddi(params, x, *, stride: int):
+    """resize_conv1d + data-dependent init (pre-activation moments)."""
+    return _ddi_rescale(params, resize_conv1d(params, x, stride=stride))

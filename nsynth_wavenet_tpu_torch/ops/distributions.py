@@ -1,6 +1,6 @@
-"""Log-probs, losses and samplers of the three output heads, and the
-student's base noise (counterpart of nsynth_wavenet_tpu/ops/distributions.py;
-the mixture-of-Gaussians functions belong to the student's training).
+"""Log-probs, losses and samplers of the three output heads, the
+mixture-of-Gaussians log-prob, loss and sampler, and the student's base
+noise (counterpart of nsynth_wavenet_tpu/ops/distributions.py).
 Each head sampler returns int32 quantized samples in
 [-quant_chann/2, quant_chann/2).  Randomness comes from an explicit
 ``torch.Generator``; uniforms lie on the open interval [1e-5, 1 - 1e-5] like
@@ -65,6 +65,19 @@ def gauss_log_prob(gauss_params, targets, use_log_scales=True):
     return -0.5 * torch.log(2.0 * math.pi * var) - (targets - mean) ** 2.0 / (2.0 * var)
 
 
+def mog_log_prob(mog_params, targets, use_log_scales=True):
+    """Log-likelihood of a mixture of Gaussians: mog_params [..., 3 * nr_mix]
+    (logit_probs | means | std_params), targets [...]; returns [...]."""
+    logit_probs, means, std_params = torch.chunk(mog_params, 3, dim=-1)
+    if use_log_scales:
+        stds = torch.exp(torch.clamp(std_params, min=-7.0))
+    else:
+        stds = torch.clamp(softplus(std_params), min=math.exp(-7.0))
+    var = stds**2.0
+    comp_lp = -0.5 * torch.log(2.0 * math.pi * var) - (targets[..., None] - means) ** 2.0 / (2.0 * var)
+    return torch.logsumexp(comp_lp + torch.log_softmax(logit_probs, dim=-1), dim=-1)
+
+
 def ce_loss(logits, cate_targets):
     """Mean sparse softmax cross entropy; targets int in [0, quant_chann)."""
     log_probs = torch.log_softmax(logits, dim=-1)
@@ -77,6 +90,10 @@ def mol_loss(mol_params, real_targets, quant_chann):
 
 def gauss_loss(gauss_params, real_targets):
     return -gauss_log_prob(gauss_params, real_targets).mean()
+
+
+def mog_loss(mog_params, real_targets):
+    return -mog_log_prob(mog_params, real_targets).mean()
 
 
 def uniform_open(generator: torch.Generator, shape, device) -> torch.Tensor:
@@ -109,6 +126,33 @@ def gauss_sample(generator, gauss_params: torch.Tensor, quant_chann: int) -> tor
     mean = gauss_params[..., 0]
     std = torch.exp(torch.clamp(gauss_params[..., 1], min=-7.0))
     z = torch.randn(mean.shape, generator=generator, device=generator.device).to(mean.device)
+    x = torch.clamp(mean + std * z, -1.0, 1.0 - 2.0 / quant_chann)
+    return sig.cast_quantize(x, quant_chann)
+
+
+def mog_sample(generator, mog_params: torch.Tensor, quant_chann: int,
+               use_log_scales=True) -> torch.Tensor:
+    """mog_params [..., 3*nr_mix] (logits | means | std params): a Gumbel-max
+    pick of the component, then its Gaussian; the draws (the pick's uniforms,
+    then the normals) come from ``generator``."""
+    nr_mix = mog_params.shape[-1] // 3
+    ru = uniform_open(generator, mog_params.shape[:-1] + (nr_mix,), mog_params.device)
+    z = torch.randn(mog_params.shape[:-1], generator=generator,
+                    device=generator.device).to(mog_params.device)
+    return mog_sample_from(mog_params, ru, z, quant_chann, use_log_scales)
+
+
+def mog_sample_from(mog_params, ru, z, quant_chann: int, use_log_scales=True):
+    """mog_sample on given draws: uniforms ru [..., nr_mix] for the pick,
+    standard normals z [...] for the value."""
+    logit_probs, means, std_params = torch.chunk(mog_params, 3, dim=-1)
+    sel = torch.argmax(logit_probs - torch.log(-torch.log(ru)), dim=-1, keepdim=True)
+    mean = torch.gather(means, -1, sel)[..., 0]
+    std_p = torch.gather(std_params, -1, sel)[..., 0]
+    if use_log_scales:
+        std = torch.exp(torch.clamp(std_p, -7.0, 7.0))
+    else:
+        std = torch.clamp(softplus(std_p), min=math.exp(-7.0))
     x = torch.clamp(mean + std * z, -1.0, 1.0 - 2.0 / quant_chann)
     return sig.cast_quantize(x, quant_chann)
 

@@ -67,9 +67,13 @@ def export_ema(state, path: str, cfg):
     ``path``/meta.json ({'config': ..., 'step': ...})."""
     os.makedirs(path, exist_ok=True)
     weights.save_npz(os.path.join(path, "params.npz"), state["ema"])
-    meta = {"config": dataclasses.asdict(cfg), "step": int(state["step"])}
+    write_export_meta(path, dataclasses.asdict(cfg), int(state["step"]))
+
+
+def write_export_meta(path: str, config: dict, step: Optional[int]):
+    """``path``/meta.json of an EMA export: {'config': config, 'step': step}."""
     with open(os.path.join(path, "meta.json"), "wt") as f:
-        json.dump(meta, f, indent=2)
+        json.dump({"config": config, "step": step}, f, indent=2)
 
 
 def load_params(path: str, device="cuda"):

@@ -196,6 +196,7 @@ def train_wavenet(
 
     model = Wavenet(cfg)
     ds = data_lib.Dataset(train_path)
+    log.info("crop gather: %s", "the native C++ sampler" if ds.native else "numpy")
     mgr = ckpt_lib.CheckpointManager(os.path.join(run_dir, "ckpt"))
     optimizer = opt_lib.make_optimizer(cfg.lr_schedule, grad_clip=cfg.grad_clip)
     state = mgr.restore(device=device)
@@ -336,6 +337,7 @@ def train_parallel_wavenet(
     log.info("teacher from %s\n%s", teacher_dir, logging_utils.config_summary(teacher.cfg))
     pwn = ParallelWavenet(cfg, teacher)
     ds = data_lib.Dataset(train_path)
+    log.info("crop gather: %s", "the native C++ sampler" if ds.native else "numpy")
     mgr = ckpt_lib.CheckpointManager(os.path.join(run_dir, "ckpt"))
     state = mgr.restore(device=device)
     if state is not None:

@@ -36,6 +36,16 @@ KERNEL_CASES = [("mol", False, False), ("gauss", False, False), ("ce", True, Fal
                 ("ce", True, True)]
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One torch thread: the step loops' small products gain nothing from
+    more, and the other test workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _port(jmodel, jparams):
     cfg = tconfig.wavenet_config_from_dict(dict(jmodel.cfg.__dict__))
     params = weights.from_jax_params(jax.tree_util.tree_map(np.asarray, jparams), device="cpu")

@@ -33,6 +33,16 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(REPO, "tests", "golden")
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One torch thread: the step loops' small products gain nothing from
+    more, and the other test workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _noise(B, L, seed=1):
     return np.random.RandomState(seed).randn(B, L).astype(np.float32)
 
@@ -233,6 +243,7 @@ def test_student_eval_cli(tmp_path):
     d = student_dir()
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
+    env["OMP_NUM_THREADS"] = "1"  # the interpreters' work is tiny; spare the other workers
     proc = subprocess.run(
         [sys.executable, os.path.join(REPO, "eval_parallel_wavenet_torch.py"),
          "--source_path", _source_wavs(tmp_path), "--params", os.path.join(d, "params.npz"),

@@ -217,6 +217,7 @@ def test_clis_build_train_resume_export_and_serve(tmp_path):
         wav_io.write_wav(str(wavs / f"u{i}.wav"), 0.3 * rng.standard_normal(3000))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
+    env["OMP_NUM_THREADS"] = "1"  # the interpreters' work is tiny; spare the other workers
 
     def run(*args):
         proc = subprocess.run([sys.executable, *args], cwd=REPO, env=env, capture_output=True,
