@@ -226,7 +226,29 @@ Phases 33 to 38 follow S5:
      tiny_student through 10 flow_persist_kernel launches;
  38. the native crop sampler built by g++ into _build/ and loaded, its crops
      equal to the numpy gather, and the T2 and S2 runners' train.log naming
-     it as their crop gather.
+     it as their crop gather;
+ M1. the device mesh over NCCL at world size 1 (torch.distributed, env://):
+     a real process group (an all-reduce and an all-gather on the card),
+     Fastgen.generate_cuda_sharded at the full width of
+     configs/wavenet_mol.json, B = 64, bit-equal to generate_cuda with the
+     same seed and encoding, counted as one fastgen_persistent launch; one
+     data-parallel teacher step at B = 4 against the step without a mesh;
+ M2. two ranks sharing the card over gloo (`chip_smoke.py --mesh-rank`,
+     spawned as subprocesses with torch's env:// variables): greedy
+     generate_cuda_sharded at full width, B = 16, bit-equal to the one-rank
+     kernel; sampled, each rank's rows bit-equal to generate_cuda on them
+     with its folded seed; parallelgen.synthesize_sharded at the full width
+     of configs/parallel_wavenet.json, B = 8 x 1 s, each rank's rows within
+     one quantisation bin of one rank's synthesize_cuda of those rows on the
+     same noise, and against one rank's B = 8 call within
+     MESH_SYNTH_BINS_BF16 bins (cuDNN's deconv at B = 4 and 8 parts by a bf16
+     step, which the flows carry to the output) and the f32 student within
+     MESH_SYNTH_BINS_F32; a data-parallel teacher step (Gauss,
+     4 layers, f32) and a distillation step (the Gauss pair) at global B = 4
+     against one rank's step on all 4 rows, within the tier-1 limits
+     (MESH_METRIC_TOL, MESH_UPDATE_TOL); each rank's fastgen_persistent and
+     flow_persist_kernel launches, counted around its sharded calls, equal
+     to one a generate call and to predicted_launches a flow_stack call.
 Every teacher generate call is one cooperative launch of the persistent
 kernel fastgen_persistent (after quant_enc_kernel in the int8 modes).
 Phases other than 32 run with TF32 off.  The last line is {"ok": true,
@@ -252,7 +274,7 @@ from nsynth_wavenet_tpu_torch.data import wav_io
 from nsynth_wavenet_tpu_torch.evaluation import generate_parallel_wavenet, generate_wavenet
 from nsynth_wavenet_tpu_torch.kernels import build
 from nsynth_wavenet_tpu_torch.models import parallelgen
-from nsynth_wavenet_tpu_torch.models.fastgen import Fastgen
+from nsynth_wavenet_tpu_torch.models.fastgen import Fastgen, shard_seed
 from nsynth_wavenet_tpu_torch.models.parallel_wavenet import (
     ParallelWavenet,
     transplant_teacher_deconv,
@@ -262,6 +284,7 @@ from nsynth_wavenet_tpu_torch.ops import conv as conv_ops
 from nsynth_wavenet_tpu_torch.ops import fastgen_kernel as fk
 from nsynth_wavenet_tpu_torch.ops import flow_kernel as flk
 from nsynth_wavenet_tpu_torch.ops import stft
+from nsynth_wavenet_tpu_torch.parallel import mesh as mesh_lib
 from nsynth_wavenet_tpu_torch.training import checkpoint as ckpt_lib
 from nsynth_wavenet_tpu_torch.training import optimizer as opt_lib
 from nsynth_wavenet_tpu_torch.training import runner
@@ -335,6 +358,15 @@ W8A8_STATE_SHARE = 0.25  # int8 ring entries that may differ from the plain ones
 # quantisation noise as it amplifies the flips above (12 to 15 % of scale over
 # 256 steps), so there the reading is printed and held to the gross-fault guard.
 W8A8_VS_BF16 = 0.05
+# M1 / M2, ranks against one rank: tests/test_torch_distill_step.py's metric
+# limit and the f32 update limit of tests/test_torch_train_step.py
+MESH_METRIC_TOL = 1e-4
+MESH_UPDATE_TOL = 1e-3
+MESH_RANK_TIMEOUT = 420
+# M2, synthesize_sharded at B = 8 against one rank's B = 8 call, in
+# quantisation bins (2 / quant_chann): see PERF.md section 6 for the readings
+MESH_SYNTH_BINS_BF16 = 128
+MESH_SYNTH_BINS_F32 = 16
 STREAM_STEPS, STREAM_CHUNK = 300, 128
 STUDENT_BATCHES = (32, 8)
 STUDENT_SAMPLES = 64000  # 4 s
@@ -3390,7 +3422,284 @@ def serving_leftover_phases(card, trained):
     return out
 
 
+# ---- M1-M2: the device mesh ------------------------------------------------------
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def mesh_teacher():
+    cfg = config_lib.load_config(os.path.join(REPO, "configs/wavenet_gauss.json"), num_layers=4,
+                                 compute_dtype="float32", dropout_inputs=False)
+    model = Wavenet(cfg)
+    return model, model.init_params(0, device="cuda")
+
+
+def mesh_steps(mesh, wav, model, params):
+    """One teacher step on this rank's rows of ``wav`` over ``mesh`` and one
+    step without a mesh on all of them, from the same state: (their
+    states, losses, grads of the whole batch) under cuDNN's deterministic
+    algorithms."""
+    rows = mesh_lib.rows(mesh, wav.shape[0])
+    out = []
+    with deterministic_cudnn():
+        for m, w in ((mesh, wav[rows]), (None, wav)):
+            opt = opt_lib.make_optimizer(model.cfg.lr_schedule, grad_clip=True)
+            state = train_lib.make_train_state(params, opt)
+            state, metrics = train_lib.make_wavenet_train_step(model, opt, mesh=m)(state, w)
+            out.append((state, float(metrics["loss"])))
+    with no_tf32():
+        _, grads = train_lib.loss_and_grads(model, params, wav, stft.melspectrogram(wav))
+    return out, grads
+
+
+def mesh_step_errs(label, params, out, grads):
+    (s_m, l_m), (s_1, l_1) = out
+    loss_err = abs(l_m - l_1) / max(abs(l_1), 1.0)
+    p_err = update_err(params, s_1["params"], s_m["params"], grads)
+    e_err = update_err(params, s_1["ema"], s_m["ema"], grads)
+    log(f"{label}: loss {l_m:.6f} / one rank {l_1:.6f} (rel {loss_err:.2e}, limit "
+        f"{MESH_METRIC_TOL:.0e}); params after Adam {p_err:.3e}, EMA {e_err:.3e} (L2 of the "
+        f"update, limit {MESH_UPDATE_TOL:.0e})")
+    require(loss_err <= MESH_METRIC_TOL, f"{label}: loss")
+    require(p_err <= MESH_UPDATE_TOL and e_err <= MESH_UPDATE_TOL, f"{label}: params / EMA")
+    return {"loss_rel": loss_err, "params": p_err, "ema": e_err}
+
+
+def m1_nccl_world_one():
+    """M1: see the module docstring."""
+    t0 = time.time()
+    saved = {k: os.environ.get(k) for k in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE",
+                                            "LOCAL_RANK")}
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()), RANK="0",
+                      WORLD_SIZE="1", LOCAL_RANK="0")
+    try:
+        dev = mesh_lib.init_distributed("cuda")
+        backend = mesh_lib.dist.get_backend()
+        require(backend == "nccl" and dev == torch.device("cuda", 0),
+                f"M1: backend {backend} on {dev}")
+        x = torch.arange(4.0, device=dev)
+        red = mesh_lib.all_reduce(x, mesh_lib.dist.group.WORLD)
+        gathered = mesh_lib.all_gather(x, mesh_lib.dist.group.WORLD)
+        require(torch.equal(red, x) and len(gathered) == 1 and torch.equal(gathered[0], x),
+                "M1: NCCL all-reduce / all-gather")
+        mesh = mesh_lib.make_mesh(n_data=1)
+        model, params, kw = full_model("configs/wavenet_mol.json")
+        fg = Fastgen(model)
+        enc = conditioning(model, params, B=64, L=512, seed=40).transpose(0, 1)
+        single = fg.generate_cuda(params, None, 11, encoding=enc, kw=kw)
+        reset_ar_counts()
+        sharded = fg.generate_cuda_sharded(params, None, 11, mesh, encoding=enc, kw=kw)
+        torch.cuda.synchronize()
+        calls, counted = ar_counts()
+        log(f"M1 NCCL world 1: generate_cuda_sharded B=64 L=512 at full width, {calls} generate "
+            f"call(s), CUDA launches {counted}; bit-equal to generate_cuda: "
+            f"{bool(torch.equal(sharded, single))}")
+        require(torch.equal(sharded, single), "M1: sharded generation differs from one rank")
+        require_ar_launches("M1", calls, counted, 1, {"fastgen_persistent": 1})
+        del model, params, kw, fg, enc
+        tmodel, tparams = mesh_teacher()
+        wav = torch.from_numpy(synthetic_wavs(4, tmodel.cfg.wave_length, 41)).cuda()
+        out, grads = mesh_steps(mesh, wav, tmodel, tparams)
+        step = mesh_step_errs("M1 DP teacher step over NCCL (gauss, 4 layers, f32, B=4)",
+                              tparams, out, grads)
+    finally:
+        mesh_lib.shutdown()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    log(f"M1: {time.time() - t0:.1f} s")
+    return {"launches": counted, "step": step, "seconds": time.time() - t0}
+
+
+def mesh_rank_main():
+    """One rank of M2 (chip_smoke.py --mesh-rank): prints its result as a
+    line 'MESH_RANK_RESULT <json>'."""
+    dev = mesh_lib.init_distributed("cuda:0", backend="gloo")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, n = mesh_lib.process_index(), mesh_lib.process_count()
+    mesh = mesh_lib.make_mesh(n_data=n)
+    res = {"rank": rank}
+    model, params, kw = full_model("configs/wavenet_mol.json")
+    fg = Fastgen(model)
+    B = 16
+    # one encoding on every rank: cuDNN's transposed convolution need not
+    # give two processes the same bits
+    enc = mesh_lib.broadcast(conditioning(model, params, B=B, L=256, seed=50).transpose(0, 1))
+    rows = mesh_lib.rows(mesh, B)
+    # the one-rank references first, then the sharded calls with the counts reset
+    greedy_one = fg.generate_cuda(params, None, 21, encoding=enc, kw=kw, greedy=True)
+    sampled_rows = fg.generate_cuda(params, None, shard_seed(21, rank), encoding=enc[rows], kw=kw)
+    pwn, sparams = student_model()
+    pwn32 = ParallelWavenet(dataclasses.replace(pwn.cfg, compute_dtype="float32"))
+    cycles = sum(-(-n // pwn.cfg.num_stages) for n in pwn.cfg.num_iaf_layers)
+    mel = torch.rand((8, 81, 80), generator=torch.Generator().manual_seed(52)).cuda()
+    with deterministic_cudnn():
+        synth_one = parallelgen.synthesize_cuda(pwn, sparams, mel,
+                                                torch.Generator().manual_seed(53))
+        synth_rows = parallelgen.synthesize_cuda(
+            pwn, sparams, mel[mesh_lib.rows(mesh, 8)],
+            mesh_lib.RowDraws(torch.Generator().manual_seed(53), mesh_lib.rows(mesh, 8).start, 8))
+        # the f32 student against one rank's B = 8 call (outside the counts)
+        synth32_one = parallelgen.synthesize_cuda(pwn32, sparams, mel,
+                                                  torch.Generator().manual_seed(53))
+        synth32 = parallelgen.synthesize_sharded(pwn32, sparams, mel,
+                                                 torch.Generator().manual_seed(53), mesh)
+    torch.cuda.synchronize()
+    reset_ar_counts()
+    reset_flow_counts()
+    greedy = fg.generate_cuda_sharded(params, None, 21, mesh, encoding=enc, kw=kw, greedy=True)
+    sampled = fg.generate_cuda_sharded(params, None, 21, mesh, encoding=enc, kw=kw)
+    with deterministic_cudnn():
+        synth = parallelgen.synthesize_sharded(pwn, sparams, mel,
+                                               torch.Generator().manual_seed(53), mesh)
+    torch.cuda.synchronize()
+    calls, counted = ar_counts()
+    res["launches"] = {**counted, "flow_persist_kernel":
+                       flk.flow_stack.kernel_launches["flow_persist_kernel"]}
+    res["generate_calls"] = calls
+    res["flow_calls"], res["flow_cycles"] = flk.flow_stack.launches, cycles
+    res["flow_launches"] = dict(flk.flow_stack.kernel_launches)
+    res["flow_want"] = {k: n * cycles for k, n in flk.predicted_launches(
+        pwn.cfg.width, pwn.cfg.num_stages, False).items()}
+    res["greedy_equal"] = bool(torch.equal(greedy, greedy_one))
+    res["sampled_rows_equal"] = bool(torch.equal(sampled[rows], sampled_rows))
+    res["sampled_shape"] = list(sampled.shape)
+    bins = pwn.cfg.quant_chann / 2
+    res["synth_bins"] = float((synth[mesh_lib.rows(mesh, 8)] - synth_rows).abs().max()) * bins
+    res["synth_bins_whole_batch"] = float((synth - synth_one).abs().max()) * bins
+    res["synth32_bins_whole_batch"] = float((synth32 - synth32_one).abs().max()) * bins
+    res["synth_finite"] = bool(torch.isfinite(synth).all() and torch.isfinite(synth32).all())
+    del model, params, kw, fg, pwn, pwn32, sparams
+    torch.cuda.empty_cache()
+    tmodel, tparams = mesh_teacher()
+    wav = torch.from_numpy(synthetic_wavs(4, tmodel.cfg.wave_length, 54)).cuda()
+    out, grads = mesh_steps(mesh, wav, tmodel, tparams)
+    res["teacher_step"] = mesh_step_errs(f"M2 rank {rank} DP teacher step", tparams, out, grads)
+    res["distill_step"] = m2_distill_step(mesh, rank)
+    print("MESH_RANK_RESULT " + json.dumps(res), flush=True)
+    mesh_lib.shutdown()
+    return 0
+
+
+def m2_distill_step(mesh, rank):
+    """A distillation step of the Gauss pair (teacher 4 layers, student flows
+    2 / 2, f32) on this rank's rows of a global B = 4 against one rank's
+    step on all 4 rows, from the same state and draws."""
+    student_path, teacher_path = S_PAIRS[1]
+    teacher = Wavenet(config_lib.load_config(
+        os.path.join(REPO, teacher_path), num_layers=4, compute_dtype="float32",
+        dropout_inputs=False, use_as_teacher=True))
+    te = teacher.init_params(0, device="cuda")
+    cfg = config_lib.load_config(os.path.join(REPO, student_path), num_iaf_layers=(2, 2),
+                                 compute_dtype="float32")
+    pwn, params = distill_student(cfg, teacher, te, 1)
+    wav = torch.from_numpy(synthetic_wavs(4, cfg.wave_length, 55)).cuda()
+    wav_rand = torch.from_numpy(synthetic_wavs(4, cfg.wave_length, 56)).cuda()
+    L = pwn.sample_length(stft.num_mel_frames(cfg.wave_length))
+    draws = train_lib.student_draws(pwn, torch.Generator().manual_seed(57), 4, L, "cpu")
+    draws = {k: v.cuda() for k, v in draws.items()}
+    rows = mesh_lib.rows(mesh, 4)
+    res = []
+    with deterministic_cudnn():
+        for m, w, wr in ((mesh, wav[rows], wav_rand[rows]), (None, wav, wav_rand)):
+            opt = train_lib.make_student_optimizer(cfg, params)
+            state = train_lib.make_train_state(params, opt)
+            state, metrics = train_lib.make_pwn_train_step(pwn, te, opt, mesh=m)(
+                state, w, wr, None, draws=draws)
+            res.append((state, {k: float(v) for k, v in metrics.items()}))
+    (s_m, m_m), (s_1, m_1) = res
+    metric_err = max(abs(m_m[k] - m_1[k]) / max(abs(m_1[k]), 1.0) for k in m_1)
+    # the leaves one rank's step moved (the frozen teacher deconv did not)
+    moved = tree_lib.unflatten(params, [a - b for a, b in zip(tree_lib.leaves(s_1["params"]),
+                                                              tree_lib.leaves(params))])
+    p_err = update_err(params, s_1["params"], s_m["params"], moved)
+    e_err = update_err(params, s_1["ema"], s_m["ema"], moved)
+    log(f"M2 rank {rank} DP distillation step (gauss pair, B=4): metrics max rel {metric_err:.2e} "
+        f"(limit {MESH_METRIC_TOL:.0e}); params after Adam {p_err:.3e}, EMA {e_err:.3e} (L2 of "
+        f"the update, limit {MESH_UPDATE_TOL:.0e})")
+    require(metric_err <= MESH_METRIC_TOL, f"M2 rank {rank}: distillation metrics")
+    require(p_err <= MESH_UPDATE_TOL and e_err <= MESH_UPDATE_TOL,
+            f"M2 rank {rank}: distillation params / EMA")
+    return {"metrics_rel": metric_err, "params": p_err, "ema": e_err}
+
+
+def m2_gloo_two_ranks():
+    """M2: two ranks of this script on the one card over gloo."""
+    t0 = time.time()
+    port = _free_port()
+    procs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for r in range(2):
+            env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(r),
+                       WORLD_SIZE="2", LOCAL_RANK=str(r))
+            out = open(os.path.join(tmp, f"rank{r}.log"), "w+")
+            procs.append((subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                            "--mesh-rank"], cwd=REPO, env=env, stdout=out,
+                                           stderr=subprocess.STDOUT), out))
+        deadline = time.time() + MESH_RANK_TIMEOUT
+        try:
+            for p, _ in procs:
+                p.wait(timeout=max(1.0, deadline - time.time()))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p, _ in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        results = []
+        for r, (p, out) in enumerate(procs):
+            out.seek(0)
+            text = out.read()
+            out.close()
+            for line in text.splitlines():
+                if "MESH_RANK_RESULT" not in line and "M2 rank" in line:
+                    log(line.split("] ", 1)[-1])
+            found = [line for line in text.splitlines() if line.startswith("MESH_RANK_RESULT ")]
+            if p.returncode != 0 or not found:
+                log(f"M2 rank {r} rc={p.returncode}, its output's end:\n{text[-4000:]}")
+            require(p.returncode == 0 and found, f"M2: rank {r} failed (rc {p.returncode})")
+            results.append(json.loads(found[-1].split(" ", 1)[1]))
+    for res in results:
+        r = res["rank"]
+        log(f"M2 rank {r}: greedy bit-equal to one rank {res['greedy_equal']}, sampled rows "
+            f"bit-equal to generate_cuda with the folded seed {res['sampled_rows_equal']}, "
+            f"synthesize_sharded vs one rank on its rows {res['synth_bins']:.2f} bins; vs one "
+            f"rank's B=8 call {res['synth_bins_whole_batch']:.2f} bins bf16 (limit "
+            f"{MESH_SYNTH_BINS_BF16}), {res['synth32_bins_whole_batch']:.2f} bins f32 (limit "
+            f"{MESH_SYNTH_BINS_F32}); launches in its sharded calls {res['launches']} "
+            f"({res['generate_calls']} generate calls), flow_stack calls {res['flow_calls']} "
+            f"(want {res['flow_cycles']})")
+        require(res["greedy_equal"], f"M2 rank {r}: greedy sharded generation differs")
+        require(res["sampled_rows_equal"] and res["sampled_shape"] == [16, 256],
+                f"M2 rank {r}: sampled rows differ from the folded-seed run")
+        require(res["synth_finite"] and res["synth_bins"] <= 1.0,
+                f"M2 rank {r}: synthesize_sharded beyond one bin")
+        require(res["synth_bins_whole_batch"] <= MESH_SYNTH_BINS_BF16
+                and res["synth32_bins_whole_batch"] <= MESH_SYNTH_BINS_F32,
+                f"M2 rank {r}: synthesize_sharded against one rank's B=8 call")
+        require(res["launches"].get("fastgen_persistent") == 2 and res["generate_calls"] == 2,
+                f"M2 rank {r}: fastgen_persistent launches {res['launches']}")
+        require(res["flow_calls"] == res["flow_cycles"]
+                and res["flow_launches"] == res["flow_want"],
+                f"M2 rank {r}: flow kernel launches {res['flow_launches']}, want "
+                f"{res['flow_want']}")
+    log(f"M2 two ranks over gloo on one card: {time.time() - t0:.1f} s")
+    return {"ranks": results, "seconds": time.time() - t0}
+
+
 def main():
+    if len(sys.argv) > 1 and sys.argv[1] == "--mesh-rank":
+        return mesh_rank_main()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -3534,6 +3843,11 @@ def main():
     flow_rec["launches_resize"] = leftover["34"]["kernel_launches"]
     flow_rec["launches_from_wav"] = leftover["36"]["student_launches"]
     flow_rec["launches_gate"] = leftover["37"]["student"]["kernel_launches"]["flow_persist_kernel"]
+    torch.cuda.empty_cache()
+    m1 = m1_nccl_world_one()
+    m2 = m2_gloo_two_ranks()
+    flow_rec["launches_sharded_gloo_per_rank"] = [
+        r["launches"]["flow_persist_kernel"] for r in m2["ranks"]]
 
     big = timings[MAIN_BATCHES[-1]]
     record = {"kernels": [{
@@ -3560,6 +3874,10 @@ def main():
         "resize_upsampler": {k: leftover["33"][k] for k in ("resize_ms", "transposed_ms",
                                                              "bound_ms", "tflop")},
         "gate": leftover["37"],
+        "launches_sharded_nccl": m1["launches"],
+        "launches_sharded_gloo_per_rank": [r["launches"]["fastgen_persistent"]
+                                           for r in m2["ranks"]],
+        "mesh_seconds": {"M1": m1["seconds"], "M2": m2["seconds"]},
     }, flow_rec, w8a8_record, row_record, *mode_records]}
     log(f"timed call: B={MAIN_BATCHES[-1]}, {TIMED_STEPS} steps, full width; "
         f"total {time.time() - T_START:.1f} s")

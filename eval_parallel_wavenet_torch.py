@@ -14,12 +14,15 @@ checkpoint.  Runs on the first CUDA device unless --device cpu.  --npy_only
 serves the .npy mels of a source directory that holds .wav files as well.
 A JAX run directory serves through --ckpt_dir once
 tools/jax_run_to_torch.py has written its EMA in the port's layout.
+Under torchrun (--nproc_per_node N ... --multihost) each batch is split over
+the ranks (gloo on the CPU, nccl on cards) and rank 0 writes the wavs.
 """
 
 import argparse
 import logging
 
 from nsynth_wavenet_tpu_torch.evaluation import generate_parallel_wavenet
+from nsynth_wavenet_tpu_torch.parallel import mesh as mesh_lib
 
 
 def main():
@@ -38,16 +41,22 @@ def main():
     ap.add_argument("--npy_only", action="store_true",
                     help="use only the .npy (precomputed mel) inputs of the source directory")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--multihost", action="store_true",
+                    help="one process of several: join the process group of torchrun's env:// "
+                         "variables and split each batch over the ranks")
     args = ap.parse_args()
     if (args.ckpt_dir is None) == (args.params is None or args.config is None):
         ap.error("pass --ckpt_dir, or --params and --config")
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
+    device = mesh_lib.init_distributed(args.device) if args.multihost else args.device
     for path in generate_parallel_wavenet(
             args.source_path, args.params, args.config, args.save_path,
-            batch_size=args.batch_size, seed=args.seed, device=args.device,
+            batch_size=args.batch_size, seed=args.seed, device=device,
             sample_length=args.sample_length, streaming_chunk=args.streaming_chunk,
             ckpt_dir=args.ckpt_dir, npy_only=args.npy_only):
-        print(path)
+        if mesh_lib.process_index() == 0:
+            print(path)
+    mesh_lib.shutdown()
 
 
 if __name__ == "__main__":

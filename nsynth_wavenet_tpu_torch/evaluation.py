@@ -4,7 +4,14 @@ files -> mel batch on the host -> Fastgen.generate_cuda (teacher; bf16, or
 W8A8 with per-row scales or with static scales calibrated on the sources,
 one-shot or streamed) or
 parallelgen.synthesize_cuda / StudentStreamer (student) on the device ->
-gen_*.wav."""
+gen_*.wav.
+
+In a process group of several ranks (the eval CLIs' --multihost under
+torchrun) each batch is split over the ranks of a data mesh that divides it
+(mesh.mesh_for_batch, where the JAX package's evaluation takes
+data_mesh_for_batch, the same search): the teacher through Fastgen.generate_cuda_sharded (each rank's rows with its
+folded seed), the student through parallelgen.synthesize_sharded (its rows
+of the whole batch's noise); rank 0 writes the wavs."""
 
 import dataclasses
 import glob
@@ -19,6 +26,7 @@ from nsynth_wavenet_tpu_torch import config as config_lib
 from nsynth_wavenet_tpu_torch import weights
 from nsynth_wavenet_tpu_torch.data import wav_io
 from nsynth_wavenet_tpu_torch.ops import stft as stft_ops
+from nsynth_wavenet_tpu_torch.parallel import mesh as mesh_lib
 
 log = logging.getLogger(__name__)
 
@@ -133,22 +141,37 @@ def generate_wavenet(source_path, params_npz, config_json, save_path, batch_size
         chunk = files[i : i + batch_size]
         mel = load_mel_batch(chunk, sample_length)
         t0 = time.time()
-        audio = fg.generate_cuda(params, torch.from_numpy(mel).to(device), seed + i, kw=kw,
-                                 chunk=streaming_chunk or None)
+        mel = torch.from_numpy(mel).to(device)
+        mesh = _batch_mesh(len(chunk))
+        if mesh is None:
+            audio = fg.generate_cuda(params, mel, seed + i, kw=kw, chunk=streaming_chunk or None)
+        elif mesh.member:
+            audio = fg.generate_cuda_sharded(params, mel, seed + i, mesh, kw=kw,
+                                             chunk=streaming_chunk or None)
+        else:
+            continue
         audio = audio.cpu().numpy()
         dt = time.time() - t0
         audio_sec = audio.size / 16000.0
         log.info("fastgen batch of %d: %.2f audio-sec in %.2fs (Delay %.3f)",
                  len(chunk), audio_sec, dt, dt / audio_sec)
         outputs += _write_batch(save_path, chunk, audio)
+    mesh_lib.barrier()
     return outputs
 
 
+def _batch_mesh(batch_size):
+    """The data mesh a batch is split over, or None in one process."""
+    return mesh_lib.mesh_for_batch(batch_size) if mesh_lib.process_count() > 1 else None
+
+
 def _write_batch(save_path, files, audio):
+    """gen_<name>.wav of each row (written by rank 0); returns the paths."""
     outputs = []
     for f, wav in zip(files, audio):
         out = os.path.join(save_path, "gen_" + os.path.splitext(os.path.basename(f))[0] + ".wav")
-        wav_io.write_wav(out, wav)
+        if mesh_lib.process_index() == 0:
+            wav_io.write_wav(out, wav)
         outputs.append(out)
     return outputs
 
@@ -195,7 +218,19 @@ def generate_parallel_wavenet(source_path, params_npz, config_json, save_path, b
         mel = torch.from_numpy(load_mel_batch(chunk, sample_length)).to(device)
         generator = torch.Generator().manual_seed(seed + i)
         t0 = time.time()
-        if streamer is not None:
+        mesh = _batch_mesh(len(chunk))
+        if mesh is not None and not mesh.member:
+            continue
+        if mesh is not None and streamer is not None:
+            rows = mesh_lib.rows(mesh, len(chunk))
+            base_x = pwn.base_noise(generator, len(chunk), pwn.sample_length(mel.shape[1]),
+                                    device)[rows]
+            audio = torch.cat(mesh_lib.all_gather(
+                streamer.synthesize(params, mel[rows], base_x=base_x),
+                mesh.group(mesh_lib.DATA_AXIS)))
+        elif mesh is not None:
+            audio = parallelgen.synthesize_sharded(pwn, params, mel, generator, mesh, fused=True)
+        elif streamer is not None:
             audio = streamer.synthesize(params, mel, generator)
         else:
             audio = parallelgen.synthesize_cuda(pwn, params, mel, generator)
@@ -205,4 +240,5 @@ def generate_parallel_wavenet(source_path, params_npz, config_json, save_path, b
         log.info("parallelgen batch of %d: %.2f audio-sec in %.2fs (Delay %.3f)",
                  len(chunk), audio_sec, dt, dt / audio_sec)
         outputs += _write_batch(save_path, chunk, audio)
+    mesh_lib.barrier()
     return outputs

@@ -16,6 +16,11 @@ counterpart of generate_pallas): bf16, or W8A8 with per-row scales (nothing
 to calibrate) or with static scales from ``Fastgen.calibrate_act_amax``,
 one-shot or in chunks with carried state.  ``Fastgen.generate_from_wav``
 puts the card mel in front of it.
+
+Over a device mesh's data axis (parallel/mesh.py), ``generate_sharded`` and
+``generate_cuda_sharded`` (counterparts of jit_generate_sharded and
+jit_generate_pallas_sharded) run each rank's rows of the batch and gather
+the audio on every rank.
 """
 
 from typing import Optional
@@ -28,6 +33,18 @@ from nsynth_wavenet_tpu_torch.ops import distributions as dist
 from nsynth_wavenet_tpu_torch.ops import fastgen_kernel as fk
 from nsynth_wavenet_tpu_torch.ops import signal as sig
 from nsynth_wavenet_tpu_torch.ops import stft as stft_ops
+from nsynth_wavenet_tpu_torch.parallel import mesh as mesh_lib
+
+# the odd 32-bit constant each shard of the sharded kernel path folds into
+# the seed (shard index times it, in int32), as the JAX package does
+SHARD_SEED_STRIDE = 0x61C88647
+
+
+def shard_seed(seed: int, shard: int) -> int:
+    """seed + shard * SHARD_SEED_STRIDE in int32 two's complement, JAX's
+    arithmetic (jnp.int32 wraps on overflow)."""
+    v = (int(seed) + int(shard) * SHARD_SEED_STRIDE) & 0xFFFFFFFF
+    return v - (1 << 32) if v >= 1 << 31 else v
 
 
 def _mat(p, dtype):
@@ -272,6 +289,39 @@ class Fastgen:
                                        state=state, return_state=True, int8_combine=int8_combine)
             pieces.append(audio)
         return torch.cat(pieces, 1)
+
+    def generate_sharded(self, params, mel, generator: torch.Generator, mesh, **kw):
+        """Data-parallel ``generate`` (counterpart of jit_generate_sharded):
+        mel [B, T, num_mel] whole on every rank of the mesh's data axis, which
+        must divide B; each rank runs its rows with the samplers' draws made
+        for the whole batch (mesh.RowDraws) and the audio [B, L] is gathered
+        on every rank, equal to one process's ``generate`` with the same
+        generator.  kw: generate's (length, cond_offset, ...)."""
+        B = mel.shape[0]
+        rows = mesh_lib.rows(mesh, B)
+        audio = self.generate(params, mel[rows], mesh_lib.RowDraws(generator, rows.start, B),
+                              **kw)
+        return torch.cat(mesh_lib.all_gather(audio, mesh.group(mesh_lib.DATA_AXIS)))
+
+    def generate_cuda_sharded(self, params, mel, seed: int, mesh, **kw):
+        """Data-parallel serving through the kernel (counterpart of
+        jit_generate_pallas_sharded): mel [B, T, num_mel] (or kw['encoding'])
+        whole on every rank of the mesh's data axis, which must divide B;
+        rank r calls generate_cuda on its rows with shard_seed(seed, r), so
+        that shards draw other noise, and the audio [B, L] is gathered on
+        every rank.  Greedy mode draws nothing and equals one process's
+        generate_cuda bit for bit; a rank's sampled rows equal generate_cuda
+        on those rows with the folded seed.  Every mode of generate_cuda
+        passes through kw (bf16, W8A8 static or per row, chunk, greedy).  The
+        kernel masks the rows past a rank's batch in its tiles, so a rank's
+        batch need not be a multiple of 8 (the TPU kernel's tile)."""
+        B = (mel if mel is not None else kw["encoding"]).shape[0]
+        rows = mesh_lib.rows(mesh, B)
+        if kw.get("encoding") is not None:
+            kw = dict(kw, encoding=kw["encoding"][rows])
+        audio = self.generate_cuda(params, None if mel is None else mel[rows],
+                                   shard_seed(seed, mesh.index(mesh_lib.DATA_AXIS)), **kw)
+        return torch.cat(mesh_lib.all_gather(audio, mesh.group(mesh_lib.DATA_AXIS)))
 
     def generate_from_wav(self, params, wav, seed: int, **kw):
         """Raw wav batch [B, N] -> the mel on wav's device (stft.melspectrogram)

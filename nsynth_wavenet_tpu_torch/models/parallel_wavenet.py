@@ -35,6 +35,7 @@ from nsynth_wavenet_tpu_torch.ops import conv as conv_ops
 from nsynth_wavenet_tpu_torch.ops import distributions as dist
 from nsynth_wavenet_tpu_torch.ops import signal as sig
 from nsynth_wavenet_tpu_torch.ops import stft as stft_ops
+from nsynth_wavenet_tpu_torch.parallel import mesh as mesh_lib
 from nsynth_wavenet_tpu_torch.utils import tree as tree_lib
 
 SCALE_MIN, SCALE_MAX = math.exp(-9.0), math.exp(7.0)
@@ -161,8 +162,7 @@ class ParallelWavenet:
         """Logistic(0, 1) or N(0, 1) base noise [B, L] f32 on ``device``."""
         if self.cfg.loss_type == "logistic":
             return dist.logistic_0_1(generator, (batch_size, length), device)
-        return torch.randn((batch_size, length), generator=generator,
-                           device=generator.device).to(device)
+        return mesh_lib.draw(torch.randn, generator, (batch_size, length)).to(device)
 
     def resolve_base_x(self, inputs, generator):
         """The base noise of a forward pass: inputs['base_x'] [B, L] when given,
@@ -199,7 +199,8 @@ class ParallelWavenet:
 
     # -- training ------------------------------------------------------------
 
-    def feed_forward_train(self, params, inputs, generator=None, *, init=False):
+    def feed_forward_train(self, params, inputs, generator=None, *, init=False,
+                           model_group=None):
         """The forward with gradients: ({'x', 'mean_tot', 'scale_tot',
         'log_scale_tot', 'rand_input'}, new_params); inputs as feed_forward.
 
@@ -209,13 +210,17 @@ class ParallelWavenet:
         and scale heads and the flow composition in f32.  init=True is the
         data-dependent init pass of a weight-normed student, in f32:
         new_params then holds the rescaled g and b, except the two final
-        heads under manual_final_init."""
+        heads under manual_final_init.  model_group: channel tensor
+        parallelism of every flow's layers over that group, as the teacher's
+        (models/wavenet.py feed_forward_train)."""
         cfg = self.cfg
         if cfg.detail_log and not init:
             raise NotImplementedError(
-                "detail_log histograms need device_histogram (ROADMAP Queue 1 item 7)")
+                "detail_log histograms need device_histogram (ROADMAP Queue 1 item 2)")
         if init and not cfg.use_weight_norm:
             raise ValueError("data-dependent init requires weight norm")
+        if init and model_group is not None:
+            raise ValueError("the data-dependent init pass runs on whole params")
         mel = inputs["mel"]
         x = self.resolve_base_x(inputs, generator)
         dtype = None if init else self.dtype
@@ -237,7 +242,8 @@ class ParallelWavenet:
             mel_en = shared_enc
             if mel_en is None:
                 mel_en, new_dp = deconv(fp["deconv"])
-            iaf, new_fp = self._create_iaf_train(fp, iaf_x, mel_en, fi, init, dtype, native)
+            iaf, new_fp = self._create_iaf_train(fp, iaf_x, mel_en, fi, init, dtype, native,
+                                                 model_group)
             if shared_enc is None:
                 new_fp["deconv"] = new_dp
             new_params["flows"][fi] = new_fp
@@ -248,7 +254,8 @@ class ParallelWavenet:
         ff = compose_output(x, mean_tot[..., 0], scale_tot[..., 0], log_scale_tot[..., 0])
         return ff, new_params
 
-    def _create_iaf_train(self, flow_params, x, mel_en, flow_idx, init, dtype, native):
+    def _create_iaf_train(self, flow_params, x, mel_en, flow_idx, init, dtype, native,
+                          model_group=None):
         """One IAF flow with gradients; returns (dict(x, mean, scale,
         log_scale), new flow params)."""
         cfg = self.cfg
@@ -269,6 +276,7 @@ class ParallelWavenet:
         # encoding's centre once (the init pass takes its moments over the
         # whole encoding, as the reference does)
         mel_c = mel_en if init else _centre(mel_en, l.shape[1])
+        mel_tp = None if init else mesh_lib.copy_to_region(mel_c, model_group)
         m = cfg.gate_width // 2
         for i in range(cfg.num_iaf_layers[flow_idx]):
             dilation = 2 ** (i % cfg.num_stages)
@@ -280,8 +288,10 @@ class ParallelWavenet:
                 d = torch.sigmoid(d[:, :, :m]) * torch.tanh(d[:, :, m:])
                 r, lp["res"] = apply(lp["res"], d)
             else:
-                d = conv(lp["dilated"], l, dilation) + conv(lp["mel_cond"], mel_c)
-                r = conv(lp["res"], wavenet_lib._Gate.apply(d))
+                d = (conv(lp["dilated"], mesh_lib.copy_to_region(l, model_group), dilation)
+                     + conv(lp["mel_cond"], mel_tp))
+                r = conv_ops.conv1d_taps_row(lp["res"], wavenet_lib._Gate.apply(d), model_group,
+                                             dtype=dtype, out_dtype=dtype, native=native)
             l = l + r
             new_fp["layers"][i] = lp
 
@@ -324,13 +334,15 @@ class ParallelWavenet:
     def _clip_or_not(self, x):
         return self._clip_quant_scale(x) if self.cfg.clip else x
 
-    def _teacher_out_params(self, teacher_params, x_scaled, mel):
+    def _teacher_out_params(self, teacher_params, x_scaled, mel, model_group=None):
         """The frozen teacher's head outputs [B, L, out_width] f32 on the
         student's sample; with remat_teacher its activations are recomputed
-        in the backward pass instead of kept."""
+        in the backward pass instead of kept.  model_group: the teacher's
+        params are sharded over it as the student's are."""
 
         def score(xs, m):
-            ff, _ = self.teacher.feed_forward_train(teacher_params, {"wav_scaled": xs, "mel": m})
+            ff, _ = self.teacher.feed_forward_train(teacher_params, {"wav_scaled": xs, "mel": m},
+                                                    model_group=model_group)
             return ff["out_params"]
 
         if self.cfg.remat_teacher:
@@ -341,27 +353,28 @@ class ParallelWavenet:
     def _entropy(self, ff_dict):
         return torch.mean(ff_dict["log_scale_tot"]) + 2.0
 
-    def kl_loss_logistic(self, teacher_params, ff_dict, rl):
+    def kl_loss_logistic(self, teacher_params, ff_dict, rl, model_group=None):
         """Monte-Carlo KL(student || MoL teacher): the teacher scores the
         student's sample x once, and num_samples logistic perturbations
         rl [B, S, L] of it, taken as L(mean_tot, scale_tot), are evaluated
         under its MoL params broadcast over the sample axis."""
         x, mean, scale = ff_dict["x"], ff_dict["mean_tot"], ff_dict["scale_tot"]
         x_xp = rl * scale[:, None, :] + mean[:, None, :]
-        te_mol = self._teacher_out_params(teacher_params, self._clip_or_not(x), ff_dict["mel"])
+        te_mol = self._teacher_out_params(teacher_params, self._clip_or_not(x), ff_dict["mel"],
+                                          model_group)
         log_te = dist.mol_log_probs(te_mol[:, None], self._clip_or_not(x_xp),
                                     self.cfg.quant_chann)  # [B, S, L]
         H_Ps_Pt = torch.mean(-torch.mean(log_te, dim=1))
         H_Ps = self._entropy(ff_dict)
         return {"kl_loss": H_Ps_Pt - H_Ps, "H_Ps": H_Ps, "H_Ps_Pt": H_Ps_Pt}
 
-    def kl_loss_gauss(self, teacher_params, ff_dict):
+    def kl_loss_gauss(self, teacher_params, ff_dict, model_group=None):
         """Closed-form KL(N_q || N_p) a step plus 4 mean((log sigma_p -
         log sigma_q)^2); sigma_p floored at kl_sigma_floor when it is above 0."""
         mean_q, scale_q = ff_dict["mean_tot"], ff_dict["scale_tot"]
         log_scale_q = ff_dict["log_scale_tot"]
         te_out = self._teacher_out_params(teacher_params, self._clip_or_not(ff_dict["x"]),
-                                          ff_dict["mel"])
+                                          ff_dict["mel"], model_group)
         mean_p, scale_p = dist.mean_std_from_out_params(te_out, use_log_scales=True)
         if self.cfg.kl_sigma_floor > 0.0:
             scale_p = torch.clamp(scale_p, min=self.cfg.kl_sigma_floor)
@@ -420,12 +433,13 @@ class ParallelWavenet:
             avg = 0.5 * avg + 0.5 * torch.mean(diff[:, :, : stft_ops.PRIORITY_FREQ])
         return {"power_loss": avg}
 
-    def contrastive_loss(self, teacher_params, ff_dict, rl):
+    def contrastive_loss(self, teacher_params, ff_dict, rl, model_group=None):
         """Minus the KL against the mismatched mel ff_dict['mel_rand']."""
-        kl = self.kl_loss_logistic(teacher_params, dict(ff_dict, mel=ff_dict["mel_rand"]), rl)
+        kl = self.kl_loss_logistic(teacher_params, dict(ff_dict, mel=ff_dict["mel_rand"]), rl,
+                                   model_group)
         return {"contrastive_loss": -kl["kl_loss"]}
 
-    def kl_and_contrastive_fused(self, teacher_params, ff_dict, rl_kl, rl_cl):
+    def kl_and_contrastive_fused(self, teacher_params, ff_dict, rl_kl, rl_cl, model_group=None):
         """kl_loss_logistic and contrastive_loss with one teacher pass: the
         two score the same sample under two mels, and the teacher never
         mixes batch rows, so [mel; mel_rand] runs as one 2B batch."""
@@ -434,7 +448,7 @@ class ParallelWavenet:
         x_scaled = self._clip_or_not(x)
         te_mol = self._teacher_out_params(
             teacher_params, torch.cat([x_scaled, x_scaled]),
-            torch.cat([ff_dict["mel"], ff_dict["mel_rand"]]))  # [2B, L, 3 * mix]
+            torch.cat([ff_dict["mel"], ff_dict["mel_rand"]]), model_group)  # [2B, L, 3 * mix]
         rl = torch.cat([rl_kl, rl_cl])
         x_xp = rl * torch.cat([scale, scale])[:, None, :] + torch.cat([mean, mean])[:, None, :]
         log_te = dist.mol_log_probs(te_mol[:, None], self._clip_or_not(x_xp),
@@ -445,19 +459,20 @@ class ParallelWavenet:
         return {"kl_loss": H_Ps_Pt - H_Ps, "H_Ps": H_Ps, "H_Ps_Pt": H_Ps_Pt,
                 "contrastive_loss": -(H_Ps_Pt_rand - H_Ps)}
 
-    def calculate_loss(self, teacher_params, ff_dict, noise, norm_stats=None):
+    def calculate_loss(self, teacher_params, ff_dict, noise, norm_stats=None, model_group=None):
         """kl + power_loss_factor * power (+ contrastive_loss_factor *
         contrastive).  ff_dict: the forward's outputs and {'mel', 'wav'}
-        (+ 'mel_rand'); noise: ``loss_noise``'s draws."""
+        (+ 'mel_rand'); noise: ``loss_noise``'s draws; model_group: the
+        teacher's params are sharded over it."""
         cfg = self.cfg
         clf = cfg.contrastive_loss_factor if cfg.loss_type == "logistic" else 0.0
         if cfg.loss_type == "gauss":
-            loss_dict = self.kl_loss_gauss(teacher_params, ff_dict)
+            loss_dict = self.kl_loss_gauss(teacher_params, ff_dict, model_group)
         elif clf > 0.0:
             loss_dict = self.kl_and_contrastive_fused(teacher_params, ff_dict, noise["kl"],
-                                                      noise["cl"])
+                                                      noise["cl"], model_group)
         else:
-            loss_dict = self.kl_loss_logistic(teacher_params, ff_dict, noise["kl"])
+            loss_dict = self.kl_loss_logistic(teacher_params, ff_dict, noise["kl"], model_group)
         loss = loss_dict["kl_loss"]
         if cfg.power_loss_factor > 0.0:
             loss_dict.update(self.power_loss(ff_dict, norm_stats))

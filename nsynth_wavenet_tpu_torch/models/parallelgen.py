@@ -19,6 +19,13 @@ Three compute paths:
     bounded working set.
 On CPU tensors flow_stack runs its plain version, so all three run there.
 
+Over a device mesh (parallel/mesh.py): ``synthesize_sharded`` splits the
+batch over the data axis, each rank running what one process runs for its
+rows (the fused path on the card, the plain one on the CPU) from its rows of
+the whole batch's base noise; ``synthesize_seq_sharded`` splits time over the
+seq axis, each rank running the plain flows on its chunk with a
+receptive-field halo from its left neighbour.
+
 The fused twin keeps its own roundings, which differ from the plain path's:
 the start conv is three f32 outer products, the trunk stream stays f32, and
 the mean and scale heads come out unrounded in f32.
@@ -32,6 +39,7 @@ from nsynth_wavenet_tpu_torch.models.wavenet import no_tf32
 from nsynth_wavenet_tpu_torch.ops import conv as conv_ops
 from nsynth_wavenet_tpu_torch.ops import flow_kernel as flow_kernel_ops
 from nsynth_wavenet_tpu_torch.ops import stft as stft_ops
+from nsynth_wavenet_tpu_torch.parallel import mesh as mesh_lib
 
 
 @torch.no_grad()
@@ -293,3 +301,107 @@ class StudentStreamer:
             audio, state = self._chunk_step(params, stacked, x_c.t()[..., None], enc_cs, state)
             outs.append(audio)
         return torch.cat(outs, 0).t().contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Sharded serving
+# ---------------------------------------------------------------------------
+
+
+def synthesize_sharded(pwn: ParallelWavenet, params, mel, generator, mesh, fused=None, **kw):
+    """Data-parallel one-shot serving (counterpart of
+    jit_synthesize_sharded): mel [B, T, num_mel] whole on every rank of the
+    mesh's data axis, which must divide B.  Each rank runs its rows through
+    synthesize_cuda (fused; kw: its layers_per_call, fuse_cond) or the plain
+    synthesize, with its rows of the whole batch's base noise
+    (mesh.RowDraws), and the audio [B, L] is gathered on every rank: one
+    process's audio on the same path to one quantisation bin.  fused
+    defaults to the fused path on a CUDA device and the plain one on the CPU,
+    the path JAX's jit_synthesize_sharded runs there."""
+    B = mel.shape[0]
+    rows = mesh_lib.rows(mesh, B)
+    draws = mesh_lib.RowDraws(generator, rows.start, B)
+    if mel.is_cuda if fused is None else fused:
+        audio = synthesize_cuda(pwn, params, mel[rows], draws, **kw)
+    else:
+        audio = synthesize(pwn, params, mel[rows], draws)
+    return torch.cat(mesh_lib.all_gather(audio, mesh.group(mesh_lib.DATA_AXIS)))
+
+
+def flow_receptive_field(pwn: ParallelWavenet, flow_idx: int) -> int:
+    """Samples before t that a flow's output at t reads: the shift by one,
+    the start conv's taps and every dilated layer's (the heads are 1x1)."""
+    cfg = pwn.cfg
+    dils = sum(2 ** (i % cfg.num_stages) for i in range(cfg.num_iaf_layers[flow_idx]))
+    return 1 + (cfg.filter_length - 1) * (1 + dils)
+
+
+def _deconv_halo_frames(cfg) -> int:
+    """Mel frames on each side that bound the upsampling stack's reach: a
+    layer of filter fl and stride s reads about fl / s + 1 of its input
+    frames each way."""
+    reach, unit = 0.0, 1
+    for fl, stride in cfg.deconv_config:
+        reach += (fl / stride + 1) / unit
+        unit *= stride
+    return int(reach) + 2
+
+
+@torch.no_grad()
+@no_tf32()
+def synthesize_seq_sharded(pwn: ParallelWavenet, params, mel, generator, mesh):
+    """Time-sharded one-shot serving (counterpart of
+    jit_synthesize_seq_sharded): mel [B, T, num_mel] whole on every rank;
+    rank r of the seq axis owns samples [r L/n, (r+1) L/n) of each row (and
+    its data index its rows of the batch), with T and the sample length L
+    multiples of n.  Every flow of the plain path runs on the chunk extended
+    on the left by the flow's receptive field (flow_receptive_field), whose
+    input the left neighbour sends (one send/receive a flow), and the
+    extension's outputs are dropped; the upsampling stack runs on the mel
+    frames of that window with a halo of frames each side.  The base noise
+    is the whole batch's draw.  Returns audio [B, L] on every rank: the
+    plain ``synthesize`` to one quantisation bin."""
+    cfg = pwn.cfg
+    B, T = mel.shape[:2]
+    L = pwn.sample_length(T)
+    n, r = mesh.size(mesh_lib.SEQ_AXIS), mesh.index(mesh_lib.SEQ_AXIS)
+    if T % n or L % n:
+        raise ValueError(f"mel frames ({T}) and sample length ({L}) must divide the seq axis "
+                         f"({n}); crop the mel to a multiple")
+    rows = mesh_lib.rows(mesh, B)
+    seq_group = mesh.group(mesh_lib.SEQ_AXIS)
+    chunk = L // n
+    t0, t1 = r * chunk, (r + 1) * chunk
+    reach = [flow_receptive_field(pwn, fi) for fi in range(pwn.num_flows)]
+    if max(reach) > chunk:
+        raise ValueError(f"a flow reads {max(reach)} samples back, more than a chunk ({chunk})")
+    halos = [R if r > 0 else 0 for R in reach]
+    x = pwn.base_noise(mesh_lib.RowDraws(generator, rows.start, B), rows.stop - rows.start, L,
+                       mel.device)[:, t0:t1]
+
+    # the encoding over [t0 - max halo, t1), from a window of mel frames
+    fs = cfg.frame_shift
+    left = (T * fs - L) // 2
+    e0, e1 = t0 - max(halos) + left, t1 + left
+    hf = _deconv_halo_frames(cfg)
+    fa, fb = max(0, e0 // fs - hf), min(T, -(-e1 // fs) + hf)
+    mel_w = mel[rows, fa:fb]
+    shared = pwn._flow_deconv(params, 0, mel_w) if pwn.shares_deconv else None
+
+    iaf_x = x[..., None]
+    mean_tot, scale_tot, log_scale_tot = 0.0, 1.0, 0.0
+    for fi, fp in enumerate(params["flows"]):
+        h, R = halos[fi], reach[fi]
+        halo = (mesh_lib.send_right_recv_left(iaf_x[:, chunk - R:], seq_group, iaf_x[:, :R])
+                if n > 1 else None)
+        x_ext = iaf_x if halo is None else torch.cat([halo, iaf_x], 1)
+        enc = shared if shared is not None else pwn._flow_deconv(params, fi, mel_w)
+        enc = enc[:, t0 - h + left - fa * fs : t1 + left - fa * fs]
+        iaf = {k: v[:, h:] for k, v in pwn._create_iaf(fp, x_ext, enc, fi).items()}
+        iaf_x = iaf["x"]
+        mean_tot = iaf["mean"] + mean_tot * iaf["scale"]
+        scale_tot = scale_tot * iaf["scale"]
+        log_scale_tot = log_scale_tot + iaf["log_scale"]
+    ff = compose_output(x, mean_tot[..., 0], scale_tot[..., 0], log_scale_tot[..., 0])
+    audio = torch.cat(mesh_lib.all_gather(pwn._clip_quant_scale(ff["x"]), seq_group), 1)
+    return torch.cat(mesh_lib.all_gather(audio, mesh.group(mesh_lib.DATA_AXIS)))

@@ -20,6 +20,7 @@ from nsynth_wavenet_tpu_torch.ops import conv as conv_ops
 from nsynth_wavenet_tpu_torch.ops import distributions as dist
 from nsynth_wavenet_tpu_torch.ops import signal as sig
 from nsynth_wavenet_tpu_torch.ops import stft as stft_ops
+from nsynth_wavenet_tpu_torch.parallel import mesh as mesh_lib
 
 
 @contextlib.contextmanager
@@ -47,9 +48,10 @@ def condition_add(x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
 
 def _dropout(generator, x, rate):
     """Inverted dropout: keep each value with probability 1 - rate and scale
-    the kept ones by 1 / (1 - rate); the mask comes from ``generator``."""
+    the kept ones by 1 / (1 - rate); the mask comes from ``generator`` (a
+    mesh_lib.RowDraws: this rank's rows of the global batch's mask)."""
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = mesh_lib.uniform(generator, x.shape, x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -195,7 +197,8 @@ class Wavenet:
 
     # -- training ------------------------------------------------------------
 
-    def feed_forward_train(self, params, inputs, *, generator=None, init=False):
+    def feed_forward_train(self, params, inputs, *, generator=None, init=False,
+                           model_group=None):
         """The forward with gradients.  inputs {'wav_scaled': [B, L], 'mel':
         [B, T, num_mel]} -> ({'encoding', 'out_params' f32}, new_params).
 
@@ -208,13 +211,21 @@ class Wavenet:
         then holds the rescaled g and b.  The trunk's and the head's
         convolutions are matmuls over the stacked taps (conv_ops.conv1d_taps),
         the deconv stack's cuDNN's.  bf16 compute keeps the f32 master params;
-        on a CUDA device its products take bf16 operands."""
+        on a CUDA device its products take bf16 operands.
+
+        model_group: channel tensor parallelism over that group (params
+        sharded by parallel/mesh.py shard_params): each layer's dilated and
+        mel_cond products are column-parallel and give this rank's matched
+        sigmoid and tanh halves of the gate, its res and skip products
+        row-parallel; every other tensor is whole on every rank."""
         cfg = self.cfg
         if cfg.detail_log and not init:
             raise NotImplementedError(
-                "detail_log histograms need device_histogram (ROADMAP Queue 1 item 7)")
+                "detail_log histograms need device_histogram (ROADMAP Queue 1 item 2)")
         if init and not cfg.use_weight_norm:
             raise ValueError("data-dependent init requires weight norm")
+        if init and model_group is not None:
+            raise ValueError("the data-dependent init pass runs on whole params")
         dtype = None if init else self.dtype
         native = dtype is not None and inputs["wav_scaled"].is_cuda
         use_dropout = ((cfg.dropout_inputs or cfg.dropout_all) and not cfg.use_as_teacher
@@ -226,6 +237,10 @@ class Wavenet:
         def conv(p, x, dilation=1):
             return conv_ops.conv1d_taps(p, x, dilation=dilation, dtype=dtype, out_dtype=dtype,
                                         native=native)
+
+        def row(p, x):
+            return conv_ops.conv1d_taps_row(p, x, model_group, dtype=dtype, out_dtype=dtype,
+                                            native=native)
 
         def apply(p, x, dilation=1):
             if init:
@@ -255,11 +270,15 @@ class Wavenet:
                                  f"{l.shape[1]})")
             left = (mel_en.shape[1] - l.shape[1]) // 2
             mel_c = mel_en[:, left : left + l.shape[1]].contiguous()
+            # every layer's column-parallel mel_cond product reads it: one
+            # gradient sum over the model group for all of them
+            mel_tp = mesh_lib.copy_to_region(mel_c, model_group)
 
         def layer_body(lp, l, mel_c, dilation):
-            d = conv(lp["dilated"], l, dilation) + conv(lp["mel_cond"], mel_c)
+            d = (conv(lp["dilated"], mesh_lib.copy_to_region(l, model_group), dilation)
+                 + conv(lp["mel_cond"], mel_c))
             d = _Gate.apply(d)
-            return conv(lp["res"], d), conv(lp["skip"], d)
+            return row(lp["res"], d), row(lp["skip"], d)
 
         for i, lp in enumerate(params["layers"]):
             dilation = 2 ** (i % cfg.num_stages)
@@ -272,10 +291,10 @@ class Wavenet:
                 r, lp["res"] = apply(lp["res"], d)
                 sk, lp["skip"] = apply(lp["skip"], d)
             elif cfg.remat:
-                r, sk = checkpoint(layer_body, lp, l, mel_c, dilation, use_reentrant=False,
+                r, sk = checkpoint(layer_body, lp, l, mel_tp, dilation, use_reentrant=False,
                                    preserve_rng_state=False)
             else:
-                r, sk = layer_body(lp, l, mel_c, dilation)
+                r, sk = layer_body(lp, l, mel_tp, dilation)
             l = l + r
             s = s + sk
             if use_dropout and cfg.dropout_all:
@@ -302,11 +321,11 @@ class Wavenet:
             loss = dist.gauss_loss(out, ff_dict["real_targets"])
         return {"loss": loss}
 
-    def forward_loss(self, params, wav, mel, generator=None):
+    def forward_loss(self, params, wav, mel, generator=None, model_group=None):
         """wav [B, L], mel [B, T, num_mel] -> {'loss'} (a scalar tensor)."""
         enc = self.encode_signal(wav)
         ff, _ = self.feed_forward_train(params, {"wav_scaled": enc["wav_scaled"], "mel": mel},
-                                        generator=generator)
+                                        generator=generator, model_group=model_group)
         ff.update(enc)
         return self.calculate_loss(ff)
 

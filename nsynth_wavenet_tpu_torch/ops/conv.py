@@ -14,6 +14,13 @@ hands cuDNN / cuBLAS the bf16 operands instead, which accumulate in f32 and
 round the output once: the same values in another summation order at the
 tensor cores' rate.
 
+Channel tensor parallelism (parallel/mesh.py): a column-parallel conv (the
+output axis sharded) is ``conv1d_taps`` on ``mesh.copy_to_region`` of its
+input, and weight norm's norm over axes (0, 1) is local;
+``conv1d_taps_row`` (the input axis sharded) sums each output channel's
+squared norm over the model group before the division, sums the partial
+products over the group, and adds the bias once, after that sum.
+
 Weight norm's data-dependent init is a pure pass: the ``*_ddi`` functions
 return ``(y, new_params)`` with g and b rescaled so that the layer's output
 has mean 0 and standard deviation WN_INIT_SCALE over the init batch.
@@ -24,6 +31,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from nsynth_wavenet_tpu_torch.parallel import mesh as mesh_lib
 
 WN_INIT_SCALE = 1.0
 
@@ -59,12 +68,18 @@ def conv1d_init(generator, in_ch, out_ch, filter_length, *, device="cuda",
     return {"w": w, "b": b}
 
 
-def effective_kernel(params) -> torch.Tensor:
-    """The effective [fl, in, out] kernel, resolving weight norm."""
+def effective_kernel(params, norm_group=None) -> torch.Tensor:
+    """The effective [fl, in, out] kernel, resolving weight norm.
+    norm_group: the model group of a kernel whose input axis is sharded over
+    it; each output channel's squared norm is then summed over the group."""
     if "v" in params:
-        v = params["v"]
-        norm = torch.sqrt(torch.sum(v * v, dim=(0, 1)))
-        return v / torch.clamp(norm, min=1e-12)[None, None, :] * params["g"][None, None, :]
+        v, g = params["v"], params["g"]
+        sq = torch.sum(v * v, dim=(0, 1))
+        if norm_group is not None:
+            sq = mesh_lib.sum_partials(sq, norm_group)
+            g = mesh_lib.copy_to_region(g, norm_group)
+        norm = torch.sqrt(sq)
+        return v / torch.clamp(norm, min=1e-12)[None, None, :] * g[None, None, :]
     return params["w"]
 
 
@@ -146,6 +161,22 @@ def conv1d_taps(params, x: torch.Tensor, *, dilation: int = 1,
     if fl > 1:
         x = _StackTaps.apply(x, fl, dilation)
     return _finish(x @ w.reshape(fl * cin, cout), params["b"], dtype, out_dtype)
+
+
+def conv1d_taps_row(params, x: torch.Tensor, group, *, dilation: int = 1,
+                    dtype: Optional[torch.dtype] = None, out_dtype: Optional[torch.dtype] = None,
+                    native: bool = False):
+    """Row-parallel conv1d_taps: x and the kernel's input axis sharded over
+    the model ``group``, the bias and gain whole.  The squared norm of each
+    output channel and the partial products are summed over the group, and
+    the bias is added once, after the sum.  group None: conv1d_taps."""
+    w = effective_kernel(params, norm_group=group)
+    fl, cin, cout = w.shape
+    x, w = _operands(x, w, dtype, native)
+    if fl > 1:
+        x = _StackTaps.apply(x, fl, dilation)
+    y = mesh_lib.reduce_from_region(x @ w.reshape(fl * cin, cout), group)
+    return _finish(y, params["b"], dtype, out_dtype)
 
 
 def _ddi_rescale(params, y, init_scale: float = WN_INIT_SCALE):

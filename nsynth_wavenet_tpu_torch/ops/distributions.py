@@ -3,7 +3,8 @@ mixture-of-Gaussians log-prob, loss and sampler, and the student's base
 noise (counterpart of nsynth_wavenet_tpu/ops/distributions.py).
 Each head sampler returns int32 quantized samples in
 [-quant_chann/2, quant_chann/2).  Randomness comes from an explicit
-``torch.Generator``; uniforms lie on the open interval [1e-5, 1 - 1e-5] like
+``torch.Generator`` (or a parallel/mesh.py RowDraws, this rank's rows of
+the global batch's draws); uniforms lie on the open interval [1e-5, 1 - 1e-5] like
 the reference's.
 
 softplus is ``logaddexp(x, 0)``, as JAX writes it: ``F.softplus`` turns
@@ -14,6 +15,7 @@ import math
 import torch
 
 from nsynth_wavenet_tpu_torch.ops import signal as sig
+from nsynth_wavenet_tpu_torch.parallel import mesh as mesh_lib
 
 U_MIN = 1e-5
 
@@ -97,7 +99,7 @@ def mog_loss(mog_params, real_targets):
 
 
 def uniform_open(generator: torch.Generator, shape, device) -> torch.Tensor:
-    u = torch.rand(shape, generator=generator, device=generator.device)
+    u = mesh_lib.draw(torch.rand, generator, shape)
     return (u * (1.0 - 2 * U_MIN) + U_MIN).to(device)
 
 
@@ -125,7 +127,7 @@ def gauss_sample(generator, gauss_params: torch.Tensor, quant_chann: int) -> tor
     """gauss_params [..., 2] (mean, log std)."""
     mean = gauss_params[..., 0]
     std = torch.exp(torch.clamp(gauss_params[..., 1], min=-7.0))
-    z = torch.randn(mean.shape, generator=generator, device=generator.device).to(mean.device)
+    z = mesh_lib.draw(torch.randn, generator, mean.shape).to(mean.device)
     x = torch.clamp(mean + std * z, -1.0, 1.0 - 2.0 / quant_chann)
     return sig.cast_quantize(x, quant_chann)
 
@@ -137,8 +139,7 @@ def mog_sample(generator, mog_params: torch.Tensor, quant_chann: int,
     then the normals) come from ``generator``."""
     nr_mix = mog_params.shape[-1] // 3
     ru = uniform_open(generator, mog_params.shape[:-1] + (nr_mix,), mog_params.device)
-    z = torch.randn(mog_params.shape[:-1], generator=generator,
-                    device=generator.device).to(mog_params.device)
+    z = mesh_lib.draw(torch.randn, generator, mog_params.shape[:-1]).to(mog_params.device)
     return mog_sample_from(mog_params, ru, z, quant_chann, use_log_scales)
 
 

@@ -21,6 +21,7 @@ The arithmetic runs in place over the flat leaf lists with
 import numpy as np
 import torch
 
+from nsynth_wavenet_tpu_torch.parallel import mesh as mesh_lib
 from nsynth_wavenet_tpu_torch.utils import tree as tree_lib
 
 EMA_DECAY = 0.9999
@@ -41,17 +42,31 @@ def piecewise_constant_lr(schedule):
     return lr_fn
 
 
-def global_norm(grads) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, a 0-d tensor."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+def global_norm(grads, sharded=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, a 0-d tensor.  sharded:
+    (flags, group) when the leaves flagged are this rank's shards of leaves
+    sharded over the model group: their squares are summed over the group,
+    the whole leaves' counted once, so every rank reads the norm of the whole
+    gradient."""
+    norms = torch.stack(torch._foreach_norm(grads))
+    if sharded is None:
+        return torch.linalg.vector_norm(norms)
+    flags, group = sharded
+    mask = torch.tensor(flags, dtype=torch.bool, device=norms.device)
+    sq = norms * norms
+    return torch.sqrt(mesh_lib.all_reduce(sq[mask].sum(), group) + sq[~mask].sum())
 
 
 class Optimizer:
     """Adam on a learning-rate schedule, with the optional clip."""
 
-    def __init__(self, lr_schedule, grad_clip: bool = False):
+    def __init__(self, lr_schedule, grad_clip: bool = False, sharded=None):
+        """sharded: (flags, group) when the params are sharded over a model
+        group (mesh.sharded_norm): the leaves flagged (in leaves order) are
+        shards, and the clip's global norm sums their squares over it."""
         self.lr_fn = piecewise_constant_lr(lr_schedule)
         self.grad_clip = grad_clip
+        self.sharded = sharded
 
     def init(self, params):
         zeros = lambda p: torch.zeros_like(p)  # noqa: E731
@@ -68,7 +83,7 @@ class Optimizer:
         nu = tree_lib.leaves(opt_state["nu"])
         count = opt_state["count"]
         if self.grad_clip:
-            norm = global_norm(g)
+            norm = global_norm(g, self.sharded)
             g = torch._foreach_div(g, torch.where(norm < 1.0, torch.ones_like(norm), norm))
         torch._foreach_mul_(mu, ADAM_B1)
         torch._foreach_add_(mu, g, alpha=1.0 - ADAM_B1)
@@ -87,8 +102,8 @@ class Optimizer:
         return {"count": count + 1, "mu": opt_state["mu"], "nu": opt_state["nu"]}
 
 
-def make_optimizer(lr_schedule, grad_clip: bool = False) -> Optimizer:
-    return Optimizer(lr_schedule, grad_clip=grad_clip)
+def make_optimizer(lr_schedule, grad_clip: bool = False, sharded=None) -> Optimizer:
+    return Optimizer(lr_schedule, grad_clip=grad_clip, sharded=sharded)
 
 
 class MultiTransform:
@@ -114,6 +129,10 @@ class MultiTransform:
 
     def init(self, params):
         return self.inner.init(self._trained(params))
+
+    @property
+    def sharded(self):
+        return self.inner.sharded
 
     def update(self, grads, opt_state, params):
         return self.inner.update(self._trained(grads), opt_state, self._trained(params))

@@ -1,11 +1,22 @@
 """Training runs (counterparts of train_wavenet, load_teacher and
-train_parallel_wavenet in nsynth_wavenet_tpu/training/runner.py, without
-their mesh and multi-host parts): the run directory (a new one under
-``log_root`` named by the config slug, or resume from ``logdir``),
-data-dependent init of weight-normed models, the step loop on one device,
+train_parallel_wavenet in nsynth_wavenet_tpu/training/runner.py): the run
+directory (a new one under ``log_root`` named by the config slug, or resume
+from ``logdir``), data-dependent init of weight-normed models, the step loop,
 metrics every LOG_EVERY steps, checkpoints every ``ckpt_every_steps`` and at
 the target, a checkpoint on SIGTERM / SIGINT, and an optional torch.profiler
 window.
+
+Over a device mesh (parallel/mesh.py), one process per device:
+``multihost`` joins the process group of torch's ``env://`` variables
+(torchrun's), ``n_model`` shards the model's channels over that many ranks
+and the data axis takes the rest of them.  Every rank of a data index reads
+that index's share of the records with its seed offset by the index and
+steps on those rows alone (no rank assembles the global batch, as JAX's
+put_global_batch does), the
+data-dependent init runs on process 0's init batch on every rank, the
+checkpoints hold the whole state (training/checkpoint.py), and train.log,
+metrics.jsonl, TensorBoard and the profile come from rank 0.  ``n_seq``
+(sequence parallelism of training) is not ported.
 
 On resume the state comes from the latest checkpoint and the data iterators
 restart from their seeds, as the JAX runner's do; a step's random draws
@@ -16,6 +27,7 @@ wrote and keeps its power-loss statistics in norm_stats.npz.
 
 import dataclasses
 import glob
+import logging
 import os
 import shutil
 import time
@@ -25,9 +37,68 @@ import torch
 
 from nsynth_wavenet_tpu_torch import config as config_lib
 from nsynth_wavenet_tpu_torch.data import dataset as data_lib
+from nsynth_wavenet_tpu_torch.parallel import mesh as mesh_lib
 from nsynth_wavenet_tpu_torch.utils import logging_utils
+from nsynth_wavenet_tpu_torch.utils import tree as tree_lib
 
 LOG_EVERY = 100
+STOP_SYNC_EVERY = 10
+
+
+def maybe_init_distributed(multihost: bool, device="cuda") -> torch.device:
+    """With multihost, join the process group that torch's env:// variables
+    describe (mesh.init_distributed: nccl and cuda:LOCAL_RANK for a CUDA
+    device, gloo for the CPU) and return this rank's device; else the
+    device as it is."""
+    if multihost:
+        return mesh_lib.init_distributed(device)
+    return torch.device(device)
+
+
+def local_batch_size(total_batch_size: int, mesh) -> int:
+    """Rows of the global batch this rank's data index produces."""
+    n = mesh.size(mesh_lib.DATA_AXIS)
+    if total_batch_size % n:
+        raise ValueError(f"total_batch_size {total_batch_size} does not divide over {n} data ranks")
+    return total_batch_size // n
+
+
+def broadcast_from_host0(x):
+    """A host array, or a tuple of them, made identical on every process
+    (process 0 wins): the data-dependent-init batch and the power-loss
+    statistics, which every rank must see alike or the replicas part."""
+    if mesh_lib.process_count() == 1:
+        return x
+    if isinstance(x, tuple):
+        return tuple(broadcast_from_host0(a) for a in x)
+    return mesh_lib.broadcast(torch.from_numpy(np.ascontiguousarray(x))).numpy()
+
+
+def make_stop_sync():
+    """Agreement of every process on the GracefulShutdown flag: each process
+    gets its signal at another step, while the gradient average and the
+    checkpoint save are collectives, so the flags are max-reduced at the same
+    step boundaries (every STOP_SYNC_EVERY steps).  One process: the local
+    flag, every step."""
+    if mesh_lib.process_count() == 1:
+        return lambda requested, step: requested
+
+    def sync(requested: bool, step: int) -> bool:
+        if step % STOP_SYNC_EVERY != 0:
+            return False
+        flag = torch.tensor([int(requested)])
+        return bool(mesh_lib.all_reduce(flag, mesh_lib.dist.group.WORLD,
+                                        op=mesh_lib.dist.ReduceOp.MAX).item())
+
+    return sync
+
+
+def _shared_time_stamp() -> str:
+    """The run directory's time stamp, process 0's on every process (each
+    process's own clock could name another second)."""
+    stamp = time.strftime("%m%d_%H%M%S")
+    raw = np.frombuffer(stamp.encode("ascii"), dtype=np.uint8)
+    return bytes(broadcast_from_host0(raw)).decode("ascii")
 
 
 class GracefulShutdown:
@@ -125,9 +196,11 @@ def resolve_run_dir(log_root: str, logdir: str, config_path: str, model_tag: str
             raise ValueError("a new run under --log_root needs --config")
         cfg = config_lib.load_config(config_path)
         slug = config_lib.config_slug(cfg, model_tag)
-        run_dir = os.path.join(log_root, f"{slug}-{time.strftime('%m%d_%H%M%S')}")
+        run_dir = os.path.join(log_root, f"{slug}-{_shared_time_stamp()}")
         os.makedirs(run_dir, exist_ok=True)
-        shutil.copy(config_path, run_dir)
+        if mesh_lib.process_index() == 0:
+            shutil.copy(config_path, run_dir)
+        mesh_lib.barrier()
         return run_dir, cfg, False
     return logdir, config_lib.load_config(find_config_json(logdir)), True
 
@@ -157,11 +230,32 @@ def _check_device(device):
     return device
 
 
-def _refuse_multi_device(multihost, n_model, n_seq):
-    if multihost or n_model != 1 or n_seq != 1:
+def _training_mesh(multihost, total_batch_size, n_model, n_seq, device):
+    """(device, mesh) of a run: the mesh must take every rank (the data axis
+    divides the global batch)."""
+    if n_seq != 1:
         raise NotImplementedError(
-            "multi-device training (multihost, n_model, n_seq) is not ported yet (ROADMAP Queue 1 "
-            "item 6); run with the defaults")
+            "sequence-parallel training (n_seq) is not ported: it needs halo exchanges in every "
+            "dilated conv, the deconv and the STFT power loss (ROADMAP Queue 1 item 1); run "
+            "with n_seq=1")
+    device = _check_device(maybe_init_distributed(multihost, device))
+    mesh = mesh_lib.mesh_for_batch(total_batch_size, n_model=n_model)
+    world = mesh_lib.process_count()
+    if int(np.prod(list(mesh.shape.values()))) != world:
+        raise ValueError(f"total_batch_size {total_batch_size} with n_model {n_model} leaves ranks "
+                         f"of {world} idle (mesh {mesh.shape})")
+    return device, mesh
+
+
+def _run_logger(run_dir):
+    """train.log and the console on rank 0; the other ranks log nothing."""
+    if mesh_lib.process_index() == 0:
+        return logging_utils.add_log_file(run_dir)
+    log = logging.getLogger(f"{logging_utils.LOGGER_NAME}.rank{mesh_lib.process_index()}")
+    log.propagate = False
+    if not log.handlers:
+        log.addHandler(logging.NullHandler())
+    return log
 
 
 def train_wavenet(
@@ -179,9 +273,9 @@ def train_wavenet(
     n_seq: int = 1,
     device="cuda",
 ):
-    """Teacher training on one device; returns (run_dir, state)."""
-    _refuse_multi_device(multihost, n_model, n_seq)
-    device = _check_device(device)
+    """Teacher training; returns (run_dir, state), the state whole (gathered
+    over the model axis) on every rank."""
+    device, mesh = _training_mesh(multihost, total_batch_size, n_model, n_seq, device)
     from nsynth_wavenet_tpu_torch.models.wavenet import Wavenet
     from nsynth_wavenet_tpu_torch.ops import stft as stft_ops
     from nsynth_wavenet_tpu_torch.training import checkpoint as ckpt_lib
@@ -189,34 +283,42 @@ def train_wavenet(
     from nsynth_wavenet_tpu_torch.training import train_lib
 
     run_dir, cfg, resumed = resolve_run_dir(log_root, logdir, config_path, "wavenet")
-    log = logging_utils.add_log_file(run_dir)
+    log = _run_logger(run_dir)
     if resumed:
         log.info("Continue running in %s", run_dir)
     log.info("\n%s", logging_utils.config_summary(cfg))
+    log.info("mesh %s over %d processes", mesh.shape, mesh_lib.process_count())
 
     model = Wavenet(cfg)
-    ds = data_lib.Dataset(train_path)
+    data_index, n_data = mesh.index(mesh_lib.DATA_AXIS), mesh.size(mesh_lib.DATA_AXIS)
+    ds = data_lib.Dataset(train_path, process_index=data_index, process_count=n_data)
     log.info("crop gather: %s", "the native C++ sampler" if ds.native else "numpy")
-    mgr = ckpt_lib.CheckpointManager(os.path.join(run_dir, "ckpt"))
-    optimizer = opt_lib.make_optimizer(cfg.lr_schedule, grad_clip=cfg.grad_clip)
+    mgr = ckpt_lib.CheckpointManager(os.path.join(run_dir, "ckpt"), mesh=mesh)
     state = mgr.restore(device=device)
     if state is not None:
         log.info("Restored checkpoint at step %d", state["step"])
+        params = state["params"]
     else:
         params = model.init_params(seed, device=device)
         if cfg.use_weight_norm:
             log.info("Calculate initial statistics (data-dependent init).")
-            init_wav = ds.get_init_batch(total_batch_size, cfg.wave_length, seed=seed)
+            init_wav = broadcast_from_host0(
+                ds.get_init_batch(total_batch_size, cfg.wave_length, seed=seed))
             init_mel = torch.from_numpy(stft_ops.melspectrogram_np(init_wav)).to(device)
             gen = train_lib.dropout_generator(seed + 1, 0, device)
             out_params, params = train_lib.run_data_dep_init(
                 model, params, torch.from_numpy(init_wav).to(device), init_mel, gen)
             _log_teacher_init_stats(log, cfg.loss_type, out_params)
-        state = train_lib.make_train_state(params, optimizer)
+        params = mesh_lib.replicate_tree(params)
+    optimizer = opt_lib.make_optimizer(cfg.lr_schedule, grad_clip=cfg.grad_clip,
+                                       sharded=mesh_lib.sharded_norm(params, mesh))
+    if state is None:
+        state = mesh_lib.shard_train_state(train_lib.make_train_state(params, optimizer), mesh)
 
-    step_fn = train_lib.make_wavenet_train_step(model, optimizer)
-    cond_gap_fn = train_lib.make_cond_gap_fn(model)
-    it = ds.batch_iterator(total_batch_size, cfg.wave_length, seed=seed)
+    step_fn = train_lib.make_wavenet_train_step(model, optimizer, mesh=mesh)
+    cond_gap_fn = train_lib.make_cond_gap_fn(model, mesh=mesh)
+    it = ds.batch_iterator(local_batch_size(total_batch_size, mesh), cfg.wave_length,
+                           seed=seed + data_index)
 
     def run_step(state):
         wav = torch.from_numpy(next(it)).to(device)
@@ -234,7 +336,7 @@ def train_wavenet(
                        target=num_steps if num_steps is not None else cfg.num_iters,
                        ckpt_every_steps=ckpt_every_steps, profile_steps=profile_steps,
                        batch_size=total_batch_size)
-    return run_dir, state
+    return run_dir, mesh_lib.gather_train_state(state, mesh)
 
 
 def _step_loop(run_dir, log, mgr, state, run_step, report, iterators, *, target,
@@ -243,16 +345,19 @@ def _step_loop(run_dir, log, mgr, state, run_step, report, iterators, *, target,
     every LOG_EVERY steps and at the target report(state, metrics, wav, m)
     fills m (which holds steps_per_sec and utterances_per_sec) and logs it,
     and m goes to metrics.jsonl; checkpoints as the module docstring says.
-    Closes the iterators, the metrics writer and train.log's handler."""
-    writer = logging_utils.MetricsWriter(run_dir)
+    Closes the iterators, the metrics writer and train.log's handler.  Every
+    rank runs report (it may hold collectives); rank 0 writes and profiles."""
+    lead = mesh_lib.process_index() == 0
+    writer = logging_utils.MetricsWriter(run_dir) if lead else None
     step = state["step"]
-    profiler = Profiler(run_dir, step + 10, profile_steps)
+    profiler = Profiler(run_dir, step + 10, profile_steps if lead else 0)
     t_last, s_last = time.time(), step
+    should_stop = make_stop_sync()
     try:
         with GracefulShutdown() as stop:
             stopped = False
             while step < target:
-                if stop.requested:
+                if should_stop(stop.requested, step):
                     stopped = True
                     break
                 profiler.maybe_update(step)
@@ -264,7 +369,8 @@ def _step_loop(run_dir, log, mgr, state, run_step, report, iterators, *, target,
                     t_last, s_last = now, step
                     m = {"steps_per_sec": sps, "utterances_per_sec": sps * batch_size}
                     report(state, metrics, wav, m)
-                    writer.write(step, m)
+                    if writer is not None:
+                        writer.write(step, m)
                 if step % ckpt_every_steps == 0 or step == target:
                     mgr.save(step, state)
             if stopped and step % ckpt_every_steps != 0 and step != target:
@@ -274,7 +380,8 @@ def _step_loop(run_dir, log, mgr, state, run_step, report, iterators, *, target,
         profiler.close()
         for it in iterators:
             it.close()
-        writer.close()
+        if writer is not None:
+            writer.close()
         logging_utils.remove_log_file(run_dir)
     return state
 
@@ -314,12 +421,13 @@ def train_parallel_wavenet(
     n_seq: int = 1,
     device="cuda",
 ):
-    """Student distillation on one device from the teacher run directory
-    ``teacher_dir``; returns (run_dir, state).  A new run restores the
-    teacher, runs the data-dependent init of a weight-normed student on an
-    init batch, then copies the teacher's deconv weights into the student."""
-    _refuse_multi_device(multihost, n_model, n_seq)
-    device = _check_device(device)
+    """Student distillation from the teacher run directory ``teacher_dir``;
+    returns (run_dir, state), the state whole on every rank.  A new run
+    restores the teacher, runs the data-dependent init of a weight-normed
+    student on an init batch, then copies the teacher's deconv weights into
+    the student.  Over a mesh the frozen teacher is sharded with the
+    student's rules."""
+    device, mesh = _training_mesh(multihost, total_batch_size, n_model, n_seq, device)
     from nsynth_wavenet_tpu_torch.models.parallel_wavenet import (
         ParallelWavenet,
         transplant_teacher_deconv,
@@ -329,53 +437,63 @@ def train_parallel_wavenet(
     from nsynth_wavenet_tpu_torch.training import train_lib
 
     run_dir, cfg, resumed = resolve_run_dir(log_root, logdir, config_path, "parallel_wavenet")
-    log = logging_utils.add_log_file(run_dir)
+    log = _run_logger(run_dir)
     if resumed:
         log.info("Continue running in %s", run_dir)
     log.info("\n%s", logging_utils.config_summary(cfg))
+    log.info("mesh %s over %d processes", mesh.shape, mesh_lib.process_count())
     teacher, te_params = load_teacher(teacher_dir, device)
     log.info("teacher from %s\n%s", teacher_dir, logging_utils.config_summary(teacher.cfg))
     pwn = ParallelWavenet(cfg, teacher)
-    ds = data_lib.Dataset(train_path)
+    data_index, n_data = mesh.index(mesh_lib.DATA_AXIS), mesh.size(mesh_lib.DATA_AXIS)
+    ds = data_lib.Dataset(train_path, process_index=data_index, process_count=n_data)
     log.info("crop gather: %s", "the native C++ sampler" if ds.native else "numpy")
-    mgr = ckpt_lib.CheckpointManager(os.path.join(run_dir, "ckpt"))
+    params = pwn.init_params(seed, device=device)
+    labels = tree_lib.leaves(train_lib.student_param_labels(cfg, params))
+    mgr = ckpt_lib.CheckpointManager(os.path.join(run_dir, "ckpt"), mesh=mesh, labels=labels)
     state = mgr.restore(device=device)
     if state is not None:
         log.info("Restored checkpoint at step %d", state["step"])
         params = state["params"]
     else:
-        params = pwn.init_params(seed, device=device)
         if cfg.use_weight_norm:
             log.info("Calculate initial statistics (data-dependent init).")
-            init_wav = ds.get_init_batch(total_batch_size, cfg.wave_length, seed=seed)
+            init_wav = broadcast_from_host0(
+                ds.get_init_batch(total_batch_size, cfg.wave_length, seed=seed))
             init_mel = torch.from_numpy(stft_ops.melspectrogram_np(init_wav)).to(device)
             ff, params = pwn.data_dep_init(params, init_mel,
                                            train_lib.dropout_generator(seed + 1, 0, device))
             _init_logging(log, ff["x"].cpu(), "new_x")
             _init_logging(log, ff["mean_tot"].cpu(), "mean")
             _init_logging(log, ff["scale_tot"].cpu(), "scale")
-        params = transplant_teacher_deconv(params, te_params)
-    optimizer = train_lib.make_student_optimizer(cfg, params)
+        params = mesh_lib.replicate_tree(transplant_teacher_deconv(params, te_params))
+    optimizer = train_lib.make_student_optimizer(cfg, params, mesh)
     if state is None:
-        state = train_lib.make_train_state(params, optimizer)
+        state = mesh_lib.shard_train_state(train_lib.make_train_state(params, optimizer), mesh,
+                                           labels)
+    te_params = mesh_lib.shard_params(te_params, mesh)
 
     # the power loss's feature statistics, kept with the run so that a
     # resumed run uses the same ones
     norm_stats = None
     if cfg.norm_feat:
         stats_path = os.path.join(run_dir, "norm_stats.npz")
-        if os.path.exists(stats_path):
+        # process 0 decides, or a rank could find the file process 0 just wrote
+        if broadcast_from_host0(np.array([os.path.exists(stats_path)]))[0]:
             with np.load(stats_path) as z:
                 norm_stats = (z["mean"], z["std"])
         else:
             log.info("Calculating STFT feature mean/std for power-loss norm.")
-            norm_stats = data_lib.spec_feat_mean_std(train_path, pwn.stft_feat, device=device)
-            np.savez(stats_path, mean=norm_stats[0], std=norm_stats[1])
+            mean, std = data_lib.spec_feat_mean_std(train_path, pwn.stft_feat, device=device)
+            norm_stats = broadcast_from_host0((mean, std))
+            if mesh_lib.process_index() == 0:
+                np.savez(stats_path, mean=norm_stats[0], std=norm_stats[1])
 
-    step_fn = train_lib.make_pwn_train_step(pwn, te_params, optimizer, norm_stats)
+    step_fn = train_lib.make_pwn_train_step(pwn, te_params, optimizer, norm_stats, mesh=mesh)
     # two crop streams, both advanced every step
-    it = ds.batch_iterator(total_batch_size, cfg.wave_length, seed=seed)
-    it_rand = ds.batch_iterator(total_batch_size, cfg.wave_length, seed=seed + 12345)
+    local = local_batch_size(total_batch_size, mesh)
+    it = ds.batch_iterator(local, cfg.wave_length, seed=seed + data_index)
+    it_rand = ds.batch_iterator(local, cfg.wave_length, seed=seed + 12345 + data_index)
 
     def run_step(state):
         wav = torch.from_numpy(next(it)).to(device)
@@ -396,4 +514,4 @@ def train_parallel_wavenet(
                        target=num_steps if num_steps is not None else cfg.num_iters,
                        ckpt_every_steps=ckpt_every_steps, profile_steps=profile_steps,
                        batch_size=total_batch_size)
-    return run_dir, state
+    return run_dir, mesh_lib.gather_train_state(state, mesh, labels)

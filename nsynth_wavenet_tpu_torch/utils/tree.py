@@ -11,6 +11,16 @@ def leaves(tree) -> list:
     return [tree]
 
 
+def leaf_paths(tree, prefix: str = "") -> list:
+    """The key path of every leaf in ``leaves`` order, written as JAX's
+    ``keystr`` writes it: ``['layers'][0]['dilated']['w']``."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in leaf_paths(tree[k], f"{prefix}['{k}']")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree) for p in leaf_paths(v, f"{prefix}[{i}]")]
+    return [prefix]
+
+
 def unflatten(like, flat):
     """A tree shaped as ``like`` with the leaves of ``flat`` (in ``leaves``
     order)."""
@@ -28,3 +38,8 @@ def unflatten(like, flat):
 
 def tree_map(fn, tree):
     return unflatten(tree, [fn(x) for x in leaves(tree)])
+
+
+def map_with_path(fn, tree, prefix: str = ""):
+    """tree_map of fn(path, leaf), the path as ``leaf_paths`` writes it."""
+    return unflatten(tree, [fn(p, x) for p, x in zip(leaf_paths(tree, prefix), leaves(tree))])

@@ -202,14 +202,14 @@ def test_spec_feat_mean_std_equals_jax(tmp_path):
 def test_refusals(teacher_run, tmp_path):
     ds, teacher_dir, _ = teacher_run
     cfg = _json(tmp_path / "s.json", STUDENT)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
         _distill(ds, teacher_dir, config_path=cfg, log_root=str(tmp_path / "x"), n_seq=2)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             _distill(ds, teacher_dir, config_path=cfg, log_root=str(tmp_path / "x"),
                      device="cuda")
     pwn = ParallelWavenet(tconfig.ParallelWavenetConfig(**dict(STUDENT, detail_log=True)))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
         pwn.feed_forward_train(pwn.init_params(0, device="cpu"),
                                {"mel": torch.zeros(1, 7, 80), "base_x": torch.zeros(1, 1400)})
 

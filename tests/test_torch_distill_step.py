@@ -32,6 +32,7 @@ import torch
 
 from nsynth_wavenet_tpu.models import parallel_wavenet as jpwn_lib
 from nsynth_wavenet_tpu.ops import distributions as jdist
+from nsynth_wavenet_tpu.parallel import mesh as jmesh
 from nsynth_wavenet_tpu.training import train_lib as jtl
 from nsynth_wavenet_tpu_torch import weights
 from nsynth_wavenet_tpu_torch.models import parallel_wavenet as tpwn_lib
@@ -59,7 +60,8 @@ def _one_torch_thread():
 
 def _jax_step(monkeypatch, jpwn, teacher_params, optimizer, state, batch, draws):
     """JAX's step compiled with the draws as inputs: the patched noise
-    functions hand back the traced arguments."""
+    functions hand back the traced arguments.  Compiled for the placement
+    of its arguments (a mesh's shardings when they carry them)."""
     slot, order = {}, []
 
     def logistic(rng, shape):
@@ -87,8 +89,26 @@ def _update_err(init, want, got, moved):
                for k in moved)
 
 
-def _run_both(monkeypatch, loss_type, **kw):
-    pair = Pair(loss_type, dtype=np.float32, param_scale=3.0, lr_schedule=SCHEDULE, **kw)
+def _port_state(js):
+    """JAX's distillation state as the port's: params, EMA, step, and the
+    Adam count and moments of the trained leaves (optax's masked moments
+    flatten to them in the port's leaf order)."""
+    adam = next(x for x in js["opt_state"].inner_states["train"].inner_state if hasattr(x, "mu"))
+    host = lambda tree: jax.tree_util.tree_map(np.asarray, tree)  # noqa: E731
+    moments = lambda tree: [torch.from_numpy(np.array(a, np.float32))  # noqa: E731
+                            for a in jax.tree_util.tree_leaves(host(tree))]
+    return {"params": weights.from_jax_params(host(js["params"]), device="cpu"),
+            "ema": weights.from_jax_params(host(js["ema"]), device="cpu"),
+            "opt_state": {"count": int(adam.count), "mu": moments(adam.mu),
+                          "nu": moments(adam.nu)},
+            "step": int(js["step"])}
+
+
+def _run_both(monkeypatch, loss_type, B=2, jax_mesh=None, **kw):
+    """The port's and JAX's steps on the same B-row batches and draws; JAX's
+    under ``jax_mesh`` when given (the state sharded by its specs, the
+    teacher likewise, the batches and draws over its data axis)."""
+    pair = Pair(loss_type, dtype=np.float32, param_scale=3.0, lr_schedule=SCHEDULE, B=B, **kw)
     jp, tp = pair.np_params, pair.tparams
     if pair.tcfg.use_teacher_deconv:
         jp = jpwn_lib.transplant_teacher_deconv(jp, pair.np_teacher)
@@ -100,21 +120,29 @@ def _run_both(monkeypatch, loss_type, **kw):
     tstep = ttl.make_pwn_train_step(pair.tpwn, pair.tte, toptim)
     rng = np.random.default_rng(7)
     batches = [(pair.wav, pair.wav_rand)] + [
-        (speechlike(2, pair.jcfg.wave_length, rng), speechlike(2, pair.jcfg.wave_length, rng))
+        (speechlike(B, pair.jcfg.wave_length, rng), speechlike(B, pair.jcfg.wave_length, rng))
         for _ in range(STEPS - 1)]
-    all_draws = [pair.draws] + [make_draws(pair.jcfg, 2, pair.L, rng)
+    all_draws = [pair.draws] + [make_draws(pair.jcfg, B, pair.L, rng)
                                 for _ in range(STEPS - 1)]
-    jstep = _jax_step(monkeypatch, pair.jpwn, jax.tree_util.tree_map(jnp.asarray, pair.np_teacher),
-                      jopt, js, batches[0], all_draws[0])
-    out = {"metrics": [], "pair": pair}
+    jteacher = jax.tree_util.tree_map(jnp.asarray, pair.np_teacher)
+    jinputs = list(zip(batches, all_draws))
+    if jax_mesh is not None:
+        js = jmesh.shard_train_state(js, jax_mesh)
+        jteacher = jmesh.shard_params(jteacher, jax_mesh)
+        rows = jmesh.batch_sharding(jax_mesh)
+        jinputs = jax.device_put(jinputs, rows)
+    jstep = _jax_step(monkeypatch, pair.jpwn, jteacher, jopt, js, *jinputs[0])
+    out = {"metrics": [], "pair": pair, "jstate0": js, "jstates": [], "batches": batches,
+           "draws": all_draws, "tstep": tstep}
     # the first step's gradient, and the norm the clip sees
     aux, grads = ttl.grads_of(
         lambda p: ttl.student_loss(pair.tpwn, pair.tte, p, _tbatch(pair.tpwn, *batches[0]),
                                    pair.tdraws()), ts["params"])
     out["grads"] = grads
     init = to_numpy(ts["params"])
-    for (wav, wav_rand), draws in zip(batches, all_draws):
-        js, jm = jstep(js, wav, wav_rand, draws)
+    for ((wav, wav_rand), draws), (jbatch, jdraws) in zip(zip(batches, all_draws), jinputs):
+        js, jm = jstep(js, *jbatch, jdraws)
+        out["jstates"].append(js)
         ts, tm = tstep(ts, torch.from_numpy(wav), torch.from_numpy(wav_rand), None,
                        draws={k: torch.from_numpy(v) for k, v in draws.items()})
         out["metrics"].append(({k: float(v) for k, v in jm.items()},

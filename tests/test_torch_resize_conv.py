@@ -19,7 +19,10 @@ bins are near silent, so many of its elements have roundoff-sized gradients,
 and Adam steps each of them by about the learning rate whatever its size:
 that leaf reads 1.4e-3 (1.6e-3 weight-normed; the transposed stack's few
 taps a frame read under 1e-3), every other leaf under 3.1e-4.  The
-distillation steps read 1.1e-5 / 3.0e-5 against their own 1e-3."""
+distillation steps hold each step's metrics from a shared state (JAX's
+state after the step before) at METRIC_TOL, and the params and EMA after
+three free-running steps at UPDATE_TOL (readings with one torch thread /
+eight: params 8.9e-5 / 9.3e-6, EMA 8.6e-5 / 3.0e-5)."""
 
 import jax
 import jax.numpy as jnp
@@ -36,6 +39,7 @@ from nsynth_wavenet_tpu_torch.models import wavenet as twavenet
 from nsynth_wavenet_tpu_torch.ops import conv as tconv
 from nsynth_wavenet_tpu_torch.training import train_lib as ttl
 from test_torch_distill_step import METRIC_TOL, METRICS, UPDATE_TOL
+from test_torch_distill_step import _port_state
 from test_torch_distill_step import _run_both as distill_run_both
 from test_torch_train_step import TOL, _check, _configs, _flat, _leaf_err, _run_both, _tflat, _wavs
 
@@ -170,11 +174,29 @@ def test_resize_conv_data_dep_init_equals_jax():
     assert not np.allclose(after["['deconv']['up_2']['g']"], before["['deconv']['up_2']['g']"])
 
 
-def test_resize_conv_distill_steps_equal_jax(monkeypatch):
+@pytest.mark.parametrize("threads", (1, 8))
+def test_resize_conv_distill_steps_equal_jax(monkeypatch, threads):
+    """Each step's metrics from a shared state: step 1 from the common
+    init, steps 2 and 3 from JAX's state after the step before.  Free
+    running, the third step's loss depends on the summation order alone: the
+    first resize conv's roundoff-sized gradients each move their element by
+    about the learning rate, so the two sides' second-step params part in
+    those elements, and the third step's loss reads 1.2e-4 apart with one
+    torch thread and 9e-7 with eight (the two sides run in f64 part by
+    4.3e-5 there themselves).  The params and EMA after 3 free-running steps
+    stay held at UPDATE_TOL."""
+    torch.set_num_threads(threads)
     out = distill_run_both(monkeypatch, "gauss", teacher_kw={"use_resize_conv": True},
                            use_resize_conv=True, power_loss_factor=1.0, grad_clip=True)
     assert out["pair"].tcfg.use_resize_conv and out["pair"].tteacher.cfg.use_resize_conv
-    for jm, tm in out["metrics"]:
+    shared = [out["metrics"][0][1]]
+    for k in range(1, len(out["batches"])):
+        (wav, wav_rand), draws = out["batches"][k], out["draws"][k]
+        _, tm = out["tstep"](_port_state(out["jstates"][k - 1]), torch.from_numpy(wav),
+                             torch.from_numpy(wav_rand), None,
+                             draws={n: torch.from_numpy(v) for n, v in draws.items()})
+        shared.append({n: float(v) for n, v in tm.items()})
+    for (jm, _), tm in zip(out["metrics"], shared):
         for k in METRICS:
             assert abs(tm[k] - jm[k]) <= METRIC_TOL * max(abs(jm[k]), 1.0), (k, jm[k], tm[k])
     print({"params": out["params_err"], "ema": out["ema_err"]})

@@ -138,8 +138,8 @@ def test_shutdown_signal_saves(tmp_path, monkeypatch):
     ds, cfg = _one_record(tmp_path), _config(tmp_path)
     make = train_lib.make_wavenet_train_step
 
-    def signalling(model, optimizer):
-        step_fn = make(model, optimizer)
+    def signalling(model, optimizer, mesh=None):
+        step_fn = make(model, optimizer, mesh=mesh)
 
         def fn(state, wav, seed=None):
             out = step_fn(state, wav, seed)
@@ -161,13 +161,16 @@ def test_shutdown_signal_saves(tmp_path, monkeypatch):
 
 def test_refusals(tmp_path):
     ds, cfg = _one_record(tmp_path), _config(tmp_path)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
+        _train(tmp_path, ds, config_path=cfg, log_root=str(tmp_path / "x"), n_seq=2)
+    # channel tensor parallelism needs a process group of two ranks
+    with pytest.raises(ValueError, match=r"n_model\*n_seq=2 ranks, have 1"):
         _train(tmp_path, ds, config_path=cfg, log_root=str(tmp_path / "x"), n_model=2)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             _train(tmp_path, ds, config_path=cfg, log_root=str(tmp_path / "x"), device="cuda")
     model = Wavenet(tconfig.load_config(cfg, detail_log=True))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
         model.forward_loss(model.init_params(0, device="cpu"), torch.zeros(1, L),
                            torch.zeros(1, 7, 80))
 

@@ -174,6 +174,7 @@ def _run_both(head, dtype="float32", grad_clip=False, param_scale=1.0, steps=STE
     out["steps"] = (int(js["step"]), ts["step"], int(js["opt_state"][-1].count),
                     ts["opt_state"]["count"])
     out["norm"] = float(topt.global_norm(tree_lib.leaves(tg)))
+    out.update(jstate=js, tstate=ts, init=init, moved=moved, wavs=wavs, tcfg=tc, tparams=tp)
     return out
 
 

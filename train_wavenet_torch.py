@@ -7,12 +7,20 @@ Resume:     python train_wavenet_torch.py --train_path ds/ --logdir runs/<run-di
 Trains on the first CUDA device unless --device cpu.  The run directory holds
 a copy of the config json, train.log, metrics.jsonl and ckpt/<step>/;
 --export_ema writes the EMA weights to <run>/ema at the end, which
-eval_wavenet_torch.py --ckpt_dir <run> serves.  --n_model, --n_seq and
---multihost take only their defaults: multi-device training is not ported.
+eval_wavenet_torch.py --ckpt_dir <run> serves.
+
+Several processes, one a device (gloo on the CPU, nccl on cards):
+            torchrun --nproc_per_node 2 train_wavenet_torch.py --multihost \
+                --config ... --train_path ds/ --log_root runs/ [--n_model 2]
+The data axis takes the ranks --n_model leaves and divides
+--total_batch_size; --n_model shards the channels of every layer.  The
+checkpoints and the export hold the whole model.  --n_seq (sequence
+parallelism) is refused: it is not ported.
 """
 
 from argparse import ArgumentParser
 
+from nsynth_wavenet_tpu_torch.parallel import mesh as mesh_lib
 from nsynth_wavenet_tpu_torch.training import runner
 
 
@@ -27,11 +35,15 @@ def main():
     parser.add_argument("--num_steps", default=None, type=int, help="Override cfg.num_iters")
     parser.add_argument("--ckpt_every_steps", default=2000, type=int)
     parser.add_argument("--seed", default=0, type=int)
-    parser.add_argument("--multihost", action="store_true", help="not ported: refused")
+    parser.add_argument("--multihost", action="store_true",
+                        help="one process of several: join the process group of torchrun's "
+                             "env:// variables")
     parser.add_argument("--profile_steps", default=0, type=int,
                         help="torch.profiler trace over N steps from the 10th")
-    parser.add_argument("--n_model", default=1, type=int, help="not ported: must be 1")
-    parser.add_argument("--n_seq", default=1, type=int, help="not ported: must be 1")
+    parser.add_argument("--n_model", default=1, type=int,
+                        help="ranks that shard the model's channels (tensor parallelism)")
+    parser.add_argument("--n_seq", default=1, type=int,
+                        help="sequence-parallel training is not ported: must be 1")
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--export_ema", action="store_true",
                         help="write the EMA weights to <run>/ema when the run ends")
@@ -50,6 +62,7 @@ def main():
 
         cfg = config_lib.load_config(runner.find_config_json(run_dir))
         ckpt_lib.export_ema(state, os.path.join(run_dir, "ema"), cfg)
+    mesh_lib.shutdown()
     print(run_dir)
 
 
