@@ -248,7 +248,26 @@ Phases 33 to 38 follow S5:
      against one rank's step on all 4 rows, within the tier-1 limits
      (MESH_METRIC_TOL, MESH_UPDATE_TOL); each rank's fastgen_persistent and
      flow_persist_kernel launches, counted around its sharded calls, equal
-     to one a generate call and to predicted_launches a flow_stack call.
+     to one a generate call and to predicted_launches a flow_stack call;
+ M3. two ranks sharing the card over gloo at n_seq 2 (`chip_smoke.py
+     --seq-rank`): a training step of the full MoL teacher
+     (configs/wavenet_mol.json: dropout_inputs) at global B = 4 x 7680 and
+     a distillation step of configs/parallel_wavenet.json under that
+     teacher at B = 2, each rank running its half of every crop's time
+     axis, each against the one-process step on the same batch and draws
+     (the same dropout seed).  In bf16, as shipped: the metrics within
+     MESH_METRIC_TOL; each rank's peak memory next to the one process's;
+     the update's distance from one process's a reading, beside that of
+     the same bf16 teacher step split over two data ranks (the control):
+     any split of a bf16 step rounds each rank's partial gradients to
+     bf16, and Adam's first step moves every element by about the learning
+     rate whatever its size, so neither meets MESH_UPDATE_TOL
+     (tools/seq_step_readings.py shows where the two steps part).  The
+     same steps on f64 params, audio and draws (the f32 configs) within
+     MESH_METRIC_TOL and MESH_UPDATE_TOL.  Every step's halo exchanges,
+     counted where mesh.halo makes them, equal to
+     train_lib.wavenet_halo_exchanges / pwn_halo_exchanges; step times are
+     readings (gloo moves the halos through host memory).
 Every teacher generate call is one cooperative launch of the persistent
 kernel fastgen_persistent (after quant_enc_kernel in the int8 modes).
 Phases other than 32 run with TF32 off.  The last line is {"ok": true,
@@ -363,6 +382,10 @@ W8A8_VS_BF16 = 0.05
 MESH_METRIC_TOL = 1e-4
 MESH_UPDATE_TOL = 1e-3
 MESH_RANK_TIMEOUT = 420
+# M3: the shipped bf16 steps (their updates a reading beside the
+# data-parallel control: see the module docstring), and their f64 twins,
+# held to MESH_UPDATE_TOL
+M3_DTYPES = ("bfloat16", "float64")
 # M2, synthesize_sharded at B = 8 against one rank's B = 8 call, in
 # quantisation bins (2 / quant_chann): see PERF.md section 6 for the readings
 MESH_SYNTH_BINS_BF16 = 128
@@ -3632,20 +3655,24 @@ def m2_distill_step(mesh, rank):
     return {"metrics_rel": metric_err, "params": p_err, "ema": e_err}
 
 
-def m2_gloo_two_ranks():
-    """M2: two ranks of this script on the one card over gloo."""
-    t0 = time.time()
+def spawn_ranks(flag, label, n=2, timeout=MESH_RANK_TIMEOUT, script=None):
+    """n ranks of ``script`` (default this one) run as <script> <flag> (a
+    string or a list of arguments) on the card, joined by torch's env:// variables: the result each prints on
+    its line 'MESH_RANK_RESULT <json>', in rank order; its lines that name
+    ``label`` are logged.  Fails when a rank fails or outlives ``timeout``."""
     port = _free_port()
     procs = []
     with tempfile.TemporaryDirectory() as tmp:
-        for r in range(2):
+        for r in range(n):
             env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(r),
-                       WORLD_SIZE="2", LOCAL_RANK=str(r))
+                       WORLD_SIZE=str(n), LOCAL_RANK=str(r))
             out = open(os.path.join(tmp, f"rank{r}.log"), "w+")
-            procs.append((subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                                            "--mesh-rank"], cwd=REPO, env=env, stdout=out,
+            args = [flag] if isinstance(flag, str) else list(flag)
+            procs.append((subprocess.Popen([sys.executable, script or os.path.abspath(__file__),
+                                            *args],
+                                           cwd=REPO, env=env, stdout=out,
                                            stderr=subprocess.STDOUT), out))
-        deadline = time.time() + MESH_RANK_TIMEOUT
+        deadline = time.time() + timeout
         try:
             for p, _ in procs:
                 p.wait(timeout=max(1.0, deadline - time.time()))
@@ -3662,13 +3689,20 @@ def m2_gloo_two_ranks():
             text = out.read()
             out.close()
             for line in text.splitlines():
-                if "MESH_RANK_RESULT" not in line and "M2 rank" in line:
+                if "MESH_RANK_RESULT" not in line and f"{label} rank" in line:
                     log(line.split("] ", 1)[-1])
             found = [line for line in text.splitlines() if line.startswith("MESH_RANK_RESULT ")]
             if p.returncode != 0 or not found:
-                log(f"M2 rank {r} rc={p.returncode}, its output's end:\n{text[-4000:]}")
-            require(p.returncode == 0 and found, f"M2: rank {r} failed (rc {p.returncode})")
+                log(f"{label} rank {r} rc={p.returncode}, its output's end:\n{text[-4000:]}")
+            require(p.returncode == 0 and found, f"{label}: rank {r} failed (rc {p.returncode})")
             results.append(json.loads(found[-1].split(" ", 1)[1]))
+    return results
+
+
+def m2_gloo_two_ranks():
+    """M2: two ranks of this script on the one card over gloo."""
+    t0 = time.time()
+    results = spawn_ranks("--mesh-rank", "M2")
     for res in results:
         r = res["rank"]
         log(f"M2 rank {r}: greedy bit-equal to one rank {res['greedy_equal']}, sampled rows "
@@ -3697,9 +3731,193 @@ def m2_gloo_two_ranks():
     return {"ranks": results, "seconds": time.time() - t0}
 
 
+# ---- M3: sequence-parallel training ------------------------------------------------
+
+
+def peak_gib(fn):
+    """(fn(), the peak of this process's allocated device memory while it
+    ran, GiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() / 2**30
+
+
+def train_state(params, opt):
+    """train_lib.make_train_state, which holds f32 master weights, or for
+    f64 params the same state in f64."""
+    if tree_lib.leaves(params)[0].dtype != torch.float64:
+        return train_lib.make_train_state(params, opt)
+    return {"params": tree_lib.tree_map(torch.clone, params), "opt_state": opt.init(params),
+            "ema": tree_lib.tree_map(torch.clone, params), "step": 0}
+
+
+def f64(tree):
+    return tree_lib.tree_map(lambda t: t.double(), tree)
+
+
+def step_pair(label, rank, params, make_step, run, other="seq"):
+    """One process's step and this rank's step over the mesh ``other``
+    names ('seq', or 'data' for the data-parallel control), from the same
+    state (cuDNN's deterministic algorithms): the metrics' and the
+    gradient's distance (each leaf's max as a share of its own max), the
+    params' and EMA's (L2 of the update), each one's peak memory and step
+    time, and the halo exchanges of the mesh step.  The states are kept on
+    the host, so that one step's state does not count in the other's peak.
+    make_step(name) -> (optimizer, fn(optimizer) -> step_fn); run(step_fn,
+    state, name) -> (state, metrics)."""
+    out = {}
+    host = lambda tree: tree_lib.tree_map(lambda t: t.detach().cpu(), tree)  # noqa: E731
+    with deterministic_cudnn():
+        for name in ("one", other):
+            opt, make = make_step(name)
+            tap = GradTap(opt)
+            state = train_state(params, tap)
+            step_fn = make(tap)
+            mesh_lib.reset_halo_counts()
+            t0 = time.time()
+            (state, metrics), peak = peak_gib(lambda: run(step_fn, state, name))
+            out[name] = {"state": {"params": host(state["params"]), "ema": host(state["ema"])},
+                         "grads": host(tap.grads), "peak": peak,
+                         "seconds": time.time() - t0, "halos": dict(mesh_lib.halo_exchanges),
+                         "metrics": {k: float(v) for k, v in metrics.items()
+                                     if not isinstance(v, dict)}}
+            del state, step_fn, tap, opt, metrics
+            torch.cuda.empty_cache()
+    one, got = out["one"], out[other]
+    metric_err = max(abs(got["metrics"][k] - one["metrics"][k]) / max(abs(one["metrics"][k]), 1.0)
+                     for k in one["metrics"])
+    grad_err = leaf_err(one["grads"], got["grads"])
+    p_err = update_err(params, one["state"]["params"], got["state"]["params"], one["grads"])
+    e_err = update_err(params, one["state"]["ema"], got["state"]["ema"], one["grads"])
+    log(f"M3 rank {rank} {label}: loss {got['metrics']['loss']:.6f} / one process "
+        f"{one['metrics']['loss']:.6f}, metrics max rel {metric_err:.2e}; gradient leaves max "
+        f"{grad_err:.3e} of scale; params after Adam {p_err:.3e}, EMA {e_err:.3e} (L2 of the "
+        f"update); peak memory {got['peak']:.3f} GiB against one process's {one['peak']:.3f} GiB "
+        f"({100 * got['peak'] / one['peak']:.1f} %); step {got['seconds']:.3f} s against "
+        f"{one['seconds']:.3f} s (gloo through host memory: a reading); halo exchanges "
+        f"{got['halos']}")
+    require(one["halos"] == {"forward": 0, "backward": 0}, f"M3 {label}: one process exchanged")
+    return {"metrics_rel": metric_err, "grad": grad_err, "params": p_err, "ema": e_err,
+            "peak_gib": got["peak"], "one_peak_gib": one["peak"], "seconds": got["seconds"],
+            "one_seconds": one["seconds"], "halos": got["halos"]}
+
+
+def seq_teacher_steps(rank, meshes, dtype, data_control=False):
+    """M3's teacher steps: configs/wavenet_mol.json (dropout_inputs) in
+    ``dtype`` (bfloat16, or float64: the f32 config on f64 params and
+    audio) at global B = 4 x 7680, over the seq mesh (and, with
+    data_control, over the data mesh) against one process."""
+    wide = dtype == "float64"
+    model = Wavenet(config_lib.load_config(os.path.join(REPO, "configs/wavenet_mol.json"),
+                                           compute_dtype="float32" if wide else dtype))
+    params = model.init_params(0, device="cuda")
+    wav = torch.from_numpy(synthetic_wavs(4, model.cfg.wave_length, 90)).cuda()
+    if wide:
+        params, wav = f64(params), wav.double()
+
+    def make_step(name):
+        opt = opt_lib.make_optimizer(model.cfg.lr_schedule, grad_clip=model.cfg.grad_clip)
+        return opt, lambda tap: train_lib.make_wavenet_train_step(model, tap,
+                                                                  mesh=meshes.get(name))
+
+    def run(step_fn, state, name):
+        w = wav[mesh_lib.rows(meshes["data"], 4)] if name == "data" else wav
+        return step_fn(state, w, 2)
+
+    label = (f"teacher step (mol, full width, {dtype}, dropout_inputs, B=4 x "
+             f"{model.cfg.wave_length}")
+    out = step_pair(f"{label}, n_seq 2)", rank, params, make_step, run)
+    out["want_halos"] = train_lib.wavenet_halo_exchanges(model.cfg)
+    if data_control:
+        out["data_control"] = step_pair(f"{label}, n_data 2: the control)", rank, params,
+                                        make_step, run, other="data")
+    return out
+
+
+def seq_student_step(rank, meshes, dtype):
+    """M3's distillation step: configs/parallel_wavenet.json in ``dtype``
+    under the full MoL teacher (frozen, the same dtype) at global B = 2,
+    over the seq mesh against one process, on the same draws."""
+    wide = dtype == "float64"
+    compute = "float32" if wide else dtype
+    teacher = Wavenet(config_lib.load_config(os.path.join(REPO, "configs/wavenet_mol.json"),
+                                             compute_dtype=compute, use_as_teacher=True))
+    te = teacher.init_params(1, device="cuda")
+    cfg = config_lib.load_config(os.path.join(REPO, "configs/parallel_wavenet.json"),
+                                 compute_dtype=compute)
+    pwn, params = distill_student(cfg, teacher, te, 2)
+    wav = torch.from_numpy(synthetic_wavs(2, cfg.wave_length, 91)).cuda()
+    wav_rand = torch.from_numpy(synthetic_wavs(2, cfg.wave_length, 92)).cuda()
+    L = pwn.sample_length(stft.num_mel_frames(cfg.wave_length))
+    draws = train_lib.student_draws(pwn, torch.Generator().manual_seed(93), 2, L, "cpu")
+    draws = {k: v.cuda() for k, v in draws.items()}
+    if wide:
+        te, params, wav, wav_rand = f64(te), f64(params), wav.double(), wav_rand.double()
+        draws = f64(draws)
+
+    def make_step(name):
+        opt = train_lib.make_student_optimizer(cfg, params)
+        return opt, lambda tap: train_lib.make_pwn_train_step(pwn, te, tap,
+                                                              mesh=meshes.get(name))
+
+    out = step_pair(f"distillation step (parallel_wavenet.json under the MoL teacher, {dtype}, "
+                    f"B=2 x {cfg.wave_length}, n_seq 2)", rank, params, make_step,
+                    lambda step_fn, state, name: step_fn(state, wav, wav_rand, None,
+                                                         draws=draws))
+    out["want_halos"] = train_lib.pwn_halo_exchanges(pwn)
+    return out
+
+
+def seq_rank_main():
+    """One rank of M3 (chip_smoke.py --seq-rank): prints its result as a
+    line 'MESH_RANK_RESULT <json>'."""
+    mesh_lib.init_distributed("cuda:0", backend="gloo")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, n = mesh_lib.process_index(), mesh_lib.process_count()
+    meshes = {"seq": mesh_lib.make_mesh(n_data=1, n_seq=n), "data": mesh_lib.make_mesh(n_data=n)}
+    res = {"rank": rank}
+    for dtype in M3_DTYPES:
+        res[f"teacher_{dtype}"] = seq_teacher_steps(rank, meshes, dtype,
+                                                    data_control=dtype == "bfloat16")
+        torch.cuda.empty_cache()
+        res[f"student_{dtype}"] = seq_student_step(rank, meshes, dtype)
+        torch.cuda.empty_cache()
+    print("MESH_RANK_RESULT " + json.dumps(res), flush=True)
+    mesh_lib.shutdown()
+    return 0
+
+
+def m3_seq_two_ranks():
+    """M3: sequence-parallel teacher and distillation steps in two ranks of
+    this script on the card over gloo, each against one process's step."""
+    t0 = time.time()
+    results = spawn_ranks("--seq-rank", "M3")
+    for res in results:
+        r = res["rank"]
+        for part in ("teacher", "student"):
+            for dtype in M3_DTYPES:
+                got = res[f"{part}_{dtype}"]
+                require(got["metrics_rel"] <= MESH_METRIC_TOL,
+                        f"M3 rank {r}: {part} {dtype} metrics")
+                require(got["halos"] == got["want_halos"],
+                        f"M3 rank {r}: {part} {dtype} halo exchanges {got['halos']}, want "
+                        f"{got['want_halos']}")
+            got = res[f"{part}_float64"]
+            require(got["params"] <= MESH_UPDATE_TOL and got["ema"] <= MESH_UPDATE_TOL,
+                    f"M3 rank {r}: {part} float64 params / EMA")
+    log(f"M3 sequence-parallel training, two ranks over gloo on one card: "
+        f"{time.time() - t0:.1f} s")
+    return {"ranks": results, "seconds": time.time() - t0}
+
+
 def main():
     if len(sys.argv) > 1 and sys.argv[1] == "--mesh-rank":
         return mesh_rank_main()
+    if len(sys.argv) > 1 and sys.argv[1] == "--seq-rank":
+        return seq_rank_main()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -3846,6 +4064,7 @@ def main():
     torch.cuda.empty_cache()
     m1 = m1_nccl_world_one()
     m2 = m2_gloo_two_ranks()
+    m3 = m3_seq_two_ranks()
     flow_rec["launches_sharded_gloo_per_rank"] = [
         r["launches"]["flow_persist_kernel"] for r in m2["ranks"]]
 
@@ -3877,7 +4096,7 @@ def main():
         "launches_sharded_nccl": m1["launches"],
         "launches_sharded_gloo_per_rank": [r["launches"]["fastgen_persistent"]
                                            for r in m2["ranks"]],
-        "mesh_seconds": {"M1": m1["seconds"], "M2": m2["seconds"]},
+        "mesh_seconds": {"M1": m1["seconds"], "M2": m2["seconds"], "M3": m3["seconds"]},
     }, flow_rec, w8a8_record, row_record, *mode_records]}
     log(f"timed call: B={MAIN_BATCHES[-1]}, {TIMED_STEPS} steps, full width; "
         f"total {time.time() - T_START:.1f} s")

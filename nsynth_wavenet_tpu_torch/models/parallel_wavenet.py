@@ -200,7 +200,7 @@ class ParallelWavenet:
     # -- training ------------------------------------------------------------
 
     def feed_forward_train(self, params, inputs, generator=None, *, init=False,
-                           model_group=None):
+                           model_group=None, seq_group=None, hist_group=None):
         """The forward with gradients: ({'x', 'mean_tot', 'scale_tot',
         'log_scale_tot', 'rand_input'}, new_params); inputs as feed_forward.
 
@@ -212,24 +212,45 @@ class ParallelWavenet:
         new_params then holds the rescaled g and b, except the two final
         heads under manual_final_init.  model_group: channel tensor
         parallelism of every flow's layers over that group, as the teacher's
-        (models/wavenet.py feed_forward_train)."""
+        (models/wavenet.py feed_forward_train).  seq_group: inputs['base_x']
+        is this rank's chunk of the noise (mesh.seq_chunk of the sample
+        length), the mel the whole signal's; every flow's shift, start conv
+        and dilated layers exchange halos, and the upsampler runs on the mel
+        frames around the chunk, as the teacher's.  cfg.detail_log:
+        ff['detail'] holds each flow's mean scale, log scale and mean (this
+        rank's) and the upsamplers' histograms, reduced over ``hist_group``
+        (the shared stack's unprefixed, each flow's own under iaf_{i}/)."""
         cfg = self.cfg
-        if cfg.detail_log and not init:
-            raise NotImplementedError(
-                "detail_log histograms need device_histogram (ROADMAP Queue 1 item 2)")
         if init and not cfg.use_weight_norm:
             raise ValueError("data-dependent init requires weight norm")
-        if init and model_group is not None:
-            raise ValueError("the data-dependent init pass runs on whole params")
+        if init and (model_group is not None or seq_group is not None):
+            raise ValueError("the data-dependent init pass runs on whole params and sequences")
         mel = inputs["mel"]
-        x = self.resolve_base_x(inputs, generator)
+        n = mesh_lib.seq_position(seq_group)[1]
+        if n > 1:
+            x = inputs["base_x"]
+            want = mesh_lib.seq_chunk(self.sample_length(mel.shape[1]), seq_group)
+            if tuple(x.shape) != (mel.shape[0], want.stop - want.start):
+                raise ValueError(f"base_x shape {tuple(x.shape)}, want this rank's chunk "
+                                 f"{(mel.shape[0], want.stop - want.start)}")
+            x = x if x.dtype == torch.float64 else x.float()
+        else:
+            x = self.resolve_base_x(inputs, generator)
         dtype = None if init else self.dtype
         native = dtype is not None and mel.is_cuda
+        detail = {} if (cfg.detail_log and not init) else None
+        length = x.shape[1] * n
 
-        def deconv(dp):
-            return wavenet_lib.deconv_stack_train(
-                dp, mel, deconv_config=cfg.deconv_config, upsample_act=cfg.upsample_act,
-                use_resize_conv=cfg.use_resize_conv, init=init, dtype=dtype, native=native)
+        def deconv(dp, prefix=""):
+            def upsample(m, window=None):
+                return wavenet_lib.deconv_stack_train(
+                    dp, m, deconv_config=cfg.deconv_config, upsample_act=cfg.upsample_act,
+                    use_resize_conv=cfg.use_resize_conv, init=init, dtype=dtype, native=native,
+                    detail=detail, prefix=prefix, window=window, hist_group=hist_group)
+
+            if init:
+                return upsample(mel)
+            return wavenet_lib.chunk_encoding(upsample, mel, length, cfg.deconv_config, seq_group)
 
         new_params = dict(params)
         new_params["flows"] = list(params["flows"])
@@ -241,9 +262,9 @@ class ParallelWavenet:
         for fi, fp in enumerate(params["flows"]):
             mel_en = shared_enc
             if mel_en is None:
-                mel_en, new_dp = deconv(fp["deconv"])
+                mel_en, new_dp = deconv(fp["deconv"], f"iaf_{fi}/")
             iaf, new_fp = self._create_iaf_train(fp, iaf_x, mel_en, fi, init, dtype, native,
-                                                 model_group)
+                                                 model_group, seq_group)
             if shared_enc is None:
                 new_fp["deconv"] = new_dp
             new_params["flows"][fi] = new_fp
@@ -251,32 +272,39 @@ class ParallelWavenet:
             mean_tot = iaf["mean"] + mean_tot * iaf["scale"]
             scale_tot = scale_tot * iaf["scale"]
             log_scale_tot = log_scale_tot + iaf["log_scale"]
+            if detail is not None:
+                detail[f"scale_{fi}"] = iaf["scale"].detach().mean()
+                detail[f"log_scale_{fi}"] = iaf["log_scale"].detach().mean()
+                detail[f"mean_{fi}"] = iaf["mean"].detach().mean()
         ff = compose_output(x, mean_tot[..., 0], scale_tot[..., 0], log_scale_tot[..., 0])
+        if detail is not None:
+            ff["detail"] = detail
         return ff, new_params
 
     def _create_iaf_train(self, flow_params, x, mel_en, flow_idx, init, dtype, native,
-                          model_group=None):
+                          model_group=None, seq_group=None):
         """One IAF flow with gradients; returns (dict(x, mean, scale,
-        log_scale), new flow params)."""
+        log_scale), new flow params).  mel_en: the whole encoding (init) or
+        the one over x's samples."""
         cfg = self.cfg
         new_fp = dict(flow_params)
         new_fp["layers"] = list(flow_params["layers"])
 
-        def conv(p, h, dilation=1, head=False):
+        def conv(p, h, dilation=1, head=False, extended=False):
             return conv_ops.conv1d_taps(p, h, dilation=dilation, dtype=dtype,
-                                        out_dtype=None if head else dtype, native=native)
+                                        out_dtype=None if head else dtype, native=native,
+                                        seq_group=seq_group, extended=extended)
 
         def apply(p, h, dilation=1, head=False, use_init=init):
             if use_init:
                 return conv_ops.conv1d_ddi(p, h, dilation=dilation)
             return conv(p, h, dilation, head), p
 
-        l, new_fp["start_conv"] = apply(flow_params["start_conv"], conv_ops.shift_right(x))
-        # the 1x1 conditioning products are pointwise in time: take the
-        # encoding's centre once (the init pass takes its moments over the
-        # whole encoding, as the reference does)
-        mel_c = mel_en if init else _centre(mel_en, l.shape[1])
-        mel_tp = None if init else mesh_lib.copy_to_region(mel_c, model_group)
+        l, new_fp["start_conv"] = apply(flow_params["start_conv"],
+                                        conv_ops.shift_right(x, seq_group))
+        # the 1x1 conditioning products are pointwise in time (the init pass
+        # takes its moments over the whole encoding, as the reference does)
+        mel_tp = None if init else mesh_lib.copy_to_region(mel_en, model_group)
         m = cfg.gate_width // 2
         for i in range(cfg.num_iaf_layers[flow_idx]):
             dilation = 2 ** (i % cfg.num_stages)
@@ -288,7 +316,11 @@ class ParallelWavenet:
                 d = torch.sigmoid(d[:, :, :m]) * torch.tanh(d[:, :, m:])
                 r, lp["res"] = apply(lp["res"], d)
             else:
-                d = (conv(lp["dilated"], mesh_lib.copy_to_region(l, model_group), dilation)
+                l_in = l
+                if seq_group is not None:
+                    l_in = conv_ops.extend(l, cfg.filter_length, dilation, seq_group)
+                d = (conv(lp["dilated"], mesh_lib.copy_to_region(l_in, model_group), dilation,
+                          extended=seq_group is not None)
                      + conv(lp["mel_cond"], mel_tp))
                 r = conv_ops.conv1d_taps_row(lp["res"], wavenet_lib._Gate.apply(d), model_group,
                                              dtype=dtype, out_dtype=dtype, native=native)
@@ -296,7 +328,7 @@ class ParallelWavenet:
             new_fp["layers"][i] = lp
 
         l, new_fp["out1"] = apply(flow_params["out1"], torch.relu(l))
-        c, new_fp["mel_cond_out1"] = apply(flow_params["mel_cond_out1"], mel_c)
+        c, new_fp["mel_cond_out1"] = apply(flow_params["mel_cond_out1"], mel_en)
         l = torch.relu(wavenet_lib.condition_add(l, c))
         # manual_final_init: the two heads keep their init (the manual scale
         # bias) instead of the data-dependent one
@@ -334,26 +366,31 @@ class ParallelWavenet:
     def _clip_or_not(self, x):
         return self._clip_quant_scale(x) if self.cfg.clip else x
 
-    def _teacher_out_params(self, teacher_params, x_scaled, mel, model_group=None):
+    def _teacher_out_params(self, teacher_params, x_scaled, mel, model_group=None,
+                            seq_group=None):
         """The frozen teacher's head outputs [B, L, out_width] f32 on the
         student's sample; with remat_teacher its activations are recomputed
-        in the backward pass instead of kept.  model_group: the teacher's
-        params are sharded over it as the student's are."""
+        in the backward pass instead of kept (the recompute reads the
+        forward's halos: mesh.halo_checkpoint_contexts).  model_group: the
+        teacher's params are sharded over it as the student's are;
+        seq_group: x_scaled is this rank's chunk (the teacher's trunk
+        exchanges its own halos)."""
 
         def score(xs, m):
             ff, _ = self.teacher.feed_forward_train(teacher_params, {"wav_scaled": xs, "mel": m},
-                                                    model_group=model_group)
+                                                    model_group=model_group, seq_group=seq_group)
             return ff["out_params"]
 
         if self.cfg.remat_teacher:
             return checkpoint(score, x_scaled, mel, use_reentrant=False,
-                              preserve_rng_state=False)
+                              preserve_rng_state=False,
+                              context_fn=mesh_lib.halo_checkpoint_contexts)
         return score(x_scaled, mel)
 
     def _entropy(self, ff_dict):
         return torch.mean(ff_dict["log_scale_tot"]) + 2.0
 
-    def kl_loss_logistic(self, teacher_params, ff_dict, rl, model_group=None):
+    def kl_loss_logistic(self, teacher_params, ff_dict, rl, model_group=None, seq_group=None):
         """Monte-Carlo KL(student || MoL teacher): the teacher scores the
         student's sample x once, and num_samples logistic perturbations
         rl [B, S, L] of it, taken as L(mean_tot, scale_tot), are evaluated
@@ -361,20 +398,20 @@ class ParallelWavenet:
         x, mean, scale = ff_dict["x"], ff_dict["mean_tot"], ff_dict["scale_tot"]
         x_xp = rl * scale[:, None, :] + mean[:, None, :]
         te_mol = self._teacher_out_params(teacher_params, self._clip_or_not(x), ff_dict["mel"],
-                                          model_group)
+                                          model_group, seq_group)
         log_te = dist.mol_log_probs(te_mol[:, None], self._clip_or_not(x_xp),
                                     self.cfg.quant_chann)  # [B, S, L]
         H_Ps_Pt = torch.mean(-torch.mean(log_te, dim=1))
         H_Ps = self._entropy(ff_dict)
         return {"kl_loss": H_Ps_Pt - H_Ps, "H_Ps": H_Ps, "H_Ps_Pt": H_Ps_Pt}
 
-    def kl_loss_gauss(self, teacher_params, ff_dict, model_group=None):
+    def kl_loss_gauss(self, teacher_params, ff_dict, model_group=None, seq_group=None):
         """Closed-form KL(N_q || N_p) a step plus 4 mean((log sigma_p -
         log sigma_q)^2); sigma_p floored at kl_sigma_floor when it is above 0."""
         mean_q, scale_q = ff_dict["mean_tot"], ff_dict["scale_tot"]
         log_scale_q = ff_dict["log_scale_tot"]
         te_out = self._teacher_out_params(teacher_params, self._clip_or_not(ff_dict["x"]),
-                                          ff_dict["mel"], model_group)
+                                          ff_dict["mel"], model_group, seq_group)
         mean_p, scale_p = dist.mean_std_from_out_params(te_out, use_log_scales=True)
         if self.cfg.kl_sigma_floor > 0.0:
             scale_p = torch.clamp(scale_p, min=self.cfg.kl_sigma_floor)
@@ -433,13 +470,14 @@ class ParallelWavenet:
             avg = 0.5 * avg + 0.5 * torch.mean(diff[:, :, : stft_ops.PRIORITY_FREQ])
         return {"power_loss": avg}
 
-    def contrastive_loss(self, teacher_params, ff_dict, rl, model_group=None):
+    def contrastive_loss(self, teacher_params, ff_dict, rl, model_group=None, seq_group=None):
         """Minus the KL against the mismatched mel ff_dict['mel_rand']."""
         kl = self.kl_loss_logistic(teacher_params, dict(ff_dict, mel=ff_dict["mel_rand"]), rl,
-                                   model_group)
+                                   model_group, seq_group)
         return {"contrastive_loss": -kl["kl_loss"]}
 
-    def kl_and_contrastive_fused(self, teacher_params, ff_dict, rl_kl, rl_cl, model_group=None):
+    def kl_and_contrastive_fused(self, teacher_params, ff_dict, rl_kl, rl_cl, model_group=None,
+                                 seq_group=None):
         """kl_loss_logistic and contrastive_loss with one teacher pass: the
         two score the same sample under two mels, and the teacher never
         mixes batch rows, so [mel; mel_rand] runs as one 2B batch."""
@@ -448,7 +486,8 @@ class ParallelWavenet:
         x_scaled = self._clip_or_not(x)
         te_mol = self._teacher_out_params(
             teacher_params, torch.cat([x_scaled, x_scaled]),
-            torch.cat([ff_dict["mel"], ff_dict["mel_rand"]]), model_group)  # [2B, L, 3 * mix]
+            torch.cat([ff_dict["mel"], ff_dict["mel_rand"]]), model_group,
+            seq_group)  # [2B, L, 3 * mix]
         rl = torch.cat([rl_kl, rl_cl])
         x_xp = rl * torch.cat([scale, scale])[:, None, :] + torch.cat([mean, mean])[:, None, :]
         log_te = dist.mol_log_probs(te_mol[:, None], self._clip_or_not(x_xp),
@@ -459,24 +498,34 @@ class ParallelWavenet:
         return {"kl_loss": H_Ps_Pt - H_Ps, "H_Ps": H_Ps, "H_Ps_Pt": H_Ps_Pt,
                 "contrastive_loss": -(H_Ps_Pt_rand - H_Ps)}
 
-    def calculate_loss(self, teacher_params, ff_dict, noise, norm_stats=None, model_group=None):
+    def calculate_loss(self, teacher_params, ff_dict, noise, norm_stats=None, model_group=None,
+                       seq_group=None):
         """kl + power_loss_factor * power (+ contrastive_loss_factor *
         contrastive).  ff_dict: the forward's outputs and {'mel', 'wav'}
         (+ 'mel_rand'); noise: ``loss_noise``'s draws; model_group: the
-        teacher's params are sharded over it."""
+        teacher's params are sharded over it.  seq_group: the forward's
+        outputs and the draws are this rank's chunk, the mels and the wav
+        whole; the KL and contrastive terms are this chunk's means, and the
+        power loss is computed whole on every rank from the student's x
+        gathered over the group, its gradient scaled by the group's size so
+        that the gradient averaged over the data x seq ranks equals the
+        unsharded one."""
         cfg = self.cfg
         clf = cfg.contrastive_loss_factor if cfg.loss_type == "logistic" else 0.0
         if cfg.loss_type == "gauss":
-            loss_dict = self.kl_loss_gauss(teacher_params, ff_dict, model_group)
+            loss_dict = self.kl_loss_gauss(teacher_params, ff_dict, model_group, seq_group)
         elif clf > 0.0:
             loss_dict = self.kl_and_contrastive_fused(teacher_params, ff_dict, noise["kl"],
-                                                      noise["cl"], model_group)
+                                                      noise["cl"], model_group, seq_group)
         else:
-            loss_dict = self.kl_loss_logistic(teacher_params, ff_dict, noise["kl"], model_group)
+            loss_dict = self.kl_loss_logistic(teacher_params, ff_dict, noise["kl"], model_group,
+                                              seq_group)
         loss = loss_dict["kl_loss"]
         if cfg.power_loss_factor > 0.0:
-            loss_dict.update(self.power_loss(ff_dict, norm_stats))
-            loss = loss + cfg.power_loss_factor * loss_dict["power_loss"]
+            n = mesh_lib.seq_position(seq_group)[1]
+            whole = dict(ff_dict, x=mesh_lib.seq_gather(ff_dict["x"], seq_group))
+            loss_dict.update(self.power_loss(whole, norm_stats))
+            loss = loss + cfg.power_loss_factor * mesh_lib.scale_grad(loss_dict["power_loss"], n)
         if clf > 0.0:
             loss = loss + clf * loss_dict["contrastive_loss"]
         loss_dict["loss"] = loss
@@ -489,13 +538,6 @@ class ParallelWavenet:
         if cfg.use_mu_law:
             return sig.inv_mu_law(xq)
         return sig.inv_cast_quantize(xq, cfg.quant_chann)
-
-
-def _centre(enc, length):
-    left = (enc.shape[1] - length) // 2
-    if left < 0:
-        raise ValueError(f"conditioning shorter than input ({enc.shape[1]} < {length})")
-    return enc[:, left : left + length].contiguous()
 
 
 def transplant_teacher_deconv(student_params, teacher_params):

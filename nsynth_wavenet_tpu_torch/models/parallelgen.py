@@ -35,6 +35,7 @@ import torch
 
 from nsynth_wavenet_tpu_torch.models.parallel_wavenet import (SCALE_MAX, ParallelWavenet,
                                                             compose_output)
+from nsynth_wavenet_tpu_torch.models import wavenet as wavenet_lib
 from nsynth_wavenet_tpu_torch.models.wavenet import no_tf32
 from nsynth_wavenet_tpu_torch.ops import conv as conv_ops
 from nsynth_wavenet_tpu_torch.ops import flow_kernel as flow_kernel_ops
@@ -336,17 +337,6 @@ def flow_receptive_field(pwn: ParallelWavenet, flow_idx: int) -> int:
     return 1 + (cfg.filter_length - 1) * (1 + dils)
 
 
-def _deconv_halo_frames(cfg) -> int:
-    """Mel frames on each side that bound the upsampling stack's reach: a
-    layer of filter fl and stride s reads about fl / s + 1 of its input
-    frames each way."""
-    reach, unit = 0.0, 1
-    for fl, stride in cfg.deconv_config:
-        reach += (fl / stride + 1) / unit
-        unit *= stride
-    return int(reach) + 2
-
-
 @torch.no_grad()
 @no_tf32()
 def synthesize_seq_sharded(pwn: ParallelWavenet, params, mel, generator, mesh):
@@ -383,7 +373,7 @@ def synthesize_seq_sharded(pwn: ParallelWavenet, params, mel, generator, mesh):
     fs = cfg.frame_shift
     left = (T * fs - L) // 2
     e0, e1 = t0 - max(halos) + left, t1 + left
-    hf = _deconv_halo_frames(cfg)
+    hf = wavenet_lib.deconv_halo_frames(cfg.deconv_config)
     fa, fb = max(0, e0 // fs - hf), min(T, -(-e1 // fs) + hf)
     mel_w = mel[rows, fa:fb]
     shared = pwn._flow_deconv(params, 0, mel_w) if pwn.shares_deconv else None

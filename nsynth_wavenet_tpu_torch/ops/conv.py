@@ -21,6 +21,14 @@ input, and weight norm's norm over axes (0, 1) is local;
 squared norm over the model group before the division, sums the partial
 products over the group, and adds the bias once, after that sum.
 
+Sequence parallelism (parallel/mesh.py): with a ``seq_group`` the time
+axis is this rank's chunk of the sequence, and ``shift_right`` and the
+causal convs put the steps before the chunk in front of it (a halo of 1,
+or of (fl-1)*dilation, from the left neighbours: ``mesh.halo``), take the
+taps over the extended input and keep the chunk's outputs.  With a model
+group as well, the halo is taken on the model-replicated input before
+``mesh.copy_to_region``.
+
 Weight norm's data-dependent init is a pure pass: the ``*_ddi`` functions
 return ``(y, new_params)`` with g and b rescaled so that the layer's output
 has mean 0 and standard deviation WN_INIT_SCALE over the init batch.
@@ -48,8 +56,11 @@ def get_upsample_act(act_str: str):
     raise ValueError(f"Unsupported upsample activation: {act_str}")
 
 
-def shift_right(x: torch.Tensor) -> torch.Tensor:
-    """Shift the time axis of [B, T, C] right by one, zero-filling the front."""
+def shift_right(x: torch.Tensor, seq_group=None) -> torch.Tensor:
+    """Shift the time axis of [B, T, C] right by one, zero-filling the front
+    (with a seq group: the left neighbour's last step in front)."""
+    if seq_group is not None:
+        return mesh_lib.halo(x, 1, seq_group)[:, :-1, :]
     return F.pad(x, (0, 0, 1, 0))[:, :-1, :]
 
 
@@ -145,21 +156,65 @@ class _StackTaps(torch.autograd.Function):
         return dx, None, None
 
 
+class _ExtendedTaps(torch.autograd.Function):
+    """[B, H + T, C] with H = (fl - 1) * dilation steps of halo in front ->
+    [B, T, fl * C]: tap k of step t is the extended input's row t + k *
+    dilation.  The backward adds the taps' gradients into the extended
+    input's, halo rows included."""
+
+    @staticmethod
+    def forward(ctx, x, fl, dilation):
+        ctx.fl, ctx.dilation = fl, dilation
+        B, TH, C = x.shape
+        T = TH - (fl - 1) * dilation
+        out = x.new_empty((B, T, fl * C))
+        for k in range(fl):
+            out[:, :, k * C : (k + 1) * C].copy_(x[:, k * dilation : k * dilation + T])
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        fl, dilation = ctx.fl, ctx.dilation
+        B, T, C = g.shape[0], g.shape[1], g.shape[2] // fl
+        dx = g.new_zeros((B, T + (fl - 1) * dilation, C))
+        for k in range(fl):
+            dx[:, k * dilation : k * dilation + T] += g[:, :, k * C : (k + 1) * C]
+        return dx, None, None
+
+
+def extend(x: torch.Tensor, fl: int, dilation: int, seq_group) -> torch.Tensor:
+    """x with the (fl - 1) * dilation steps a causal conv reads before it in
+    front (mesh.halo; zeros without a seq group): the ``extended`` input of
+    conv1d_taps."""
+    return mesh_lib.halo(x, (fl - 1) * dilation, seq_group)
+
+
+def _taps(x, fl, dilation, seq_group, extended):
+    if fl == 1:
+        return x
+    if extended:
+        return _ExtendedTaps.apply(x, fl, dilation)
+    if seq_group is not None:
+        return _ExtendedTaps.apply(extend(x, fl, dilation, seq_group), fl, dilation)
+    return _StackTaps.apply(x, fl, dilation)
+
+
 def conv1d_taps(params, x: torch.Tensor, *, dilation: int = 1,
                 dtype: Optional[torch.dtype] = None, out_dtype: Optional[torch.dtype] = None,
-                native: bool = False):
+                native: bool = False, seq_group=None, extended: bool = False):
     """The causal conv1d as one matmul over [B, T, C]: the taps
     [x(t - (fl-1)d), ..., x(t)] stacked on the channel axis times the kernel
     reshaped to [fl * Cin, Cout].  The same sums as ``conv1d(causal=True)``
     in another order; the activations stay channels-last, and the products
     are plain GEMMs (cuDNN's 1-D convolutions transpose every activation,
     and its weight gradient of a dilated convolution is not a tensor-core
-    kernel)."""
+    kernel).  seq_group: x is this rank's chunk, and the steps before it
+    come from the left neighbours; extended: x already holds them in front
+    (``extend``), and the output is the chunk's."""
     w = effective_kernel(params)
     fl, cin, cout = w.shape
     x, w = _operands(x, w, dtype, native)
-    if fl > 1:
-        x = _StackTaps.apply(x, fl, dilation)
+    x = _taps(x, fl, dilation, seq_group, extended)
     return _finish(x @ w.reshape(fl * cin, cout), params["b"], dtype, out_dtype)
 
 
@@ -169,7 +224,9 @@ def conv1d_taps_row(params, x: torch.Tensor, group, *, dilation: int = 1,
     """Row-parallel conv1d_taps: x and the kernel's input axis sharded over
     the model ``group``, the bias and gain whole.  The squared norm of each
     output channel and the partial products are summed over the group, and
-    the bias is added once, after the sum.  group None: conv1d_taps."""
+    the bias is added once, after the sum.  group None: conv1d_taps.  (Its
+    callers, the res and skip products, are 1x1: pointwise in time, they
+    need no halo on a seq axis.)"""
     w = effective_kernel(params, norm_group=group)
     fl, cin, cout = w.shape
     x, w = _operands(x, w, dtype, native)

@@ -17,8 +17,15 @@ one process group per line of ranks along it (``dist.new_group``):
     sharded on its own, rank r holding sigmoid columns [r m/n, (r+1) m/n) and
     the matching tanh columns (``split_leaf``), and ``gather_params`` puts
     the reference's layout back.
-  * ``seq``: time chunks of one-shot student serving
-    (models/parallelgen.py synthesize_seq_sharded).
+  * ``seq``: time chunks.  Rank r of a seq line owns samples
+    [r L/n, (r+1) L/n) of its data index's rows (``seq_chunk``): in training
+    only the trunks' activations of that chunk live on it, and every causal
+    conv reads the steps before its chunk from its left neighbours through a
+    halo exchange (``halo``); in one-shot student serving
+    (models/parallelgen.py synthesize_seq_sharded) each flow reads its
+    receptive field.  The gradient and the metrics of a training step are
+    averaged over the data x seq ranks that share a model index
+    (``Mesh.replica_group``).
 
 Without an initialised process group a mesh has one rank and no groups, and
 every collective here is the identity.  Collectives on CUDA tensors over a
@@ -26,6 +33,7 @@ gloo group (two ranks sharing one card) go through host memory, since gloo
 reduces and broadcasts CUDA tensors but gathers and sends only host ones.
 """
 
+import contextlib
 import os
 import re
 from typing import Optional
@@ -37,6 +45,8 @@ import torch.distributed as dist
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 SEQ_AXIS = "seq"
+# the key of the data x seq group in Mesh.groups
+REPLICA_AXES = (DATA_AXIS, SEQ_AXIS)
 
 
 # ---- process group -------------------------------------------------------------
@@ -156,6 +166,18 @@ class Mesh:
         """The model group when the model axis is sharded, else None."""
         return self.group(MODEL_AXIS) if self.size(MODEL_AXIS) > 1 else None
 
+    def seq_group(self):
+        """The seq group when the seq axis is sharded, else None."""
+        return self.group(SEQ_AXIS) if self.size(SEQ_AXIS) > 1 else None
+
+    def replica_group(self):
+        """The ranks that hold the same model shard: data x seq of this
+        rank's model index (the data group without a seq axis)."""
+        return self.groups.get(REPLICA_AXES)
+
+    def replicas(self) -> int:
+        return self.size(DATA_AXIS) * self.size(SEQ_AXIS)
+
     def __repr__(self):
         return f"Mesh({self.shape}, rank={self.rank}, coords={self.coords})"
 
@@ -192,6 +214,15 @@ def _build(shape: dict) -> Mesh:
                 g = dist.new_group(members)
                 if rank in members:
                     groups[axis] = g
+        if SEQ_AXIS in shape:
+            # data x seq of every model index (ranks[d, m, s], seq fastest)
+            for m in range(dims[1]):
+                members = [int(r) for r in ranks[:, m, :].reshape(-1)]
+                g = dist.new_group(members)
+                if rank in members:
+                    groups[REPLICA_AXES] = g
+        elif DATA_AXIS in groups:
+            groups[REPLICA_AXES] = groups[DATA_AXIS]
     mesh = Mesh(shape, rank, groups)
     _MESHES[key] = mesh
     return mesh
@@ -207,24 +238,60 @@ def rows(mesh: Mesh, batch_size: int) -> slice:
     return slice(i * b, (i + 1) * b)
 
 
+def seq_position(group) -> tuple:
+    """(index, size) of this rank in a seq group ((0, 1) for None)."""
+    if group is None:
+        return 0, 1
+    return dist.get_rank(group), dist.get_world_size(group)
+
+
+def _chunk(length: int, r: int, n: int) -> slice:
+    if length % n:
+        raise ValueError(f"a sequence of {length} samples does not divide over {n} seq ranks; "
+                         f"use a length that is a multiple of {n}")
+    c = length // n
+    return slice(r * c, (r + 1) * c)
+
+
+def seq_chunk(length: int, mesh) -> slice:
+    """The samples [r L/n, (r+1) L/n) of a length-L sequence that this rank
+    owns on the seq axis of ``mesh`` (a Mesh, a seq group or None: the whole
+    sequence).  A length that n does not divide is refused (the JAX package
+    pads it instead)."""
+    if isinstance(mesh, Mesh):
+        r, n = mesh.index(SEQ_AXIS), mesh.size(SEQ_AXIS)
+    else:
+        r, n = seq_position(mesh)
+    return _chunk(length, r, n)
+
+
 class RowDraws:
     """A generator whose draws are made for the global batch (``draw``):
     [total, *shape[1:]] is drawn and rows [start, start + shape[0]) are
-    returned, so that N ranks draw what one process draws at that batch."""
+    returned, so that N ranks draw what one process draws at that batch.
+    time=(t0, length): the draws' axis 1 is time, drawn at ``length`` and
+    cut to [t0, t0 + shape[1]) (this rank's chunk on the seq axis)."""
 
-    def __init__(self, generator: torch.Generator, start: int, total: int):
-        self.generator, self.start, self.total = generator, start, total
+    def __init__(self, generator: torch.Generator, start: int, total: int, time=None):
+        self.generator, self.start, self.total, self.time = generator, start, total, time
 
 
 def draw(fn, generator, shape, device=None) -> torch.Tensor:
     """fn(shape, generator=generator) (torch.rand or torch.randn) on
-    ``device`` (default the generator's), or this rank's rows of the global
-    batch's draw when generator is a RowDraws."""
+    ``device`` (default the generator's), or this rank's rows (and time
+    chunk) of the global batch's draw when generator is a RowDraws."""
     shape = tuple(shape)
     if isinstance(generator, RowDraws):
         g = generator.generator
-        full = fn((generator.total,) + shape[1:], generator=g, device=device or g.device)
-        return full[generator.start : generator.start + shape[0]]
+        lead = (generator.total,)
+        if generator.time is not None:
+            lead += (generator.time[1],)
+        full = fn(lead + shape[len(lead):], generator=g, device=device or g.device)
+        full = full[generator.start : generator.start + shape[0]]
+        if generator.time is not None:
+            t0 = generator.time[0]
+            full = full[:, t0 : t0 + shape[1]]
+        return full
     return fn(shape, generator=generator, device=device or generator.device)
 
 
@@ -287,20 +354,186 @@ def send_right_recv_left(t: torch.Tensor, group, recv_like: torch.Tensor):
     from the previous one (None on the first rank; the last rank sends
     nothing)."""
     r, n = dist.get_rank(group), dist.get_world_size(group)
-    host = _via_host(t, group)
-    ops = []
-    buf = None
-    if r + 1 < n:
-        src = t.detach().contiguous()
-        ops.append(dist.P2POp(dist.isend, src.cpu() if host else src,
-                              dist.get_global_rank(group, r + 1), group))
-    if r > 0:
-        buf = torch.empty_like(recv_like, device="cpu" if host else recv_like.device)
-        ops.append(dist.P2POp(dist.irecv, buf, dist.get_global_rank(group, r - 1), group))
+    dev = "cpu" if _via_host(t, group) else t.device
+    sends = [(t.detach().contiguous().to(dev), r + 1)] if r + 1 < n else []
+    buf = torch.empty_like(recv_like, device=dev) if r > 0 else None
+    _p2p(sends, [] if buf is None else [(buf, r - 1)], group)
+    return None if buf is None else buf.to(recv_like.device)
+
+
+def _p2p(sends, recvs, group):
+    """Post every (tensor, group rank) send and receive at once and wait."""
+    ops = [dist.P2POp(dist.isend, t, dist.get_global_rank(group, q), group) for t, q in sends]
+    ops += [dist.P2POp(dist.irecv, t, dist.get_global_rank(group, q), group) for t, q in recvs]
     if ops:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
-    return None if buf is None else buf.to(recv_like.device)
+
+
+# ---- sequence parallelism: halo exchanges ----------------------------------------
+
+# exchanges made since the last reset, by direction: one ``halo`` call is
+# one forward exchange, and one backward exchange when its input needs a
+# gradient; a halo replayed from a tape (checkpoint recompute) is not counted
+halo_exchanges = {"forward": 0, "backward": 0}
+
+
+def reset_halo_counts():
+    halo_exchanges["forward"] = halo_exchanges["backward"] = 0
+
+
+def _halo_peers(r: int, n: int, T: int, H: int, right: bool) -> list:
+    """The pieces of an exchange of H steps before each chunk of T: with
+    right=False those rank r receives, [(source, lo, hi)], else those it
+    sends, [(dest, lo, hi)]; lo, hi are global positions (the source owns
+    [s T, (s+1) T)).  A halo longer than a chunk spans several ranks."""
+    out = []
+    peers = range(r + 1, n) if right else range(r - 1, -1, -1)
+    for q in peers:
+        s, dst = (r, q) if right else (q, r)
+        lo, hi = max(dst * T - H, s * T), (s + 1) * T
+        if lo >= hi:
+            break
+        out.append((q, lo, hi))
+    return out
+
+
+class HaloTape:
+    """Received halos kept in the order they came, for a checkpointed
+    region: ``record`` keeps every halo its forward receives, ``replay``
+    hands them out again in the recompute of the backward pass instead of
+    exchanging again (torch.utils.checkpoint's context_fn)."""
+
+    active = None  # (mode, tape) of the innermost context
+
+    def __init__(self):
+        self.halos, self.pos = [], 0
+
+    @contextlib.contextmanager
+    def _mode(self, mode):
+        saved, HaloTape.active = HaloTape.active, (mode, self)
+        try:
+            yield
+        finally:
+            HaloTape.active = saved
+
+    def record(self):
+        return self._mode("record")
+
+    def replay(self):
+        self.pos = 0
+        return self._mode("replay")
+
+
+def halo_checkpoint_contexts():
+    """context_fn for torch.utils.checkpoint (use_reentrant=False) around a
+    region that exchanges halos: the recompute reads the forward's halos."""
+    tape = HaloTape()
+    return tape.record(), tape.replay()
+
+
+def _receive_halo(x, H, group):
+    r, n = seq_position(group)
+    B, T, C = x.shape
+    host = _via_host(x, group)
+    buf_dev = "cpu" if host else x.device
+    halo = torch.zeros((B, H, C), dtype=x.dtype, device=buf_dev)
+    base = r * T - H  # the global position of halo row 0
+    sends = [(x[:, lo - r * T : hi - r * T].contiguous().to(buf_dev), q)
+             for q, lo, hi in _halo_peers(r, n, T, H, right=True)]
+    recvs = [(halo[:, lo - base : hi - base], q) for q, lo, hi in _halo_peers(r, n, T, H, False)]
+    # receive into contiguous buffers (a row slice of [B, H, C] is not one)
+    bufs = [(torch.empty_like(v, memory_format=torch.contiguous_format), q) for v, q in recvs]
+    _p2p(sends, bufs, group)
+    for (v, _), (b, _) in zip(recvs, bufs):
+        v.copy_(b)
+    return halo.to(x.device)
+
+
+class _Halo(torch.autograd.Function):
+    """[B, T, C] chunk -> [B, H + T, C]: the H steps before the chunk (its
+    left neighbours' last rows, zeros before the sequence's start) in front.
+    The backward sends the halo's gradient back to the ranks it came from,
+    which add it into their last rows."""
+
+    @staticmethod
+    def forward(ctx, x, H, group):
+        ctx.H, ctx.group = H, group
+        tape = HaloTape.active
+        if tape is not None and tape[0] == "replay":
+            t = tape[1]
+            halo, t.pos = t.halos[t.pos], t.pos + 1
+        else:
+            halo = _receive_halo(x, H, group)
+            halo_exchanges["forward"] += 1
+            if tape is not None:
+                tape[1].halos.append(halo)
+        return torch.cat([halo, x], dim=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        H, group = ctx.H, ctx.group
+        r, n = seq_position(group)
+        T = g.shape[1] - H
+        host = _via_host(g, group)
+        buf_dev = "cpu" if host else g.device
+        base = r * T - H
+        dx = g[:, H:].contiguous()
+        sends = [(g[:, lo - base : hi - base].contiguous().to(buf_dev), q)
+                 for q, lo, hi in _halo_peers(r, n, T, H, right=False)]
+        recvs = [(torch.empty((g.shape[0], hi - lo, g.shape[2]), dtype=g.dtype, device=buf_dev),
+                  q, lo) for q, lo, hi in _halo_peers(r, n, T, H, right=True)]
+        _p2p(sends, [(b, q) for b, q, _ in recvs], group)
+        for b, _, lo in recvs:
+            dx[:, lo - r * T : lo - r * T + b.shape[1]] += b.to(dx.device)
+        halo_exchanges["backward"] += 1
+        return dx, None, None
+
+
+def halo(x: torch.Tensor, H: int, group) -> torch.Tensor:
+    """x [B, T, C], this rank's chunk of a sequence sharded over the seq
+    ``group``, with the H steps before it in front: [B, H + T, C].  H may
+    exceed T (the halo then spans several left neighbours).  group None:
+    zeros in front."""
+    if group is None:
+        return torch.nn.functional.pad(x, (0, 0, H, 0))
+    return _Halo.apply(x, H, group)
+
+
+class _SeqGather(torch.autograd.Function):
+    """The whole sequence from every rank's chunk along ``dim``; the backward
+    returns this rank's slice of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return torch.cat(all_gather(x, group), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        r, n = seq_position(ctx.group)
+        return g.narrow(ctx.dim, r * (g.shape[ctx.dim] // n), g.shape[ctx.dim] // n), None, None
+
+
+def seq_gather(x: torch.Tensor, group, dim: int = 1) -> torch.Tensor:
+    """The whole sequence from the chunks of the seq ``group`` (x when None)."""
+    return x if group is None else _SeqGather.apply(x, group, dim)
+
+
+class _ScaleGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, k):
+        ctx.k = k
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.k, None
+
+
+def scale_grad(x: torch.Tensor, k: float) -> torch.Tensor:
+    """x, whose gradient is multiplied by k."""
+    return x if k == 1 else _ScaleGrad.apply(x, k)
 
 
 # ---- tensor-parallel autograd functions (Megatron's pair) ----------------------

@@ -8,15 +8,16 @@ window.
 
 Over a device mesh (parallel/mesh.py), one process per device:
 ``multihost`` joins the process group of torch's ``env://`` variables
-(torchrun's), ``n_model`` shards the model's channels over that many ranks
-and the data axis takes the rest of them.  Every rank of a data index reads
-that index's share of the records with its seed offset by the index and
-steps on those rows alone (no rank assembles the global batch, as JAX's
-put_global_batch does), the
-data-dependent init runs on process 0's init batch on every rank, the
-checkpoints hold the whole state (training/checkpoint.py), and train.log,
-metrics.jsonl, TensorBoard and the profile come from rank 0.  ``n_seq``
-(sequence parallelism of training) is not ported.
+(torchrun's), ``n_model`` shards the model's channels over that many ranks,
+``n_seq`` the time axis of every crop (each rank of a seq line runs its
+chunk, exchanging halos with its neighbours) and the data axis takes the
+rest of them.  Every rank of a data index (its model and seq ranks alike)
+reads that index's share of the records with its seed offset by the index
+and steps on those rows alone (no rank assembles the global batch, as JAX's
+put_global_batch does), the data-dependent init runs on process 0's init
+batch on every rank, the checkpoints hold the whole state
+(training/checkpoint.py), and train.log, metrics.jsonl, TensorBoard (with
+the DETAIL_LOG histograms) and the profile come from rank 0.
 
 On resume the state comes from the latest checkpoint and the data iterators
 restart from their seeds, as the JAX runner's do; a step's random draws
@@ -233,18 +234,19 @@ def _check_device(device):
 def _training_mesh(multihost, total_batch_size, n_model, n_seq, device):
     """(device, mesh) of a run: the mesh must take every rank (the data axis
     divides the global batch)."""
-    if n_seq != 1:
-        raise NotImplementedError(
-            "sequence-parallel training (n_seq) is not ported: it needs halo exchanges in every "
-            "dilated conv, the deconv and the STFT power loss (ROADMAP Queue 1 item 1); run "
-            "with n_seq=1")
     device = _check_device(maybe_init_distributed(multihost, device))
-    mesh = mesh_lib.mesh_for_batch(total_batch_size, n_model=n_model)
+    mesh = mesh_lib.mesh_for_batch(total_batch_size, n_model=n_model, n_seq=n_seq)
     world = mesh_lib.process_count()
     if int(np.prod(list(mesh.shape.values()))) != world:
-        raise ValueError(f"total_batch_size {total_batch_size} with n_model {n_model} leaves ranks "
-                         f"of {world} idle (mesh {mesh.shape})")
+        raise ValueError(f"total_batch_size {total_batch_size} with n_model {n_model} and n_seq "
+                         f"{n_seq} leaves ranks of {world} idle (mesh {mesh.shape})")
     return device, mesh
+
+
+def _host_metrics(metrics) -> dict:
+    """Floats of the scalar metrics; DETAIL_LOG histograms (dicts of
+    logging_utils.device_histogram) pass through for MetricsWriter."""
+    return {k: v if logging_utils.is_histogram(v) else float(v) for k, v in metrics.items()}
 
 
 def _run_logger(run_dir):
@@ -290,6 +292,7 @@ def train_wavenet(
     log.info("mesh %s over %d processes", mesh.shape, mesh_lib.process_count())
 
     model = Wavenet(cfg)
+    mesh_lib.seq_chunk(cfg.wave_length, mesh)  # refuse a crop the seq axis does not divide
     data_index, n_data = mesh.index(mesh_lib.DATA_AXIS), mesh.size(mesh_lib.DATA_AXIS)
     ds = data_lib.Dataset(train_path, process_index=data_index, process_count=n_data)
     log.info("crop gather: %s", "the native C++ sampler" if ds.native else "numpy")
@@ -326,7 +329,7 @@ def train_wavenet(
         return state, metrics, wav
 
     def report(state, metrics, wav, m):
-        m["loss"], m["learning_rate"] = float(metrics["loss"]), metrics["learning_rate"]
+        m.update(_host_metrics(metrics))
         if total_batch_size > 1:
             m["cond_gap"] = cond_gap_fn(state["params"], wav)
         log.info("step %d loss %.4f lr %.2e cond_gap %.4f (%.2f steps/s)", state["step"],
@@ -445,6 +448,8 @@ def train_parallel_wavenet(
     teacher, te_params = load_teacher(teacher_dir, device)
     log.info("teacher from %s\n%s", teacher_dir, logging_utils.config_summary(teacher.cfg))
     pwn = ParallelWavenet(cfg, teacher)
+    # refuse a sample length the seq axis does not divide
+    mesh_lib.seq_chunk(pwn.sample_length(stft_ops.num_mel_frames(cfg.wave_length)), mesh)
     data_index, n_data = mesh.index(mesh_lib.DATA_AXIS), mesh.size(mesh_lib.DATA_AXIS)
     ds = data_lib.Dataset(train_path, process_index=data_index, process_count=n_data)
     log.info("crop gather: %s", "the native C++ sampler" if ds.native else "numpy")
@@ -502,7 +507,7 @@ def train_parallel_wavenet(
         return state, metrics, wav
 
     def report(state, metrics, wav, m):
-        m.update({k: float(v) for k, v in metrics.items()})
+        m.update(_host_metrics(metrics))
         # hpt, the teacher's cross-entropy term of the KL, can fall at smoke
         # scale where the KL itself is floored by the teacher's own NLL
         hpt = (" hpt %.4f" % m["H_Ps_Pt"]) if "H_Ps_Pt" in m else ""

@@ -33,6 +33,8 @@ sides, the metrics and the params and EMA after 3 free-running steps at
 the same limits (the f32 free-running params after 3 steps are a reading:
 see the test's docstring)."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -123,6 +125,14 @@ def _jax_teacher(jm, jp, wavs, uniforms, mesh):
 @pytest.mark.parametrize("n_data,n_model", MESHES, ids=MESH_IDS)
 def test_data_parallel_teacher_step_equals_jax_and_one_process(monkeypatch, tmp_path, n_data,
                                                                n_model):
+    check_teacher_mesh(monkeypatch, tmp_path, n_data, n_model)
+
+
+def check_teacher_mesh(monkeypatch, tmp_path, n_data, n_model, n_seq=1, remat=False):
+    """The teacher steps over an (n_data, n_model, n_seq) mesh against JAX
+    under its mesh of that shape and the port's one process (the module
+    docstring); remat: the ranks also take the first gradient with
+    cfg.remat.  Returns (the ranks' results, the port's config)."""
     jc, tc = _configs("gauss", compute_dtype="float32", grad_clip=True, use_weight_norm=True,
                       dropout_all=True)
     jm, tm = jwavenet.Wavenet(jc), twavenet.Wavenet(tc)
@@ -131,8 +141,8 @@ def test_data_parallel_teacher_step_equals_jax_and_one_process(monkeypatch, tmp_
     wavs = _wavs(n=STEPS, B=B)
     per_forward = 1 + jc.num_layers
     ju = _Uniforms(per_forward)
-    (jl, jg), jstate, jlosses = _jax_teacher(jm, jp, wavs, ju,
-                                             jmesh.make_mesh(n_data=n_data, n_model=n_model))
+    (jl, jg), jstate, jlosses = _jax_teacher(
+        jm, jp, wavs, ju, jmesh.make_mesh(n_data=n_data, n_model=n_model, n_seq=n_seq))
     assert sorted(ju.tables) == list(range(per_forward))
 
     # the port in one process, on the whole batches and the same masks
@@ -146,9 +156,12 @@ def test_data_parallel_teacher_step_equals_jax_and_one_process(monkeypatch, tmp_
     assert tu.calls == STEPS * per_forward
 
     uniforms = [torch.from_numpy(ju.tables[k]) for k in range(per_forward)]
-    ranks = run_job("teacher", {"cfg": tc, "params": tp, "n_data": n_data, "n_model": n_model,
-                                "wavs": [torch.from_numpy(w) for w in wavs],
-                                "uniforms": uniforms}, n_data * n_model, tmp_path)
+    inputs = {"cfg": tc, "params": tp, "n_data": n_data, "n_model": n_model, "n_seq": n_seq,
+              "wavs": [torch.from_numpy(w) for w in wavs], "uniforms": uniforms}
+    if remat:
+        inputs["remat_cfg"] = dataclasses.replace(tc, remat=True)
+    ranks = run_job("teacher", inputs, n_data * n_model * n_seq, tmp_path)
+    calls = [tuple(u.shape) for u in uniforms] * ((2 if remat else 1) + STEPS)
     grad_tol, param_tol = TOL["f32"]
     jgrads = _flat(jg)
     init, moved = _flat(jp), [k for k, g in jgrads.items() if np.any(g != 0)]
@@ -156,7 +169,7 @@ def test_data_parallel_teacher_step_equals_jax_and_one_process(monkeypatch, tmp_
     readings = {"grads": 0.0, "params_ema": 0.0, "one": 0.0}
     for r in ranks:
         # every dropout call drew the whole batch's uniforms
-        assert r["dropout_calls"] == [tuple(u.shape) for u in uniforms] * (1 + STEPS)
+        assert r["dropout_calls"] == calls
         grad_err = _leaf_err(jgrads, _tflat(r["grads"]))
         errs = (_update_err(init, jparams, _tflat(r["params"]), moved),
                 _update_err(init, jema, _tflat(r["ema"]), moved))
@@ -173,7 +186,8 @@ def test_data_parallel_teacher_step_equals_jax_and_one_process(monkeypatch, tmp_
     for k, v in _tflat(ranks[0]["params"]).items():
         for r in ranks[1:]:
             np.testing.assert_array_equal(v, _tflat(r["params"])[k], err_msg=k)
-    print((n_data, n_model), readings)
+    print((n_data, n_model, n_seq), readings)
+    return ranks, tc
 
 
 def _flat_state(tree):
@@ -213,6 +227,10 @@ def _jax_f64(monkeypatch, loss_type, kw, out, mesh):
 @pytest.mark.parametrize("loss_type,kw", CASES, ids=["gauss-clip-wn", "logistic-cl-share-clip"])
 def test_data_parallel_distill_steps_equal_jax_and_one_process(monkeypatch, tmp_path, loss_type,
                                                                kw, n_data, n_model):
+    check_distill_mesh(monkeypatch, tmp_path, loss_type, kw, n_data, n_model)
+
+
+def check_distill_mesh(monkeypatch, tmp_path, loss_type, kw, n_data, n_model, n_seq=1, f64=True):
     """Free running against JAX under its mesh: every metric of the 3 steps,
     and the params and EMA after the first; in f64 on both sides, every
     metric and the params and EMA after the 3 steps.  Against the port's one
@@ -228,22 +246,26 @@ def test_data_parallel_distill_steps_equal_jax_and_one_process(monkeypatch, tmp_
     which the mesh changes, moves that leaf.  In f64 the free-running
     params read 3.8e-4 (Gauss) and 4.2e-4 (logistic), the one process as
     the ranks: the port's Adam keeps JAX's f32 bias corrections, which part
-    from JAX's f64 ones, and the second step carries that too."""
-    mesh = jmesh.make_mesh(n_data=n_data, n_model=n_model)
+    from JAX's f64 ones, and the second step carries that too.
+
+    check_distill_mesh: these checks over an (n_data, n_model, n_seq) mesh,
+    the f64 run only with ``f64``; returns (the ranks' results, the port's
+    student)."""
+    mesh = jmesh.make_mesh(n_data=n_data, n_model=n_model, n_seq=n_seq)
     out = distill_run_both(monkeypatch, loss_type, B=B, jax_mesh=mesh,
                            teacher_kw={"use_weight_norm": True}, **kw)
-    p64, in64, js64, jm64 = _jax_f64(monkeypatch, loss_type, kw, out, mesh)
     pair = out["pair"]
     jstates = [out["jstate0"]] + out["jstates"]
     batches = [(torch.from_numpy(w), torch.from_numpy(r)) for w, r in out["batches"]]
     draws = [{k: torch.from_numpy(v) for k, v in d.items()} for d in out["draws"]]
-    ranks = run_job("student", {
-        "n_data": n_data, "n_model": n_model, "cfg": pair.tcfg,
-        "teacher_cfg": pair.tteacher.cfg, "params": pair.tparams, "teacher_params": pair.tte,
-        "batches": batches, "draws": draws,
-        "starts": [_port_state(js) for js in jstates[:-1]],
-        "f64": {"params": p64.tparams, "teacher_params": p64.tte, **in64}},
-        n_data * n_model, tmp_path)
+    inputs = {"n_data": n_data, "n_model": n_model, "n_seq": n_seq, "cfg": pair.tcfg,
+              "teacher_cfg": pair.tteacher.cfg, "params": pair.tparams,
+              "teacher_params": pair.tte, "batches": batches, "draws": draws,
+              "starts": [_port_state(js) for js in jstates[:-1]]}
+    if f64:
+        p64, in64, js64, jm64 = _jax_f64(monkeypatch, loss_type, kw, out, mesh)
+        inputs["f64"] = {"params": p64.tparams, "teacher_params": p64.tte, **in64}
+    ranks = run_job("student", inputs, n_data * n_model * n_seq, tmp_path)
     init = out["init"]
     first = _jflat(jstates[1]["params"])
     moved1 = [n for n in first if np.any(first[n] != init[n])]
@@ -273,6 +295,9 @@ def test_data_parallel_distill_steps_equal_jax_and_one_process(monkeypatch, tmp_
     readings["jax_free"] = max(
         distill_update_err(init, _jflat(out["jstate"]["params"]), _flat_state(r["params"]),
                            out["moved"]) for r in ranks)
+    if not f64:
+        print(loss_type, (n_data, n_model, n_seq), readings)
+        return ranks, pair.tpwn
     # f64, free running
     init64 = to_numpy(p64.tparams)
     want64, ema64 = _jflat(js64["params"]), _jflat(js64["ema"])
@@ -287,4 +312,5 @@ def test_data_parallel_distill_steps_equal_jax_and_one_process(monkeypatch, tmp_
                 distill_update_err(init64, ema64, to_numpy(r["f64"]["ema"]), moved64))
         readings["jax_free_f64"] = tuple(map(max, readings["jax_free_f64"], errs))
         assert max(errs) <= UPDATE_TOL, errs
-    print(loss_type, (n_data, n_model), readings)
+    print(loss_type, (n_data, n_model, n_seq), readings)
+    return ranks, pair.tpwn

@@ -202,16 +202,18 @@ def test_spec_feat_mean_std_equals_jax(tmp_path):
 def test_refusals(teacher_run, tmp_path):
     ds, teacher_dir, _ = teacher_run
     cfg = _json(tmp_path / "s.json", STUDENT)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
+    with pytest.raises(ValueError, match=r"n_model\*n_seq=2 ranks, have 1"):
         _distill(ds, teacher_dir, config_path=cfg, log_root=str(tmp_path / "x"), n_seq=2)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             _distill(ds, teacher_dir, config_path=cfg, log_root=str(tmp_path / "x"),
                      device="cuda")
+    # detail_log: each flow's scalars and the upsamplers' histograms ride the ff dict
     pwn = ParallelWavenet(tconfig.ParallelWavenetConfig(**dict(STUDENT, detail_log=True)))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        pwn.feed_forward_train(pwn.init_params(0, device="cpu"),
-                               {"mel": torch.zeros(1, 7, 80), "base_x": torch.zeros(1, 1400)})
+    ff, _ = pwn.feed_forward_train(pwn.init_params(0, device="cpu"),
+                                   {"mel": torch.zeros(1, 7, 80), "base_x": torch.zeros(1, 1400)})
+    assert any(k.startswith("hist/") for k in ff["detail"])
+    assert {f"scale_{i}" for i in range(pwn.num_flows)} <= set(ff["detail"])
 
 
 def test_clis_teacher_distill_export_and_serve(tmp_path):

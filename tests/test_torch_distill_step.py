@@ -58,10 +58,11 @@ def _one_torch_thread():
     torch.set_num_threads(threads)
 
 
-def _jax_step(monkeypatch, jpwn, teacher_params, optimizer, state, batch, draws):
+def _jax_step(monkeypatch, jpwn, teacher_params, optimizer, state, batch, draws, mesh=None):
     """JAX's step compiled with the draws as inputs: the patched noise
     functions hand back the traced arguments.  Compiled for the placement
-    of its arguments (a mesh's shardings when they carry them)."""
+    of its arguments (a mesh's shardings when they carry them); ``mesh``
+    goes to make_pwn_train_step (a seq axis constrains the wav's time)."""
     slot, order = {}, []
 
     def logistic(rng, shape):
@@ -73,7 +74,7 @@ def _jax_step(monkeypatch, jpwn, teacher_params, optimizer, state, batch, draws)
     monkeypatch.setattr(jpwn_lib.ParallelWavenet, "base_noise",
                         lambda self, rng, B, L: slot["base_x"])
     monkeypatch.setattr(jdist, "logistic_0_1", logistic)
-    step_fn = jtl.make_pwn_train_step(jpwn, teacher_params, optimizer)
+    step_fn = jtl.make_pwn_train_step(jpwn, teacher_params, optimizer, mesh=mesh)
 
     def fn(state, wav, wav_rand, draws):
         slot.clear()
@@ -131,7 +132,7 @@ def _run_both(monkeypatch, loss_type, B=2, jax_mesh=None, **kw):
         jteacher = jmesh.shard_params(jteacher, jax_mesh)
         rows = jmesh.batch_sharding(jax_mesh)
         jinputs = jax.device_put(jinputs, rows)
-    jstep = _jax_step(monkeypatch, pair.jpwn, jteacher, jopt, js, *jinputs[0])
+    jstep = _jax_step(monkeypatch, pair.jpwn, jteacher, jopt, js, *jinputs[0], mesh=jax_mesh)
     out = {"metrics": [], "pair": pair, "jstate0": js, "jstates": [], "batches": batches,
            "draws": all_draws, "tstep": tstep}
     # the first step's gradient, and the norm the clip sees

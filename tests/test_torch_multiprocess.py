@@ -2,7 +2,8 @@
 tests/test_multiprocess.py): the train CLIs in 2 processes over gloo on the
 CPU, wired by torch's env:// variables as torchrun sets them
 (train_*_torch.py --multihost), against one process at the same global
-batch.
+batch: data parallelism, channel tensor parallelism (--n_model 2) and
+sequence parallelism (--n_seq 2).
 
 As in the JAX test, every record of the dataset is the same wave_length
 wav, so the crops cannot depend on how the records are shared out: one
@@ -283,14 +284,70 @@ def test_two_process_distillation(tmp_path):
     _assert_jax_layout(st_tp["params"], JParallelWavenet(jcfg).init_params(jax.random.PRNGKey(0)))
 
 
+def _assert_update_close(before, want, got, tol):
+    """||got - want|| within tol of ||want - before|| over every leaf that
+    moved (Adam moves every element by about the learning rate)."""
+    before, want, got = (weights.flatten(t) for t in (before, want, got))
+    assert want.keys() == got.keys()
+    for k in want:
+        step = float(torch.linalg.vector_norm(want[k] - before[k]))
+        if step > 0:
+            err = float(torch.linalg.vector_norm(got[k] - want[k]))
+            assert err <= tol * step, (k, err / step)
+
+
 @pytest.mark.parametrize("n_seq", (2,))
-def test_sequence_parallel_training_is_refused(tmp_path, n_seq):
-    ds = make_identical_dataset(tmp_path / "ds")
+def test_sequence_parallel_training_cli(tmp_path, n_seq):
+    """Both CLIs with --multihost --n_seq 2 in 2 gloo processes, 2 steps:
+    each rank runs its half of every crop's time axis.  The checkpoints are
+    the whole model in the JAX layout, and the params after the second step
+    are a one-process run's of the same seed, by the L2 of that step's
+    update, at tests/test_torch_distill_step.py's UPDATE_TOL; the teacher
+    run resumes on both ranks to a third step."""
+    import jax
+
+    from test_torch_distill_step import UPDATE_TOL
+
+    ds = make_identical_dataset(tmp_path / "ds", noise=0.05)
     cfg = _json(tmp_path / "tiny.json", TINY_CFG)
-    proc = subprocess.run(_cmd("train_wavenet_torch.py", ds, config=cfg,
-                               log_root=str(tmp_path / "runs"), extra=["--n_seq", str(n_seq)]),
-                          cwd=REPO, capture_output=True, text=True, timeout=120,
-                          env=dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=REPO))
-    assert proc.returncode != 0
-    assert "sequence-parallel training (n_seq) is not ported" in proc.stderr
-    assert "ROADMAP Queue 1 item 1" in proc.stderr
+
+    def teacher(root, n, extra=()):
+        run_ranks(_cmd("train_wavenet_torch.py", ds, config=cfg, log_root=str(root), steps=2,
+                       batch=2, extra=["--ckpt_every_steps", "1", *extra]), n, str(root) + "_log")
+        return _only_run(root)
+
+    one, seq = teacher(tmp_path / "t1", 1), teacher(tmp_path / "t2", n_seq,
+                                                    ["--multihost", "--n_seq", str(n_seq)])
+    assert open(os.path.join(seq, "train.log")).read().count(f"'seq': {n_seq}") == 1
+    jp = JWavenet(jconfig.WavenetConfig(**TINY_CFG)).init_params(jax.random.PRNGKey(0))
+    _assert_jax_layout(_state(seq)["params"], jp)
+    _assert_update_close(_state(one, 1)["params"], _state(one)["params"], _state(seq)["params"],
+                         UPDATE_TOL)
+    # resume: every seq rank restores the whole checkpoint (rank 0 logs)
+    outs = run_ranks(_cmd("train_wavenet_torch.py", ds, logdir=seq, steps=3, batch=2,
+                          extra=["--multihost", "--n_seq", str(n_seq)]), n_seq, tmp_path / "log3")
+    assert any("Restored checkpoint at step 2" in o for o in outs), outs[0][-2000:]
+    assert _state(seq, step=3)["step"] == 3
+
+    run_ranks(_cmd("train_wavenet_torch.py", ds,
+                   config=_json(tmp_path / "teacher.json", TEACHER_CFG),
+                   log_root=str(tmp_path / "teacher"), steps=1, batch=2), 1, tmp_path / "logt")
+    teacher_dir = _only_run(tmp_path / "teacher")
+    scfg = _json(tmp_path / "student.json", STUDENT_CFG)
+
+    def distill(root, n, extra=()):
+        run_ranks(_cmd("train_parallel_wavenet_torch.py", ds, config=scfg, log_root=str(root),
+                       steps=2, batch=2,
+                       extra=["--teacher_dir", teacher_dir, "--ckpt_every_steps", "1", *extra]),
+                  n, str(root) + "_log")
+        return _only_run(root)
+
+    one, seq = distill(tmp_path / "s1", 1), distill(tmp_path / "s2", n_seq,
+                                                    ["--multihost", "--n_seq", str(n_seq)])
+    jcfg = jconfig.ParallelWavenetConfig(**STUDENT_CFG)
+    _assert_jax_layout(_state(seq)["params"],
+                       JParallelWavenet(jcfg).init_params(jax.random.PRNGKey(0)))
+    _assert_update_close(_state(one, 1)["params"], _state(one)["params"], _state(seq)["params"],
+                         UPDATE_TOL)
+    (m1,), (m2,) = _metrics(one), _metrics(seq)
+    assert abs(m2["loss"] - m1["loss"]) <= 1e-4 * max(abs(m1["loss"]), 1.0), (m1, m2)

@@ -161,18 +161,20 @@ def test_shutdown_signal_saves(tmp_path, monkeypatch):
 
 def test_refusals(tmp_path):
     ds, cfg = _one_record(tmp_path), _config(tmp_path)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
+    # sequence and channel tensor parallelism need a process group of two ranks
+    with pytest.raises(ValueError, match=r"n_model\*n_seq=2 ranks, have 1"):
         _train(tmp_path, ds, config_path=cfg, log_root=str(tmp_path / "x"), n_seq=2)
-    # channel tensor parallelism needs a process group of two ranks
     with pytest.raises(ValueError, match=r"n_model\*n_seq=2 ranks, have 1"):
         _train(tmp_path, ds, config_path=cfg, log_root=str(tmp_path / "x"), n_model=2)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             _train(tmp_path, ds, config_path=cfg, log_root=str(tmp_path / "x"), device="cuda")
+    # detail_log: the upsampler's histograms ride the loss dict
     model = Wavenet(tconfig.load_config(cfg, detail_log=True))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        model.forward_loss(model.init_params(0, device="cpu"), torch.zeros(1, L),
-                           torch.zeros(1, 7, 80))
+    ld = model.forward_loss(model.init_params(0, device="cpu"), torch.zeros(1, L),
+                            torch.zeros(1, 7, 80))
+    hists = sorted(k for k in ld if k.startswith("hist/"))
+    assert hists == [f"hist/mel_en_{i}" for i in range(len(model.cfg.deconv_config))], hists
 
 
 def test_weight_norm_run_and_export_serve_on_jax_and_port(tmp_path):

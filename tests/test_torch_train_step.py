@@ -120,9 +120,13 @@ def _update_err(init: dict, want: dict, got: dict, moved) -> float:
 def _compile(fn, *args):
     """fn jitted for args without XLA's excess precision: by default XLA on
     the CPU keeps fused bf16 intermediates in f32, skipping roundings that
-    the port makes (as tests/test_torch_fastgen_w8a8.py::_strict)."""
-    return jax.jit(fn).lower(*args).compile(
+    the port makes (as tests/test_torch_fastgen_w8a8.py::_strict).  Each
+    call's arguments are placed as the compiled function takes them: under
+    a seq mesh a step returns some leaves of its state in another sharding
+    than it was compiled for."""
+    compiled = jax.jit(fn).lower(*args).compile(
         compiler_options={"xla_allow_excess_precision": False})
+    return lambda *a: compiled(*jax.device_put(a, compiled.input_shardings[0]))
 
 
 def _jax_grads(jm, jp, wav):

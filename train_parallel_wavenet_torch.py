@@ -13,9 +13,11 @@ norm_stats.npz; --export_ema writes the EMA weights to <run>/ema at the end,
 which eval_parallel_wavenet_torch.py --ckpt_dir <run> serves.
 
 Several processes, one a device: torchrun --nproc_per_node N ... --multihost
-[--n_model M], as train_wavenet_torch.py; the frozen teacher is sharded as
-the student is.  --n_seq is refused: sequence-parallel training is not
-ported.
+[--n_model M] [--n_seq S], as train_wavenet_torch.py; the frozen teacher is
+sharded as the student is.  --n_seq splits the sample length (7680 for a
+7680-sample crop) over S ranks: every flow and the teacher's scoring pass
+run on a rank's chunk with halo exchanges, and the power loss on the
+student's sample gathered over them.
 """
 
 import os
@@ -48,7 +50,8 @@ def main():
     parser.add_argument("--n_model", default=1, type=int,
                         help="ranks that shard the model's channels (tensor parallelism)")
     parser.add_argument("--n_seq", default=1, type=int,
-                        help="sequence-parallel training is not ported: must be 1")
+                        help="ranks that shard the time axis (sequence parallelism); must "
+                             "divide the sample length")
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--export_ema", action="store_true",
                         help="write the EMA weights to <run>/ema when the run ends")

@@ -11,11 +11,12 @@ eval_wavenet_torch.py --ckpt_dir <run> serves.
 
 Several processes, one a device (gloo on the CPU, nccl on cards):
             torchrun --nproc_per_node 2 train_wavenet_torch.py --multihost \
-                --config ... --train_path ds/ --log_root runs/ [--n_model 2]
-The data axis takes the ranks --n_model leaves and divides
---total_batch_size; --n_model shards the channels of every layer.  The
-checkpoints and the export hold the whole model.  --n_seq (sequence
-parallelism) is refused: it is not ported.
+                --config ... --train_path ds/ --log_root runs/ [--n_model 2] [--n_seq 2]
+The data axis takes the ranks --n_model and --n_seq leave and divides
+--total_batch_size; --n_model shards the channels of every layer, --n_seq
+the time axis of every crop (rank r of n runs samples [r L/n, (r+1) L/n),
+its causal convs exchanging halos with its neighbours; wave_length must be a
+multiple of n).  The checkpoints and the export hold the whole model.
 """
 
 from argparse import ArgumentParser
@@ -43,7 +44,8 @@ def main():
     parser.add_argument("--n_model", default=1, type=int,
                         help="ranks that shard the model's channels (tensor parallelism)")
     parser.add_argument("--n_seq", default=1, type=int,
-                        help="sequence-parallel training is not ported: must be 1")
+                        help="ranks that shard the time axis of every crop (sequence "
+                             "parallelism); must divide wave_length")
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--export_ema", action="store_true",
                         help="write the EMA weights to <run>/ema when the run ends")
