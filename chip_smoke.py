@@ -268,6 +268,33 @@ Phases 33 to 38 follow S5:
      counted where mesh.halo makes them, equal to
      train_lib.wavenet_halo_exchanges / pwn_halo_exchanges; step times are
      readings (gloo moves the halos through host memory).
+Phases Q1 to Q4 drive the port's quality and ops tools
+(nsynth_wavenet_tpu_torch/tools/) on the card after M3, their training cut
+to Q_STEPS steps (the quality gates are then readings, printed, not
+requirements):
+ Q1. quality_smoke.teacher_smoke: the speech corpus, the CE head (width 128,
+     10 layers, B = 8 x 3840), compare_cuda, held-out clips cut to
+     Q_HELD_OUT samples: every training loss finite and the windowed loss
+     falling, the plain free run finite, generate_cuda once in bf16,
+     calibration-free W8A8 and W8A8 static, each one fastgen_persistent
+     launch (after one quant_enc_kernel in the int8 modes), and the tool's
+     metrics on each kernel's audio equal to utils/quality.py's;
+ Q2. quality_smoke.student_smoke, the Gauss pair: finite windowed losses of
+     the student log, a finite one-shot synthesis with std > 0;
+ Q3. longform_check, 3 s x 8 utterances in chunks of 4000: Q1's teacher in
+     bf16 and W8A8 static, one fastgen_persistent launch a chunk call (after
+     one quant_enc_kernel in W8A8 static), ceil(L / chunk) calls; Q2's
+     student through StudentStreamer, flow_persist_kernel and
+     flow_state_kernel launches equal to predicted_launches a flow_stack
+     call, every call of every chunk;
+ Q4. make_golden_ckpt (CE, f32) whose params.npz loads through
+     weights.load_npz and whose free run through fastgen_persistent prints
+     utils/quality.golden_gate's reading; make_golden_wavs --cuda, four
+     finite, non-silent wavs a committed golden, one launch a head;
+     make_eval_model on T2's and S2's runs equal to the runs' EMA;
+     gather_results over a root holding both, wavs written through one
+     fastgen_persistent launch and 60 flow_persist_kernel launches;
+     downsample of a 44.1 kHz wav equal to resample_poly.
 Every teacher generate call is one cooperative launch of the persistent
 kernel fastgen_persistent (after quant_enc_kernel in the int8 modes).
 Phases other than 32 run with TF32 off.  The last line is {"ok": true,
@@ -283,6 +310,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -290,7 +318,11 @@ import torch
 from nsynth_wavenet_tpu_torch import config as config_lib
 from nsynth_wavenet_tpu_torch import weights
 from nsynth_wavenet_tpu_torch.data import wav_io
-from nsynth_wavenet_tpu_torch.evaluation import generate_parallel_wavenet, generate_wavenet
+from nsynth_wavenet_tpu_torch.evaluation import (
+    generate_parallel_wavenet,
+    generate_wavenet,
+    load_eval_model,
+)
 from nsynth_wavenet_tpu_torch.kernels import build
 from nsynth_wavenet_tpu_torch.models import parallelgen
 from nsynth_wavenet_tpu_torch.models.fastgen import Fastgen, shard_seed
@@ -2467,30 +2499,32 @@ def t5_timing(card):
     return rows
 
 
-def training_phases(card):
-    """T1-T5, then S1-S5 with T2's run as the teacher; card: nvidia-smi's
-    name and power limit, printed beside the timings.  Returns the phases'
-    results and the flow kernel's launches on S4's path."""
+def training_phases(card, tmp):
+    """T1-T5, then S1-S5 with T2's run as the teacher, their runs under tmp
+    (Q4 reads T2's and S2's); card: nvidia-smi's name and power limit,
+    printed beside the timings.  Returns the phases' results and the flow
+    kernel's launches on S4's path."""
     t0 = time.time()
     out = {"T1": t1_card_vs_cpu()}
-    with tempfile.TemporaryDirectory() as tmp:
-        run_dir, state, out["T2"] = t2_full_training(tmp)
-        out["T2"]["gather"] = runner_gather(run_dir)
-        out["T4"] = t4_serve(run_dir, state, tmp)
-        del state
-        torch.cuda.empty_cache()
-        out["T3"] = t3_resume(tmp)
-        out["T5"] = t5_timing(card)
-        log(f"training phases T1-T5: {time.time() - t0:.1f} s")
-        t0 = time.time()
-        out["S1"] = s1_card_vs_cpu()
-        s_run, s_state, out["S2"] = s2_full_distillation(tmp, run_dir)
-        out["S2"]["gather"] = runner_gather(s_run)
-        out["S4"] = s4_serve(s_run, s_state, tmp)
-        del s_state
-        torch.cuda.empty_cache()
-        out["S3"] = s3_resume(tmp, run_dir)
-        out["S5"] = s5_timing(card, run_dir)
+    run_dir, state, out["T2"] = t2_full_training(tmp)
+    out["T2"]["gather"] = runner_gather(run_dir)
+    out["T2"]["run_dir"] = run_dir
+    out["T4"] = t4_serve(run_dir, state, tmp)
+    del state
+    torch.cuda.empty_cache()
+    out["T3"] = t3_resume(tmp)
+    out["T5"] = t5_timing(card)
+    log(f"training phases T1-T5: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    out["S1"] = s1_card_vs_cpu()
+    s_run, s_state, out["S2"] = s2_full_distillation(tmp, run_dir)
+    out["S2"]["gather"] = runner_gather(s_run)
+    out["S2"]["run_dir"] = s_run
+    out["S4"] = s4_serve(s_run, s_state, tmp)
+    del s_state
+    torch.cuda.empty_cache()
+    out["S3"] = s3_resume(tmp, run_dir)
+    out["S5"] = s5_timing(card, run_dir)
     log(f"distillation phases S1-S5: {time.time() - t0:.1f} s")
     return out
 
@@ -3913,6 +3947,267 @@ def m3_seq_two_ranks():
     return {"ranks": results, "seconds": time.time() - t0}
 
 
+# ---- Q1-Q4: the quality and ops tools ---------------------------------------------
+
+# The tools' own sizes, their training cut to Q_STEPS steps (a loss line
+# every Q_LOG_EVERY) and the teacher's held-out clips to Q_HELD_OUT samples,
+# so that Q1-Q4 fit in about two minutes.  At this step count the quality
+# gates are readings, not requirements.
+Q_STEPS = 300
+Q_LOG_EVERY = 10
+Q_HELD_OUT = 4000
+Q_GOLDEN_SAMPLES = 2000
+Q_LONGFORM_SECONDS = 3
+Q_LONGFORM_CHUNK = 4000
+
+
+def want_ar_launches(mode, calls=1):
+    """fastgen_persistent a call, after one quant_enc_kernel in the int8 modes."""
+    return {"fastgen_persistent": calls, **({"quant_enc_kernel": calls} if mode != "bf16" else {})}
+
+
+def q1_quality_smoke(card, tmp):
+    """Q1: quality_smoke.teacher_smoke on the card: the speech corpus, the CE
+    head, compare_cuda."""
+    from nsynth_wavenet_tpu_torch.tools import quality_smoke as qs
+
+    t0 = time.time()
+    reset_ar_counts()
+    with mock.patch.multiple(runner, LOG_EVERY=Q_LOG_EVERY), \
+            mock.patch.multiple(qs, HELD_OUT_SAMPLES=Q_HELD_OUT):
+        res = qs.teacher_smoke(Q_STEPS, os.path.join(tmp, "q1"), corpus="speech", head="ce",
+                               compare_cuda=True, device="cuda")
+    torch.cuda.synchronize()
+    calls, counted = ar_counts()
+    dt = time.time() - t0
+    losses = res["losses"]
+    w = len(losses) // 4
+    first, last = float(np.mean(losses[:w])), float(np.mean(losses[-w:]))
+    log(f"Q1 quality_smoke speech CE, {Q_STEPS} steps (a loss line every {Q_LOG_EVERY}), held-out "
+        f"clips {Q_HELD_OUT} samples, compare_cuda: {dt:.1f} s; {len(losses)} losses, mean of the "
+        f"first {w} {first:.4f}, of the last {w} {last:.4f}")
+    require(len(losses) == Q_STEPS // Q_LOG_EVERY and all(np.isfinite(losses)),
+            "Q1: a training loss is not finite")
+    require(last < first, "Q1: the windowed training loss does not fall")
+    require(np.isfinite(res["audio"]).all() and np.abs(res["audio"]).max() <= 1.0,
+            "Q1: the plain free run is not finite")
+    log(f"Q1 readings: final loss {res['final_loss']:.4f}, held-out TF loss {res['tf_loss']:.4f}, "
+        f"shuffled {res['tf_mis']:.4f}, cond gap {res['cond_gap']:.4f}; plain free run corr "
+        f"{res['metrics']['corr']}, MCD {res['metrics']['mcd']}; gates {res['gates']}; "
+        f"passed {res['passed']}; {card}")
+    n = Q_HELD_OUT
+    modes = {}
+    for label, mode in (("cuda-bf16", "bf16"), ("cuda-int8", "w8a8_row"),
+                        ("cuda-int8s", "w8a8_static")):
+        r = res["cuda"][label]
+        require(r["launches"] == want_ar_launches(mode),
+                f"Q1 {label}: CUDA launches {r['launches']}, want {want_ar_launches(mode)}")
+        require(np.isfinite(r["audio"]).all() and np.abs(r["audio"]).max() <= 1.0,
+                f"Q1 {label}: audio not finite in [-1, 1]")
+        mt = quality.mel_track_metrics(r["audio"], res["mel"], n)
+        require(mt == r["metrics"], f"Q1 {label}: the tool's metrics differ from utils/quality's")
+        log(f"Q1 {label}: launches {r['launches']}; corr {mt['corr']}, msd {mt['msd']}, MCD "
+            f"{mt['mcd']}; gate {r['ok']}")
+        modes[label] = {"launches": r["launches"], "corr": mt["corr"], "mcd": mt["mcd"],
+                        "gate": r["ok"]}
+    require(calls == 3 and counted == {"fastgen_persistent": 3, "quant_enc_kernel": 2},
+            f"Q1: generate calls {calls}, CUDA launches {counted}")
+    return {"run_dir": res["run_dir"], "seconds": dt, "steps": Q_STEPS, "calls": calls,
+            "kernel_launches": counted, "loss_first": first, "loss_last": last,
+            "tf_loss": res["tf_loss"], "cond_gap": res["cond_gap"],
+            "plain_corr": res["metrics"]["corr"], "gates": res["gates"], "modes": modes}
+
+
+def q2_student_smoke(card, tmp):
+    """Q2: quality_smoke.student_smoke on the card: the Gauss pair, speech."""
+    from nsynth_wavenet_tpu_torch.tools import quality_smoke as qs
+
+    t0 = time.time()
+    with mock.patch.multiple(runner, LOG_EVERY=Q_LOG_EVERY), \
+            mock.patch.multiple(qs, HELD_OUT_SAMPLES=Q_HELD_OUT):
+        res = qs.student_smoke(Q_STEPS, os.path.join(tmp, "q2"), "speech", "gauss",
+                               device="cuda")
+    dt = time.time() - t0
+    head, tail = res["log_head"], res["log_tail"]
+    log(f"Q2 quality_smoke student, Gauss pair, speech, {Q_STEPS} steps each: {dt:.1f} s; windows "
+        f"(loss, kl, power) {head[:3]} -> {tail[:3]}; one-shot std {res['std']:.4f}, corr "
+        f"{res['metrics']['corr']}, MCD {res['metrics']['mcd']}; gates {res['gates']}; passed "
+        f"{res['passed']}; {card}")
+    require(all(np.isfinite(head[:3])) and all(np.isfinite(tail[:3])),
+            "Q2: a windowed student loss is not finite")
+    require(np.isfinite(res["audio"]).all() and res["std"] > 0, "Q2: one-shot audio")
+    return {"run_dir": res["run_dir"], "seconds": dt, "log_head": head[:3], "log_tail": tail[:3],
+            "std": res["std"], "corr": res["metrics"]["corr"], "gates": res["gates"]}
+
+
+def q3_longform(card, tmp, teacher_dir, student_dir):
+    """Q3: longform_check on Q1's teacher (bf16, W8A8 static) and Q2's
+    student, streamed in chunks."""
+    from nsynth_wavenet_tpu_torch.tools import longform_check as lf
+
+    out = {}
+    for mode in ("bf16", "int8_static"):
+        t0 = time.time()
+        reset_ar_counts()
+        res = lf.longform(teacher_dir, Q_LONGFORM_SECONDS, Q_LONGFORM_CHUNK, mode,
+                          os.path.join(tmp, "q3"), device="cuda")
+        torch.cuda.synchronize()
+        calls, counted = ar_counts()
+        chunks = -(-res["samples"] // Q_LONGFORM_CHUNK)
+        want = want_ar_launches("bf16" if mode == "bf16" else "w8a8_static", chunks)
+        log(f"Q3 longform_check teacher {mode}, {Q_LONGFORM_SECONDS} s x {lf.N_UTTS}, chunk "
+            f"{Q_LONGFORM_CHUNK}: {time.time() - t0:.1f} s; per-window corr "
+            f"{res['per_window_corr']}, MCD {res['per_window_mcd']}; passed {res['passed']}")
+        require(calls == chunks and counted == want,
+                f"Q3 {mode}: generate calls {calls}, CUDA launches {counted}, want {chunks} / {want}")
+        require(np.isfinite(res["audio"]).all(), f"Q3 {mode}: audio not finite")
+        out[mode] = {"calls": calls, "kernel_launches": counted, "passed": res["passed"],
+                     "per_window_corr": res["per_window_corr"]}
+    t0 = time.time()
+    cfg = config_lib.load_config(runner.find_config_json(student_dir))
+    res, counted = kernel_launches_of(lambda: lf.longform(
+        student_dir, Q_LONGFORM_SECONDS, Q_LONGFORM_CHUNK, "bf16", os.path.join(tmp, "q3"),
+        device="cuda"))
+    chunks = -(-res["samples"] // res["chunk"])
+    per_chunk = {}
+    for n_layers in cfg.num_iaf_layers:
+        for s in range(0, n_layers, cfg.num_stages):
+            for k, v in flk.predicted_launches(
+                    cfg.width, min(cfg.num_stages, n_layers - s), True).items():
+                per_chunk[k] = per_chunk.get(k, 0) + v
+    want = {k: v * chunks for k, v in per_chunk.items()}
+    log(f"Q3 longform_check student, chunk {res['chunk']} ({chunks} chunks): "
+        f"{time.time() - t0:.1f} s; CUDA launches {counted}; per-window corr "
+        f"{res['per_window_corr']}, MCD {res['per_window_mcd']}; passed {res['passed']}; {card}")
+    require_launches("Q3 student", counted, want)
+    require(np.isfinite(res["audio"]).all(), "Q3 student: audio not finite")
+    out["student"] = {"chunks": chunks, "kernel_launches": counted, "passed": res["passed"],
+                      "per_window_corr": res["per_window_corr"]}
+    return out
+
+
+def q4_tools(card, tmp, trained):
+    """Q4: make_golden_ckpt, make_golden_wavs, make_eval_model, gather_results
+    and downsample, all writing under tmp."""
+    from scipy.signal import resample_poly
+
+    from nsynth_wavenet_tpu_torch.tools import downsample, gather_results, make_eval_model
+    from nsynth_wavenet_tpu_torch.tools import make_golden_ckpt as mg
+    from nsynth_wavenet_tpu_torch.tools import make_golden_wavs as mw
+
+    out = {}
+    t0 = time.time()
+    with mock.patch.multiple(mg, GEN_SAMPLES=Q_GOLDEN_SAMPLES):
+        rc = mg.main("ce", steps=Q_STEPS, batch=8, workdir=os.path.join(tmp, "q4_golden"),
+                     out_dir=os.path.join(tmp, "q4_golden", "out"), device="cuda")
+    gdir = os.path.join(tmp, "q4_golden", "out", "tiny_ce")
+    with open(os.path.join(gdir, "meta.json")) as f:
+        meta = json.load(f)
+    model = Wavenet(config_lib.load_config(os.path.join(gdir, "meta.json")))
+    params = weights.load_npz(os.path.join(gdir, "params.npz"), device="cuda")
+    mels, _ = quality.eval_mels(meta["eval_seeds"][:2])
+    mels = mels[:, : 1 + GATE_SAMPLES // model.cfg.frame_shift]
+    reset_ar_counts()
+    audio = Fastgen(model).generate_cuda(params, torch.from_numpy(mels).cuda(), seed=7).cpu().numpy()
+    calls, counted = ar_counts()
+    require_ar_launches("Q4 golden gate", calls, counted, 1, want_ar_launches("bf16"))
+    mt = quality.mel_track_metrics(audio, mels, GATE_SAMPLES)
+    ok, reading = quality.golden_gate(mt, meta["matched_corr"], quality.TEACHER_MARGIN)
+    log(f"Q4 make_golden_ckpt CE, {Q_STEPS} steps (f32), free run {Q_GOLDEN_SAMPLES} samples: "
+        f"rc {rc}, matched {meta['matched_corr']}, mismatched {meta['mismatched_corr']}, "
+        f"{time.time() - t0:.1f} s; golden gate through fastgen_persistent (a reading): {ok}, "
+        f"{reading}; {card}")
+    require(meta["train_steps"] == Q_STEPS and np.isfinite(audio).all(), "Q4: golden")
+    out["golden"] = {"rc": rc, "matched_corr": meta["matched_corr"], "gate": ok,
+                     "kernel_launches": counted}
+
+    t0 = time.time()
+    reset_ar_counts()
+    paths = mw.main(os.path.join(tmp, "q4_wavs"), cuda=True, device="cuda")
+    calls, counted = ar_counts()
+    heads = mw.available_heads()
+    require_ar_launches("Q4 make_golden_wavs", calls, counted, len(heads),
+                        want_ar_launches("bf16", len(heads)))
+    for head in heads:
+        wavs = [wav_io.read_wav(p)[0] for p in paths if f"gen_golden_{head}_" in p]
+        require(len(wavs) == 4 and all(np.isfinite(w).all() and w.std() > 1e-3 for w in wavs),
+                f"Q4 make_golden_wavs {head}: want four finite, non-silent wavs")
+    log(f"Q4 make_golden_wavs --cuda: {len(paths)} wavs for {heads} in {time.time() - t0:.1f} s")
+    out["golden_wavs"] = {"wavs": len(paths), "kernel_launches": counted}
+
+    t0 = time.time()
+    root = os.path.join(tmp, "q4_root")
+    os.makedirs(root)
+    for name in ("T2", "S2"):
+        run = trained[name]["run_dir"]
+        os.symlink(run, os.path.join(root, os.path.basename(run)))
+        exp = make_eval_model.save_eval_model(run, os.path.join(tmp, f"q4_ema_{name}"))
+        _, want = load_eval_model(run, device="cuda")
+        got = ckpt_lib.load_params(exp, device="cuda")
+        require(all(torch.equal(a, b) for a, b in zip(tree_lib.leaves(got), tree_lib.leaves(want))),
+                f"Q4 make_eval_model {name}: the export differs from the run's EMA")
+    src = os.path.join(tmp, "q4_src")
+    os.makedirs(src)
+    for i, w in enumerate(synthetic_wavs(2, 4000, 61)):
+        wav_io.write_wav(os.path.join(src, f"utt_{i}.wav"), w)
+    reset_ar_counts()
+    reset_flow_counts()
+    gathered = gather_results.gather(root, src, os.path.join(tmp, "q4_results"), device="cuda")
+    torch.cuda.synchronize()
+    ar_calls, ar_counted = ar_counts()
+    flow_calls = flk.flow_stack.launches
+    flow_counted = {k: n for k, n in flk.flow_stack.kernel_launches.items() if n}
+    s_cfg = config_lib.load_config(runner.find_config_json(trained["S2"]["run_dir"]))
+    want_flow = sum(-(-n // s_cfg.num_stages) for n in s_cfg.num_iaf_layers)
+    log(f"Q4 make_eval_model on T2's and S2's runs; gather_results over both: "
+        f"{ {k: len(v) for k, v in gathered.items()} } wavs, generate calls {ar_calls}, "
+        f"{ar_counted}; flow_stack calls {flow_calls} (want {want_flow}), {flow_counted}; "
+        f"{time.time() - t0:.1f} s")
+    require(len(gathered) == 2 and all(len(v) == 2 for v in gathered.values()),
+            "Q4 gather_results: want two wavs for each of two runs")
+    for v in gathered.values():
+        for p in v:
+            w = wav_io.read_wav(p)[0]
+            require(np.isfinite(w).all() and w.std() > 1e-3, f"Q4 gather_results: {p}")
+    require(ar_calls == 1 and ar_counted == {"fastgen_persistent": 1},
+            "Q4 gather_results: the teacher run was not served through one fastgen_persistent launch")
+    require(flow_calls == want_flow
+            and flow_counted == {"flow_persist_kernel": sum(s_cfg.num_iaf_layers)},
+            "Q4 gather_results: the student run was not served through flow_persist_kernel")
+    out["gather"] = {"ar_kernel_launches": ar_counted, "flow_calls": flow_calls,
+                     "flow_kernel_launches": flow_counted}
+
+    sr = 44100
+    t = np.arange(sr) / sr
+    wav = (0.5 * np.sin(2 * np.pi * 440 * t) + 0.3 * np.sin(2 * np.pi * 5000 * t)).astype(np.float32)
+    src44, dst, ref = (os.path.join(tmp, f"q4_{n}.wav") for n in ("44k", "16k", "ref"))
+    wav_io.write_wav(src44, wav, sr)
+    downsample.downsample_file(src44, dst, 16000)
+    x, _ = wav_io.read_wav(src44)
+    wav_io.write_wav(ref, np.clip(resample_poly(x, 160, 441).astype(np.float32), -1.0, 1.0), 16000)
+    with open(dst, "rb") as a, open(ref, "rb") as b:
+        same = a.read() == b.read()
+    log(f"Q4 downsample 44.1 -> 16 kHz equal to resample_poly: {same}")
+    require(same, "Q4 downsample differs from resample_poly")
+    out["downsample_equal"] = same
+    return out
+
+
+def quality_phases(card, trained):
+    """Q1 to Q4, after M3; T2's and S2's runs serve Q4."""
+    t0 = time.time()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out["Q1"] = q1_quality_smoke(card, tmp)
+        torch.cuda.empty_cache()
+        out["Q2"] = q2_student_smoke(card, tmp)
+        out["Q3"] = q3_longform(card, tmp, out["Q1"]["run_dir"], out["Q2"]["run_dir"])
+        out["Q4"] = q4_tools(card, tmp, trained)
+    out["seconds"] = time.time() - t0
+    log(f"phases Q1-Q4: {out['seconds']:.1f} s")
+    return out
+
+
 def main():
     if len(sys.argv) > 1 and sys.argv[1] == "--mesh-rank":
         return mesh_rank_main()
@@ -4054,7 +4349,8 @@ def main():
     flow_rec = student_phases()
     mode_records = flow_mode_phases()
     torch.cuda.empty_cache()
-    trained = training_phases(smi)
+    train_tmp = tempfile.TemporaryDirectory()  # T2's and S2's runs, read again by Q4
+    trained = training_phases(smi, train_tmp.name)
     flow_rec["launches_distill_serve"] = trained["S4"]["kernel_launches"]["flow_persist_kernel"]
     torch.cuda.empty_cache()
     leftover = serving_leftover_phases(smi, trained)
@@ -4067,6 +4363,11 @@ def main():
     m3 = m3_seq_two_ranks()
     flow_rec["launches_sharded_gloo_per_rank"] = [
         r["launches"]["flow_persist_kernel"] for r in m2["ranks"]]
+    torch.cuda.empty_cache()
+    tools = quality_phases(smi, trained)
+    train_tmp.cleanup()
+    flow_rec["launches_longform_student"] = tools["Q3"]["student"]["kernel_launches"]
+    flow_rec["launches_gather_results"] = tools["Q4"]["gather"]["flow_kernel_launches"]
 
     big = timings[MAIN_BATCHES[-1]]
     record = {"kernels": [{
@@ -4097,6 +4398,12 @@ def main():
         "launches_sharded_gloo_per_rank": [r["launches"]["fastgen_persistent"]
                                            for r in m2["ranks"]],
         "mesh_seconds": {"M1": m1["seconds"], "M2": m2["seconds"], "M3": m3["seconds"]},
+        "launches_quality_smoke": tools["Q1"]["kernel_launches"],
+        "launches_longform": {m: tools["Q3"][m]["kernel_launches"] for m in ("bf16", "int8_static")},
+        "launches_golden_tools": {"make_golden_ckpt_gate": tools["Q4"]["golden"]["kernel_launches"],
+                                  "make_golden_wavs": tools["Q4"]["golden_wavs"]["kernel_launches"],
+                                  "gather_results": tools["Q4"]["gather"]["ar_kernel_launches"]},
+        "quality_seconds": tools["seconds"],
     }, flow_rec, w8a8_record, row_record, *mode_records]}
     log(f"timed call: B={MAIN_BATCHES[-1]}, {TIMED_STEPS} steps, full width; "
         f"total {time.time() - T_START:.1f} s")

@@ -32,7 +32,9 @@ def test_port_and_chip_smoke_import_no_jax():
     for name in ("training.optimizer", "training.train_lib", "training.checkpoint",
                  "training.runner", "data.dataset", "data.synthetic", "utils.logging_utils",
                  "utils.tree", "models.parallel_wavenet", "ops.stft", "utils.quality",
-                 "data.native.native", "parallel.mesh"):
+                 "data.native.native", "parallel.mesh", "tools.quality_smoke",
+                 "tools.longform_check", "tools.make_golden_ckpt", "tools.make_golden_wavs",
+                 "tools.make_eval_model", "tools.downsample", "tools.gather_results"):
         assert f"nsynth_wavenet_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
