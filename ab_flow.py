@@ -3,20 +3,22 @@
     python3 ab_flow.py --other <dir>          # e.g. an unpacked `git archive` of the parent
     python3 ab_flow.py --other <dir> --cases bf16,synth_bf16
     python3 ab_flow.py --other <dir> --facts  # the compiler's report of both trees' flow kernels
+    python3 ab_flow.py --other <dir> --width 256 [--batch 8 --samples 16000]
 
 Needs one CUDA card and the CUDA toolkit.  Runs four passes (other, this,
 this, other), each in a fresh process in its own tree, through ab_turns.py,
 which prints one "AB <tree> <nvidia-smi name, power limit> <json>" line a
 pass and, last, this tree's time over the other's for each case.  A pass
-works at the full width of configs/parallel_wavenet.json (W 64, deconv width
-256, random weights from seed 0) on the student path's own stream,
-B = 32 x 4 s (L = 64 000 rows a batch row), and times:
+works at the full depth of configs/parallel_wavenet.json (deconv width 256,
+random weights from seed 0) at the width --width (32, 64, 128 or 256;
+default 64, the config's own) on the student path's own stream,
+B = --batch x --samples (default 32 x 4 s: L = 64 000 rows a batch row), and times:
   - one 10-layer call of flow_stack (layers 0-9 of the 30-layer flow; median
     of 5 by CUDA events, after one warm-up call) in every mode: bf16 (the
     compact mode), f32cond, fuse_cond (bf16 operands, as parallelgen passes
     them), the bf16 and f32 cond streams, and with a carried state (bf16 and
     f32cond);
-  - parallelgen.synthesize_cuda at B = 32 x 4 s, bf16 and f32 students, in
+  - parallelgen.synthesize_cuda on the same batch, bf16 and f32 students, in
     steady state: one warm call, then the median of 5 by CUDA events.
 The first pass of this tree also gives, for each flow case, the plain
 version's time, the torch.mm yardstick on the same products and the card's
@@ -38,7 +40,10 @@ import ab_turns
 FLOW_CASES = ("bf16", "f32cond", "fuse_cond", "stream", "stream_f32", "state", "state_f32cond")
 SYNTH_CASES = ("synth_bf16", "synth_f32")
 CASES = FLOW_CASES + SYNTH_CASES
-B, SAMPLES = 32, 64000
+OPTIONS = (("--width", {"type": int, "default": 64, "choices": (32, 64, 128, 256),
+                        "help": "the student's width"}),
+           ("--batch", {"type": int, "default": 32, "help": "utterances a call"}),
+           ("--samples", {"type": int, "default": 64000, "help": "samples an utterance"}))
 
 
 def facts():
@@ -62,8 +67,9 @@ def facts():
     return out
 
 
-def one_pass(full, cases):
-    """Time ``cases`` in the tree of the working directory; returns a dict."""
+def one_pass(full, cases, width=64, batch=32, samples=64000):
+    """Time ``cases`` in the tree of the working directory at the student's
+    ``width``, ``batch`` utterances of ``samples`` samples; returns a dict."""
     import torch
 
     sys.path.insert(0, os.getcwd())
@@ -76,10 +82,11 @@ def one_pass(full, cases):
     bf = torch.bfloat16
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    pwn, params = cs.student_model()
+    B = batch
+    pwn, params = cs.student_model(width=width)
     pwn32 = ParallelWavenet(dataclasses.replace(pwn.cfg, compute_dtype="float32"))
     ns, W = pwn.cfg.num_stages, pwn.cfg.width
-    mel = stft.melspectrogram(torch.from_numpy(cs.synthetic_wavs(B, SAMPLES, 40 + B)).cuda())
+    mel = stft.melspectrogram(torch.from_numpy(cs.synthetic_wavs(B, samples, 40 + B)).cuda())
     L = pwn.sample_length(mel.shape[1])
     out = {}
     if any(c in FLOW_CASES for c in cases):
@@ -99,21 +106,26 @@ def one_pass(full, cases):
             "state": (enc, cw, {"state": st0}),
             "state_f32cond": (enc32, nw, {"state": st0, "compact": False}),
         }
-        if "stream" in cases or "stream_f32" in cases:
-            c32 = cs.stream_of(enc32, sw, 0, ns)
-            inputs["stream"] = (None, cw, {"cond": c32.to(bf)})
-            inputs["stream_f32"] = (None, nw, {"cond": c32, "compact": False})
         for case in FLOW_CASES:
             if case not in cases:
                 continue
-            e, wts, kw = inputs[case]
+            if case.startswith("stream"):
+                # made for its own case only (W 256 at B = 32 x L = 64 000: 21 GB in f32),
+                # so that the plain version's products fit beside it
+                c32 = cs.stream_of(enc32, sw, 0, ns)
+                e, wts, kw = ((None, cw, {"cond": c32.to(bf)}) if case == "stream" else
+                              (None, nw, {"cond": c32, "compact": False}))
+                del c32
+            else:
+                e, wts, kw = inputs[case]
             if full:
                 tm = cs.time_flow(x, e, wts, ns, ns, **kw)
                 out[case] = {k: tm[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                                "bound_by", "bytes_ms")}
+                                                "bound_by", "bytes_ms", "layer_floor_ms")}
             else:
                 out[case] = {"ms": cs.cuda_ms(lambda: flk.flow_stack(x, e, wts, 0, ns, ns, **kw),
                                               reps=5)}
+            del e, kw
         del x, enc, enc32, inputs
     for case, model in (("synth_bf16", pwn), ("synth_f32", pwn32)):
         if case in cases:
@@ -123,4 +135,4 @@ def one_pass(full, cases):
 
 
 if __name__ == "__main__":
-    sys.exit(ab_turns.main(__doc__, CASES, one_pass, facts))
+    sys.exit(ab_turns.main(__doc__, CASES, one_pass, facts, OPTIONS))

@@ -26,10 +26,12 @@ def smi():
                           capture_output=True, text=True, check=True).stdout.strip()
 
 
-def run_pass(tree, mode, cases):
-    """One pass of the calling script in ``tree``; returns its dict, or None."""
+def run_pass(tree, mode, cases, forward=()):
+    """One pass of the calling script in ``tree`` (``forward``: the script's own
+    options, passed on); returns its dict, or None."""
     res = subprocess.run([sys.executable, os.path.abspath(sys.argv[0]), "--pass", mode,
-                          "--cases", ",".join(cases)], cwd=tree, capture_output=True, text=True)
+                          "--cases", ",".join(cases), *forward], cwd=tree, capture_output=True,
+                         text=True)
     sys.stderr.write(res.stderr[-4000:])
     line = [ln for ln in res.stdout.splitlines() if ln.startswith("AB ")]
     if res.returncode != 0 or not line:
@@ -39,8 +41,12 @@ def run_pass(tree, mode, cases):
     return json.loads(line[-1][line[-1].index("{"):])
 
 
-def main(doc, cases, one_pass, facts=None):
+def main(doc, cases, one_pass, facts=None, options=()):
+    """``options``: the script's own (flag, argparse keywords) pairs; their
+    values go to ``one_pass`` as keywords and to every pass's process."""
     ap = argparse.ArgumentParser(description=doc.split("\n\n")[0])
+    for flag, kw in options:
+        ap.add_argument(flag, **kw)
     ap.add_argument("--other", help="root of the other tree")
     ap.add_argument("--cases", default=",".join(cases), help="comma-separated of " + ", ".join(cases))
     if facts is not None:
@@ -48,10 +54,12 @@ def main(doc, cases, one_pass, facts=None):
     ap.add_argument("--pass", dest="one", choices=("plain", "full", "facts"), help=argparse.SUPPRESS)
     args = ap.parse_args()
     chosen = [c for c in args.cases.split(",") if c]
+    opts = {flag[2:]: getattr(args, flag[2:]) for flag, _ in options}
+    forward = [str(v) for flag, _ in options for v in (flag, opts[flag[2:]])]
     if not chosen or any(c not in cases for c in chosen):
         ap.error(f"--cases {args.cases}: want some of {', '.join(cases)}")
     if args.one:  # a child process: one pass in the working directory's tree
-        res = facts() if args.one == "facts" else one_pass(args.one == "full", chosen)
+        res = facts() if args.one == "facts" else one_pass(args.one == "full", chosen, **opts)
         print(f"AB {os.getcwd()} {smi()} {json.dumps(res)}", flush=True)
         return 0
     if not args.other:
@@ -59,11 +67,12 @@ def main(doc, cases, one_pass, facts=None):
     here = os.path.dirname(os.path.abspath(sys.argv[0]))
     other = os.path.abspath(args.other)
     if getattr(args, "facts", False):
-        return 0 if all(run_pass(tree, "facts", chosen) is not None for tree in (other, here)) else 1
+        return 0 if all(run_pass(tree, "facts", chosen, forward) is not None
+                        for tree in (other, here)) else 1
     passes = []
     for label, tree, mode in (("other", other, "plain"), ("this", here, "full"),
                               ("this", here, "plain"), ("other", other, "plain")):
-        res = run_pass(tree, mode, chosen)
+        res = run_pass(tree, mode, chosen, forward)
         if res is None:
             return 1
         passes.append((label, res))

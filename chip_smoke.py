@@ -12,6 +12,8 @@ them.  Phases, each fatal on failure:
   3. the same checks for the CE (mu-law, double gate) and Gauss heads at 4 layers,
      and for the trained tiny MoL golden;
   4. the kernel's Philox generator against the plain one, and its statistics;
+     its time per [256, 1024] call against torch.rand, through the wrapper
+     and on the device alone (a CUDA graph of 100 back-to-back calls);
   5. the main path end to end at full width, B = 64 and 512, L = 2000:
      numpy wavs -> mel -> deconv on the card -> Fastgen.generate_cuda, sampled;
      kernel launch counts; the phase 2 checks again at B = 64 and 512,
@@ -36,7 +38,7 @@ them.  Phases, each fatal on failure:
      phases 27-28 also requires the call's CUDA launches, counted by kernel
      name where flow_stack enqueues them, to be exactly one trunk launch a
      layer of its width's kernel (flow_persist_kernel at W 32 / 64,
-     flow_layer_kernel at W 128 / 256) and, with a state, one
+     flow_wide_kernel at W 128 / 256) and, with a state, one
      flow_state_kernel a layer;
   9. the student path end to end at full width (60 layers in 4 flows), B = 32
      and 8, 4 s of audio: numpy wavs -> mel -> shared deconv on the card ->
@@ -117,9 +119,12 @@ follow phase 11:
      30-layer call equal to three chained 10-layer calls; the f32 precision
      probe (w_tap = 0, x = 0, w_res = [I | 0]: the share of bf16(g) values that
      differ from the plain version with TF32 off, under 1 %);
- 28. widths 32 (flow_persist_kernel), 128 and 256 (flow_layer_kernel) at
+ 28. widths 32 (flow_persist_kernel), 128 and 256 (flow_wide_kernel) at
      B = 8 x L = 4096, DW 256, and deconv width 136 at W 64, both
-     conditioning modes: one-shot and chained chunks of 512; at the edges of
+     conditioning modes, at W 128 / 256 also both cond streams and at
+     B = 3 x L = 600 (ragged tiles): one-shot and chained chunks of 512, the
+     final states against the plain ones; the wide kernel's launch facts in
+     every mode (no spills) and the f32 precision probe at W 128 / 256; at the edges of
      the persistent kernel's 128-byte copy boxes (random weights,
      B = 3 x L = 600): deconv widths 8 (narrower than a box) and 4096
      (w_cond streamed with its chunks) at W 32 and 64 in both conditioning
@@ -140,10 +145,15 @@ follow phase 11:
      streamer against one-shot, a free synthesis that tracks its mels,
      evaluation.generate_parallel_wavenet on an f32 config, one-shot and
      streamed;
- 31. a width-128 student (configs/parallel_wavenet.json with width 128) through
-     synthesize_cuda at B = 8 x 1 s (flow_layer_kernel alone) against the same
-     path on the plain kernel;
-     one 10-layer call timed at widths 32, 64, 128 and 256.
+ 31. full-depth W 128 and W 256 students (configs/parallel_wavenet.json with
+     width set: flows 10 / 10 / 10 / 30, deconv 256), bf16 and f32, through
+     synthesize_cuda at B = 32 x 4 s (flow_wide_kernel alone, launches by
+     mode and by kernel name exact), StudentStreamer (chunk 32768) against
+     one-shot at B = 32 x 4 s, the fused feed-forward against the same path
+     on the plain kernel at B = 8 x 1 s; the 10-layer call at B = 8 x 1 s and
+     32 x 4 s, bf16 and f32-cond, beside its plain version, torch.mm, the
+     per-layer floor and the bound; one 10-layer bf16 call timed at widths
+     32, 64, 128 and 256.
 Phases T1 to T5 train the teacher (training/); they follow phase 31:
  T1. one training step on the card against the same step on the CPU:
      configs/wavenet_mol.json cut to 4 layers, f32 compute, TF32 off, dropout
@@ -1503,11 +1513,13 @@ def time_flow(x, enc, sw, nl, num_stages, **kw):
         io_bytes += 2 * 4 * kw["state"].numel()
     t_ops = flops / PEAK_BF16_FLOPS + flops_f32 / PEAK_F32_FLOPS
     t_bytes = io_bytes / PEAK_HBM_BYTES
+    # a design with one launch a layer moves l in, the conditioning in and l' out every layer
+    layer_bytes = nl * rows * (8 * W + feed.element_size() * (W if cond is not None else DW))
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "ops_ms": 1e3 * t_ops, "bytes_ms": 1e3 * t_bytes, "flops": flops + flops_f32,
-            "io_bytes": io_bytes}
+            "io_bytes": io_bytes, "layer_floor_ms": 1e3 * layer_bytes / PEAK_HBM_BYTES}
 
 
 def log_flow_timing(label, x, nl, tm):
@@ -1515,8 +1527,8 @@ def log_flow_timing(label, x, nl, tm):
     log(f"timing flow_stack {label} W={W} B={B} L={L}, {nl} layers: kernel {tm['ms']:.3f} ms, "
         f"plain {tm['plain_ms']:.3f} ms, torch.mm on the same products {tm['library_ms']:.3f} ms, "
         f"bound {tm['bound_ms']:.3f} ms ({tm['bound_by']}; operations {tm['ops_ms']:.3f} ms, "
-        f"bytes {tm['bytes_ms']:.3f} ms); {tm['flops'] / 1e12:.3f} TFLOP, "
-        f"{tm['io_bytes'] / 1e9:.3f} GB")
+        f"bytes {tm['bytes_ms']:.3f} ms), per-layer floor {tm['layer_floor_ms']:.3f} ms; "
+        f"{tm['flops'] / 1e12:.3f} TFLOP, {tm['io_bytes'] / 1e9:.3f} GB")
 
 
 def student_breakdown(pwn, params, mel):
@@ -1731,15 +1743,16 @@ def student_phases():
 
 
 def flow_launch_facts(width, mode):
-    """The last launch of the persistent kernel: the launch fields that
-    flow_stack handed the C entry point (flow_stack.last_launch: grid, tiles,
-    tile rows, ring stages and slots), and what the card holds for that
-    kernel after it (cudaFuncGetAttributes: registers, spills, static shared
-    memory, and the dynamic shared memory the launch opted in to; the
-    occupancy API: blocks an SM at that); logged."""
+    """The last launch of the trunk kernel (flow_persist_kernel or
+    flow_wide_kernel): the launch fields that flow_stack handed the C entry
+    point (flow_stack.last_launch: grid, tiles, tile rows, ring stages and
+    slots), and what the card holds for that kernel after it
+    (cudaFuncGetAttributes: registers, spills, static shared memory, and the
+    dynamic shared memory the launch opted in to; the occupancy API: blocks
+    an SM at that); logged."""
     last = flk.flow_stack.last_launch
     require(last is not None and (last["width"], last["mode"]) == (width, mode),
-            f"the last flow_persist_kernel launch was {last}, want width {width}, mode {mode}")
+            f"the last flow kernel launch was {last}, want width {width}, mode {mode}")
     card = flk.launched_facts(width, mode, "cuda")
     facts = {"kernel": last["kernel"], "grid": last["grid"], "n_tiles": last["n_tiles"],
              "blocks_per_sm": card["blocks_per_sm"], "sms": card["sms"],
@@ -1748,14 +1761,14 @@ def flow_launch_facts(width, mode):
              "threads": card["threads"], "tile_rows": last["tile_rows"], "stages": last["stages"],
              "slot_bytes": last["slot_bytes"], "enc_cols": last["enc_cols"],
              "wc_resident": bool(last["wc_resident"])}
-    log(f"launch flow_persist_kernel<{width}, {mode}>: " + ", ".join(
-        f"{k} {v}" for k, v in facts.items() if k != "kernel"))
+    name = f"{last['kernel']}<{width}, {mode}>"
+    log(f"launch {name}: " + ", ".join(f"{k} {v}" for k, v in facts.items() if k != "kernel"))
     require(facts["dynamic_smem"] == last["smem_bytes"],
-            f"flow_persist_kernel<{width}, {mode}>: the card holds an opt-in of "
-            f"{facts['dynamic_smem']} bytes, the launch asked for {last['smem_bytes']}")
+            f"{name}: the card holds an opt-in of {facts['dynamic_smem']} bytes, the launch "
+            f"asked for {last['smem_bytes']}")
     require(facts["registers"] > 0 and facts["blocks_per_sm"] >= 1
             and 1 <= facts["grid"] <= facts["blocks_per_sm"] * facts["sms"],
-            f"flow_persist_kernel<{width}, {mode}>: launch facts {facts}")
+            f"{name}: launch facts {facts}")
     return facts
 
 
@@ -1852,6 +1865,123 @@ def timing_summary(tm):
     return {k: tm[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
 
 
+def precision_probe(w_cond, enc, ns, label):
+    """The f32 precision probe of one layer's f32 cond product: w_tap = 0,
+    b = 0, x = 0, w_res = [I | 0] put bf16(g) in the first W/2 output
+    columns, g from the cond product alone.  Returns (the share of bf16(g)
+    values in which kernel and plain version differ with TF32 off, the
+    plain version's own share with TF32 on), held under 1 %."""
+    bf = torch.bfloat16
+    W = w_cond.shape[-1]
+    m = W // 2
+    probe = flk.wide_weights({
+        "w_tap": torch.zeros((1, 3, W, W), device="cuda", dtype=bf),
+        "b": torch.zeros((1, W), device="cuda"), "w_cond": w_cond.float().contiguous(),
+        "b_cond": torch.zeros((1, W), device="cuda"),
+        "w_res": torch.cat([torch.eye(m), torch.zeros(m, m)], 1)[None].to("cuda", bf),
+        "b_res": torch.zeros((1, W), device="cuda")})
+    zx = torch.zeros((enc.shape[0], enc.shape[1], W), device="cuda")
+    g_k = flk.flow_stack(zx, enc, probe, 0, 1, ns, compact=False)[..., :m]
+    g_p = flk.flow_stack_plain(zx, enc, probe, 0, 1, ns, compact=False)[..., :m]
+    torch.backends.cuda.matmul.allow_tf32 = True
+    g_t = flk.flow_stack_plain(zx, enc, probe, 0, 1, ns, compact=False)[..., :m]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    share = float((g_k != g_p).float().mean())
+    tf32_share = float((g_t != g_p).float().mean())
+    log(f"f32 precision probe {label}: {share:.3e} of {g_p.numel()} bf16(g) values differ "
+        f"between kernel and plain version (TF32 off); the plain version with TF32 on differs "
+        f"in {tf32_share:.3e}")
+    require(share < 0.01 and bool(torch.equal(g_p, g_p.to(bf).float())),
+            f"{label}: the f32 cond product is not f32")
+    return share, tf32_share
+
+
+def wide_student_phase(wd):
+    """Phase 31 at one wide width: configs/parallel_wavenet.json at width wd
+    (flows 10 / 10 / 10 / 30, deconv 256, random weights from a seed), bf16
+    and f32, through synthesize_cuda at B = 32 x 4 s (launches by mode and by
+    kernel name, exact), StudentStreamer against the one-shot path, the
+    fused feed-forward against the same path on the plain kernel at
+    B = 8 x 1 s; then the 10-layer call timed at B = 8 x 1 s and 32 x 4 s,
+    bf16 and f32-cond.  Returns the readings."""
+    bf = torch.bfloat16
+    pw, pp = student_model(seed=3, width=wd)
+    pw32 = ParallelWavenet(dataclasses.replace(pw.cfg, compute_dtype="float32"))
+    ns = pw.cfg.num_stages
+    cycles = sum(-(-n // ns) for n in pw.cfg.num_iaf_layers)
+    mel = stft.melspectrogram(torch.from_numpy(synthetic_wavs(32, STUDENT_SAMPLES, 70 + wd)).cuda())
+    L = pw.sample_length(mel.shape[1])
+    m8 = mel[:8, : 16000 // pw.cfg.frame_shift + 1]  # B = 8 x 1 s
+    L8 = pw.sample_length(m8.shape[1])
+    out = {"err": 0.0, "launches_by_mode": {}, "kernel_launches": dict.fromkeys(flk.KERNEL_NAMES, 0),
+           "timing": {}}
+    for model, dt_label, mode in ((pw, "bf16", "bf16"), (pw32, "f32", "f32cond")):
+        label = f"width-{wd} {dt_label} student"
+        parallelgen.synthesize_cuda(model, pp, mel[:, :6], torch.Generator().manual_seed(0))
+        torch.cuda.synchronize()  # warm-up
+        reset_flow_counts()
+        t0 = time.time()
+        audio = parallelgen.synthesize_cuda(model, pp, mel, torch.Generator().manual_seed(8))
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        modes, launched = flow_counts(), dict(flk.flow_stack.kernel_launches)
+        require(tuple(audio.shape) == (32, L) and bool(torch.isfinite(audio).all())
+                and float(audio.abs().max()) <= 1.0, f"{label}: audio not finite in [-1, 1]")
+        log(f"{label} path B=32 L={L}: {1e3 * dt:.1f} ms, {32 * L / 16000 / dt:.1f} audio-sec/s, "
+            f"audio std {float(audio.std()):.4f}; launches by mode {modes}, CUDA launches by "
+            f"kernel {launched}")
+        require(modes == {flk.mode_key(mode, wd): cycles}, f"{label}: launches by mode {modes}")
+        require_launches(label, launched, {name: n * cycles for name, n in
+                                           flk.predicted_launches(wd, ns, False).items()})
+        out["launches_by_mode"].update(modes)
+        for k, n in launched.items():
+            out["kernel_launches"][k] += n
+        out[f"synth_{dt_label}_ms"] = 1e3 * dt
+        del audio
+        base_x = model.base_noise(torch.Generator().manual_seed(9), 32, L, "cuda")
+        with deterministic_cudnn():
+            one = model._clip_quant_scale(parallelgen.feed_forward_cuda(
+                model, pp, {"mel": mel, "base_x": base_x})["x"])
+            streamed = parallelgen.StudentStreamer(model, chunk=32768).synthesize(
+                pp, mel, base_x=base_x)
+        torch.cuda.synchronize()
+        sdiff = float((streamed - one).abs().max())
+        log(f"{label} streamer B=32 L={L} chunk 32768 vs one-shot on the same noise: max|d| "
+            f"{sdiff:.3e} (limit 5e-3)")
+        require(tuple(streamed.shape) == (32, L) and sdiff <= 5e-3,
+                f"{label}: streamer differs from the one-shot path")
+        del one, streamed, base_x
+        inputs = {"mel": m8, "base_x": model.base_noise(torch.Generator().manual_seed(9), 8, L8,
+                                                        "cuda")}
+        with deterministic_cudnn():
+            ff_k = parallelgen.feed_forward_cuda(model, pp, inputs)
+            ff_p = with_plain_flow_kernel(lambda: parallelgen.feed_forward_cuda(model, pp, inputs))
+        for k in ("x", "mean_tot", "scale_tot", "log_scale_tot"):
+            err = float((ff_k[k] - ff_p[k]).abs().max())
+            scale = max(float(ff_p[k].abs().max()), 1e-3)
+            log(f"{label} feed-forward B=8 L={L8} {k}: max|d| kernel-plain {err:.3e}, scale "
+                f"{scale:.3e}, limit {STUDENT_REL_TOL * scale:.3e}")
+            require(err <= STUDENT_REL_TOL * scale, f"{label} feed-forward {k} differs")
+            out["err"] = max(out["err"], err)
+        del ff_k, ff_p, inputs
+    sw = flk.stack_flow_weights(pp["flows"][3])
+    cw, nw = flk.compact_weights(sw), flk.noncompact_weights(sw)
+    for B, rows in ((8, L8), (32, L)):
+        g = torch.Generator().manual_seed(wd + B)
+        x = (0.3 * torch.randn((rows, B, wd), generator=g)).cuda()
+        enc = (0.5 * torch.randn((rows, B, pw.cfg.deconv_width), generator=g)).cuda()
+        for dt_label, e, wts, kw in (("bf16", enc.to(bf), cw, {}),
+                                     ("f32-cond", enc, nw, {"compact": False})):
+            tm = time_flow(x, e, wts, ns, ns, **kw)
+            log_flow_timing(f"{dt_label} (flow_wide_kernel)", x, ns, tm)
+            out["timing"][f"{dt_label} B={B}"] = {
+                k: tm[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                   "ops_ms", "bytes_ms", "layer_floor_ms")}
+        del x, enc
+    del pp
+    return out
+
+
 def flow_mode_phases():
     """Phases 27 to 31; returns the records of the f32-cond, cond-stream and
     width kernels."""
@@ -1916,48 +2046,43 @@ def flow_mode_phases():
     stream_launches = flow_counts()
     log(f"cond-stream drive launches by mode: {stream_launches}")
     require(stream_launches == {"stream": 2, "stream_f32": 2}, "the stream drive's launches")
-    # f32 precision probe: w_tap = 0, b = 0, x = 0, w_res = [I | 0] put bf16(g)
-    # in the first W/2 output columns, g from the cond product alone
-    m = W // 2
-    probe = {"w_tap": torch.zeros((1, 3, W, W), device="cuda", dtype=bf),
-             "b": torch.zeros((1, W), device="cuda"), "w_cond": nw["w_cond"][:1].contiguous(),
-             "b_cond": torch.zeros((1, W), device="cuda"),
-             "w_res": torch.cat([torch.eye(m), torch.zeros(m, m)], 1)[None].to("cuda", bf),
-             "b_res": torch.zeros((1, W), device="cuda")}
-    zx = torch.zeros_like(x8)
-    g_k = flk.flow_stack(zx, enc8, probe, 0, 1, ns, **f32)[..., :m]
-    g_p = flk.flow_stack_plain(zx, enc8, probe, 0, 1, ns, **f32)[..., :m]
-    torch.backends.cuda.matmul.allow_tf32 = True
-    g_t = flk.flow_stack_plain(zx, enc8, probe, 0, 1, ns, **f32)[..., :m]
-    torch.backends.cuda.matmul.allow_tf32 = False
-    probe_share = float((g_k != g_p).float().mean())
-    tf32_share = float((g_t != g_p).float().mean())
-    log(f"f32 precision probe: {probe_share:.3e} of {g_p.numel()} bf16(g) values differ between "
-        f"kernel and plain version (TF32 off); the plain version with TF32 on differs in "
-        f"{tf32_share:.3e}")
-    require(probe_share < 0.01 and bool(torch.equal(g_p, g_p.to(bf).float())),
-            "the f32 cond product is not f32")
-    del x3, enc3, out8, state32, st, zx, g_k, g_p, g_t, cs, out_s
+    probe_share, tf32_share = precision_probe(nw["w_cond"][:1], enc8, ns, f"W {W}")
+    del x3, enc3, out8, state32, st, cs, out_s
 
     # ---- 28. widths 32, 128 and 256, and a deconv width that is not a multiple of 64 ----
     width_err, width_sw = 0.0, {W: cw}
+    wide_facts, wide_probe = {}, {}
     for wd, over in ((32, {"width": 32}), (128, {"width": 128}), (256, {"width": 256}),
                      (W, {"deconv_width": 136})):
         pw, pp = student_model(seed=wd, **over)
         pw32 = ParallelWavenet(dataclasses.replace(pw.cfg, compute_dtype="float32"))
         sww = flk.stack_flow_weights(pp["flows"][0])
-        xw, ew = flow_inputs(pw32, pp, B=8, L=4096, seed=60 + wd)
         label = f"flow width {wd} deconv {pw.cfg.deconv_width}"
-        for compact in (True, False):
-            wts = (flk.compact_weights if compact else flk.noncompact_weights)(sww)
-            e = ew.to(bf) if compact else ew
-            name = f"{label} ({'bf16' if compact else 'f32-cond'})"
-            o, err, _ = check_flow(name, xw, e, wts, 0, ns, ns, compact=compact)
-            check_flow_streaming(xw, e, wts, ns, ns, o, 512, label=name, compact=compact)
-            width_err = max(width_err, err)
+        wide = "width" in over and wd in flk.WIDE_WIDTHS
+        cw_w, nw_w = flk.compact_weights(sww), flk.noncompact_weights(sww)
+        # the wide kernel in all four modes, at the ragged edges too
+        for B_, L_, seed in ((8, 4096, 60 + wd),) + (((3, 600, 61 + wd),) if wide else ()):
+            xw, ew = flow_inputs(pw32, pp, B=B_, L=L_, seed=seed)
+            cases = [("bf16", ew.to(bf), cw_w, {}), ("f32-cond", ew, nw_w, {"compact": False})]
+            if wide:
+                cw32 = stream_of(ew, sww, 0, ns)
+                cases += [("cond stream bf16", None, cw_w, {"cond": cw32.to(bf)}),
+                          ("cond stream f32", None, nw_w, {"cond": cw32, "compact": False})]
+            for mode_label, e, wts, kw in cases:
+                name = f"{label} ({mode_label})"
+                o, err, _ = check_flow(name, xw, e, wts, 0, ns, ns, **kw)
+                if wide and B_ == 8:  # the one-shot launch's facts
+                    mode = flk.flow_stack.last_launch["mode"]
+                    facts = wide_facts[flk.mode_key(mode, wd)] = flow_launch_facts(wd, mode)
+                    require(facts["spill_bytes"] == 0, f"{name}: the wide kernel spills")
+                check_flow_streaming(xw, e, wts, ns, ns, o, 512, label=name, **kw)
+                width_err = max(width_err, err)
+            if wide and B_ == 8:
+                wide_probe[wd] = precision_probe(nw_w["w_cond"][:1], ew, ns, f"W {wd}")
+            del xw, ew, o
         if "width" in over:
-            width_sw[wd] = flk.compact_weights(sww)
-        del pp, xw, ew, o
+            width_sw[wd] = cw_w
+        del pp
     width_err = max(width_err, edge_shape_checks(ns))
 
     # ---- 29. the f32 student path end to end ----
@@ -2122,36 +2247,11 @@ def flow_mode_phases():
                 f"{[os.path.basename(p) for p in paths]}, launches {modes}")
     del gparams, gmels
 
-    # ---- 31. a width-128 student through the serving path ----
-    pw, pp = student_model(seed=3, width=128)
+    # ---- 31. full-depth W 128 and W 256 students through the serving path ----
+    wide_runs = {wd: wide_student_phase(wd) for wd in flk.WIDE_WIDTHS}
+    w_launches = wide_runs[128]["launches_by_mode"]
     wmel = stft.melspectrogram(torch.from_numpy(synthetic_wavs(8, 16000, 71)).cuda())
-    wL = pw.sample_length(wmel.shape[1])
-    parallelgen.synthesize_cuda(pw, pp, wmel[:, :6], torch.Generator().manual_seed(0))
-    torch.cuda.synchronize()  # warm-up
-    reset_flow_counts()
-    t0 = time.time()
-    audio = parallelgen.synthesize_cuda(pw, pp, wmel, torch.Generator().manual_seed(8))
-    torch.cuda.synchronize()
-    dt = time.time() - t0
-    w_launches, w_kernel_launches = flow_counts(), dict(flk.flow_stack.kernel_launches)
-    require(tuple(audio.shape) == (8, wL) and bool(torch.isfinite(audio).all()),
-            "width-128 student audio")
-    log(f"width-128 student path B=8 L={wL}: {1e3 * dt:.1f} ms, {8 * wL / 16000 / dt:.1f} "
-        f"audio-sec/s; launches by mode {w_launches}, CUDA launches by kernel {w_kernel_launches}")
-    require(w_launches == {"bf16_w128": cycles}, "the width-128 path's launches")
-    require_launches("the width-128 path", w_kernel_launches,
-                     {name: n * cycles for name, n in flk.predicted_launches(128, ns, False).items()})
-    winputs = {"mel": wmel, "base_x": pw.base_noise(torch.Generator().manual_seed(9), 8, wL, "cuda")}
-    with deterministic_cudnn():
-        ff_k = parallelgen.feed_forward_cuda(pw, pp, winputs)
-        ff_p = with_plain_flow_kernel(lambda: parallelgen.feed_forward_cuda(pw, pp, winputs))
-    for k in ("x", "mean_tot", "scale_tot", "log_scale_tot"):
-        err = float((ff_k[k] - ff_p[k]).abs().max())
-        scale = max(float(ff_p[k].abs().max()), 1e-3)
-        log(f"width-128 student feed-forward B=8 {k}: max|d| kernel-plain {err:.3e}, scale "
-            f"{scale:.3e}, limit {STUDENT_REL_TOL * scale:.3e}")
-        require(err <= STUDENT_REL_TOL * scale, f"width-128 student feed-forward {k} differs")
-    del pp, ff_k, ff_p
+    wL = pwn.sample_length(wmel.shape[1])
     by_width = {}
     for wd, sww in sorted(width_sw.items()):
         g = torch.Generator().manual_seed(wd)
@@ -2178,6 +2278,14 @@ def flow_mode_phases():
                     sum(w_launches.values()), width_err, by_width[128],
                     launches_by_mode=w_launches,
                     by_width={str(wd): timing_summary(t) for wd, t in by_width.items()}),
+        flow_record("flow_wide_kernel", "nsynth_wavenet_tpu/ops/flow_kernel.py:47",
+                    sum(r["kernel_launches"]["flow_wide_kernel"] for r in wide_runs.values()),
+                    max([width_err] + [r["err"] for r in wide_runs.values()]),
+                    wide_runs[256]["timing"]["bf16 B=32"],
+                    probe_share={str(wd): v[0] for wd, v in wide_probe.items()},
+                    launch=wide_facts,
+                    by_width={str(wd): {k: v for k, v in r.items() if k != "err"}
+                              for wd, r in wide_runs.items()}),
     ]
 
 
@@ -4266,6 +4374,15 @@ def main():
     log(f"philox [256,1024]: {philox_us:.2f} us per call (wrapper, allocation and launch "
         f"included), torch.rand {rand_us:.2f} us, bound {1e6 * 256 * 1024 * 4 / PEAK_HBM_BYTES:.3f} us "
         f"(1 MiB written)")
+    # on the device alone: one CUDA graph of the same back-to-back calls, replayed
+    philox_dev_us = 1e3 / calls * cuda_ms(replay_graph(
+        lambda: [fk.philox_uniform(7, 11, 256, 1024, 0, device="cuda") for _ in range(calls)], 1),
+        reps=5)
+    rand_dev_us = 1e3 / calls * cuda_ms(replay_graph(
+        lambda: [torch.rand((256, 1024), device="cuda") for _ in range(calls)], 1), reps=5)
+    log(f"philox [256,1024] on the device alone (a CUDA graph of {calls} calls, median of 5): "
+        f"{philox_dev_us:.2f} us per call, torch.rand {rand_dev_us:.2f} us: the kernel "
+        f"{'loses' if philox_dev_us > rand_dev_us else 'does not lose'}")
 
     # ---- 5. main path end to end ----
     fg = Fastgen(model)

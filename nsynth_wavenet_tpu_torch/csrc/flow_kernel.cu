@@ -100,11 +100,68 @@
 //     chunk lands.  A row's arithmetic does not depend on the block, tile or
 //     call that computes it, so chained chunk calls equal one-shot calls bit
 //     for bit.
-//   flow_layer_kernel<W, COND>  (W = 128, 256) the per-block design, kept for the
-//     wide widths, whose weights alone fill most of a block's shared memory:
-//     a block per 64 consecutive rows, WMMA 16x16x16 in K chunks of 64 with
-//     the next chunk's loads in registers, the gate in shared memory, and an
-//     ENC_F32 cond product on the CUDA cores into a second f32 tile.
+//   flow_wide_kernel<W, COND>  (W = 128, 256) one launch a layer of
+//     persistent blocks (one an SM: grid = SMs, cut to the tiles), a
+//     producer warp feeding a TMA ring as in flow_persist_kernel, two
+//     consumer warpgroups, and the products on wgmma.  It replaces the
+//     per-block flow_layer_kernel (a block per 64 rows, WMMA through shared
+//     memory), which read the whole layer's weights from L2 for every 64
+//     rows: at W 256 576 KiB a tile, 9 KiB a row, 36x the rows' own bytes.
+//     What bounds a layer (B = 8 x L = 15 872, a 10-layer call): the row
+//     bytes, l(t) in f32, the encoding in bf16 and l' out, 1 536 B a row at
+//     W 128 and 2 560 B at W 256, 0.58 / 0.97 ms at 3.35 TB/s; the bf16
+//     products, 0.23 / 0.76 ms at 989 TFLOP/s; in f32-cond the f32 cond
+//     product on the FMA units (32 768 / 65 536 MACs a row and layer,
+//     1.39 / 3.07 ms at 67 TFLOP/s).  The design:
+//     1. Tiles of 128 rows, rows 0..63 to warpgroup 0 and 64..127 to
+//        warpgroup 1, which wait on the same ring slots: each product is an
+//        m64nWk16 wgmma (m64n128 for the res product, a panel of 128 output
+//        columns at a time) with the A operand in registers (the f32 taps
+//        rounded to bf16 as they leave the slot, the bf16 encoding by
+//        ldmatrix, the gate) and B a weight box in shared memory, K-major
+//        in the copy engine's 128-byte swizzle, so a weight byte in shared
+//        memory serves 128 rows.
+//     2. A tile is a walk of chunks of 64 K columns: the three taps (two
+//        f32 boxes each), the encoding (a bf16 box, or 32 f32 columns), and
+//        w_res^T (W/128 boxes, held through the epilogue).  W 128: w_tap^T
+//        (96 KiB, six boxes of 128 output columns x 64 K values) stays
+//        resident, copied when the block starts; each encoding chunk brings
+//        its box of w_cond^T (512 B a row from L2), each tile its w_res^T
+//        box; shared memory 98 KiB resident + 4 slots of 32 KiB.  W 256: the
+//        weights (576 KiB) do not fit a block, so w_tap^T and w_cond^T ride
+//        beside every chunk as wgmma's B operand (a GEMM-style main loop
+//        over K = 3W + DW: 576 KiB a 128-row tile, 4.5 KiB a row from L2,
+//        half the per-block kernel's 9 KiB); 3 slots of 64 KiB.  A
+//        four-CTA cluster holding a quarter of the weights each (multicast
+//        row chunks, the res sums reduced through distributed shared
+//        memory) would read no weights at all, but needs 64 KiB of partial
+//        sums a CTA beside the ring; it is left for later.
+//     3. Every chunk of a tile is read by the copy engine from device
+//        memory or L2 (l(t-d) and l(t-2d) are L2 hits at the student's
+//        shapes); the epilogue reads the residual l(t) from L2 (its tap
+//        chunk has just passed) and a cond stream's columns from device
+//        memory, in batches whose first is in flight during the res product.
+//        Measured (PERF.md), the bf16 calls stream some 4-5 TB/s of such
+//        row, weight and residual bytes from L2 and device memory together,
+//        which is what bounds them now.
+//     4. The sigmoid column j and the tanh column j + W/2 meet in one
+//        thread: wgmma's accumulator gives a thread columns 8i + 2 t4 and
+//        8i + 2 t4 + 1 of every n8 block i, so blocks j / 8 and j / 8 +
+//        W / 16 are its own in the natural column order.  The gate, rounded
+//        to bf16, is the A operand of the res product from registers.
+//     5. ENC_F32's cond product runs on the FMA units in full f32, k in
+//        order, accumulated onto the tap sums in wgmma's accumulator layout
+//        (pre = taps + sum_k enc_k w_k + bias: the plain version's terms,
+//        its cond sum added in one piece); its w_cond is stored with the
+//        columns in wide_cond_order (ops/flow_kernel.py), so that one
+//        16-byte shared load serves 8 FMAs a row.
+//     Registers: a block of 384 threads (the consumer warpgroups and a
+//     producer warpgroup of which one warp works) is held to 168 a thread
+//     by the register file; a consumer holds 64 (W 128) or 128 (W 256) f32
+//     sums, 16 A-fragment registers a chunk, and 16 / 32 gate fragments
+//     beside 64 res sums; setmaxnreg moves registers from the producer
+//     warpgroup to the consumers.  Each chunk's wgmmas are committed and
+//     waited for before its slot is freed.
 //   flow_state_kernel<ROUND>  with a state, one launch per layer: copies the
 //     new history out of (old history ++ input), which is a shifted copy of
 //     the old state where the call is shorter than 2d, rounding to bf16 for
@@ -113,9 +170,10 @@
 // t-2d of its input): flow_stack alternates between two buffers so that the
 // last layer writes out.  flow_stack counts every launch it enqueues, by
 // kernel.  Measured times are in PERF.md.  Left on the table: several layers a
-// launch with the small-dilation history on chip, TMA-fed wgmma, the W 128 /
-// 256 tiles, the f32 cond product on tensor cores (it must pass the f32
-// precision probe of chip_smoke.py).
+// launch with the small-dilation history on chip, wgmma at W 32 / 64, a
+// four-CTA cluster at W 256, overlapping one chunk's wgmmas with the next
+// chunk's A fragments, the f32 cond product on tensor cores (it must pass
+// the f32 precision probe of chip_smoke.py).
 
 #ifndef FLOW_WARPS
 #error "build through nsynth_wavenet_tpu_torch/kernels/build.py: it passes the launch plan's constants"
@@ -124,20 +182,19 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 // Mirrored field for field by ops/flow_kernel.py _FlowArgs.
 struct FlowArgs {
   const void* x;       // [L, B, W] f32 input stream
   const void* cond;    // encoding [L, B, DW] or stream [L, B, n_layers * W], bf16 or f32 by mode
-  const void* w_tap;   // [n_layers, 3, W, W] bf16, tap 0 = t-2d
+  const void* w_tap;   // [n_layers, 3, W, W] bf16, tap 0 = t-2d (W 128 / 256: [n_layers, W, 3W])
   const void* w_cond;  // [n_layers, DW, W] bf16 (ENC_BF16) or f32 (ENC_F32); null for a stream
+                       // (W 128 / 256: bf16 [n_layers, W, DW], f32 in wide_cond_order)
   const void* bias;    // [n_layers, W] f32: b + b_cond with an encoding, b with a stream
-  const void* w_res;   // [n_layers, W/2, W] bf16
+  const void* w_res;   // [n_layers, W/2, W] bf16 (W 128 / 256: [n_layers, W, W/2])
   const void* b_res;   // [n_layers, W] f32
   const void* state;   // [sum(2d), B, W] f32 carried history, or null (zeros)
   void* new_state;     // [sum(2d), B, W] f32, or null
@@ -150,8 +207,8 @@ struct FlowArgs {
   int n_layers, first_layer, num_stages;
   int cond_mode;       // CondMode
   int carry_bf16;      // round the exported state to bf16
-  // the persistent kernel's launch plan (ops/flow_kernel.py persist_plan and
-  // persist_args); unused at W = 128 and 256
+  // the trunk kernel's launch plan (ops/flow_kernel.py persist_plan and
+  // persist_args at W 32 / 64, wide_plan and wide_args at W 128 / 256)
   int grid;
   int n_tiles;         // row tiles of the stream, the last one ragged: blocks walk b, b + grid, ...
   int smem_bytes, stages, slot_bytes;
@@ -162,362 +219,12 @@ struct FlowArgs {
 
 enum CondMode { ENC_BF16 = 0, ENC_F32 = 1, STREAM_BF16 = 2, STREAM_F32 = 3 };
 // flow_stack's launched[]: ops/flow_kernel.py KERNEL_NAMES
-enum KernelId { K_PERSIST = 0, K_LAYER = 1, K_STATE = 2 };
+enum KernelId { K_PERSIST = 0, K_WIDE = 1, K_STATE = 2 };
 
 namespace {
 
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-
-constexpr int THREADS = 256;
-constexpr int align128(int bytes) { return (bytes + 127) / 128 * 128; }
-constexpr int max3(int a, int b, int c) { return a > b ? (a > c ? a : c) : (b > c ? b : c); }
-
-// flow_layer_kernel's tile shapes and shared-memory layout of one width (128 or 256).
-template <int W_>
-struct Cfg {
-  static constexpr int W = W_, M = W / 2;
-  static constexpr int KC = 64;                  // K chunk of the bf16 products
-  static constexpr int CPT = W / KC;             // K chunks per tap
-  static constexpr int BM = 64;                  // rows per block
-  static constexpr int WARPS_M = BM / 16, WARPS_N = THREADS / 32 / WARPS_M;
-  static constexpr int NW = W / WARPS_N, NFRAG = NW / 16;  // columns of a warp
-  static constexpr int LDA = KC + 8, LDB = W + 8, LDC = W + 4, LDG = M + 8;
-  // the f32 cond product: K chunks of KF, a TM x TN tile of sums a thread
-  static constexpr int KF = 32, LDE = BM + 4;
-  static constexpr int TN = W == 256 ? 8 : 4, TM = BM * W / THREADS / TN, TX = W / TN;
-  // 16-byte vectors a thread moves per chunk or tile
-  static constexpr int TAP_V = BM * KC / 4 / THREADS;   // f32 tap rows
-  static constexpr int ENC_V = BM * KC / 8 / THREADS;   // bf16 enc rows
-  static constexpr int WB_N = KC * W / 8;               // bf16 weight chunk
-  static constexpr int WB_V = (WB_N + THREADS - 1) / THREADS;
-  static constexpr int LIN_V = BM * W / 4 / THREADS;    // f32 stream tile
-  static constexpr int SB_V = BM * W / 8 / THREADS;     // bf16 cond-stream tile
-  static constexpr int EF_V = BM * KF / 4 / THREADS;    // f32 enc chunk
-  static constexpr int WF_V = KF * W / 4 / THREADS;     // f32 w_cond chunk
-  static constexpr int GATE_E = BM * M / THREADS;       // gate values
-  // shared memory: region 1 holds As + Bs during the bf16 K loop, Es + Wf
-  // during the f32 one, and Cs after either; Ds (the cond sums) only outside
-  // ENC_BF16
-  static constexpr int A_BYTES = align128(BM * LDA * 2), B_BYTES = align128(KC * LDB * 2);
-  static constexpr int C_BYTES = align128(BM * LDC * 4);
-  static constexpr int E_BYTES = align128(KF * LDE * 4), WF_BYTES = align128(KF * W * 4);
-  static constexpr int R1 = max3(A_BYTES + B_BYTES, C_BYTES, E_BYTES + WF_BYTES);
-  static constexpr int G_OFF = R1, BIAS_OFF = G_OFF + align128(BM * LDG * 2);
-  static constexpr int D_OFF = BIAS_OFF + align128(2 * W * 4);
-  static constexpr int smem_bytes(int cond) { return D_OFF + (cond == ENC_BF16 ? 0 : C_BYTES); }
-
-  static_assert(W == 128 || W == 256, "flow_persist_kernel serves the narrower widths");
-  static_assert(BM == 16 * WARPS_M && W == NW * WARPS_N && NW % 16 == 0, "warp tiling");
-  static_assert(W == KC * CPT && KC % 16 == 0 && M % 16 == 0, "K chunks");
-  static_assert(TAP_V * THREADS * 4 == BM * KC && ENC_V * THREADS * 8 == BM * KC, "chunk split");
-  static_assert(LIN_V * THREADS * 4 == BM * W && SB_V * THREADS * 8 == BM * W, "tile split");
-  static_assert(EF_V * THREADS * 4 == BM * KF && WF_V * THREADS * 4 == KF * W, "f32 chunk split");
-  static_assert(GATE_E * THREADS == BM * M && TM * TN * THREADS == BM * W, "thread split");
-  static_assert(TM % 4 == 0 && TN % 4 == 0 && TX * (BM / TM) == THREADS, "SIMT tile");
-};
-
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16(v));
-}
-
-// Every loop starts all of a thread's global loads before it uses any of
-// them, and the next chunk is loaded into registers while the current one is
-// in the tensor cores (or the FMA units).
-template <int W, int COND>
-__global__ void __launch_bounds__(THREADS, W >= 256 ? 1 : 2)
-flow_layer_kernel(const float* __restrict__ l_in, const void* __restrict__ cond_v,
-                  const float* __restrict__ hist, const bf16* __restrict__ w_tap,
-                  const void* __restrict__ w_cond_v, const float* __restrict__ bias,
-                  const bf16* __restrict__ w_res, const float* __restrict__ b_res,
-                  float* __restrict__ l_out, int n_rows, long long shift, int cond_cols) {
-  typedef Cfg<W> C;
-  constexpr int M = C::M, KC = C::KC, LDA = C::LDA, LDB = C::LDB, LDC = C::LDC, LDG = C::LDG;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Bs = reinterpret_cast<bf16*>(smem + C::A_BYTES);
-  float* Cs = reinterpret_cast<float*>(smem);
-  bf16* Gs = reinterpret_cast<bf16*>(smem + C::G_OFF);
-  float* bias_s = reinterpret_cast<float*>(smem + C::BIAS_OFF);
-  float* Ds = reinterpret_cast<float*>(smem + C::D_OFF);
-  const int row0 = blockIdx.x * C::BM;
-  const int warp = threadIdx.x / 32, wm = warp % C::WARPS_M, wn = warp / C::WARPS_M;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  const float4 zero4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  for (int i = threadIdx.x; i < 2 * W; i += THREADS) bias_s[i] = i < W ? bias[i] : b_res[i - W];
-
-  if constexpr (COND == ENC_F32) {
-    // Ds = enc @ w_cond in f32 on the CUDA cores; k runs in order in each sum
-    const float* enc = static_cast<const float*>(cond_v);
-    const float* wc = static_cast<const float*>(w_cond_v);
-    const int DW = cond_cols;
-    constexpr int KF = C::KF, LDE = C::LDE, TM = C::TM, TN = C::TN;
-    float* Es = reinterpret_cast<float*>(smem);  // [KF][LDE]: the chunk transposed
-    float* Wf = reinterpret_cast<float*>(smem + C::E_BYTES);  // [KF][W]
-    const int tx = threadIdx.x % C::TX, ty = threadIdx.x / C::TX;
-    float acc[TM][TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
-    float4 re[C::EF_V], rw[C::WF_V];
-    auto load_f = [&](int e) {
-      const int k0 = e * KF;
-#pragma unroll
-      for (int i = 0; i < C::EF_V; ++i) {
-        const int v = threadIdx.x + i * THREADS;
-        const long long r = (long long)row0 + v / (KF / 4);
-        const int c = k0 + (v % (KF / 4)) * 4;
-        re[i] = r < n_rows && c < DW ? *reinterpret_cast<const float4*>(enc + r * DW + c) : zero4;
-      }
-#pragma unroll
-      for (int i = 0; i < C::WF_V; ++i) {
-        const int v = threadIdx.x + i * THREADS;
-        const int kr = k0 + v / (W / 4);
-        rw[i] = kr < DW ? *reinterpret_cast<const float4*>(wc + (size_t)kr * W + (v % (W / 4)) * 4)
-                        : zero4;
-      }
-    };
-    const int n_kf = (DW + KF - 1) / KF;
-    load_f(0);
-    for (int e = 0; e < n_kf; ++e) {
-#pragma unroll
-      for (int i = 0; i < C::EF_V; ++i) {
-        const int v = threadIdx.x + i * THREADS;
-        const int row = v / (KF / 4), c = (v % (KF / 4)) * 4;
-        Es[(c + 0) * LDE + row] = re[i].x;
-        Es[(c + 1) * LDE + row] = re[i].y;
-        Es[(c + 2) * LDE + row] = re[i].z;
-        Es[(c + 3) * LDE + row] = re[i].w;
-      }
-#pragma unroll
-      for (int i = 0; i < C::WF_V; ++i) {
-        const int v = threadIdx.x + i * THREADS;
-        *reinterpret_cast<float4*>(Wf + (v / (W / 4)) * W + (v % (W / 4)) * 4) = rw[i];
-      }
-      __syncthreads();
-      if (e + 1 < n_kf) load_f(e + 1);
-#pragma unroll 4
-      for (int k = 0; k < KF; ++k) {
-        float a[TM], b[TN];
-#pragma unroll
-        for (int q = 0; q < TM / 4; ++q) {
-          const float4 t = *reinterpret_cast<const float4*>(Es + k * LDE + ty * TM + 4 * q);
-          a[4 * q] = t.x; a[4 * q + 1] = t.y; a[4 * q + 2] = t.z; a[4 * q + 3] = t.w;
-        }
-#pragma unroll
-        for (int q = 0; q < TN / 4; ++q) {
-          const float4 t = *reinterpret_cast<const float4*>(Wf + k * W + tx * TN + 4 * q);
-          b[4 * q] = t.x; b[4 * q + 1] = t.y; b[4 * q + 2] = t.z; b[4 * q + 3] = t.w;
-        }
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();  // Es and Wf are refilled, then taken over by As and Bs
-    }
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int q = 0; q < TN / 4; ++q)
-        *reinterpret_cast<float4*>(Ds + (ty * TM + i) * LDC + tx * TN + 4 * q) =
-            make_float4(acc[i][4 * q], acc[i][4 * q + 1], acc[i][4 * q + 2], acc[i][4 * q + 3]);
-  } else if constexpr (COND == STREAM_F32) {
-    // cond_v points at this layer's first column; rows are cond_cols long
-    const float* cs = static_cast<const float*>(cond_v);
-#pragma unroll
-    for (int i = 0; i < C::LIN_V; ++i) {
-      const int v = threadIdx.x + i * THREADS;
-      const int row = v / (W / 4), c = (v % (W / 4)) * 4;
-      const long long r = (long long)row0 + row;
-      *reinterpret_cast<float4*>(Ds + row * LDC + c) =
-          r < n_rows ? *reinterpret_cast<const float4*>(cs + r * cond_cols + c) : zero4;
-    }
-  } else if constexpr (COND == STREAM_BF16) {
-    const bf16* cs = static_cast<const bf16*>(cond_v);
-#pragma unroll
-    for (int i = 0; i < C::SB_V; ++i) {
-      const int v = threadIdx.x + i * THREADS;
-      const int row = v / (W / 8), c = (v % (W / 8)) * 8;
-      const long long r = (long long)row0 + row;
-      const uint4 raw = r < n_rows ? *reinterpret_cast<const uint4*>(cs + r * cond_cols + c) : zero;
-      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-      const float2 f0 = __bfloat1622float2(h[0]), f1 = __bfloat1622float2(h[1]);
-      const float2 f2 = __bfloat1622float2(h[2]), f3 = __bfloat1622float2(h[3]);
-      *reinterpret_cast<float4*>(Ds + row * LDC + c) = make_float4(f0.x, f0.y, f1.x, f1.y);
-      *reinterpret_cast<float4*>(Ds + row * LDC + c + 4) = make_float4(f2.x, f2.y, f3.x, f3.y);
-    }
-  }
-
-  // the bf16 product: chunk c < 3 * CPT is columns (c % CPT) * KC of the tap
-  // at t - (2 - c / CPT) * d: row r - (2 - tap) * shift of the input, or of the
-  // 2 * shift history rows that precede it; with ENC_BF16 later chunks are KC
-  // columns of the enc row, zero past DW
-  const bf16* enc = static_cast<const bf16*>(cond_v);
-  const bf16* w_cond = static_cast<const bf16*>(w_cond_v);
-  const int DW = cond_cols;
-  const int n_chunks = 3 * C::CPT + (COND == ENC_BF16 ? (DW + KC - 1) / KC : 0);
-  uint4 ra[C::TAP_V], rb[C::WB_V];
-  auto load_chunk = [&](int c) {
-    const bf16* wsrc;
-    int wrows = KC;
-    if (c < 3 * C::CPT) {
-      const int tap = c / C::CPT, col0 = (c % C::CPT) * KC;
-      const long long back = (long long)(2 - tap) * shift;
-#pragma unroll
-      for (int i = 0; i < C::TAP_V; ++i) {
-        const int v = threadIdx.x + i * THREADS;
-        const long long r = (long long)row0 + v / (KC / 4);
-        const long long src = r - back;
-        const int col = col0 + (v % (KC / 4)) * 4;
-        uint4 val = zero;
-        if (r < n_rows) {
-          if (src >= 0)
-            val = *reinterpret_cast<const uint4*>(l_in + src * W + col);
-          else if (hist != nullptr)
-            val = *reinterpret_cast<const uint4*>(hist + (src + 2 * shift) * W + col);
-        }
-        ra[i] = val;
-      }
-      wsrc = w_tap + (size_t)c * KC * W;  // rows c * KC .. of the [3W, W] tap matrix
-    } else {
-      const int k0 = (c - 3 * C::CPT) * KC;
-#pragma unroll
-      for (int i = 0; i < C::ENC_V; ++i) {
-        const int v = threadIdx.x + i * THREADS;
-        const long long r = (long long)row0 + v / (KC / 8);
-        const int col = k0 + (v % (KC / 8)) * 8;
-        ra[i] = r < n_rows && col < DW ? *reinterpret_cast<const uint4*>(enc + r * DW + col) : zero;
-      }
-      wsrc = w_cond + (size_t)k0 * W;
-      wrows = DW - k0;
-    }
-#pragma unroll
-    for (int i = 0; i < C::WB_V; ++i) {
-      const int v = threadIdx.x + i * THREADS;
-      const int kr = v / (W / 8);
-      rb[i] = (C::WB_N % THREADS == 0 || v < C::WB_N) && kr < wrows
-                  ? *reinterpret_cast<const uint4*>(wsrc + kr * W + (v % (W / 8)) * 8)
-                  : zero;
-    }
-  };
-  auto store_chunk = [&](int c) {
-    if (c < 3 * C::CPT) {
-#pragma unroll
-      for (int i = 0; i < C::TAP_V; ++i) {
-        const int v = threadIdx.x + i * THREADS;
-        const __nv_bfloat162 lo =
-            __floats2bfloat162_rn(__uint_as_float(ra[i].x), __uint_as_float(ra[i].y));
-        const __nv_bfloat162 hi =
-            __floats2bfloat162_rn(__uint_as_float(ra[i].z), __uint_as_float(ra[i].w));
-        uint2 packed;
-        packed.x = *reinterpret_cast<const uint32_t*>(&lo);
-        packed.y = *reinterpret_cast<const uint32_t*>(&hi);
-        *reinterpret_cast<uint2*>(As + (v / (KC / 4)) * LDA + (v % (KC / 4)) * 4) = packed;
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < C::ENC_V; ++i) {
-        const int v = threadIdx.x + i * THREADS;
-        *reinterpret_cast<uint4*>(As + (v / (KC / 8)) * LDA + (v % (KC / 8)) * 8) = ra[i];
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < C::WB_V; ++i) {
-      const int v = threadIdx.x + i * THREADS;
-      if (C::WB_N % THREADS == 0 || v < C::WB_N)
-        *reinterpret_cast<uint4*>(Bs + (v / (W / 8)) * LDB + (v % (W / 8)) * 8) = rb[i];
-    }
-  };
-
-  FragC acc[C::NFRAG];
-#pragma unroll
-  for (int j = 0; j < C::NFRAG; ++j) wmma::fill_fragment(acc[j], 0.0f);
-  load_chunk(0);
-  for (int c = 0; c < n_chunks; ++c) {
-    store_chunk(c);
-    __syncthreads();
-    if (c + 1 < n_chunks) load_chunk(c + 1);
-#pragma unroll
-    for (int kk = 0; kk < KC; kk += 16) {
-      FragA a;
-      wmma::load_matrix_sync(a, As + wm * 16 * LDA + kk, LDA);
-#pragma unroll
-      for (int j = 0; j < C::NFRAG; ++j) {
-        FragB b;
-        wmma::load_matrix_sync(b, Bs + kk * LDB + wn * C::NW + j * 16, LDB);
-        wmma::mma_sync(acc[j], a, b, acc[j]);
-      }
-    }
-    __syncthreads();
-  }
-
-  // the residual operand of the epilogue, fetched now so that its latency
-  // hides behind the gate and the second product
-  float4 lin[C::LIN_V];
-#pragma unroll
-  for (int i = 0; i < C::LIN_V; ++i) {
-    const int v = threadIdx.x + i * THREADS;
-    const long long r = (long long)row0 + v / (W / 4);
-    lin[i] = r < n_rows ? *reinterpret_cast<const float4*>(l_in + r * W + (v % (W / 4)) * 4) : zero4;
-  }
-
-#pragma unroll
-  for (int j = 0; j < C::NFRAG; ++j)
-    wmma::store_matrix_sync(Cs + wm * 16 * LDC + wn * C::NW + j * 16, acc[j], LDC,
-                            wmma::mem_row_major);
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < C::GATE_E; ++i) {
-    const int e = threadIdx.x + i * THREADS;
-    const int r = e / M, c = e % M;
-    float xs = Cs[r * LDC + c], xt = Cs[r * LDC + M + c];
-    if constexpr (COND != ENC_BF16) {
-      xs = xs + Ds[r * LDC + c];
-      xt = xt + Ds[r * LDC + M + c];
-    }
-    xs = xs + bias_s[c];
-    xt = xt + bias_s[M + c];
-    Gs[r * LDG + c] = __float2bfloat16((1.0f / (1.0f + expf(-xs))) * tanhf(xt));
-  }
-  __syncthreads();
-
-#pragma unroll
-  for (int j = 0; j < C::NFRAG; ++j) wmma::fill_fragment(acc[j], 0.0f);
-#pragma unroll
-  for (int kk = 0; kk < M; kk += 16) {
-    FragA a;
-    wmma::load_matrix_sync(a, Gs + wm * 16 * LDG + kk, LDG);
-#pragma unroll
-    for (int j = 0; j < C::NFRAG; ++j) {
-      FragB b;
-      wmma::load_matrix_sync(b, w_res + kk * W + wn * C::NW + j * 16, W);
-      wmma::mma_sync(acc[j], a, b, acc[j]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < C::NFRAG; ++j)
-    wmma::store_matrix_sync(Cs + wm * 16 * LDC + wn * C::NW + j * 16, acc[j], LDC,
-                            wmma::mem_row_major);
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < C::LIN_V; ++i) {
-    const int v = threadIdx.x + i * THREADS;
-    const int row = v / (W / 4), col = (v % (W / 4)) * 4;
-    const long long r = (long long)row0 + row;
-    if (r < n_rows) {
-      const float4 p = *reinterpret_cast<const float4*>(Cs + row * LDC + col);
-      const float4 b = *reinterpret_cast<const float4*>(bias_s + W + col);
-      float4 o;
-      o.x = lin[i].x + p.x + b.x;
-      o.y = lin[i].y + p.y + b.y;
-      o.z = lin[i].z + p.z + b.z;
-      o.w = lin[i].w + p.w + b.w;
-      *reinterpret_cast<float4*>(l_out + r * W + col) = o;
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1046,6 +753,462 @@ __global__ void __launch_bounds__(PT, W <= 32 ? 2 : 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// flow_wide_kernel: W = 128 and 256
+// ---------------------------------------------------------------------------
+
+constexpr int WTR = FLOW_WIDE_TILE_ROWS;  // rows of a wide tile: 64 a consumer warpgroup
+constexpr int WKC = FLOW_WIDE_KC;         // K columns of a chunk of a bf16 operand: one 128-byte row
+constexpr int WBOX = WTR * 128;           // bytes of a wide copy box: a tile's rows of 128 B
+// threads: the consumer warpgroups and a producer warpgroup, whose first warp
+// feeds the ring.  A block of 384 threads starts at 168 registers a thread
+// (a W 256 consumer holds 128 f32 sums); setmaxnreg asks for the producer
+// warpgroup's spare ones for the consumers.
+constexpr int WPT = 32 * (PW + 4);
+constexpr int WIDE_PRODUCER_REGS = 96, WIDE_CONSUMER_REGS = 200;
+static_assert(WTR == 64 * (PW / 4) && WKC == 64, "one 64-row wgmma band a consumer warpgroup");
+static_assert(PW % 4 == 0 && WIDE_PRODUCER_REGS * 128 + WIDE_CONSUMER_REGS * 32 * PW <= 65536,
+              "the register file of an SM");
+
+struct WideParams {
+  const float* l_in;
+  const float* hist;     // the layer's 2 * shift history rows, or null (zeros)
+  const void* cond;      // stream modes: the layer's first cond-stream column
+  const float* w_cond;   // ENC_F32: [DW, W] f32, columns in the wide order (wide_cond_order)
+  const float* bias;     // [W]
+  const float* b_res;    // [W]
+  float* l_out;
+  long long shift;       // d * B rows
+  int n_rows, n_tiles;
+  int cond_cols;         // DW (an encoding), or a cond-stream row's n_layers * W
+  int stages, slot_bytes, off_bias, off_bars, off_ring;
+};
+
+// d (a warpgroup's 64 x 128 f32 sums) += a (bf16 A fragments in registers) x
+// B (128 x 16, K-major in shared memory, 128-byte swizzle) described by desc
+__device__ __forceinline__ void wgmma_128(float (&d)[64], const unsigned (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// d (a warpgroup's 64 x 256 f32 sums) += a (bf16 A fragments in registers) x
+// B (256 x 16, K-major in shared memory, 128-byte swizzle) described by desc
+__device__ __forceinline__ void wgmma_256(float (&d)[128], const unsigned (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// A wgmma descriptor of a K-major bf16 operand in shared memory written by
+// the copy engine in the 128-byte swizzle: rows of 128 B (64 K values),
+// eight-row groups 1024 B apart (stride byte offset), the leading byte
+// offset unused under that swizzle; addr + 32 k16 steps along K.
+__device__ __forceinline__ uint64_t sw128_desc(const void* addr) {
+  return (uint64_t)((smem_addr(addr) & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+template <int W>
+__device__ __forceinline__ void wgmma_w(float (&d)[W / 2], const unsigned (&a)[4], const void* b) {
+  if constexpr (W == 128)
+    wgmma_128(d, a, sw128_desc(b));
+  else
+    wgmma_256(d, a, sw128_desc(b));
+}
+
+// One layer over the stream.  Tiles of WTR rows; the two consumer
+// warpgroups take rows 0..63 and 64..127 of every tile of the block and
+// share each chunk of it, so that a streamed weight chunk serves 128 rows.
+// A tile is nch chunks, each one ring slot: the taps l(t-2d), l(t-d), l(t)
+// in WKC-column chunks (two boxes of 32 f32 columns each; at W 256 the
+// chunk's w_tap^T rows beside them), then the encoding's chunks (bf16: one
+// box of 64 columns and its w_cond^T rows; f32: one box of 32 columns and
+// its w_cond rows, for the FMA units); a cond stream is read by the
+// epilogue itself.  map_l is the layer's input [n_rows, W] f32, map_h its
+// history [2 shift, W] (a state only), map_c the encoding [n_rows, DW],
+// map_w w_tap^T [W, 3W] bf16, map_wc w_cond^T [W, DW] bf16 (ENC_BF16), and
+// map_r w_res^T [W, W/2] bf16, every weight box W rows x 64 K values.
+//
+// The accumulator of a consumer thread (g = lane / 4, t4 = lane % 4, warp q
+// of its warpgroup) is wgmma's: d[4j .. 4j + 3] = rows (r, r, r + 8, r + 8)
+// of its warp's 16 at columns (8j + 2 t4, 8j + 2 t4 + 1) twice, for every
+// n8 block j, with fragment row r holding tile row band + sg (the same
+// permutation as flow_persist_kernel's, so that the f32 tap loads meet no
+// bank conflict).  Sigmoid column c and tanh column c + W/2 are blocks j
+// and j + W/16 of one thread.
+template <int W, int COND>
+__global__ void __launch_bounds__(WPT, 1)
+    flow_wide_kernel(const WideParams p, const __grid_constant__ CUtensorMap map_l,
+                     const __grid_constant__ CUtensorMap map_h,
+                     const __grid_constant__ CUtensorMap map_c,
+                     const __grid_constant__ CUtensorMap map_w,
+                     const __grid_constant__ CUtensorMap map_wc,
+                     const __grid_constant__ CUtensorMap map_r) {
+  constexpr int M = W / 2, NA = W / 2;  // NA: sums a consumer thread
+  constexpr bool TAPS_RES = W == 128;   // w_tap^T resident; at W 256 streamed with its chunk
+  constexpr bool F32C = COND == ENC_F32;
+  constexpr bool STREAM = COND == STREAM_BF16 || COND == STREAM_F32;
+  constexpr int CPT = W / WKC, NTAP = 3 * CPT;  // chunks a tap, tap chunks a tile
+  constexpr int WROWS = W * 128;                // bytes of a weight box: W rows x 64 K values
+  constexpr int EC = F32C ? 32 : WKC;           // encoding columns a chunk
+  constexpr int NRES = W / 2 / WKC;             // w_res^T chunks a tile, after the encoding's
+  extern __shared__ __align__(1024) unsigned char wsmem[];
+  unsigned char* smem = wsmem;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const unsigned char* s_wtap = smem;  // W 128: w_tap^T, box c at c * WROWS
+  float* s_bias = reinterpret_cast<float*>(smem + p.off_bias);  // [bias | b_res]
+  unsigned char* ring = smem + p.off_ring;
+  if (((smem_addr(smem) | smem_addr(ring) | p.slot_bytes) & 1023) != 0) __trap();
+  const unsigned bars = smem_addr(smem + p.off_bars);  // full[stages], empty[stages], weights
+  const unsigned wbar = bars + 16 * p.stages;
+  const int DW = p.cond_cols;
+  const int n_cc = STREAM ? 0 : (DW + EC - 1) / EC;
+  const int nch = NTAP + n_cc + NRES;
+  const int my_tiles = (p.n_tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+
+  for (int v = tid; v < 2 * W; v += WPT) s_bias[v] = v < W ? p.bias[v] : p.b_res[v - W];
+  if (tid == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(bars + 8 * s, 32);                // full: the producer's lanes
+      mbar_init(bars + 8 * (p.stages + s), PW);   // empty: one arrival a consumer warp
+    }
+    mbar_init(wbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= PW) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(WIDE_PRODUCER_REGS));
+    if (warp > PW) return;
+    // ---- the producer: the resident weights once, then the block's tiles'
+    // chunks in order into the ring ----
+    if (lane == 0) {
+      mbar_arrive_tx(wbar, TAPS_RES ? NTAP * WROWS : 0);
+      if constexpr (TAPS_RES)
+        for (int b = 0; b < NTAP; ++b) tma_box(smem + b * WROWS, &map_w, b * WKC, 0, wbar);
+    }
+    int q = 0;  // the chunk's place in the block's walk
+    for (int i = 0; i < my_tiles; ++i) {
+      const long long row0 = ((long long)blockIdx.x + (long long)i * gridDim.x) * WTR;
+      for (int c = 0; c < nch; ++c, ++q) {
+        const int s = q % p.stages;
+        const unsigned full = bars + 8 * s;
+        mbar_wait(bars + 8 * (p.stages + s), (unsigned)((q / p.stages) & 1) ^ 1u);
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        unsigned char* slot = ring + (size_t)s * p.slot_bytes;
+        unsigned bytes = 0;
+        if (c < NTAP) {
+          // tap l(t - (2 - tap) d), columns col0 .. col0 + 63: rows
+          // r - (2 - tap) * shift of the input, rows before it from the
+          // 2 * shift history rows, or zeros
+          const int tap = c / CPT, col0 = (c % CPT) * WKC;
+          const long long y = row0 - (long long)(2 - tap) * p.shift;
+          if (p.hist == nullptr || y >= 0 || y + WTR <= 0) {
+            if (lane == 0) {
+              const bool hist = p.hist != nullptr && y < 0;
+              for (int h = 0; h < 2; ++h)
+                tma_box(slot + h * WBOX, hist ? &map_h : &map_l, col0 + 32 * h,
+                        (int)(hist ? y + 2 * p.shift : y), full);
+              bytes = 2 * WBOX;
+            }
+          } else {
+            // the tile straddles the history's end (once a layer at most)
+            for (int e = lane; e < WTR * (WKC / 4); e += 32) {
+              const int row = e / (WKC / 4), col = (e % (WKC / 4)) * 4;
+              const long long src = y + row;
+              float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+              if (src < 0)
+                v = *reinterpret_cast<const float4*>(p.hist + (src + 2 * p.shift) * W + col0 + col);
+              else if (row0 + row < p.n_rows)
+                v = *reinterpret_cast<const float4*>(p.l_in + src * W + col0 + col);
+              *reinterpret_cast<float4*>(slot + (col / 32) * WBOX + row * 128 +
+                                         ((((col % 32) >> 2) ^ (row & 7)) << 4)) = v;
+            }
+          }
+          if (!TAPS_RES && lane == 0) {  // the chunk's w_tap^T rows
+            tma_box(slot + 2 * WBOX, &map_w, tap * W + col0, 0, full);
+            bytes += WROWS;
+          }
+        } else if (c >= NTAP + n_cc) {
+          if (lane == 0) {  // a w_res^T box: K values 64 r .. 64 r + 63 of every output column
+            tma_box(slot, &map_r, (c - NTAP - n_cc) * WKC, 0, full);
+            bytes = WROWS;
+          }
+        } else if (lane == 0) {
+          const int k0 = (c - NTAP) * EC;
+          tma_box(slot, &map_c, k0, (int)row0, full);  // rows past n_rows, columns past DW: zeros
+          bytes = WBOX;
+          if constexpr (F32C) {  // the chunk's w_cond rows, as they are
+            const int kc = min(EC, DW - k0);
+            bulk_copy(slot + WBOX, p.w_cond + (size_t)k0 * W, kc * W * 4, full);
+            bytes += kc * W * 4;
+          } else {  // the chunk's w_cond^T rows (columns past DW: zeros)
+            tma_box(slot + WBOX, &map_wc, k0, 0, full);
+            bytes += WROWS;
+          }
+        }
+        mbar_arrive_tx(full, bytes);
+      }
+    }
+  } else {
+  // ---- the consumers ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(WIDE_CONSUMER_REGS));
+  const int g = lane >> 2, t4 = lane & 3;
+  const int band = 64 * (warp >> 2) + 16 * (warp & 3);  // the warp's 16 rows of the tile
+  const int sg = ((g & 3) << 1) | (g >> 2);
+  // byte offset of the f32 element (band + sg, C + 2 t4) of a tap chunk for
+  // a column C that is a multiple of 8; + 1024 for row band + sg + 8
+  const int rb = (band + sg) * 128 + (t4 & 1) * 8, rp = (t4 >> 1) ^ sg;
+  auto f32_at = [&](int C) { return (C / 32) * WBOX + rb + ((rp ^ ((C % 32) / 4)) << 4); };
+  // ldmatrix of a bf16 encoding chunk: lane l addresses fragment row l % 16
+  // (tile row band + its sg permutation) at column half l / 16
+  const int erow = band + (lane & 8) + (((lane & 3) << 1) | ((lane >> 2) & 1));
+  const int eb = erow * 128, ep = (lane >> 4) ^ (erow & 7);
+  const int arow = band + sg;  // the thread's rows arow and arow + 8
+  const float* __restrict__ l_in = p.l_in;
+  float* __restrict__ l_out = p.l_out;
+  mbar_wait(wbar, 0);
+
+  float acc[NA];
+  int cs = 0;        // ring position
+  unsigned cph = 0;  // and the parity of its pass
+  for (int i = 0; i < my_tiles; ++i) {
+#pragma unroll
+    for (int e = 0; e < NA; ++e) acc[e] = 0.0f;
+    for (int c = 0; c < nch - NRES; ++c) {
+      mbar_wait(bars + 8 * cs, cph);
+      const unsigned char* slot = ring + (size_t)cs * p.slot_bytes;
+      if (c < NTAP) {
+        // 16 rows x 64 f32 of the warp, rounded to bf16 as they enter the product
+        unsigned a[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const float2 x0 = *reinterpret_cast<const float2*>(slot + f32_at(16 * kk));
+          const float2 x1 = *reinterpret_cast<const float2*>(slot + f32_at(16 * kk) + 1024);
+          const float2 x2 = *reinterpret_cast<const float2*>(slot + f32_at(16 * kk + 8));
+          const float2 x3 = *reinterpret_cast<const float2*>(slot + f32_at(16 * kk + 8) + 1024);
+          a[kk][0] = pack_bf16(x0.x, x0.y);
+          a[kk][1] = pack_bf16(x1.x, x1.y);
+          a[kk][2] = pack_bf16(x2.x, x2.y);
+          a[kk][3] = pack_bf16(x3.x, x3.y);
+        }
+        const unsigned char* wb = TAPS_RES ? s_wtap + c * WROWS : slot + 2 * WBOX;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wgmma_w<W>(acc, a[kk], wb + 32 * kk);
+        wgmma_commit_wait();
+      } else if constexpr (F32C) {
+        // enc @ w_cond in f32 on the FMA units, k in order, onto the tap sums
+        const int k0 = (c - NTAP) * EC, kc = min(EC, DW - k0);
+        const float* wk = reinterpret_cast<const float*>(slot + WBOX) + 4 * t4;
+        const unsigned char* ea = slot + arow * 128;  // row arow + 8: 1024 B on, the same swizzle
+#pragma unroll 1
+        for (int k = 0; k < kc; ++k) {
+          // enc (arow, k) and (arow + 8, k): piece k / 4 of the row, swizzled by arow % 8
+          const int o = ((((k >> 2) ^ arow) & 7) << 4) + (k & 3) * 4;
+          const float e0 = *reinterpret_cast<const float*>(ea + o);
+          const float e1 = *reinterpret_cast<const float*>(ea + o + 1024);
+#pragma unroll
+          for (int jj = 0; jj < W / 16; ++jj) {
+            // columns 16 jj + 2 t4 + (0, 1) and 16 jj + 8 + 2 t4 + (0, 1); the
+            // loads of two jj at a time (the sums hold most of the registers)
+            if (jj % 2 == 0) asm volatile("" ::: "memory");
+            const float4 w = *reinterpret_cast<const float4*>(wk + k * W + 16 * jj);
+            float* d0 = acc + 8 * jj;
+            d0[0] = fmaf(e0, w.x, d0[0]);
+            d0[1] = fmaf(e0, w.y, d0[1]);
+            d0[2] = fmaf(e1, w.x, d0[2]);
+            d0[3] = fmaf(e1, w.y, d0[3]);
+            d0[4] = fmaf(e0, w.z, d0[4]);
+            d0[5] = fmaf(e0, w.w, d0[5]);
+            d0[6] = fmaf(e1, w.z, d0[6]);
+            d0[7] = fmaf(e1, w.w, d0[7]);
+          }
+        }
+      } else {
+        // bf16 encoding columns into the tap sums (one K = 3W + DW product);
+        // columns past DW are zeros in both operands (the copy engine's fill)
+        unsigned a[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) ldsm_x4(a[kk], slot + eb + ((((2 * kk) & 7) ^ ep) << 4));
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wgmma_w<W>(acc, a[kk], slot + WBOX + 32 * kk);
+        wgmma_commit_wait();
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bars + 8 * (p.stages + cs));
+      if (++cs == p.stages) {
+        cs = 0;
+        cph ^= 1u;
+      }
+    }
+
+    // ---- the tile's epilogue ----
+    const long long rA = ((long long)blockIdx.x + (long long)i * gridDim.x) * WTR + arow;
+    const long long rB = rA + 8;
+    unsigned ga[M / 16][4];  // bf16(g) as the A operand of the res product
+#pragma unroll
+    for (int j = 0; j < M / 8; ++j) {
+      const int col = 8 * j + 2 * t4;
+      float cnd[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};  // [s, t][e]
+      if constexpr (STREAM) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const long long r = h ? rB : rA;
+          if (r < p.n_rows) {
+#pragma unroll
+            for (int st = 0; st < 2; ++st) {
+              const long long o = r * p.cond_cols + col + st * M;
+              float2 v;
+              if constexpr (COND == STREAM_F32)
+                v = *reinterpret_cast<const float2*>(static_cast<const float*>(p.cond) + o);
+              else
+                v = __bfloat1622float2(
+                    *reinterpret_cast<const __nv_bfloat162*>(static_cast<const bf16*>(p.cond) + o));
+              cnd[st][2 * h] = v.x;
+              cnd[st][2 * h + 1] = v.y;
+            }
+          }
+        }
+      }
+      float gv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float xs = acc[4 * j + e], xt = acc[4 * (j + M / 8) + e];
+        if constexpr (STREAM) {
+          xs = xs + cnd[0][e];
+          xt = xt + cnd[1][e];
+        }
+        xs = xs + s_bias[col + (e & 1)];
+        xt = xt + s_bias[M + col + (e & 1)];
+        gv[e] = __frcp_rn(1.0f + expf(-xs)) * tanhf(xt);  // 1 / x, correctly rounded
+      }
+      ga[j >> 1][(j & 1) * 2] = pack_bf16(gv[0], gv[1]);
+      ga[j >> 1][(j & 1) * 2 + 1] = pack_bf16(gv[2], gv[3]);
+    }
+    // l' = l(t) + bf16(g) @ w_res + b_res in panels of 128 output columns
+    // (one at W 128, two at W 256, so that a thread holds 64 sums), each an
+    // m64n128 wgmma over K = W/2; the residual l(t) comes from L2 (its tap
+    // chunk has just passed through), RB n8 blocks of both rows a batch, all
+    // loads of a batch before its stores, the panel's first batch in flight
+    // during its product
+    constexpr int RB = W == 128 ? 16 : 8;
+    const unsigned char* wres[NRES];  // the tile's w_res^T chunks, held until the products end
+    int wslot[NRES];
+#pragma unroll
+    for (int r = 0; r < NRES; ++r) {
+      mbar_wait(bars + 8 * cs, cph);
+      wres[r] = ring + (size_t)cs * p.slot_bytes;
+      wslot[r] = cs;
+      if (++cs == p.stages) {
+        cs = 0;
+        cph ^= 1u;
+      }
+    }
+    float racc[64];
+    float2 xa[RB], xb[RB];
+    auto load_res = [&](int j0) {
+#pragma unroll
+      for (int jj = 0; jj < RB; ++jj) {
+        const int col = 8 * (j0 + jj) + 2 * t4;
+        xa[jj] = rA < p.n_rows ? __ldg(reinterpret_cast<const float2*>(l_in + rA * W + col))
+                               : make_float2(0.0f, 0.0f);
+        xb[jj] = rB < p.n_rows ? __ldg(reinterpret_cast<const float2*>(l_in + rB * W + col))
+                               : make_float2(0.0f, 0.0f);
+      }
+    };
+#pragma unroll
+    for (int pn = 0; pn < W / 128; ++pn) {
+      load_res(16 * pn);
+#pragma unroll
+      for (int e = 0; e < 64; ++e) racc[e] = 0.0f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < M / 16; ++kk)
+        wgmma_128(racc, ga[kk], sw128_desc(wres[kk / 4] + pn * 128 * 128 + 32 * (kk % 4)));
+      wgmma_commit_wait();
+      if (pn == W / 128 - 1) {
+        __syncwarp();
+#pragma unroll
+        for (int r = 0; r < NRES; ++r)
+          if (lane == 0) mbar_arrive(bars + 8 * (p.stages + wslot[r]));
+      }
+#pragma unroll
+      for (int j0 = 0; j0 < 16; j0 += RB) {
+        if (j0 > 0) load_res(16 * pn + j0);
+#pragma unroll
+        for (int jj = 0; jj < RB; ++jj) {
+          const int j = j0 + jj, col = 8 * (16 * pn + j) + 2 * t4;
+          const float2 b = *reinterpret_cast<const float2*>(s_bias + W + col);
+          if (rA < p.n_rows)
+            *reinterpret_cast<float2*>(l_out + rA * W + col) =
+                make_float2(xa[jj].x + racc[4 * j] + b.x, xa[jj].y + racc[4 * j + 1] + b.y);
+          if (rB < p.n_rows)
+            *reinterpret_cast<float2*>(l_out + rB * W + col) =
+                make_float2(xb[jj].x + racc[4 * j + 2] + b.x, xb[jj].y + racc[4 * j + 3] + b.y);
+        }
+      }
+    }
+  }
+  }
+}
+
 // new_hist = the last hist_rows rows of (hist ++ l_in), rows of wv float4
 // vectors; ROUND rounds every value to bf16 (bf16 carries).
 template <bool ROUND>
@@ -1102,14 +1265,15 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a [rows, cols] row-major tensor in boxes of 128 rows x 128 B, 128-byte swizzle
-cudaError_t box_map(CUtensorMap* map, const void* base, bool f32, long long rows, long long cols) {
+// a [rows, cols] row-major tensor in boxes of box_rows rows x 128 B, 128-byte swizzle
+cudaError_t box_map(CUtensorMap* map, const void* base, bool f32, long long rows, long long cols,
+                    int box_rows = PBM) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const int es = f32 ? 4 : 2;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)(cols * es)};
-  const cuuint32_t box[2] = {(cuuint32_t)(128 / es), (cuuint32_t)PBM};
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / es), (cuuint32_t)box_rows};
   const cuuint32_t unit[2] = {1, 1};
   const CUresult r = encode(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
                             2, const_cast<void*>(base), dims, strides, box, unit,
@@ -1163,26 +1327,54 @@ cudaError_t launch_persist(const FlowArgs& a, const float* src, const float* his
   return cudaGetLastError();
 }
 
-// one layer's launch of the per-block kernel (W = 128, 256)
+// one layer's launch of the wide kernel: li is the layer's index within the
+// call; w_tap, w_cond and w_res hold the wide layout (ops/flow_kernel.py
+// wide_weights): w_tap^T [W, 3W], w_cond^T [W, DW] bf16 or w_cond [DW, W] f32
+// in the wide column order, w_res^T [W, W/2], a layer after another
 template <int W, int COND>
-cudaError_t launch_layer(const FlowArgs& a, const float* src, const float* hist, float* dst,
-                         int li, long long shift, cudaStream_t st) {
-  typedef Cfg<W> C;
-  const int smem = C::smem_bytes(COND);
-  auto kernel = flow_layer_kernel<W, COND>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-  }
-  const long long n_rows = (long long)a.L * a.B;
-  const unsigned grid = (unsigned)((n_rows + C::BM - 1) / C::BM);
+cudaError_t launch_wide(const FlowArgs& a, const float* src, const float* hist, float* dst,
+                        int li, long long shift, cudaStream_t st) {
+  auto kernel = flow_wide_kernel<W, COND>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem_bytes);
+  if (err != cudaSuccess) return err;
+  const bool stream = COND == STREAM_BF16 || COND == STREAM_F32;
   const bool f32 = COND == ENC_F32 || COND == STREAM_F32;
-  kernel<<<grid, THREADS, smem, st>>>(
-      src, layer_cond(a, li, W, f32), hist, static_cast<const bf16*>(a.w_tap) + (size_t)li * 3 * W * W,
-      layer_w_cond(a, li, W, f32), static_cast<const float*>(a.bias) + (size_t)li * W,
-      static_cast<const bf16*>(a.w_res) + (size_t)li * (W / 2) * W,
-      static_cast<const float*>(a.b_res) + (size_t)li * W, dst, (int)n_rows, shift, a.cond_cols);
+  const long long n_rows = (long long)a.L * a.B;
+  const bf16* w_tap = static_cast<const bf16*>(a.w_tap) + (size_t)li * 3 * W * W;
+  const bf16* w_res = static_cast<const bf16*>(a.w_res) + (size_t)li * (W / 2) * W;
+  const void* w_cond = layer_w_cond(a, li, W, f32);
+  CUtensorMap map_l, map_h, map_c, map_w, map_wc, map_r;
+  err = box_map(&map_l, src, true, n_rows, W, WTR);
+  if (err == cudaSuccess) err = box_map(&map_h, hist != nullptr ? hist : src, true,
+                                        hist != nullptr ? 2 * shift : n_rows, W, WTR);
+  if (err == cudaSuccess)
+    err = stream ? box_map(&map_c, src, true, n_rows, W, WTR)
+                 : box_map(&map_c, a.cond, f32, n_rows, a.cond_cols, WTR);
+  if (err == cudaSuccess) err = box_map(&map_w, w_tap, false, W, 3 * W, W);
+  if (err == cudaSuccess)
+    err = COND == ENC_BF16 ? box_map(&map_wc, w_cond, false, W, a.cond_cols, W)
+                           : box_map(&map_wc, w_tap, false, W, 3 * W, W);
+  if (err == cudaSuccess) err = box_map(&map_r, w_res, false, W, W / 2, W);
+  if (err != cudaSuccess) return err;
+  WideParams p;
+  p.l_in = src;
+  p.hist = hist;
+  p.cond = stream ? static_cast<const void*>(layer_cond(a, li, W, f32)) : nullptr;
+  p.w_cond = COND == ENC_F32 ? static_cast<const float*>(w_cond) : nullptr;
+  p.bias = static_cast<const float*>(a.bias) + (size_t)li * W;
+  p.b_res = static_cast<const float*>(a.b_res) + (size_t)li * W;
+  p.l_out = dst;
+  p.shift = shift;
+  p.n_rows = (int)n_rows;
+  p.n_tiles = a.n_tiles;
+  p.cond_cols = a.cond_cols;
+  p.stages = a.stages;
+  p.slot_bytes = a.slot_bytes;
+  p.off_bias = a.off_bias;
+  p.off_bars = a.off_bars;
+  p.off_ring = a.off_ring;
+  kernel<<<a.grid, WPT, a.smem_bytes, st>>>(p, map_l, map_h, map_c, map_w, map_wc, map_r);
   return cudaGetLastError();
 }
 
@@ -1198,39 +1390,58 @@ LayerFn persist_fn(int cond_mode) {
 }
 
 template <int W>
-LayerFn layer_fn(int cond_mode) {
+LayerFn wide_fn(int cond_mode) {
   switch (cond_mode) {
-    case ENC_BF16: return launch_layer<W, ENC_BF16>;
-    case ENC_F32: return launch_layer<W, ENC_F32>;
-    case STREAM_BF16: return launch_layer<W, STREAM_BF16>;
-    case STREAM_F32: return launch_layer<W, STREAM_F32>;
+    case ENC_BF16: return launch_wide<W, ENC_BF16>;
+    case ENC_F32: return launch_wide<W, ENC_F32>;
+    case STREAM_BF16: return launch_wide<W, STREAM_BF16>;
+    case STREAM_F32: return launch_wide<W, STREAM_F32>;
     default: return nullptr;
   }
 }
 
 // The kernel of a width (the dispatch is by width alone): the persistent
-// kernel at W = 32 and 64, the per-block kernel at W = 128 and 256.
+// kernel at W = 32 and 64, the wide kernel at W = 128 and 256.
 LayerFn pick_layer_fn(int W, int cond_mode, int* kernel_id) {
-  *kernel_id = W <= 64 ? K_PERSIST : K_LAYER;
+  *kernel_id = W <= 64 ? K_PERSIST : K_WIDE;
   switch (W) {
     case 32: return persist_fn<32>(cond_mode);
     case 64: return persist_fn<64>(cond_mode);
-    case 128: return layer_fn<128>(cond_mode);
-    case 256: return layer_fn<256>(cond_mode);
+    case 128: return wide_fn<128>(cond_mode);
+    case 256: return wide_fn<256>(cond_mode);
     default: return nullptr;
   }
 }
 
-typedef void (*PersistKernel)(const PersistParams, const CUtensorMap, const CUtensorMap,
-                              const CUtensorMap);
+template <int W>
+const void* persist_kernel(int cond_mode) {
+  switch (cond_mode) {
+    case ENC_BF16: return (const void*)flow_persist_kernel<W, ENC_BF16>;
+    case ENC_F32: return (const void*)flow_persist_kernel<W, ENC_F32>;
+    case STREAM_BF16: return (const void*)flow_persist_kernel<W, STREAM_BF16>;
+    case STREAM_F32: return (const void*)flow_persist_kernel<W, STREAM_F32>;
+    default: return nullptr;
+  }
+}
 
 template <int W>
-PersistKernel persist_kernel(int cond_mode) {
+const void* wide_kernel(int cond_mode) {
   switch (cond_mode) {
-    case ENC_BF16: return flow_persist_kernel<W, ENC_BF16>;
-    case ENC_F32: return flow_persist_kernel<W, ENC_F32>;
-    case STREAM_BF16: return flow_persist_kernel<W, STREAM_BF16>;
-    case STREAM_F32: return flow_persist_kernel<W, STREAM_F32>;
+    case ENC_BF16: return (const void*)flow_wide_kernel<W, ENC_BF16>;
+    case ENC_F32: return (const void*)flow_wide_kernel<W, ENC_F32>;
+    case STREAM_BF16: return (const void*)flow_wide_kernel<W, STREAM_BF16>;
+    case STREAM_F32: return (const void*)flow_wide_kernel<W, STREAM_F32>;
+    default: return nullptr;
+  }
+}
+
+// The trunk kernel of a width, as flow_stack picks it.
+const void* trunk_kernel(int W, int cond_mode) {
+  switch (W) {
+    case 32: return persist_kernel<32>(cond_mode);
+    case 64: return persist_kernel<64>(cond_mode);
+    case 128: return wide_kernel<128>(cond_mode);
+    case 256: return wide_kernel<256>(cond_mode);
     default: return nullptr;
   }
 }
@@ -1244,8 +1455,7 @@ namespace {
 // dynamic shared bytes a block may opt in to, threads a block, and the
 // kernel's dynamic shared memory opt-in as it stands.
 cudaError_t persist_facts(int W, int cond_mode, bool set, int smem_bytes, int device, int* info) {
-  const PersistKernel k = W == 32 ? persist_kernel<32>(cond_mode)
-                        : W == 64 ? persist_kernel<64>(cond_mode) : nullptr;
+  const void* k = trunk_kernel(W, cond_mode);
   if (k == nullptr) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err == cudaSuccess && set)
@@ -1254,8 +1464,9 @@ cudaError_t persist_facts(int W, int cond_mode, bool set, int smem_bytes, int de
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, k);
   if (err != cudaSuccess) return err;
   if (!set) smem_bytes = attr.maxDynamicSharedSizeBytes;
+  const int threads = W >= 128 ? WPT : PT;
   int per_sm = 0, sms = 0, optin = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, PT, smem_bytes);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, threads, smem_bytes);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
@@ -1266,15 +1477,17 @@ cudaError_t persist_facts(int W, int cond_mode, bool set, int smem_bytes, int de
   info[3] = (int)attr.localSizeBytes;
   info[4] = (int)attr.sharedSizeBytes;
   info[5] = optin;
-  info[6] = PT;
+  info[6] = threads;
   info[7] = attr.maxDynamicSharedSizeBytes;
   return cudaSuccess;
 }
 
 }  // namespace
 
-// What the card makes of flow_persist_kernel<W, cond_mode> with smem_bytes of
-// dynamic shared memory, opted in to first (persist_facts' info[0..7]).
+// What the card makes of the trunk kernel of width W (flow_persist_kernel at
+// W 32 and 64, flow_wide_kernel at W 128 and 256) in cond_mode with
+// smem_bytes of dynamic shared memory, opted in to first (persist_facts'
+// info[0..7]).
 extern "C" int flow_persist_info(int W, int cond_mode, int smem_bytes, int device, int* info) {
   return (int)persist_facts(W, cond_mode, true, smem_bytes, device, info);
 }
@@ -1288,7 +1501,7 @@ extern "C" int flow_persist_attrs(int W, int cond_mode, int device, int* info) {
 // Runs the call's layers; launched[KernelId] counts the launches enqueued.
 extern "C" int flow_stack(const FlowArgs* args, int* launched) {
   const FlowArgs& a = *args;
-  int kid = K_LAYER;
+  int kid = K_WIDE;
   const LayerFn layer = pick_layer_fn(a.W, a.cond_mode, &kid);
   const bool stream_mode = a.cond_mode == STREAM_BF16 || a.cond_mode == STREAM_F32;
   if (layer == nullptr || a.L < 1 || a.B < 1 || a.n_layers < 1 || a.num_stages < 1 ||
@@ -1302,6 +1515,13 @@ extern "C" int flow_stack(const FlowArgs* args, int* launched) {
        (long long)(a.n_tiles - 1) * PBM >= (long long)a.L * a.B || a.stages < 2 * PG ||
        a.stages % PG || a.slot_bytes < 1 || a.smem_bytes < a.off_ring + a.stages * a.slot_bytes ||
        (!stream_mode && (a.enc_cols < 1 || a.enc_cols % (a.cond_mode == ENC_F32 ? 32 : 64)))))
+    return (int)cudaErrorInvalidValue;
+  if (kid == K_WIDE &&
+      (a.grid < 1 || a.grid > a.n_tiles || (long long)a.n_tiles * WTR < (long long)a.L * a.B ||
+       (long long)(a.n_tiles - 1) * WTR >= (long long)a.L * a.B || a.stages < 2 ||
+       a.stages > 16 || a.slot_bytes < 1 || a.smem_bytes < a.off_ring + a.stages * a.slot_bytes ||
+       a.off_bars + 16 * a.stages + 8 > a.off_ring ||
+       (!stream_mode && a.enc_cols != (a.cond_mode == ENC_F32 ? 32 : WKC))))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(a.device);
   if (err != cudaSuccess) return (int)err;

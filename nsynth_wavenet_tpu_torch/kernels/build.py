@@ -24,8 +24,11 @@ LIBRARIES = {"fastgen_kernel": "fastgen_kernel.cu", "flow_kernel": "flow_kernel.
 # library name -> the constants it is compiled with (-D flags); the host-side
 # launch plan of its ops module reads them from here, so the two share one set.
 # flow_kernel: consumer warps of a persistent block, consumer groups, and rows
-# of a tile (one 16-row band a warp of a group).
-DEFINES = {"flow_kernel": {"FLOW_WARPS": 8, "FLOW_GROUPS": 2, "FLOW_TILE_ROWS": 16 * 8 // 2}}
+# of a tile (one 16-row band a warp of a group); the wide kernel's rows of a
+# tile (one 64-row wgmma band a warpgroup of the same consumer warps) and
+# K columns of a chunk of a bf16 operand.
+DEFINES = {"flow_kernel": {"FLOW_WARPS": 8, "FLOW_GROUPS": 2, "FLOW_TILE_ROWS": 16 * 8 // 2,
+                           "FLOW_WIDE_TILE_ROWS": 64 * 8 // 4, "FLOW_WIDE_KC": 64}}
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -161,7 +161,7 @@ def feed_forward_cuda(pwn: ParallelWavenet, params, inputs, generator=None, *,
     model (the kernel's compact arithmetic).  Runs with TF32 off, so an f32
     model's deconv and heads are f32.  On the card each trunk layer is one
     CUDA launch of the kernel of the model's width (flow_stack picks by width
-    alone): flow_persist_kernel at W 32 and 64, flow_layer_kernel at W 128
+    alone): flow_persist_kernel at W 32 and 64, flow_wide_kernel at W 128
     and 256."""
     group = layers_per_call or pwn.cfg.num_stages
     if group % pwn.cfg.num_stages:

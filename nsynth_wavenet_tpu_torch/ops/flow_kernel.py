@@ -32,8 +32,10 @@ raises if it cannot), on CPU tensors it runs ``flow_stack_plain``, the plain
 PyTorch version with the same signature and the same roundings.  The kernel
 is picked by width alone: ``flow_persist_kernel`` at W 32 and 64 (persistent
 blocks, weights resident in shared memory, an asynchronous ring of row
-chunks, laid out by ``persist_plan``), ``flow_layer_kernel`` at W 128 and
-256; with a state, ``flow_state_kernel`` writes each layer's new history.
+chunks, laid out by ``persist_plan``), ``flow_wide_kernel`` at W 128 and 256
+(persistent blocks of two wgmma warpgroups sharing 128-row tiles, laid out by
+``wide_plan``, reading the weights in the layout ``wide_weights`` makes);
+with a state, ``flow_state_kernel`` writes each layer's new history.
 
 The reference's other options compute the same function: fuse_taps=False
 sums the same bf16 products in another order, tile / b_tile are TPU grid
@@ -52,8 +54,9 @@ MATRICES = ("w_tap", "w_cond", "w_res")
 WIDTHS = (32, 64, 128, 256)  # the widths csrc/flow_kernel.cu is compiled for
 COND_MODES = ("bf16", "f32cond", "stream", "stream_f32")  # index = CondMode in the source
 # flow_stack's launched[] in the source (KernelId), the keys of flow_stack.kernel_launches
-KERNEL_NAMES = ("flow_persist_kernel", "flow_layer_kernel", "flow_state_kernel")
-PERSIST_WIDTHS = (32, 64)  # flow_persist_kernel's; the wider widths run flow_layer_kernel
+KERNEL_NAMES = ("flow_persist_kernel", "flow_wide_kernel", "flow_state_kernel")
+PERSIST_WIDTHS = (32, 64)  # flow_persist_kernel's
+WIDE_WIDTHS = (128, 256)  # flow_wide_kernel's
 
 # The persistent kernel's constants, as kernels/build.py compiles them into
 # the source (-D flags), so that persist_plan and the kernel share one set.
@@ -63,6 +66,10 @@ GROUPS = _DEFINES["FLOW_GROUPS"]  # consumer groups, taking alternate tiles of t
 TILE_ROWS = _DEFINES["FLOW_TILE_ROWS"]  # rows of a tile: one 16-row band a warp of a group
 MAX_STAGES = 8  # ring slots at most
 SMEM_LIMIT = 232448  # shared memory one block may use on the H100 (227 KB)
+# the wide kernel's: rows of a tile (a 64-row wgmma band for each of the
+# WARPS // 4 consumer warpgroups) and K columns of a chunk of a bf16 operand
+WIDE_TILE_ROWS = _DEFINES["FLOW_WIDE_TILE_ROWS"]
+WIDE_KC = _DEFINES["FLOW_WIDE_KC"]
 
 
 def stack_flow_weights(flow_params):
@@ -88,15 +95,46 @@ def _stored(sw, bf16_keys):
 def compact_weights(sw):
     """The stacked weights with the matrices stored in bf16, as the compact
     kernel reads them (the same numbers: every product rounds its weights to
-    bf16 anyway).  Done once per flow, so that a call casts nothing."""
-    return _stored(sw, MATRICES)
+    bf16 anyway), and at W 128 and 256 also in the wide kernel's layout
+    (wide_weights).  Done once per flow, so that a call casts nothing."""
+    return wide_weights(_stored(sw, MATRICES))
 
 
 def noncompact_weights(sw):
     """The stacked weights as the f32-conditioning kernel reads them: w_tap and
     w_res in bf16 (they feed bf16 products in both modes), w_cond and the
-    biases in f32."""
-    return _stored(sw, ("w_tap", "w_res"))
+    biases in f32; at W 128 and 256 also in the wide kernel's layout."""
+    return wide_weights(_stored(sw, ("w_tap", "w_res")))
+
+
+def wide_cond_order(width: int):
+    """The column order of an f32 w_cond for flow_wide_kernel: position
+    16 j + 4 t + q holds column 16 j + 8 (q // 2) + 2 t + q % 2, so that one
+    16-byte load gives a thread (t = lane % 4) the four columns of two
+    neighbouring n8 blocks that its wgmma accumulators hold."""
+    p = torch.arange(width)
+    j, t, q = p // 16, (p % 16) // 4, p % 4
+    return 16 * j + 8 * (q // 2) + 2 * t + q % 2
+
+
+def wide_weights(sw):
+    """sw (compact_weights' or noncompact_weights' matrices) with, at W 128
+    and 256, the wide kernel's layout added beside them: w_tap_t [NL, W, 3W]
+    and w_res_t [NL, W, W/2] bf16 (each output column's K values contiguous,
+    as wgmma reads its B operand), and w_cond_t [NL, W, DW] bf16 when w_cond
+    is bf16, or w_cond_w [NL, DW, W] f32 in wide_cond_order when it is f32.
+    Other widths come back as they are."""
+    nl, _, _, W = sw["w_tap"].shape
+    if W not in WIDE_WIDTHS:
+        return sw
+    out = dict(sw)
+    out["w_tap_t"] = sw["w_tap"].reshape(nl, 3 * W, W).transpose(1, 2).contiguous()
+    out["w_res_t"] = sw["w_res"].transpose(1, 2).contiguous()
+    if sw["w_cond"].dtype == torch.bfloat16:
+        out["w_cond_t"] = sw["w_cond"].transpose(1, 2).contiguous()
+    else:
+        out["w_cond_w"] = sw["w_cond"][..., wide_cond_order(W).to(sw["w_cond"].device)].contiguous()
+    return out
 
 
 def dilations(s: int, n_layers: int, num_stages: int):
@@ -227,6 +265,83 @@ def persist_args(plan: PersistPlan, n_rows: int, card_blocks: int) -> dict:
         off_wchunk=plan.off_wchunk)
 
 
+WIDE_BOX = WIDE_TILE_ROWS * 128  # bytes of one wide copy box: a tile's rows x 128 bytes
+
+
+@dataclass(frozen=True)
+class WidePlan:
+    """The shared-memory layout of flow_wide_kernel for one (width, mode);
+    byte offsets as the kernel reads them from FlowArgs.  Shared memory holds
+    w_tap^T (W 128 only: 3W / 64 boxes of W rows x 64 K values, 128 B a row,
+    in the copy engine's 128-byte swizzle), the biases [2W] f32, the ring's
+    barriers (a full and an empty mbarrier a slot, then the resident
+    weights' one), then, 1024-byte aligned, the ring: ``stages`` slots of
+    ``slot_bytes``, one chunk of a tile each, which both consumer warpgroups
+    read.  A tile's chunks: the taps, WIDE_KC f32 columns a chunk (two boxes
+    of 32) with, at W 256, its w_tap^T box at 2 WIDE_BOX; the encoding's,
+    one box of ``enc_cols`` columns (64 bf16 or 32 f32) with, at
+    ``off_wchunk``, its w_cond^T box (bf16) or its enc_cols rows of w_cond
+    (f32); then ``res_chunks`` w_res^T boxes, held through the epilogue's
+    res product.  w_cond and w_res are never resident, so the layout does
+    not depend on the deconv width; a cond stream is read by the epilogue
+    from device memory."""
+
+    width: int
+    mode: str
+    taps_resident: bool
+    stages: int
+    slot_bytes: int
+    enc_cols: int
+    res_chunks: int
+    off_bias: int
+    off_bars: int
+    off_ring: int
+    off_wchunk: int
+    smem_bytes: int
+    tile_rows: int = WIDE_TILE_ROWS
+
+
+def wide_plan(width: int, mode: str, deconv_width: int = 0) -> WidePlan:
+    """flow_wide_kernel's layout at ``width`` (128 or 256) in conditioning mode
+    ``mode`` (COND_MODES); ``deconv_width``, a multiple of 8 (ignored for a
+    cond stream), does not change it.  The ring gets as many slots as fit,
+    up to MAX_STAGES."""
+    if width not in WIDE_WIDTHS or mode not in COND_MODES:
+        raise ValueError(f"no wide plan for width {width}, mode {mode}")
+    stream, f32c = mode in ("stream", "stream_f32"), mode == "f32cond"
+    if not stream and (deconv_width < 8 or deconv_width % 8):
+        raise ValueError(f"deconv width {deconv_width} is not a positive multiple of 8")
+    W = width
+    rows = W * 128  # a weight box: W rows of 64 bf16 K values
+    taps_resident = W == 128
+    off_bias = 3 * W // WIDE_KC * rows if taps_resident else 0
+    off_bars = off_bias + _up(8 * W, 128)
+    off_ring = _up(off_bars + 16 * MAX_STAGES + 8, 1024)
+    enc_cols = 32 if f32c else WIDE_KC
+    slot = 2 * WIDE_BOX + (0 if taps_resident else rows)
+    if not stream:
+        slot = max(slot, WIDE_BOX + (enc_cols * W * 4 if f32c else rows))
+    stages = min(MAX_STAGES, (SMEM_LIMIT - off_ring) // slot)
+    res_chunks = W // 2 // WIDE_KC
+    if stages < max(2, res_chunks + 1):
+        raise ValueError(f"the wide ring does not fit at width {W}, mode {mode}")
+    return WidePlan(W, mode, taps_resident, stages, slot, 0 if stream else enc_cols, res_chunks,
+                    off_bias, off_bars, off_ring, WIDE_BOX, off_ring + stages * slot)
+
+
+def wide_args(plan: WidePlan, n_rows: int, card_blocks: int) -> dict:
+    """The launch fields of FlowArgs for one layer of flow_wide_kernel over
+    n_rows rows: the grid (the blocks the card holds at once, cut to the
+    tiles there are) and n_tiles of WIDE_TILE_ROWS rows, the last one
+    ragged, which the blocks walk as block, block + grid, ..."""
+    n_tiles = -(-n_rows // WIDE_TILE_ROWS)
+    return dict(
+        grid=min(card_blocks, n_tiles), n_tiles=n_tiles, smem_bytes=plan.smem_bytes,
+        stages=plan.stages, slot_bytes=plan.slot_bytes, enc_cols=plan.enc_cols, wc_resident=0,
+        off_w_cond=0, off_w_res=0, off_bias=plan.off_bias, off_bars=plan.off_bars,
+        off_ring=plan.off_ring, off_wchunk=plan.off_wchunk)
+
+
 def _bf(x):
     """Round to bf16 and hold as f32 (a product's operand)."""
     return x.to(torch.bfloat16).float()
@@ -268,7 +383,8 @@ def flow_stack_plain(x, enc, sw, s, n_layers, num_stages, state=None, compact=Tr
             pre = (taps + enc_op @ (_bf(w_cond) if bf_cond else w_cond)
                    + (sw["b"][li] + sw["b_cond"][li]).float())
         g = torch.sigmoid(pre[..., :m]) * torch.tanh(pre[..., m:])
-        new_state.append(_bf(stream[L:]) if carry_bf16 else stream[L:])
+        if state is not None:  # (a view of stream[L:] would keep every layer's stream alive)
+            new_state.append(_bf(stream[L:]) if carry_bf16 else stream[L:])
         l = l + _bf(g) @ _bf(sw["w_res"][li]) + sw["b_res"][li].float()
     if state is None:
         return l
@@ -330,12 +446,12 @@ def _card_facts(fn, width, mode, device, *smem_bytes):
     facts = dict(zip(_FACTS, info))
     if facts["smem_limit"] < SMEM_LIMIT:
         raise RuntimeError(f"the card lets a block opt in to {facts['smem_limit']} bytes of shared "
-                           f"memory; persist_plan lays out up to {SMEM_LIMIT}")
+                           f"memory; persist_plan and wide_plan lay out up to {SMEM_LIMIT}")
     return facts
 
 
 def launch_info(width, mode, smem_bytes, device):
-    """What the card makes of flow_persist_kernel at ``width`` in ``mode`` with
+    """What the card makes of the trunk kernel of ``width`` (kernel_name) in ``mode`` with
     ``smem_bytes`` of dynamic shared memory (opted in to here): {blocks_per_sm,
     sms, registers, spill_bytes (local memory a thread), static_smem,
     smem_limit (the card's opt-in limit a block), threads, dynamic_smem}, read
@@ -344,14 +460,14 @@ def launch_info(width, mode, smem_bytes, device):
     if key not in _INFO:
         info = _card_facts("flow_persist_info", width, mode, device, smem_bytes)
         if info["blocks_per_sm"] < 1:
-            raise RuntimeError(f"flow_persist_kernel does not fit an SM with {smem_bytes} bytes "
+            raise RuntimeError(f"{kernel_name(width)} does not fit an SM with {smem_bytes} bytes "
                                "of shared memory")
         _INFO[key] = info
     return dict(_INFO[key])
 
 
 def launched_facts(width, mode, device):
-    """launch_info's facts of flow_persist_kernel at ``width`` in ``mode`` as
+    """launch_info's facts of the trunk kernel of ``width`` in ``mode`` as
     the card holds them now, setting nothing: dynamic_smem is the opt-in its
     last launch set (cudaFuncGetAttributes' maxDynamicSharedSizeBytes), and
     blocks_per_sm the occupancy at that shared memory."""
@@ -410,6 +526,27 @@ def _conditioning(enc, cond, sw, sl, L, B, W, n_layers, compact, fuse_cond, dev)
     return mode, enc, w_cond[sl], (sw["b"][sl] + sw["b_cond"][sl]).contiguous()
 
 
+def _wide_operands(sw, sl, mode, w_cond, fuse_cond, W):
+    """(w_tap^T, w_res^T, the conditioning weights) of layers sl in the wide
+    kernel's layout (wide_weights): w_cond^T in bf16, w_cond in the wide
+    column order in f32, or None for a stream."""
+    nl, bf = sw["w_tap"].shape[0], torch.bfloat16
+    want = {"w_tap_t": (bf, (nl, W, 3 * W)), "w_res_t": (bf, (nl, W, W // 2))}
+    if w_cond is not None and not fuse_cond:  # fuse_cond's w_cond is rounded at the call
+        DW = w_cond.shape[1]
+        want.update({"w_cond_t": (bf, (nl, W, DW))} if mode == "bf16" else
+                    {"w_cond_w": (torch.float32, (nl, DW, W))})
+    for name, (dt, shape) in want.items():
+        if name not in sw:
+            raise ValueError(f"{name}: the wide kernel (W {W}) reads the wide layout: pass "
+                             "compact_weights(sw) or noncompact_weights(sw)")
+        _expect(name, sw[name], shape, dt, sw["w_tap"].device)
+    if w_cond is not None:
+        w_cond = (w_cond.transpose(1, 2).contiguous() if fuse_cond
+                  else sw["w_cond_t" if mode == "bf16" else "w_cond_w"][sl])
+    return sw["w_tap_t"][sl], sw["w_res_t"][sl], w_cond
+
+
 def _flow_stack_cuda(x, enc, sw, s, n_layers, num_stages, state=None, compact=True,
                      fuse_cond=False, carry_dtype=None, cond=None):
     L, B, W = x.shape
@@ -444,15 +581,21 @@ def _flow_stack_cuda(x, enc, sw, s, n_layers, num_stages, state=None, compact=Tr
 
     out = torch.empty_like(x)
     tmp = torch.empty_like(x) if n_layers > 1 else None
-    plan_args = {}
+    stream = mode in ("stream", "stream_f32")
+    w_tap, w_res = sw["w_tap"][sl], sw["w_res"][sl]
     if W in PERSIST_WIDTHS:
-        plan = persist_plan(W, mode, 0 if mode in ("stream", "stream_f32") else cond_t.shape[-1])
+        plan = persist_plan(W, mode, 0 if stream else cond_t.shape[-1])
         info = launch_info(W, mode, plan.smem_bytes, dev)
         plan_args = persist_args(plan, L * B, info["blocks_per_sm"] * info["sms"])
+    else:
+        w_tap, w_res, w_cond = _wide_operands(sw, sl, mode, w_cond, fuse_cond, W)
+        plan = wide_plan(W, mode, 0 if stream else cond_t.shape[-1])
+        info = launch_info(W, mode, plan.smem_bytes, dev)
+        plan_args = wide_args(plan, L * B, info["blocks_per_sm"] * info["sms"])
     args = _FlowArgs(
-        x=x.data_ptr(), cond=cond_t.data_ptr(), w_tap=sw["w_tap"][sl].data_ptr(),
+        x=x.data_ptr(), cond=cond_t.data_ptr(), w_tap=w_tap.data_ptr(),
         w_cond=None if w_cond is None else w_cond.data_ptr(), bias=bias.data_ptr(),
-        w_res=sw["w_res"][sl].data_ptr(), b_res=sw["b_res"][sl].data_ptr(),
+        w_res=w_res.data_ptr(), b_res=sw["b_res"][sl].data_ptr(),
         state=None if state is None else state.data_ptr(),
         new_state=None if new_state is None else new_state.data_ptr(),
         tmp=None if tmp is None else tmp.data_ptr(), out=out.data_ptr(),
@@ -467,9 +610,8 @@ def _flow_stack_cuda(x, enc, sw, s, n_layers, num_stages, state=None, compact=Tr
     for name, n in zip(KERNEL_NAMES, launched):
         flow_stack.kernel_launches[name] += n
     _check(lib, rc)
-    if plan_args:
-        flow_stack.last_launch = dict(kernel=KERNEL_NAMES[0], width=W, mode=mode,
-                                      tile_rows=TILE_ROWS, **plan_args)
+    flow_stack.last_launch = dict(kernel=kernel_name(W), width=W, mode=mode,
+                                  tile_rows=plan.tile_rows, **plan_args)
     flow_stack.launches += 1
     key = mode_key(mode, W)
     flow_stack.launches_by_mode[key] = flow_stack.launches_by_mode.get(key, 0) + 1
@@ -494,7 +636,8 @@ def flow_stack(x, enc, sw, s, n_layers, num_stages, state=None, compact=True, *,
     n_layers >= 1.  CUDA tensors run the CUDA kernels (widths in WIDTHS, a
     deconv width that is a multiple of 8), picked by width alone: every layer
     is one launch of flow_persist_kernel at W 32 and 64 and of
-    flow_layer_kernel at W 128 and 256, and with a state one launch of
+    flow_wide_kernel at W 128 and 256 (which read the wide layout that
+    compact_weights / noncompact_weights add), and with a state one launch of
     flow_state_kernel; flow_stack.kernel_launches counts them by name where
     they are enqueued.  CPU tensors run the plain version."""
     if x.device.type == "cuda":
@@ -511,6 +654,6 @@ flow_stack.launches = 0
 flow_stack.kernel_launches = dict.fromkeys(KERNEL_NAMES, 0)
 # by mode_key: the conditioning mode, "_w<width>" appended for widths other than 64
 flow_stack.launches_by_mode = {mode_key(m, w): 0 for w in WIDTHS for m in COND_MODES}
-# FlowArgs' launch fields of the last call that ran flow_persist_kernel (persist_args),
-# with the kernel, width, mode and tile rows, as flow_stack handed them to the C entry point
+# FlowArgs' launch fields of the last call (persist_args or wide_args), with the
+# kernel, width, mode and tile rows, as flow_stack handed them to the C entry point
 flow_stack.last_launch = None

@@ -82,7 +82,8 @@ def _scale_close(got, want):
     np.testing.assert_allclose(got, want, atol=REL_TOL * max(np.abs(want).max(), 1.0), rtol=0)
 
 
-@pytest.mark.parametrize("W,num_stages,DW", [(8, 2, 16), (32, 3, 24), (128, 2, 40)])
+@pytest.mark.parametrize("W,num_stages,DW", [(8, 2, 16), (32, 3, 24), (128, 2, 40),
+                                             (256, 2, 40)])
 def test_noncompact_plain_matches_pallas(W, num_stages, DW):
     """f32 encoding and w_cond, the cond product in f32: the f32 student's mode."""
     n_layers, L, B = 3, 64, 2
