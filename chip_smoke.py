@@ -305,6 +305,33 @@ requirements):
      gather_results over a root holding both, wavs written through one
      fastgen_persistent launch and 60 flow_persist_kernel launches;
      downsample of a 44.1 kHz wav equal to resample_poly.
+Phases P1 to P3 drive the perf probes (fastgen_kernel.generate(probe=),
+flow_kernel.flow_stack(probe=)), each a variant of the kernels compiled into
+a library of its own (kernels/build.py PROBES), after Q4:
+ P1. the AR kernel's cheap_gate and no_ring_write variants against their
+     plain versions: teacher-forced at the full width of
+     configs/wavenet_mol.json (phase 2's input, B = 8, L = 256; phase 2's
+     limit over the first 16 steps, and over all 256 the larger of it and
+     PROBE_FLOOR_FACTOR times the plain version's own CPU-vs-card distance);
+     phase 2's whole checks (teacher-forced, sampled replay, free run against
+     the plain network fed the same audio) at 4 layers and on the golden
+     tiny_mol, in bf16, W8A8 static and W8A8 per-row (phase 3's limit; the
+     int8 modes' W8A8_REL_TOL at 4 layers), and teacher-forced at 4 layers
+     in phase 20's other (act, rs) pairs and the bf16 combine, so that every
+     probe kernel runs; the grid barriers of every probe
+     call, as the kernel counted them, 2 * NL + 3 a step; the 128-step call
+     at B = 512 timed beside its plain version, with its launch facts;
+ P2. the flow kernels' no_gate and no_slide variants against their plain
+     versions at W 32 / 64 / 128 / 256 (random weights from a seed, B = 8 x
+     4096 in bf16 and f32-cond, B = 3 x 600 also in both cond streams): each
+     call's launches by kernel name exact, chained chunks of 512 bit for bit
+     equal to the one-shot call and their final state against the plain
+     one, the probe kernels' launch facts; the 10-layer bf16 call at W 64,
+     B = 32 x L = 64000 timed;
+ P3. no probe call moved a serving launch count (a probe counts in
+     launches_by_probe), and afterwards the full AR kernel (full width,
+     B = 8, 64 steps, teacher-forced) and the full flow kernel (W 64 and 256,
+     B = 8 x 4096) give bit for bit the output they gave before any probe ran.
 Every teacher generate call is one cooperative launch of the persistent
 kernel fastgen_persistent (after quant_enc_kernel in the int8 modes).
 Phases other than 32 run with TF32 off.  The last line is {"ok": true,
@@ -432,6 +459,19 @@ M3_DTYPES = ("bfloat16", "float64")
 # quantisation bins (2 / quant_chann): see PERF.md section 6 for the readings
 MESH_SYNTH_BINS_BF16 = 128
 MESH_SYNTH_BINS_F32 = 16
+# The probes' full-width teacher-forced check.  The clip gate of cheap_gate has
+# slope 1 where sigmoid * tanh has at most 1/4 and 1, so the 30-layer
+# random-weight network amplifies summation-order differences more: over 256
+# steps the plain version on the CPU parts from itself on the card by 1.45e-1
+# (5.9e-2 x scale; the kernel from the plain version 1.90e-1, 1.31 times
+# that, 4.57e-2 by step 64; PR 16, an H100 80GB HBM3 at 700 W, PERF.md),
+# above FULL_WIDTH_REL_TOL.  So a probe is held to phase 2's limit over its
+# first 16 steps (6.13e-3 read), before the ring's taps carry the
+# amplified differences, and over all 256 to the larger of that limit and
+# PROBE_FLOOR_FACTOR times the plain version's CPU-vs-card distance in the
+# same run, the margin FULL_WIDTH_REL_TOL keeps above its own readings; a
+# wrong kernel parts by the scale itself.
+PROBE_FLOOR_FACTOR = 1.7
 STREAM_STEPS, STREAM_CHUNK = 300, 128
 STUDENT_BATCHES = (32, 8)
 STUDENT_SAMPLES = 64000  # 4 s
@@ -482,6 +522,41 @@ def on_cpu(kw):
     return {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
 
 
+def check_teacher_forced(label, cfg, kw, enc_t, seed, rel_tol, cpu_floor=False, floor_factor=0.0,
+                         **opts):
+    """check_kernel's first check alone: the teacher-forced greedy head
+    outputs of the kernel against the plain version's; returns (their
+    largest difference, the plain version's CPU-vs-card one or None).  With
+    cpu_floor and floor_factor the limit is the larger of rel_tol x scale and
+    floor_factor x that CPU-vs-card distance."""
+    L, B, _ = enc_t.shape
+    tf = forced_feedback(L, B)
+    _, out_k = fk.generate(kw, enc_t, seed, greedy=True, tf=tf, collect_out_params=True, **opts)
+    if opts.get("probe"):
+        require_barriers(label, cfg)
+    _, out_p = fk.generate_plain(kw, enc_t, seed, greedy=True, tf=tf, collect_out_params=True,
+                                 **opts)
+    out_k, out_p = fk.unpack_head(cfg, out_k), fk.unpack_head(cfg, out_p)
+    require(bool(torch.isfinite(out_k).all()), f"{label}: non-finite kernel output")
+    step_err = (out_k - out_p).abs().amax(dim=(0, 2))
+    err = float(step_err.max())
+    scale = max(float(out_p.abs().max()), 1.0)
+    limit = rel_tol * scale
+    growth = ", ".join(f"steps <{n} {float(step_err[:n].max()):.3e}" for n in (1, 16, 64) if n < L)
+    floor = None
+    if cpu_floor:
+        _, out_c = fk.generate_plain(on_cpu(kw), enc_t.cpu(), seed, greedy=True, tf=tf.cpu(),
+                                     collect_out_params=True, **opts)
+        floor = float((fk.unpack_head(cfg, out_c) - out_p.cpu()).abs().max())
+        limit = max(limit, floor_factor * floor)
+    log(f"{label} B={B} L={L}: teacher-forced head outputs max|d| kernel-plain {err:.3e} "
+        f"({growth}), scale {scale:.3f}, limit {limit:.3e} ({rel_tol:g} x scale"
+        + (f", or {floor_factor:g} x the plain CPU-card distance if larger)" if floor_factor else ")")
+        + ("" if floor is None else f"; plain CPU-plain card {floor:.3e}"))
+    require(err <= limit, f"{label} B={B}: teacher-forced head outputs differ")
+    return err, floor
+
+
 def check_kernel(label, cfg, kw, enc_t, seed, rel_tol, cpu_floor=False, **opts):
     """Kernel vs plain version on the same inputs; returns (largest
     teacher-forced head-output error, the plain version's CPU-vs-card
@@ -499,34 +574,17 @@ def check_kernel(label, cfg, kw, enc_t, seed, rel_tol, cpu_floor=False, **opts):
     cpu_floor: also run the plain version on the CPU, where only the f32
     summation order differs from the plain version on the card, and log how
     far the two plain runs part: no implementation can be held closer to the
-    plain version than that.  opts (int8_combine) go to both versions."""
+    plain version than that.  opts (int8_combine, probe) go to both versions;
+    every probe call must keep the kernel's grid barriers a step."""
     L, B, _ = enc_t.shape
-    tf = forced_feedback(L, B)
-
     # teacher-forced, greedy: the network and head
-    _, out_k = fk.generate(kw, enc_t, seed, greedy=True, tf=tf, collect_out_params=True, **opts)
-    _, out_p = fk.generate_plain(kw, enc_t, seed, greedy=True, tf=tf, collect_out_params=True,
-                                 **opts)
-    out_k, out_p = fk.unpack_head(cfg, out_k), fk.unpack_head(cfg, out_p)
-    require(bool(torch.isfinite(out_k).all()), f"{label}: non-finite kernel output")
-    step_err = (out_k - out_p).abs().amax(dim=(0, 2))
-    err = float(step_err.max())
-    scale = max(float(out_p.abs().max()), 1.0)
-    limit = rel_tol * scale
-    growth = ", ".join(f"steps <{n} {float(step_err[:n].max()):.3e}" for n in (1, 16, 64) if n < L)
-    floor = None
-    if cpu_floor:
-        _, out_c = fk.generate_plain(on_cpu(kw), enc_t.cpu(), seed, greedy=True, tf=tf.cpu(),
-                                     collect_out_params=True, **opts)
-        floor = float((fk.unpack_head(cfg, out_c) - out_p.cpu()).abs().max())
-    log(f"{label} B={B} L={L}: teacher-forced head outputs max|d| kernel-plain {err:.3e} "
-        f"({growth}), scale {scale:.3f}, limit {limit:.3e} ({rel_tol:g} x scale)"
-        + ("" if floor is None else f"; plain CPU-plain card {floor:.3e}"))
-    require(err <= limit, f"{label} B={B}: teacher-forced head outputs differ")
+    err, floor = check_teacher_forced(label, cfg, kw, enc_t, seed, rel_tol, cpu_floor, **opts)
 
     # sampled free run: sampler exact on the kernel's own head outputs, and the
     # plain network fed the kernel's own audio reproduces those outputs
     audio_k, outs_k = fk.generate(kw, enc_t, seed, collect_out_params=True, **opts)
+    if opts.get("probe"):
+        require_barriers(label, cfg)
     require(bool(torch.isfinite(audio_k).all()) and float(audio_k.abs().max()) <= 1.0,
             f"{label} B={B}: free-run audio not finite in [-1, 1]")
     replay = fk.resample_plain(cfg, outs_k, seed)
@@ -549,6 +607,15 @@ def check_kernel(label, cfg, kw, enc_t, seed, rel_tol, cpu_floor=False, **opts):
     log(f"{label} B={B}: independent free runs agree within one bin for {first} steps, "
         f"{float(same.float().mean()):.4f} of samples (logged only)")
     return err, floor
+
+
+def require_barriers(label, cfg):
+    """The last CUDA generate call's grid barriers a step, as the kernel
+    counted them, must be barriers_per_step (a synchronising read)."""
+    got = fk.barriers_counted()
+    require(got == fk.barriers_per_step(cfg),
+            f"{label}: {got} grid barriers a step, want {fk.barriers_per_step(cfg)}")
+    return got
 
 
 def step_counts(cfg, B, out_width, mode=fk.Mode("bf16", "bf16")):
@@ -592,16 +659,17 @@ def replay_graph(step, reps):
     return run
 
 
-def time_kernel(cfg, kw, enc_t, seed):
+def time_kernel(cfg, kw, enc_t, seed, **opts):
     """ms of the kernel, the plain version and the library on the same per-step
     matmuls (cuBLAS for a bf16 product, torch._int_mm for an int8 one: one
     call for the stacked operand, or in the per-row mode one for each of the
     four segments that dequantise apart), and the card's bound, for one call
-    of TIMED_STEPS steps."""
+    of TIMED_STEPS steps.  opts (a probe) go to the kernel and the plain
+    version; the yardstick and the bound are the full call's."""
     L, B, DW = enc_t.shape
     mode = fk.kernel_mode(kw)
-    ms = cuda_ms(lambda: fk.generate(kw, enc_t, seed))
-    plain_ms = cuda_ms(lambda: fk.generate_plain(kw, enc_t, seed), reps=1)
+    ms = cuda_ms(lambda: fk.generate(kw, enc_t, seed, **opts))
+    plain_ms = cuda_ms(lambda: fk.generate_plain(kw, enc_t, seed, **opts), reps=1)
     W, GW = cfg.width, cfg.gate_width
     w_comb, w_rs = kw["w_comb"], kw["w_rs"]
 
@@ -1395,13 +1463,23 @@ def flow_inputs(pwn, params, B, L, seed):
     return x, enc
 
 
-def kernel_launches_of(fn):
+def kernel_launches_of(fn, probe=None):
     """(fn(), the flow kernels' CUDA launches by name that fn enqueued), from
-    the counts the C entry point keeps (flow_stack.kernel_launches)."""
-    flk.flow_stack.kernel_launches = dict.fromkeys(flk.KERNEL_NAMES, 0)
+    the counts the C entry point keeps (flow_stack.kernel_launches, or a
+    probe's flow_stack.launches_by_probe, in which case the serving counts
+    must not move; the probe's counts keep their running totals)."""
+    if probe is None:
+        flk.flow_stack.kernel_launches = dict.fromkeys(flk.KERNEL_NAMES, 0)
+        out = fn()
+        torch.cuda.synchronize()
+        return out, dict(flk.flow_stack.kernel_launches)
+    serving, counts = dict(flk.flow_stack.kernel_launches), flk.flow_stack.launches_by_probe[probe]
+    before = dict(counts)
     out = fn()
     torch.cuda.synchronize()
-    return out, dict(flk.flow_stack.kernel_launches)
+    require(flk.flow_stack.kernel_launches == serving,
+            f"a {probe} call moved the serving launch counts {flk.flow_stack.kernel_launches}")
+    return out, {k: counts[k] - before[k] for k in counts}
 
 
 def require_launches(label, got, want):
@@ -1414,7 +1492,8 @@ def check_flow(label, x, enc, sw, s, nl, num_stages, cpu_floor=False, **kw):
     flow_stack options), and the call's launches by kernel name: exactly one
     trunk launch a layer, of the kernel of its width; returns (kernel output,
     largest error, the plain version's CPU-vs-card distance or None)."""
-    out_k, launched = kernel_launches_of(lambda: flk.flow_stack(x, enc, sw, s, nl, num_stages, **kw))
+    out_k, launched = kernel_launches_of(lambda: flk.flow_stack(x, enc, sw, s, nl, num_stages, **kw),
+                                         kw.get("probe"))
     require_launches(label, launched, flk.predicted_launches(x.shape[-1], nl, False))
     out_p = flk.flow_stack_plain(x, enc, sw, s, nl, num_stages, **kw)
     require(bool(torch.isfinite(out_k).all()), f"{label}: non-finite kernel output")
@@ -1449,7 +1528,7 @@ def check_flow_streaming(x, enc, sw, nl, num_stages, oneshot, chunk, label="flow
         e = None if enc is None else enc[c0 : c0 + chunk]
         ckw = kw if kw.get("cond") is None else dict(kw, cond=kw["cond"][c0 : c0 + chunk])
         (o, state), launched = kernel_launches_of(lambda: flk.flow_stack(
-            x[c0 : c0 + chunk], e, sw, 0, nl, num_stages, state=state, **ckw))
+            x[c0 : c0 + chunk], e, sw, 0, nl, num_stages, state=state, **ckw), kw.get("probe"))
         require_launches(f"{label} chunk at {c0}", launched, flk.predicted_launches(W, nl, True))
         _, state_p = flk.flow_stack_plain(x[c0 : c0 + chunk], e, sw, 0, nl, num_stages,
                                           state=state_p, **ckw)
@@ -4316,6 +4395,201 @@ def quality_phases(card, trained):
     return out
 
 
+# ---- P1-P3: the perf probes -------------------------------------------------------
+
+# the reference's branch of each probe (make_generate_fn / make_flow_stack_fn probe=)
+PROBE_REPLACES = {"cheap_gate": "nsynth_wavenet_tpu/ops/fastgen_kernel.py:572",
+                  "no_ring_write": "nsynth_wavenet_tpu/ops/fastgen_kernel.py:621",
+                  "no_gate": "nsynth_wavenet_tpu/ops/flow_kernel.py:303",
+                  "no_slide": "nsynth_wavenet_tpu/ops/flow_kernel.py:325"}
+
+
+def ar_probe_phase(model, params, kw):
+    """P1: the AR kernel's probe variants against their plain versions, every
+    call keeping 2 * NL + 3 grid barriers a step; returns {probe: (the
+    full-width teacher-forced error, {check: error}, timing, launch facts)}."""
+    cfg = model.cfg
+    out = {}
+    enc8 = conditioning(model, params, B=8, L=256, seed=1)  # phase 2's input and limit
+    enc_t = conditioning(model, params, B=MAIN_BATCHES[-1], L=TIMED_STEPS,
+                         seed=10 + MAIN_BATCHES[-1])  # phase 5's timed input
+    _, out_pad = fk.head_layout(cfg)
+    for probe in fk.PROBES:
+        opts = {"probe": probe, "allow_wrong_output": True}
+        check_teacher_forced(f"{probe} mol full width, first 16 steps", cfg, kw, enc8[:16], seed=5,
+                             rel_tol=FULL_WIDTH_REL_TOL, **opts)
+        err, _ = check_teacher_forced(f"{probe} mol full width", cfg, kw, enc8, seed=5,
+                                      rel_tol=FULL_WIDTH_REL_TOL, cpu_floor=True,
+                                      floor_factor=PROBE_FLOOR_FACTOR, **opts)
+        tm = time_kernel(cfg, kw, enc_t, seed=1, **opts)
+        barriers = require_barriers(f"{probe} timed call", cfg)
+        sched, info = fk.launch_plan(cfg.width, cfg.gate_width, cfg.skip_width, cfg.deconv_width,
+                                     out_pad, MAIN_BATCHES[-1], fk.kernel_mode(kw), "cuda", probe)
+        facts = {k: info[k] for k in ("grid", "registers", "spill_bytes")}
+        facts.update(smem_bytes=sched.smem_bytes, barriers_per_step=barriers)
+        log(f"timing {probe} bf16 B={MAIN_BATCHES[-1]} {TIMED_STEPS} steps: kernel {tm['ms']:.3f} ms "
+            f"({1e3 * tm['ms'] / TIMED_STEPS:.1f} us/step), plain {tm['plain_ms']:.3f} ms, "
+            f"bound {tm['bound_ms']:.4f} ms ({tm['bound_by']}); launch {facts}")
+        out[probe] = (err, {}, tm, facts)
+    gwavs = np.stack([wav_io.read_wav(os.path.join(GOLDEN, f"gen_golden_mol_{i}.wav"))[0][:8000]
+                      for i in (0, 1)])
+    m4, p4, _ = full_model("configs/wavenet_mol.json", num_layers=4)
+    gmodel, gparams, _ = golden_model()
+    for label, m, p, wavs, seed in (("mol 4 layers", m4, p4, synthetic_wavs(8, 16000, 77), 2),
+                                    ("golden tiny_mol", gmodel, gparams, gwavs, 3)):
+        enc = conditioning(m, p, B=8, L=256, seed=seed)
+        kw_static, amax = calibrated_w8a8(m, p, wavs)
+        kws = {"bf16": fk.build_kernel_weights(m.cfg, p), "w8a8": kw_static,
+               "w8a8 row": fk.build_kernel_weights(m.cfg, p, weight_dtype="int8")}
+        for mode, kw_m in kws.items():
+            # phase 3's limit; the int8 modes' own at 4 layers (phases 12 and 19)
+            tol = REL_TOL if mode == "bf16" or label.startswith("golden") else W8A8_REL_TOL
+            for probe in fk.PROBES:
+                name = f"{probe} {label} {mode}"
+                out[probe][1][name], _ = check_kernel(name, m.cfg, kw_m, enc, seed=7, rel_tol=tol,
+                                                      probe=probe, allow_wrong_output=True)
+        if m is m4:  # the other (act, rs) pairs and the bf16 combine, teacher-forced (phase 20's limit)
+            for mode, build, opts in OTHER_MODES:
+                kw_m = pack(m.cfg, p, amax, **build)
+                for probe in fk.PROBES:
+                    name = f"{probe} {label} {mode}"
+                    out[probe][1][name], _ = check_teacher_forced(
+                        name, m.cfg, kw_m, enc, seed=7, rel_tol=W8A8_REL_TOL, probe=probe,
+                        allow_wrong_output=True, **opts)
+    return out
+
+
+def flow_probe_phase(check_serving):
+    """P2: the flow kernels' probe variants against their plain versions at
+    phase 28's shapes and limit, at W 32 / 64 / 128 / 256, with their launches
+    by name and chained chunks of 512 bit for bit; then the 10-layer bf16 call
+    at W 64, B = 32 x L = 64000 timed, and, after check_serving(), the full
+    call on the same inputs.  Returns {probe: (largest error, launch facts,
+    timing)} and the full call's timing."""
+    bf = torch.bfloat16
+    errs, facts = dict.fromkeys(flk.PROBES, 0.0), {p: {} for p in flk.PROBES}
+    for wd in flk.WIDTHS:
+        pw, pp = student_model(seed=wd, width=wd)
+        pw32 = ParallelWavenet(dataclasses.replace(pw.cfg, compute_dtype="float32"))
+        ns = pw.cfg.num_stages
+        sww = flk.stack_flow_weights(pp["flows"][0])
+        cw_w, nw_w = flk.compact_weights(sww), flk.noncompact_weights(sww)
+        for B_, L_, seed in ((8, 4096, 60 + wd), (3, 600, 61 + wd)):
+            xw, ew = flow_inputs(pw32, pp, B=B_, L=L_, seed=seed)
+            cases = [("bf16", ew.to(bf), cw_w, {}), ("f32-cond", ew, nw_w, {"compact": False})]
+            if B_ == 3:  # the cond streams at the ragged shape
+                c32 = stream_of(ew, sww, 0, ns)
+                cases += [("cond stream bf16", None, cw_w, {"cond": c32.to(bf)}),
+                          ("cond stream f32", None, nw_w, {"cond": c32, "compact": False})]
+            for mode_label, e, wts, kw in cases:
+                for probe in flk.PROBES:
+                    pk = dict(kw, probe=probe, allow_wrong_output=True)
+                    name = f"{probe} flow width {wd} ({mode_label})"
+                    o, err, _ = check_flow(name, xw, e, wts, 0, ns, ns, **pk)
+                    errs[probe] = max(errs[probe], err)
+                    if B_ == 8:
+                        mode = flk.flow_stack.last_launch["mode"]
+                        card = flk.launched_facts(wd, mode, "cuda", probe)
+                        facts[probe][flk.mode_key(mode, wd)] = {
+                            k: card[k] for k in ("registers", "spill_bytes", "dynamic_smem",
+                                                 "blocks_per_sm")}
+                        log(f"launch {flk.kernel_name(wd)}<{wd}, {mode}> {probe}: "
+                            f"{facts[probe][flk.mode_key(mode, wd)]}")
+                    check_flow_streaming(xw, e, wts, ns, ns, o, 512, label=name, **pk)
+        del pp
+    pwn, params = student_model()
+    ns, W = pwn.cfg.num_stages, pwn.cfg.width
+    g = torch.Generator().manual_seed(33)
+    x = (0.3 * torch.randn((STUDENT_SAMPLES, STUDENT_BATCHES[0], W), generator=g)).cuda()
+    e = (0.5 * torch.randn((STUDENT_SAMPLES, STUDENT_BATCHES[0], pwn.cfg.deconv_width),
+                           generator=g)).to("cuda", bf)
+    sw = flk.compact_weights(flk.stack_flow_weights(params["flows"][3]))
+    out = {}
+    for probe in flk.PROBES:
+        tm = time_flow(x, e, sw, ns, ns, probe=probe, allow_wrong_output=True)
+        log_flow_timing(f"bf16 {probe}", x, ns, tm)
+        out[probe] = (errs[probe], facts[probe], tm)
+    check_serving()
+    full_tm = time_flow(x, e, sw, ns, ns)
+    log_flow_timing("bf16 (the full call)", x, ns, full_tm)
+    return out, full_tm
+
+
+def probe_phases():
+    """Phases P1 to P3; returns the kernels records of the four probe variants."""
+    t_start = time.time()
+    model, params, kw = full_model("configs/wavenet_mol.json")
+    enc64, tf64 = conditioning(model, params, B=8, L=64, seed=95), forced_feedback(64, 8)
+    flows = {}
+    for wd in (64, 256):
+        pw, pp = student_model(seed=wd, width=wd)
+        x, e = flow_inputs(pw, pp, B=8, L=4096, seed=96)
+        flows[wd] = (x, e.to(torch.bfloat16),
+                     flk.compact_weights(flk.stack_flow_weights(pp["flows"][0])), pw.cfg.num_stages)
+        del pp
+
+    def full_outputs():  # the full kernels on fixed inputs
+        out = {"fastgen_persistent": fk.generate(kw, enc64, 3, greedy=True, tf=tf64,
+                                                 collect_out_params=True)[1]}
+        for wd, (x, e, sw, ns) in flows.items():
+            out[f"flow W {wd}"] = flk.flow_stack(x, e, sw, 0, ns, ns)
+        torch.cuda.synchronize()
+        return out
+
+    before = full_outputs()
+
+    def serving_counts():
+        return (fk.generate.launches, dict(fk.generate.kernel_launches), flk.flow_stack.launches,
+                dict(flk.flow_stack.kernel_launches))
+
+    serving = serving_counts()
+
+    def check_serving():  # P3: no probe call is counted as a serving one
+        now = serving_counts()
+        require(now == serving, f"the probe phases moved the serving launch counts: {serving} -> {now}")
+        log("P3 the serving launch counts did not move in P1-P2")
+
+    for probe in fk.PROBES:
+        fk.generate.launches_by_probe[probe] = dict.fromkeys(fk.KERNEL_NAMES, 0)
+    for probe in flk.PROBES:
+        flk.flow_stack.launches_by_probe[probe] = dict.fromkeys(flk.KERNEL_NAMES, 0)
+
+    # ---- P1. the AR kernel's probes ----
+    ar = ar_probe_phase(model, params, kw)
+    ar_launches = {p: dict(n) for p, n in fk.generate.launches_by_probe.items()}
+    log(f"P1 launches by probe {ar_launches}; {time.time() - t_start:.1f} s so far")
+    # ---- P2. the flow kernel's probes ----
+    flow, flow_full_tm = flow_probe_phase(check_serving)
+    flow_launches = {p: dict(n) for p, n in flk.flow_stack.launches_by_probe.items()}
+    log(f"P2 launches by probe {flow_launches}; {time.time() - t_start:.1f} s so far")
+    for name, launches in list(ar_launches.items()) + list(flow_launches.items()):
+        require(sum(launches.values()) > 0, f"the {name} probe launched no kernel")
+    # ---- P3. the full kernels give what they gave before any probe ran ----
+    after = full_outputs()
+    for k in before:
+        same = bool(torch.equal(before[k], after[k]))
+        log(f"P3 {k}: the full kernel after the probes == before, bit for bit: {same}")
+        require(same, f"{k}: the full kernel's output changed after the probes ran")
+    log(f"probe phases P1-P3: {time.time() - t_start:.1f} s")
+
+    records = []
+    for probe in fk.PROBES:
+        err, checks, tm, facts = ar[probe]
+        records.append({
+            "name": f"fastgen_generate_{probe}", "route": "cuda",
+            "source": "nsynth_wavenet_tpu_torch/csrc/fastgen_kernel.cu",
+            "replaces": PROBE_REPLACES[probe], "launches": ar_launches[probe]["fastgen_persistent"],
+            "max_abs_err": err, "rel_tol": FULL_WIDTH_REL_TOL, **timing_summary(tm),
+            "kernel_launches": ar_launches[probe], "launch": facts, "checks": checks})
+    for probe in flk.PROBES:
+        err, facts, tm = flow[probe]
+        records.append(flow_record(
+            f"flow_stack_{probe}", PROBE_REPLACES[probe],
+            sum(n for k, n in flow_launches[probe].items() if k != "flow_state_kernel"), err, tm,
+            full_ms=flow_full_tm["ms"], kernel_launches=flow_launches[probe], launch=facts))
+    return records
+
+
 def main():
     if len(sys.argv) > 1 and sys.argv[1] == "--mesh-rank":
         return mesh_rank_main()
@@ -4485,6 +4759,8 @@ def main():
     train_tmp.cleanup()
     flow_rec["launches_longform_student"] = tools["Q3"]["student"]["kernel_launches"]
     flow_rec["launches_gather_results"] = tools["Q4"]["gather"]["flow_kernel_launches"]
+    torch.cuda.empty_cache()
+    probe_records = probe_phases()
 
     big = timings[MAIN_BATCHES[-1]]
     record = {"kernels": [{
@@ -4521,7 +4797,7 @@ def main():
                                   "make_golden_wavs": tools["Q4"]["golden_wavs"]["kernel_launches"],
                                   "gather_results": tools["Q4"]["gather"]["ar_kernel_launches"]},
         "quality_seconds": tools["seconds"],
-    }, flow_rec, w8a8_record, row_record, *mode_records]}
+    }, flow_rec, w8a8_record, row_record, *mode_records, *probe_records]}
     log(f"timed call: B={MAIN_BATCHES[-1]}, {TIMED_STEPS} steps, full width; "
         f"total {time.time() - T_START:.1f} s")
     print(smi, flush=True)

@@ -120,6 +120,14 @@
 // Streaming: the ring and the three input taps come in and go out as state,
 // and every ring phase and random counter runs on t0 + t, so chained calls
 // repeat the one-shot call's arithmetic bit for bit.
+// Perf probes (make_generate_fn probe=, :325-331, :572-577, :619-633,
+// :643-646): a third template parameter, PROBE (fastgen_kernel.cuh Probe),
+// that is PROBE_NONE in the serving library, where it compiles away.
+// PROBE_CHEAP_GATE forms the gate from two clips in gate_bf16 / gate_i8;
+// PROBE_NO_RING_WRITE drops the ring-row stores of rs_phase's epilogue (the
+// ring reads, their L2 prefetches and the next layer's operand stay).  Both
+// keep the 2 * NL + 3 grid barriers a step, so that timing a probe against
+// the full kernel isolates the work it drops.
 //
 // Bound per step (MoL teacher, W=512, GW=512, S=256, DW=256, NL=30):
 //   operations 2 * B * 33.4 M (w_comb 30*1792*512 + w_rs 30*256*768 + head);
@@ -138,6 +146,11 @@
 // bounds a small one; 2 * NL + 3 barriers a step; one block of 8 warps an SM.
 
 #include "fastgen_kernel.cuh"
+
+// the probe whose variant this library builds (Probe): none in the serving library
+#ifndef KERNEL_PROBE
+#define KERNEL_PROBE PROBE_NONE
+#endif
 
 #include <math.h>
 #include <mma.h>
@@ -170,6 +183,11 @@ __device__ __forceinline__ uint32_t quant_i8x4(float4 v, float inv) {
 
 // round to bf16, held as f32
 __device__ __forceinline__ float bf_round(float x) { return __bfloat162float(__float2bfloat16(x)); }
+
+// PROBE_CHEAP_GATE's gate: clip(xs, 0, 1) * clip(xt, -1, 1) in place of sigmoid(xs) * tanh(xt)
+__device__ __forceinline__ float clip_gate(float xs, float xt) {
+  return __fmul_rn(fminf(fmaxf(xs, 0.0f), 1.0f), fminf(fmaxf(xt, -1.0f), 1.0f));
+}
 
 // 2^(e/8) for a log8 code e (|e| <= 127): the f32 value of 2^((e mod 8)/8)
 // from the eight entries the wrapper passes, times a whole power of two, which
@@ -635,7 +653,7 @@ struct Step {
 // GATE_OUT columns of one row, a lane pair the row; every thread calls it,
 // valid says whether the thread's row is its to write
 // ---------------------------------------------------------------------------
-template <int RS>
+template <int RS, int PROBE>
 __device__ __forceinline__ void gate_bf16(const FastgenArgs& a, const float* cst, float* gmax_ct, bool valid,
                                           int b, int j0, int c0, const float (&sig)[GATE_OUT],
                                           const float (&tnh)[GATE_OUT]) {
@@ -645,7 +663,10 @@ __device__ __forceinline__ void gate_bf16(const FastgenArgs& a, const float* cst
   for (int i = 0; i < GATE_OUT; ++i) {
     const float xs = sig[i] + cst[CST_BIAS * GC + c0 + i];
     const float xt = tnh[i] + cst[(CST_BIAS + 1) * GC + c0 + i];
-    gv[i] = (1.0f / (1.0f + expf(-xs))) * tanhf(xt);
+    if constexpr (PROBE == PROBE_CHEAP_GATE)
+      gv[i] = clip_gate(xs, xt);
+    else
+      gv[i] = (1.0f / (1.0f + expf(-xs))) * tanhf(xt);
   }
   store_gate<RS, GLANES>(a.gate, gmax_ct, valid, b, m, j0 + c0, gv);
 }
@@ -653,7 +674,7 @@ __device__ __forceinline__ void gate_bf16(const FastgenArgs& a, const float* cst
 // int8 product: the segments' exact sums sum[segment][sigmoid | tanh][i],
 // dequantised and combined as the reference does
 // (re: enc(t)'s row scale; ACT_ROW: rl, rt2, rt1 those of l and of the two taps)
-template <int ACT, int RS>
+template <int ACT, int RS, int PROBE>
 __device__ __forceinline__ void gate_i8(const FastgenArgs& a, const float* cst, float* gmax_ct, bool valid,
                                         int b, int j0, int c0,
                                         const int (&sum)[ACT == ACT_ROW ? 4 : 2][2][GATE_OUT], float re,
@@ -689,14 +710,17 @@ __device__ __forceinline__ void gate_i8(const FastgenArgs& a, const float* cst, 
         x[h] = __fadd_rn(__fadd_rn(main_part, enc_part), bi);
       }
     }
-    gv[i] = __fmul_rn(1.0f / (1.0f + expf(-x[0])), tanhf(x[1]));
+    if constexpr (PROBE == PROBE_CHEAP_GATE)
+      gv[i] = clip_gate(x[0], x[1]);
+    else
+      gv[i] = __fmul_rn(1.0f / (1.0f + expf(-x[0])), tanhf(x[1]));
   }
   store_gate<RS, GLANES>(a.gate, gmax_ct, valid, b, m, j0 + c0, gv);
 }
 
 // Batch row b of column item ct (mine: the lane pair's row is b): every
 // slice's partial in slice order (the int8 product by segment), then the gate.
-template <int ACT, int RS>
+template <int ACT, int RS, int PROBE>
 __device__ void gate_reduce(const FastgenArgs& a, const Smem& sm, const float* cst, const Step& st,
                             float* gmax_ct, int ct, int b, bool mine, int n_rt, int nsplit) {
   const int row = b % TM, c0 = (threadIdx.x % GLANES) * GATE_OUT;
@@ -715,7 +739,7 @@ __device__ void gate_reduce(const FastgenArgs& a, const Smem& sm, const float* c
       tnh[0] += v4[2].x, tnh[1] += v4[2].y, tnh[2] += v4[2].z, tnh[3] += v4[2].w;
       tnh[4] += v4[3].x, tnh[5] += v4[3].y, tnh[6] += v4[3].z, tnh[7] += v4[3].w;
     }
-    gate_bf16<RS>(a, cst, gmax_ct, mine, b, ct * GC, c0, sig, tnh);
+    gate_bf16<RS, PROBE>(a, cst, gmax_ct, mine, b, ct * GC, c0, sig, tnh);
   } else {
     const int* tiles = static_cast<const int*>(a.part) + tile * nsplit * GTILE;
     // the row's scales, loaded beside the partials: enc(t)'s, and in ACT_ROW
@@ -754,7 +778,7 @@ __device__ void gate_reduce(const FastgenArgs& a, const Smem& sm, const float* c
           }
         }
     }
-    gate_i8<ACT, RS>(a, cst, gmax_ct, mine, b, ct * GC, c0, sum, re, rl, rt2, rt1);
+    gate_i8<ACT, RS, PROBE>(a, cst, gmax_ct, mine, b, ct * GC, c0, sum, re, rl, rt2, rt1);
   }
 }
 
@@ -762,7 +786,7 @@ __device__ void gate_reduce(const FastgenArgs& a, const Smem& sm, const float* c
 // gate phase: gate = sigmoid(dpre[:m]) * tanh(dpre[m:]) of layer li (and, in
 // layer 0, s = skip_start(bf16(l)))
 // ---------------------------------------------------------------------------
-template <int ACT, int RS>
+template <int ACT, int RS, int PROBE>
 __device__ void gate_phase(const FastgenArgs& a, const Smem& sm, int li, const Step& st, int buf) {
   const int B = a.B, W = a.W, DW = a.DW, S = a.S, m = a.GW / 2;
   const int* tab = sm.tab;
@@ -849,7 +873,7 @@ __device__ void gate_phase(const FastgenArgs& a, const Smem& sm, int li, const S
                 sig[i] = sm.Cs[rr * (2 * GC + 4) + c0 + i];
                 tnh[i] = sm.Cs[rr * (2 * GC + 4) + GC + c0 + i];
               }
-              gate_bf16<RS>(a, cst, gmax_ct, rt * TM + rr < B, rt * TM + rr, ct * GC, c0, sig, tnh);
+              gate_bf16<RS, PROBE>(a, cst, gmax_ct, rt * TM + rr < B, rt * TM + rr, ct * GC, c0, sig, tnh);
             }
           });
     } else {
@@ -892,7 +916,7 @@ __device__ void gate_phase(const FastgenArgs& a, const Smem& sm, int li, const S
       const int rows = span > z ? (span - z + nsplit - 1) / nsplit : 0;
       for (int jb = 0; jb < rows; jb += THREADS / GLANES) {  // block-uniform
         const int j = jb + threadIdx.x / GLANES;
-        gate_reduce<ACT, RS>(a, sm, cst, st, gmax_ct, ct, r0 + z + nsplit * j, j < rows, n_rt, nsplit);
+        gate_reduce<ACT, RS, PROBE>(a, sm, cst, st, gmax_ct, ct, r0 + z + nsplit * j, j < rows, n_rt, nsplit);
       }
       __syncthreads();
     }
@@ -903,7 +927,7 @@ __device__ void gate_phase(const FastgenArgs& a, const Smem& sm, int li, const S
 // res/skip phase: rs = gate @ w_rs[li] + b_rs[li]; ring write, l += rs[:W],
 // s += rs[W:], the next layer's operand
 // ---------------------------------------------------------------------------
-template <int ACT, int RS>
+template <int ACT, int RS, int PROBE>
 __device__ void rs_phase(const FastgenArgs& a, const Smem& sm, int li, const Step& st, int buf) {
   const int B = a.B, W = a.W, S = a.S, GW = a.GW, m = GW / 2, N = W + S, NL = a.NL;
   const int* tab = sm.tab;
@@ -995,21 +1019,25 @@ __device__ void rs_phase(const FastgenArgs& a, const Smem& sm, int li, const Ste
           lp[0] = make_float4(now[0], now[1], now[2], now[3]);
           lp[1] = make_float4(now[4], now[5], now[6], now[7]);
           if (ACT == ACT_BF16) {
-            *reinterpret_cast<uint4*>(reinterpret_cast<bf16*>(st.row2) + idx_l) = pack_bf16x8(old[p]);
+            if constexpr (PROBE != PROBE_NO_RING_WRITE)
+              *reinterpret_cast<uint4*>(reinterpret_cast<bf16*>(st.row2) + idx_l) = pack_bf16x8(old[p]);
             *reinterpret_cast<uint4*>(static_cast<bf16*>(a.l_bf) + idx_l) = pack_bf16x8(now);
           }
           if (ACT == ACT_STATIC) {
             // the current int8 l to the ring, and the next layer's in its place
-            *reinterpret_cast<uint2*>(st.row2 + idx_l) = q_old[p];
+            if constexpr (PROBE != PROBE_NO_RING_WRITE)
+              *reinterpret_cast<uint2*>(st.row2 + idx_l) = q_old[p];
             if (li + 1 < NL)
               *reinterpret_cast<uint2*>(static_cast<signed char*>(a.q_l) + idx_l) = pack_i8x8(now, inv_next);
           }
           if (ACT == ACT_ROW) {
             // the ring row is l as this layer's gate product read it: the same
             // code from the same maximum, and the code itself in lane W
-            signed char* ring = reinterpret_cast<signed char*>(st.row2) + (size_t)b * ring_ld;
-            *reinterpret_cast<uint2*>(ring + c) = pack_i8x8(old[p], sm.l_inv[b]);
-            if (c == 0) ring[W] = (signed char)sm.l_code[b];
+            if constexpr (PROBE != PROBE_NO_RING_WRITE) {
+              signed char* ring = reinterpret_cast<signed char*>(st.row2) + (size_t)b * ring_ld;
+              *reinterpret_cast<uint2*>(ring + c) = pack_i8x8(old[p], sm.l_inv[b]);
+              if (c == 0) ring[W] = (signed char)sm.l_code[b];
+            }
 #pragma unroll
             for (int i = 0; i < 8; ++i) mx = fmaxf(mx, fabsf(now[i]));
           }
@@ -1224,7 +1252,7 @@ __device__ void sample_phase(const FastgenArgs& a, int t, bool do_start) {
 // ---------------------------------------------------------------------------
 // the persistent kernel: the whole call, every step, every layer
 // ---------------------------------------------------------------------------
-template <int ACT, int RS>
+template <int ACT, int RS, int PROBE>
 __global__ void __launch_bounds__(THREADS) fastgen_persistent(const __grid_constant__ FastgenArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   Smem sm;
@@ -1274,7 +1302,7 @@ __global__ void __launch_bounds__(THREADS) fastgen_persistent(const __grid_const
       st.t = t;
       st.row2 = lbuf + (base + tg % (2 * d)) * slot_bytes;             // state at t - 2d, overwritten this step
       st.tap1 = lbuf + (base + (tg + d) % (2 * d)) * slot_bytes;       // state at t - d
-      gate_phase<ACT, RS>(a, sm, li, st, buf);
+      gate_phase<ACT, RS, PROBE>(a, sm, li, st, buf);
       prefetch<ACT, RS>(a, sm, PH_RS, li, buf ^ 1);
       grid_barrier(bar, target);
       buf ^= 1;
@@ -1286,7 +1314,7 @@ __global__ void __launch_bounds__(THREADS) fastgen_persistent(const __grid_const
         l2_prefetch(lbuf + (base2 + tg2 % (2 * d2)) * slot_bytes, slot_bytes);
         l2_prefetch(lbuf + (base2 + (tg2 + d2) % (2 * d2)) * slot_bytes, slot_bytes);
       }
-      rs_phase<ACT, RS>(a, sm, li, st, buf);
+      rs_phase<ACT, RS, PROBE>(a, sm, li, st, buf);
       if (li + 1 < NL)
         prefetch<ACT, RS>(a, sm, PH_GATE, li + 1, buf ^ 1);
       else
@@ -1354,15 +1382,16 @@ __global__ void philox_uniform_kernel(float* out, int rows, int lanes, int t, in
   }
 }
 
-// every instantiation by its mode codes [ActMode][RsMode]
+// every instantiation of the library's probe (KERNEL_PROBE) by its mode codes [ActMode][RsMode]
 typedef void (*GenKernel)(FastgenArgs);
+constexpr int kProbe = KERNEL_PROBE;
 GenKernel const kGen[3][3] = {
-    {fastgen_persistent<ACT_BF16, RS_BF16>, fastgen_persistent<ACT_BF16, RS_STATIC>,
-     fastgen_persistent<ACT_BF16, RS_ROW>},
-    {fastgen_persistent<ACT_STATIC, RS_BF16>, fastgen_persistent<ACT_STATIC, RS_STATIC>,
-     fastgen_persistent<ACT_STATIC, RS_ROW>},
-    {fastgen_persistent<ACT_ROW, RS_BF16>, fastgen_persistent<ACT_ROW, RS_STATIC>,
-     fastgen_persistent<ACT_ROW, RS_ROW>}};
+    {fastgen_persistent<ACT_BF16, RS_BF16, kProbe>, fastgen_persistent<ACT_BF16, RS_STATIC, kProbe>,
+     fastgen_persistent<ACT_BF16, RS_ROW, kProbe>},
+    {fastgen_persistent<ACT_STATIC, RS_BF16, kProbe>, fastgen_persistent<ACT_STATIC, RS_STATIC, kProbe>,
+     fastgen_persistent<ACT_STATIC, RS_ROW, kProbe>},
+    {fastgen_persistent<ACT_ROW, RS_BF16, kProbe>, fastgen_persistent<ACT_ROW, RS_STATIC, kProbe>,
+     fastgen_persistent<ACT_ROW, RS_ROW, kProbe>}};
 
 bool valid_mode(int act, int rs) { return act >= ACT_BF16 && act <= ACT_ROW && rs >= RS_BF16 && rs <= RS_ROW; }
 

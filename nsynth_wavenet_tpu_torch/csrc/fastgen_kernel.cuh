@@ -25,6 +25,16 @@ enum HeadType { HEAD_CE = 0, HEAD_MOL = 1, HEAD_GAUSS = 2 };
 // The head matrices are bf16 in every mode.
 enum ActMode { ACT_BF16 = 0, ACT_STATIC = 1, ACT_ROW = 2 };
 enum RsMode { RS_BF16 = 0, RS_STATIC = 1, RS_ROW = 2 };
+// The perf probes (make_generate_fn's probe=, reference :325-331): each is a
+// variant of every kernel, compiled into a library of its own
+// (kernels/build.py PROBES, -DKERNEL_PROBE=code), whose fastgen_generate and
+// fastgen_grid launch and describe that variant.  Their output is wrong by
+// design: they take work away to time it.
+//   PROBE_CHEAP_GATE     clip(dpre[:m], 0, 1) * clip(dpre[m:], -1, 1) in place of
+//                        sigmoid * tanh, in every mode (reference :572-577)
+//   PROBE_NO_RING_WRITE  no layer writes its ring row: the ring keeps what it held
+//                        when the call began (reference :619-633, :643-646)
+enum Probe { PROBE_NONE = 0, PROBE_CHEAP_GATE = 1, PROBE_NO_RING_WRITE = 2 };
 constexpr int LOG8_MIN = -120, LOG8_MAX = 126;  // range of the log8 exponent code
 constexpr int ROW_LANES = 16;                   // bytes behind the payload of an ACT_ROW ring row
 

@@ -218,6 +218,24 @@ struct FlowArgs {
 };
 
 enum CondMode { ENC_BF16 = 0, ENC_F32 = 1, STREAM_BF16 = 2, STREAM_F32 = 3 };
+// The perf probes (make_flow_stack_fn's probe=, reference :132-138): each is a
+// variant of every trunk kernel, compiled into a library of its own
+// (kernels/build.py PROBES, -DKERNEL_PROBE=code) whose entry points launch and
+// describe that variant.  Their output is wrong by design: they take work away
+// to time it.
+//   PROBE_NO_GATE   clip(pre[:W/2], 0, 1) * clip(pre[W/2:], -1, 1) in place of
+//                   sigmoid * tanh (reference :303-306)
+//   PROBE_NO_SLIDE  the two dilated taps are not loaded: l(t) is read once and
+//                   multiplies all three tap bands of w_tap.  The reference's
+//                   no_slide (:323-328) skips the copies that slide its VMEM
+//                   carry window; this port keeps no such window (each tile's
+//                   taps come from the layer's input stream by the copy
+//                   engine), so its counterpart drops those loads instead.
+enum FlowProbe { PROBE_NONE = 0, PROBE_NO_GATE = 1, PROBE_NO_SLIDE = 2 };
+// the probe whose variant this library builds: none in the serving library
+#ifndef KERNEL_PROBE
+#define KERNEL_PROBE PROBE_NONE
+#endif
 // flow_stack's launched[]: ops/flow_kernel.py KERNEL_NAMES
 enum KernelId { K_PERSIST = 0, K_WIDE = 1, K_STATE = 2 };
 
@@ -225,6 +243,11 @@ namespace {
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16(v));
+}
+
+// PROBE_NO_GATE's gate: clip(xs, 0, 1) * clip(xt, -1, 1) in place of sigmoid(xs) * tanh(xt)
+__device__ __forceinline__ float clip_gate(float xs, float xt) {
+  return __fmul_rn(fminf(fmaxf(xs, 0.0f), 1.0f), fminf(fmaxf(xt, -1.0f), 1.0f));
 }
 
 // ---------------------------------------------------------------------------
@@ -406,7 +429,7 @@ __device__ __forceinline__ void mma_row_band(float (&acc)[W / 8][4], const unsig
 // The accumulator layout of m16n8k16: a consumer thread (g = lane / 4,
 // t4 = lane % 4) holds, for n-tile j, rows g and g + 8 of its warp's band at
 // columns 8j + 2 t4 and 8j + 2 t4 + 1: acc[j] = {(g, c), (g, c + 1), (g + 8, c), (g + 8, c + 1)}.
-template <int W, int COND>
+template <int W, int COND, int PROBE>
 __global__ void __launch_bounds__(PT, W <= 32 ? 2 : 1)
     flow_persist_kernel(const PersistParams p, const __grid_constant__ CUtensorMap map_l,
                         const __grid_constant__ CUtensorMap map_h,
@@ -415,6 +438,9 @@ __global__ void __launch_bounds__(PT, W <= 32 ? 2 : 1)
   constexpr bool F32C = COND == ENC_F32;
   constexpr bool STREAM = COND == STREAM_BF16 || COND == STREAM_F32;
   constexpr int ES = COND == ENC_F32 || COND == STREAM_F32 ? 4 : 2;  // cond element bytes
+  // PROBE_NO_SLIDE: a tile is its conditioning chunks, then l(t) for all three taps
+  constexpr bool NO_SLIDE = PROBE == PROBE_NO_SLIDE;
+  constexpr int FIRST_COND = NO_SLIDE ? 0 : 2;  // the tile's first conditioning chunk
   // the f32 cond product's own layout: a lane owns CR rows (band + rg + RG i)
   // and 8 columns (4 cg .. 4 cg + 3 and M + 4 cg .. M + 4 cg + 3)
   constexpr int CG = W / 8, RG = 32 / CG, CR = 16 / RG;
@@ -430,7 +456,7 @@ __global__ void __launch_bounds__(PT, W <= 32 ? 2 : 1)
   if (smem_addr(ring) & 1023) __trap();
   const unsigned bars = smem_addr(smem + p.off_bars);  // full[stages], then empty[stages]
   const int n_cc = STREAM ? 1 : (p.DW + p.enc_cols - 1) / p.enc_cols;  // cond chunks a tile
-  const int nch = 3 + n_cc;                                             // chunks a tile
+  const int nch = (NO_SLIDE ? 1 : 3) + n_cc;                            // chunks a tile
   const int SG = p.stages / PG;  // slots of a group's own ring: group g has slots g SG .. g SG + SG - 1
   const int my_tiles = (p.n_tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
 
@@ -492,7 +518,7 @@ __global__ void __launch_bounds__(PT, W <= 32 ? 2 : 1)
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
         unsigned char* slot = ring + (size_t)s * p.slot_bytes;
         unsigned bytes = 0;
-        if (c < 2 || c == nch - 1) {
+        if (NO_SLIDE ? c == nch - 1 : (c < 2 || c == nch - 1)) {
           // tap l(t - (2 - tap) d): rows r - (2 - tap) * shift of the input,
           // rows before it from the 2 * shift history rows, or zeros
           const long long y = row0 - (long long)(c == nch - 1 ? 0 : 2 - c) * p.shift;
@@ -528,7 +554,7 @@ __global__ void __launch_bounds__(PT, W <= 32 ? 2 : 1)
           }
         } else {
           // encoding columns k0 .. k0 + enc_cols (zeros past DW)
-          const int k0 = (c - 2) * p.enc_cols, kc = min(p.enc_cols, p.DW - k0);
+          const int k0 = (c - FIRST_COND) * p.enc_cols, kc = min(p.enc_cols, p.DW - k0);
           if (lane == 0) {
             for (int h = 0; h < p.enc_cols / (128 / ES); ++h)
               tma_box(slot + h * BOX, &map_c, k0 + h * (128 / ES), (int)row0, full);
@@ -589,7 +615,7 @@ __global__ void __launch_bounds__(PT, W <= 32 ? 2 : 1)
     const int s = group * SG + cs;
     mbar_wait(bars + 8 * s, cph);
     unsigned char* slot = ring + (size_t)s * p.slot_bytes;
-    if (c < 2 || c == nch - 1) {
+    if (NO_SLIDE ? c == nch - 1 : (c < 2 || c == nch - 1)) {
       // a tap: 16 rows x W of f32, rounded to bf16 as they enter the product
       const int tap = c == nch - 1 ? 2 : c;
 #pragma unroll
@@ -600,7 +626,12 @@ __global__ void __launch_bounds__(PT, W <= 32 ? 2 : 1)
         const float2 x3 = *reinterpret_cast<const float2*>(slot + f32_at(kk + 8) + 1024);
         const unsigned a[4] = {pack_bf16(x0.x, x0.y), pack_bf16(x1.x, x1.y), pack_bf16(x2.x, x2.y),
                                pack_bf16(x3.x, x3.y)};
-        mma_row_band<W>(acc, a, s_wtap + (tap * W + kk) * RW, bl);
+        if constexpr (NO_SLIDE) {  // l(t) against the bands of taps t-2d, t-d and t
+#pragma unroll
+          for (int band3 = 0; band3 < 3; ++band3) mma_row_band<W>(acc, a, s_wtap + (band3 * W + kk) * RW, bl);
+        } else {
+          mma_row_band<W>(acc, a, s_wtap + (tap * W + kk) * RW, bl);
+        }
       }
     } else if constexpr (STREAM) {
 #pragma unroll
@@ -620,7 +651,7 @@ __global__ void __launch_bounds__(PT, W <= 32 ? 2 : 1)
         cnd[j][3] = v1.y;
       }
     } else {
-      const int k0 = (c - 2) * p.enc_cols, kc = min(p.enc_cols, p.DW - k0);
+      const int k0 = (c - FIRST_COND) * p.enc_cols, kc = min(p.enc_cols, p.DW - k0);
       if constexpr (F32C) {
         // enc @ w_cond in f32 on the FMA units, k in order, CR rows x 8
         // columns a lane: each float4 of w serves CR rows
@@ -715,7 +746,10 @@ __global__ void __launch_bounds__(PT, W <= 32 ? 2 : 1)
           const int col = 8 * j + 2 * t4 + (e & 1);
           xs = xs + s_bias[col];
           xt = xt + s_bias[M + col];
-          gv[e] = __frcp_rn(1.0f + expf(-xs)) * tanhf(xt);  // 1 / x, correctly rounded
+          if constexpr (PROBE == PROBE_NO_GATE)
+            gv[e] = clip_gate(xs, xt);
+          else
+            gv[e] = __frcp_rn(1.0f + expf(-xs)) * tanhf(xt);  // 1 / x, correctly rounded
         }
         ga[j >> 1][(j & 1) * 2] = pack_bf16(gv[0], gv[1]);
         ga[j >> 1][(j & 1) * 2 + 1] = pack_bf16(gv[2], gv[3]);
@@ -891,7 +925,7 @@ __device__ __forceinline__ void wgmma_w(float (&d)[W / 2], const unsigned (&a)[4
 // permutation as flow_persist_kernel's, so that the f32 tap loads meet no
 // bank conflict).  Sigmoid column c and tanh column c + W/2 are blocks j
 // and j + W/16 of one thread.
-template <int W, int COND>
+template <int W, int COND, int PROBE>
 __global__ void __launch_bounds__(WPT, 1)
     flow_wide_kernel(const WideParams p, const __grid_constant__ CUtensorMap map_l,
                      const __grid_constant__ CUtensorMap map_h,
@@ -904,6 +938,11 @@ __global__ void __launch_bounds__(WPT, 1)
   constexpr bool F32C = COND == ENC_F32;
   constexpr bool STREAM = COND == STREAM_BF16 || COND == STREAM_F32;
   constexpr int CPT = W / WKC, NTAP = 3 * CPT;  // chunks a tap, tap chunks a tile
+  // PROBE_NO_SLIDE: l(t)'s CPT chunks alone, each against the three tap bands
+  // (W 128: the resident boxes; W 256: the chunk brings tap 0's box, and two
+  // chunks after it bring taps 1 and 2's, the A fragments held meanwhile)
+  constexpr bool NO_SLIDE = PROBE == PROBE_NO_SLIDE;
+  constexpr int NTAPC = NO_SLIDE && TAPS_RES ? CPT : NTAP;  // tap chunks a tile
   constexpr int WROWS = W * 128;                // bytes of a weight box: W rows x 64 K values
   constexpr int EC = F32C ? 32 : WKC;           // encoding columns a chunk
   constexpr int NRES = W / 2 / WKC;             // w_res^T chunks a tile, after the encoding's
@@ -918,7 +957,7 @@ __global__ void __launch_bounds__(WPT, 1)
   const unsigned wbar = bars + 16 * p.stages;
   const int DW = p.cond_cols;
   const int n_cc = STREAM ? 0 : (DW + EC - 1) / EC;
-  const int nch = NTAP + n_cc + NRES;
+  const int nch = NTAPC + n_cc + NRES;
   const int my_tiles = (p.n_tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
 
   for (int v = tid; v < 2 * W; v += WPT) s_bias[v] = v < W ? p.bias[v] : p.b_res[v - W];
@@ -952,13 +991,17 @@ __global__ void __launch_bounds__(WPT, 1)
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
         unsigned char* slot = ring + (size_t)s * p.slot_bytes;
         unsigned bytes = 0;
-        if (c < NTAP) {
+        if (c < NTAPC) {
           // tap l(t - (2 - tap) d), columns col0 .. col0 + 63: rows
           // r - (2 - tap) * shift of the input, rows before it from the
-          // 2 * shift history rows, or zeros
-          const int tap = c / CPT, col0 = (c % CPT) * WKC;
-          const long long y = row0 - (long long)(2 - tap) * p.shift;
-          if (p.hist == nullptr || y >= 0 || y + WTR <= 0) {
+          // 2 * shift history rows, or zeros.  NO_SLIDE: l(t)'s columns
+          // (at W 256, then tap 1 and 2's weight-only chunks of them)
+          const int tap = !NO_SLIDE ? c / CPT : TAPS_RES ? 2 : c % 3;
+          const int col0 = (!NO_SLIDE ? c % CPT : TAPS_RES ? c : c / 3) * WKC;
+          const long long y = row0 - (long long)(NO_SLIDE ? 0 : 2 - tap) * p.shift;
+          if (NO_SLIDE && !TAPS_RES && tap != 0) {
+            // the weights alone
+          } else if (p.hist == nullptr || y >= 0 || y + WTR <= 0) {
             if (lane == 0) {
               const bool hist = p.hist != nullptr && y < 0;
               for (int h = 0; h < 2; ++h)
@@ -984,13 +1027,13 @@ __global__ void __launch_bounds__(WPT, 1)
             tma_box(slot + 2 * WBOX, &map_w, tap * W + col0, 0, full);
             bytes += WROWS;
           }
-        } else if (c >= NTAP + n_cc) {
+        } else if (c >= NTAPC + n_cc) {
           if (lane == 0) {  // a w_res^T box: K values 64 r .. 64 r + 63 of every output column
-            tma_box(slot, &map_r, (c - NTAP - n_cc) * WKC, 0, full);
+            tma_box(slot, &map_r, (c - NTAPC - n_cc) * WKC, 0, full);
             bytes = WROWS;
           }
         } else if (lane == 0) {
-          const int k0 = (c - NTAP) * EC;
+          const int k0 = (c - NTAPC) * EC;
           tma_box(slot, &map_c, k0, (int)row0, full);  // rows past n_rows, columns past DW: zeros
           bytes = WBOX;
           if constexpr (F32C) {  // the chunk's w_cond rows, as they are
@@ -1025,6 +1068,7 @@ __global__ void __launch_bounds__(WPT, 1)
   mbar_wait(wbar, 0);
 
   float acc[NA];
+  unsigned held[4][4];  // NO_SLIDE: l(t)'s A fragments (at W 256 held for taps 1 and 2)
   int cs = 0;        // ring position
   unsigned cph = 0;  // and the parity of its pass
   for (int i = 0; i < my_tiles; ++i) {
@@ -1033,7 +1077,33 @@ __global__ void __launch_bounds__(WPT, 1)
     for (int c = 0; c < nch - NRES; ++c) {
       mbar_wait(bars + 8 * cs, cph);
       const unsigned char* slot = ring + (size_t)cs * p.slot_bytes;
-      if (c < NTAP) {
+      if (NO_SLIDE && c < NTAPC) {
+        if (TAPS_RES || c % 3 == 0) {
+          // 16 rows x 64 f32 of l(t), rounded to bf16 as they enter the product
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const float2 x0 = *reinterpret_cast<const float2*>(slot + f32_at(16 * kk));
+            const float2 x1 = *reinterpret_cast<const float2*>(slot + f32_at(16 * kk) + 1024);
+            const float2 x2 = *reinterpret_cast<const float2*>(slot + f32_at(16 * kk + 8));
+            const float2 x3 = *reinterpret_cast<const float2*>(slot + f32_at(16 * kk + 8) + 1024);
+            held[kk][0] = pack_bf16(x0.x, x0.y);
+            held[kk][1] = pack_bf16(x1.x, x1.y);
+            held[kk][2] = pack_bf16(x2.x, x2.y);
+            held[kk][3] = pack_bf16(x3.x, x3.y);
+          }
+        }
+        wgmma_fence();
+        if constexpr (TAPS_RES) {
+#pragma unroll
+          for (int band3 = 0; band3 < 3; ++band3)
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) wgmma_w<W>(acc, held[kk], s_wtap + (band3 * CPT + c) * WROWS + 32 * kk);
+        } else {
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) wgmma_w<W>(acc, held[kk], slot + 2 * WBOX + 32 * kk);
+        }
+        wgmma_commit_wait();
+      } else if (c < NTAPC) {
         // 16 rows x 64 f32 of the warp, rounded to bf16 as they enter the product
         unsigned a[4][4];
 #pragma unroll
@@ -1054,7 +1124,7 @@ __global__ void __launch_bounds__(WPT, 1)
         wgmma_commit_wait();
       } else if constexpr (F32C) {
         // enc @ w_cond in f32 on the FMA units, k in order, onto the tap sums
-        const int k0 = (c - NTAP) * EC, kc = min(EC, DW - k0);
+        const int k0 = (c - NTAPC) * EC, kc = min(EC, DW - k0);
         const float* wk = reinterpret_cast<const float*>(slot + WBOX) + 4 * t4;
         const unsigned char* ea = slot + arow * 128;  // row arow + 8: 1024 B on, the same swizzle
 #pragma unroll 1
@@ -1137,7 +1207,10 @@ __global__ void __launch_bounds__(WPT, 1)
         }
         xs = xs + s_bias[col + (e & 1)];
         xt = xt + s_bias[M + col + (e & 1)];
-        gv[e] = __frcp_rn(1.0f + expf(-xs)) * tanhf(xt);  // 1 / x, correctly rounded
+        if constexpr (PROBE == PROBE_NO_GATE)
+          gv[e] = clip_gate(xs, xt);
+        else
+          gv[e] = __frcp_rn(1.0f + expf(-xs)) * tanhf(xt);  // 1 / x, correctly rounded
       }
       ga[j >> 1][(j & 1) * 2] = pack_bf16(gv[0], gv[1]);
       ga[j >> 1][(j & 1) * 2 + 1] = pack_bf16(gv[2], gv[3]);
@@ -1286,7 +1359,7 @@ cudaError_t box_map(CUtensorMap* map, const void* base, bool f32, long long rows
 template <int W, int COND>
 cudaError_t launch_persist(const FlowArgs& a, const float* src, const float* hist, float* dst,
                            int li, long long shift, cudaStream_t st) {
-  auto kernel = flow_persist_kernel<W, COND>;
+  auto kernel = flow_persist_kernel<W, COND, KERNEL_PROBE>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem_bytes);
   if (err != cudaSuccess) return err;
@@ -1334,7 +1407,7 @@ cudaError_t launch_persist(const FlowArgs& a, const float* src, const float* his
 template <int W, int COND>
 cudaError_t launch_wide(const FlowArgs& a, const float* src, const float* hist, float* dst,
                         int li, long long shift, cudaStream_t st) {
-  auto kernel = flow_wide_kernel<W, COND>;
+  auto kernel = flow_wide_kernel<W, COND, KERNEL_PROBE>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem_bytes);
   if (err != cudaSuccess) return err;
@@ -1416,10 +1489,10 @@ LayerFn pick_layer_fn(int W, int cond_mode, int* kernel_id) {
 template <int W>
 const void* persist_kernel(int cond_mode) {
   switch (cond_mode) {
-    case ENC_BF16: return (const void*)flow_persist_kernel<W, ENC_BF16>;
-    case ENC_F32: return (const void*)flow_persist_kernel<W, ENC_F32>;
-    case STREAM_BF16: return (const void*)flow_persist_kernel<W, STREAM_BF16>;
-    case STREAM_F32: return (const void*)flow_persist_kernel<W, STREAM_F32>;
+    case ENC_BF16: return (const void*)flow_persist_kernel<W, ENC_BF16, KERNEL_PROBE>;
+    case ENC_F32: return (const void*)flow_persist_kernel<W, ENC_F32, KERNEL_PROBE>;
+    case STREAM_BF16: return (const void*)flow_persist_kernel<W, STREAM_BF16, KERNEL_PROBE>;
+    case STREAM_F32: return (const void*)flow_persist_kernel<W, STREAM_F32, KERNEL_PROBE>;
     default: return nullptr;
   }
 }
@@ -1427,10 +1500,10 @@ const void* persist_kernel(int cond_mode) {
 template <int W>
 const void* wide_kernel(int cond_mode) {
   switch (cond_mode) {
-    case ENC_BF16: return (const void*)flow_wide_kernel<W, ENC_BF16>;
-    case ENC_F32: return (const void*)flow_wide_kernel<W, ENC_F32>;
-    case STREAM_BF16: return (const void*)flow_wide_kernel<W, STREAM_BF16>;
-    case STREAM_F32: return (const void*)flow_wide_kernel<W, STREAM_F32>;
+    case ENC_BF16: return (const void*)flow_wide_kernel<W, ENC_BF16, KERNEL_PROBE>;
+    case ENC_F32: return (const void*)flow_wide_kernel<W, ENC_F32, KERNEL_PROBE>;
+    case STREAM_BF16: return (const void*)flow_wide_kernel<W, STREAM_BF16, KERNEL_PROBE>;
+    case STREAM_F32: return (const void*)flow_wide_kernel<W, STREAM_F32, KERNEL_PROBE>;
     default: return nullptr;
   }
 }

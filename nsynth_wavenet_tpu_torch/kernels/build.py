@@ -29,6 +29,15 @@ LIBRARIES = {"fastgen_kernel": "fastgen_kernel.cu", "flow_kernel": "flow_kernel.
 # K columns of a chunk of a bf16 operand.
 DEFINES = {"flow_kernel": {"FLOW_WARPS": 8, "FLOW_GROUPS": 2, "FLOW_TILE_ROWS": 16 * 8 // 2,
                            "FLOW_WIDE_TILE_ROWS": 64 * 8 // 4, "FLOW_WIDE_KC": 64}}
+# The perf probes of each library (ops/fastgen_kernel.py generate(probe=),
+# ops/flow_kernel.py flow_stack(probe=)): library "<library>_<probe>" is the
+# library's source compiled with -DKERNEL_PROBE=<code> (its Probe / FlowProbe
+# enum: 1 + the index here), every kernel in that probe's variant, so the
+# serving libraries hold no probe code.  Only a probe call loads one.
+PROBES = {"fastgen_kernel": ("cheap_gate", "no_ring_write"), "flow_kernel": ("no_gate", "no_slide")}
+LIBRARIES.update({f"{lib}_{probe}": LIBRARIES[lib] for lib, probes in PROBES.items() for probe in probes})
+DEFINES.update({f"{lib}_{probe}": {**DEFINES.get(lib, {}), "KERNEL_PROBE": code}
+                for lib, probes in PROBES.items() for code, probe in enumerate(probes, 1)})
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -60,6 +69,16 @@ def _digest(name: str) -> str:
             h.update(p.name.encode())
             h.update(p.read_bytes())
     return h.hexdigest()[:16]
+
+
+def library_of(name: str, probe=None) -> str:
+    """The library that holds ``name``'s kernels in ``probe``'s variant (None
+    or "": the serving library itself)."""
+    if not probe:
+        return name
+    if probe not in PROBES.get(name, ()):
+        raise ValueError(f"{name} has no probe {probe!r}: want one of {PROBES.get(name, ())}")
+    return f"{name}_{probe}"
 
 
 def library_path(name: str) -> Path:

@@ -47,6 +47,16 @@ draws come from a Philox4x32-10 counter generator keyed by (seed, t, batch
 row, lane); ``philox_uniform_plain`` implements it in torch integer ops so
 kernel and plain version draw identical uniforms.
 
+The reference's perf probes (make_generate_fn probe=, :325-331) are ported
+as ``generate(probe=...)``: "cheap_gate" forms the gate from two clips,
+clip(dpre[:m], 0, 1) * clip(dpre[m:], -1, 1), in place of sigmoid * tanh
+(:572-577); "no_ring_write" writes no ring row, so the ring keeps what it
+held when the call began (:619-633, :643-646).  Their output is wrong by
+design: timed against the full call, each says what the work it drops
+costs.  On the card each runs a variant of the kernels compiled into a
+library of its own (kernels/build.py PROBES), counted apart in
+``generate.launches_by_probe``.
+
 On this card (H100: 3.35 TB/s, 989 TFLOP/s bf16, 1979 TOP/s int8) a step of
 the full-width MoL teacher is bound by its weight stream below a batch of a
 few hundred rows (bf16 67 MB, about 20 us; int8 34 MB, about 10 us, and the
@@ -59,15 +69,19 @@ times.
 """
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple
 
 import torch
 
+from nsynth_wavenet_tpu_torch.kernels import build
+
 LANE = 16  # head segments are padded to the tensor-core tile width
 ROW_LANES = 16  # lanes behind the W payload bytes of a row-mode ring row; lane W holds the log8 code
 LOG8_MIN, LOG8_MAX = -120, 126  # range of the log8 exponent code e, scale 2^(e/8)
 HEADS = {"ce": 0, "mol": 1, "gauss": 2}
+PROBES = build.PROBES["fastgen_kernel"]  # generate(probe=): "cheap_gate", "no_ring_write"
 
 M32 = 0xFFFFFFFF
 _PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
@@ -482,10 +496,21 @@ def init_state(cfg, B, device, act="bf16"):
     return torch.zeros(shape, dtype=ring, device=device), torch.zeros((3, B), device=device), 0
 
 
+def check_probe(probe, allow_wrong_output):
+    """Refuse an unknown probe, and a probe without allow_wrong_output=True."""
+    if probe not in ("",) + PROBES:
+        raise ValueError(f"unknown probe {probe!r}: want '' or one of {PROBES}")
+    if probe and not allow_wrong_output:
+        raise ValueError(f"probe {probe!r} produces WRONG output by design (perf attribution "
+                         "only); pass allow_wrong_output=True to confirm this is not a serving call")
+
+
 @torch.no_grad()
 def generate_plain(kw, enc_t, seed, *, greedy=False, tf=None, collect_out_params=False,
-                   state=None, return_state=False, int8_combine="f32"):
+                   state=None, return_state=False, int8_combine="f32", probe="",
+                   allow_wrong_output=False):
     """Plain PyTorch version of the kernels, every mode (see ``generate``)."""
+    check_probe(probe, allow_wrong_output)
     if int8_combine not in ("f32", "bf16"):
         raise ValueError(f"int8_combine {int8_combine!r}: want 'f32' or 'bf16'")
     cfg = kw["cfg"]
@@ -550,7 +575,10 @@ def generate_plain(kw, enc_t, seed, *, greedy=False, tf=None, collect_out_params
             else:
                 stack = torch.cat([lbuf[r2].float(), lbuf[r1].float(), _bf(l), enc], 1)
                 dpre = stack @ f32["w_comb"][li] + f32["b_comb"][li]
-            gate = torch.sigmoid(dpre[:, :m]) * torch.tanh(dpre[:, m:])
+            if probe == "cheap_gate":
+                gate = torch.clamp(dpre[:, :m], 0.0, 1.0) * torch.clamp(dpre[:, m:], -1.0, 1.0)
+            else:
+                gate = torch.sigmoid(dpre[:, :m]) * torch.tanh(dpre[:, m:])
             if mode.rs == "static":
                 # |gate| < 1, so round(gate * 127) stays inside int8 without a clip
                 q_gate = torch.round(gate * 127.0).to(torch.int8)
@@ -561,13 +589,15 @@ def generate_plain(kw, enc_t, seed, *, greedy=False, tf=None, collect_out_params
             else:
                 rs = _bf(gate) @ f32["w_rs"][li] + f32["b_rs"][li]
             # the ring of layer li holds the layer's input as the gate product read it
-            if mode.act == "static":
-                lbuf[r2] = q_l
-            elif mode.act == "row":
-                lbuf[r2, :, :W] = q_l
-                lbuf[r2, :, W] = e_l[:, 0]
-            else:
-                lbuf[r2] = l.to(torch.bfloat16)
+            # (no_ring_write: what it held when the call began)
+            if probe != "no_ring_write":
+                if mode.act == "static":
+                    lbuf[r2] = q_l
+                elif mode.act == "row":
+                    lbuf[r2, :, :W] = q_l
+                    lbuf[r2, :, W] = e_l[:, 0]
+                else:
+                    lbuf[r2] = l.to(torch.bfloat16)
             l = l + rs[:, :W]
             s = s + rs[:, W:]
             if li + 1 < len(dils):
@@ -769,10 +799,9 @@ _MODE_CODES = {"bf16": 0, "static": 1, "row": 2}  # ActMode / RsMode in csrc/fas
 KERNEL_NAMES = ("fastgen_persistent", "quant_enc_kernel")  # fastgen_generate's launched[0], [1]
 
 
-def _lib():
-    from nsynth_wavenet_tpu_torch.kernels import build
-
-    lib = build.load("fastgen_kernel")
+def _lib(probe=""):
+    """The serving library, or with a probe the library of its variants."""
+    lib = build.load(build.library_of("fastgen_kernel", probe))
     if not getattr(lib, "_argtypes_set", False):
         lib.fastgen_generate.argtypes = [ctypes.POINTER(_FastgenArgs), ctypes.POINTER(ctypes.c_int)]
         lib.fastgen_generate.restype = ctypes.c_int
@@ -807,15 +836,16 @@ def _indexed(device):
     return device if device.index is not None else torch.device("cuda", torch.cuda.current_device())
 
 
-def launch_info(mode, smem_bytes, device):
-    """What the card makes of the persistent kernel of ``mode`` with
-    ``smem_bytes`` of dynamic shared memory: {grid, blocks_per_sm, sms,
-    registers, spill_bytes (local memory a thread), static_smem, smem_limit}.
-    grid is the cooperative launch's: every block that fits at once."""
+def launch_info(mode, smem_bytes, device, probe=""):
+    """What the card makes of the persistent kernel of ``mode`` (in
+    ``probe``'s variant) with ``smem_bytes`` of dynamic shared memory: {grid,
+    blocks_per_sm, sms, registers, spill_bytes (local memory a thread),
+    static_smem, smem_limit}.  grid is the cooperative launch's: every block
+    that fits at once."""
     device = _indexed(device)
-    key = (mode, smem_bytes, device.index)
+    key = (mode, smem_bytes, device.index, probe)
     if key not in _GRID:
-        lib = _lib()
+        lib = _lib(probe)
         info = (ctypes.c_int * 6)()
         _check(lib, lib.fastgen_grid(_MODE_CODES[mode.act], _MODE_CODES[mode.rs], smem_bytes,
                                      device.index, info))
@@ -846,21 +876,23 @@ def _expect(name, t, shape, dtype, device):
         raise ValueError(f"{name} must be contiguous and 32-byte aligned")
 
 
-def launch_plan(W, GW, S, DW, out_pad, B, mode, device):
+def launch_plan(W, GW, S, DW, out_pad, B, mode, device, probe=""):
     """The work table and the launch of one call at batch B: (schedule,
     launch_info).  The table is cut for the grid it runs on (its row groups
     and K slices depend on the grid) and its shared memory depends on the
     table, so the grid starts at the blocks that fit by registers and
     threads alone and shrinks until every block of its own table fits at
-    once; the shared memory checked against SMEM_LIMIT is the launched one."""
-    grid = launch_info(mode, 0, device)["grid"]
+    once; the shared memory checked against SMEM_LIMIT is the launched one.
+    ``probe``: plan the launch of that probe's variant."""
+    info_of = functools.partial(launch_info, probe=probe) if probe else launch_info
+    grid = info_of(mode, 0, device)["grid"]
     while True:
         sched = schedule(W, GW, S, DW, out_pad, B, mode.act, mode.rs, grid=grid)
         if sched.smem_bytes > SMEM_LIMIT:
             raise ValueError(f"batch {B}: the {mode.act}/{mode.rs} kernel needs {sched.smem_bytes} "
                              f"bytes of shared memory a block, more than {SMEM_LIMIT} (each per-row "
                              f"mode keeps two [B] f32 arrays there)")
-        info = launch_info(mode, sched.smem_bytes, device)
+        info = info_of(mode, sched.smem_bytes, device)
         if info["grid"] >= grid:
             info["grid"] = grid
             return sched, info
@@ -876,7 +908,7 @@ def barriers_counted():
 
 
 def _generate_cuda(kw, enc_t, seed, greedy, tf, collect_out_params, state, return_state,
-                   int8_combine):
+                   int8_combine, probe):
     cfg = kw["cfg"]
     L, B, DW = enc_t.shape
     W, GW, S, NL = cfg.width, cfg.gate_width, cfg.skip_width, cfg.num_layers
@@ -928,8 +960,8 @@ def _generate_cuda(kw, enc_t, seed, greedy, tf, collect_out_params, state, retur
     if not 0 <= t0 <= 2**31 - 1 - L:
         raise ValueError(f"state t0 {t0} + {L} steps leaves the 32-bit step counter")
 
-    sched, info = launch_plan(W, GW, S, DW, out_pad, B, mode, dev)
-    lib = _lib()
+    sched, info = launch_plan(W, GW, S, DW, out_pad, B, mode, dev, probe)
+    lib = _lib(probe)
     scratch = {
         "l": torch.empty((B, W), device=dev),
         "l_bf": torch.empty((B, W), dtype=bf, device=dev),
@@ -974,11 +1006,15 @@ def _generate_cuda(kw, enc_t, seed, greedy, tf, collect_out_params, state, retur
     )
     launched = (ctypes.c_int * 2)()
     rc = lib.fastgen_generate(ctypes.byref(args), launched)
-    generate.launches += 1
-    by_mode = generate.launches_by_mode
-    by_mode[mode.family] = by_mode.get(mode.family, 0) + 1
+    if probe:  # apart from the serving counts, which no probe call may meet
+        counts = generate.launches_by_probe[probe]
+    else:
+        generate.launches += 1
+        by_mode = generate.launches_by_mode
+        by_mode[mode.family] = by_mode.get(mode.family, 0) + 1
+        counts = generate.kernel_launches
     for name, n in zip(KERNEL_NAMES, launched):
-        generate.kernel_launches[name] += n
+        counts[name] += n
     generate.last_barrier_count = (scratch["bar"], info["grid"], L)
     _check(lib, rc)
     result = [scratch["audio"].T.contiguous()]
@@ -990,7 +1026,8 @@ def _generate_cuda(kw, enc_t, seed, greedy, tf, collect_out_params, state, retur
 
 
 def generate(kw, enc_t, seed, *, greedy=False, tf=None, collect_out_params=False,
-             state=None, return_state=False, int8_combine="f32"):
+             state=None, return_state=False, int8_combine="f32", probe="",
+             allow_wrong_output=False):
     """Generate L samples for a batch.
 
     kw: build_kernel_weights output; what it holds decides the mode
@@ -1009,14 +1046,26 @@ def generate(kw, enc_t, seed, *, greedy=False, tf=None, collect_out_params=False
     Returns audio [B, L] f32, then out_params [B, L, out_pad] f32 with
     collect_out_params, then the new state with return_state.  CUDA tensors
     run the CUDA kernels, CPU tensors the plain version.
+    probe (PERF ATTRIBUTION ONLY, the output is wrong): "cheap_gate" forms
+    the gate as clip(dpre[:m], 0, 1) * clip(dpre[m:], -1, 1), in f32 in every
+    mode (with int8_combine="bf16" the reference clips and multiplies in its
+    bf16 combine's type; the port's gate is f32 in every mode); "no_ring_write"
+    writes no ring row, so the ring, and with return_state the lbuf that
+    comes back, hold what they held when the call began.  Everything else
+    runs as in the full call.  A probe needs allow_wrong_output=True, on
+    every device.  That guard is the one deliberate difference from the
+    reference's make_generate_fn, whose AR probes have none; its flow
+    kernel's have (nsynth_wavenet_tpu/ops/flow_kernel.py:155-159).
     """
+    check_probe(probe, allow_wrong_output)
     if enc_t.device.type == "cuda":
         return _generate_cuda(kw, enc_t, seed, greedy, tf, collect_out_params, state, return_state,
-                              int8_combine)
+                              int8_combine, probe)
     if enc_t.device.type == "cpu":
         return generate_plain(kw, enc_t, seed, greedy=greedy, tf=tf,
                               collect_out_params=collect_out_params, state=state,
-                              return_state=return_state, int8_combine=int8_combine)
+                              return_state=return_state, int8_combine=int8_combine, probe=probe,
+                              allow_wrong_output=allow_wrong_output)
     raise ValueError(f"unsupported device {enc_t.device}")
 
 
@@ -1026,3 +1075,5 @@ generate.kernel_launches = dict.fromkeys(KERNEL_NAMES, 0)
 generate.last_barrier_count = None  # (barrier count on the card, grid, steps) of the last CUDA call
 # by Mode.family: "bf16", "w8a8" (static + static), "w8a8_row" (row + row), "w8a8_mixed", "bf16_rs8"
 generate.launches_by_mode = {"bf16": 0, "w8a8": 0, "w8a8_row": 0}
+# a probe call's CUDA launches, by probe and kernel; a probe call adds to no count above
+generate.launches_by_probe = {probe: dict.fromkeys(KERNEL_NAMES, 0) for probe in PROBES}

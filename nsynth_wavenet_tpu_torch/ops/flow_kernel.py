@@ -37,6 +37,23 @@ chunks, laid out by ``persist_plan``), ``flow_wide_kernel`` at W 128 and 256
 ``wide_plan``, reading the weights in the layout ``wide_weights`` makes);
 with a state, ``flow_state_kernel`` writes each layer's new history.
 
+The reference's perf probes (probe=, :132-138, with its guard :155-159) are
+ported as ``flow_stack(probe=..., allow_wrong_output=True)``, in every width
+and conditioning mode, one-shot or with a state: "no_gate" forms the gate
+from two clips, clip(pre[:W/2], 0, 1) * clip(pre[W/2:], -1, 1), in place of
+sigmoid * tanh (:303-306); "no_slide" reads l(t) alone and multiplies it
+into all three tap bands of w_tap, a = bf16([l[t], l[t], l[t]]).  The
+reference's no_slide (:323-328) skips the copies that slide its VMEM carry
+window, so its taps go stale at tile edges while the work stays; the port
+keeps no carry window (each tile's dilated taps come from the layer's input
+stream through the copy engine), so its no_slide drops those two loads, the
+work the name points at: it has no twin of the same meaning in the
+reference.  With a state, the state returned follows the full call's rule,
+the last 2d rows of each layer's own input.  Their
+output is wrong by design; on the card each runs a variant of the kernels
+compiled into a library of its own (kernels/build.py PROBES), counted apart
+in ``flow_stack.launches_by_probe``.
+
 The reference's other options compute the same function: fuse_taps=False
 sums the same bf16 products in another order, tile / b_tile are TPU grid
 parameters, and time_major=False is a transpose around the call.
@@ -51,6 +68,7 @@ from nsynth_wavenet_tpu_torch.kernels import build
 from nsynth_wavenet_tpu_torch.ops.conv import effective_kernel
 
 MATRICES = ("w_tap", "w_cond", "w_res")
+PROBES = build.PROBES["flow_kernel"]  # flow_stack(probe=): "no_gate", "no_slide"
 WIDTHS = (32, 64, 128, 256)  # the widths csrc/flow_kernel.cu is compiled for
 COND_MODES = ("bf16", "f32cond", "stream", "stream_f32")  # index = CondMode in the source
 # flow_stack's launched[] in the source (KernelId), the keys of flow_stack.kernel_launches
@@ -355,10 +373,22 @@ def _carry_bf16(carry_dtype):
     raise ValueError(f"carry_dtype must be None, float32 or bfloat16, got {carry_dtype}")
 
 
+def check_probe(probe, allow_wrong_output):
+    """Refuse an unknown probe, and a probe without allow_wrong_output=True
+    (the reference's guard, nsynth_wavenet_tpu/ops/flow_kernel.py:155-159)."""
+    if probe is not None and probe not in PROBES:
+        raise ValueError(f"unknown probe {probe!r}: want None or one of {PROBES}")
+    if probe is not None and not allow_wrong_output:
+        raise ValueError(f"probe {probe!r} produces WRONG output by design (perf attribution "
+                         "only); pass allow_wrong_output=True to confirm this is not a serving call")
+
+
 @torch.no_grad()
 def flow_stack_plain(x, enc, sw, s, n_layers, num_stages, state=None, compact=True, *,
-                     fuse_cond=False, carry_dtype=None, cond=None):
+                     fuse_cond=False, carry_dtype=None, cond=None, probe=None,
+                     allow_wrong_output=False):
     """Plain PyTorch version of the kernel (see ``flow_stack``)."""
+    check_probe(probe, allow_wrong_output)
     L, B, W = x.shape
     m = W // 2
     carry_bf16 = _carry_bf16(carry_dtype)
@@ -373,7 +403,8 @@ def flow_stack_plain(x, enc, sw, s, n_layers, num_stages, state=None, compact=Tr
             hist = _bf(hist)
         off += 2 * d
         stream = torch.cat([hist, l], 0)  # [2d + L, B, W]: row j holds time j - 2d
-        a = _bf(torch.cat([stream[:L], stream[d : d + L], l], -1))
+        taps = [l, l, l] if probe == "no_slide" else [stream[:L], stream[d : d + L], l]
+        a = _bf(torch.cat(taps, -1))
         taps = a @ _bf(sw["w_tap"][li].reshape(3 * W, W))
         if cond is not None:
             c = cond[..., i * W : (i + 1) * W]
@@ -382,7 +413,10 @@ def flow_stack_plain(x, enc, sw, s, n_layers, num_stages, state=None, compact=Tr
             w_cond = sw["w_cond"][li].float()
             pre = (taps + enc_op @ (_bf(w_cond) if bf_cond else w_cond)
                    + (sw["b"][li] + sw["b_cond"][li]).float())
-        g = torch.sigmoid(pre[..., :m]) * torch.tanh(pre[..., m:])
+        if probe == "no_gate":
+            g = torch.clamp(pre[..., :m], 0.0, 1.0) * torch.clamp(pre[..., m:], -1.0, 1.0)
+        else:
+            g = torch.sigmoid(pre[..., :m]) * torch.tanh(pre[..., m:])
         if state is not None:  # (a view of stream[L:] would keep every layer's stream alive)
             new_state.append(_bf(stream[L:]) if carry_bf16 else stream[L:])
         l = l + _bf(g) @ _bf(sw["w_res"][li]) + sw["b_res"][li].float()
@@ -410,8 +444,9 @@ class _FlowArgs(ctypes.Structure):
     )]
 
 
-def _lib():
-    lib = build.load("flow_kernel")
+def _lib(probe=None):
+    """The serving library, or with a probe the library of its variants."""
+    lib = build.load(build.library_of("flow_kernel", probe))
     if not getattr(lib, "_argtypes_set", False):
         lib.flow_stack.argtypes = [ctypes.POINTER(_FlowArgs), ctypes.POINTER(ctypes.c_int)]
         lib.flow_stack.restype = ctypes.c_int
@@ -435,12 +470,13 @@ _FACTS = ("blocks_per_sm", "sms", "registers", "spill_bytes", "static_smem", "sm
           "threads", "dynamic_smem")
 
 
-def _card_facts(fn, width, mode, device, *smem_bytes):
-    """fn(width, mode, *smem_bytes, device, info) of the C side, as a dict."""
+def _card_facts(fn, width, mode, device, *smem_bytes, probe=None):
+    """fn(width, mode, *smem_bytes, device, info) of the C side (of ``probe``'s
+    library), as a dict."""
     device = torch.device(device)
     if device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    lib = _lib()
+    lib = _lib(probe)
     info = (ctypes.c_int * len(_FACTS))()
     _check(lib, getattr(lib, fn)(width, COND_MODES.index(mode), *smem_bytes, device.index, info))
     facts = dict(zip(_FACTS, info))
@@ -450,15 +486,16 @@ def _card_facts(fn, width, mode, device, *smem_bytes):
     return facts
 
 
-def launch_info(width, mode, smem_bytes, device):
-    """What the card makes of the trunk kernel of ``width`` (kernel_name) in ``mode`` with
-    ``smem_bytes`` of dynamic shared memory (opted in to here): {blocks_per_sm,
-    sms, registers, spill_bytes (local memory a thread), static_smem,
-    smem_limit (the card's opt-in limit a block), threads, dynamic_smem}, read
-    from the occupancy API and cudaFuncGetAttributes."""
-    key = (width, mode, smem_bytes, str(device))
+def launch_info(width, mode, smem_bytes, device, probe=None):
+    """What the card makes of the trunk kernel of ``width`` (kernel_name) in ``mode``
+    (in ``probe``'s variant) with ``smem_bytes`` of dynamic shared memory
+    (opted in to here): {blocks_per_sm, sms, registers, spill_bytes (local
+    memory a thread), static_smem, smem_limit (the card's opt-in limit a
+    block), threads, dynamic_smem}, read from the occupancy API and
+    cudaFuncGetAttributes."""
+    key = (width, mode, smem_bytes, str(device), probe)
     if key not in _INFO:
-        info = _card_facts("flow_persist_info", width, mode, device, smem_bytes)
+        info = _card_facts("flow_persist_info", width, mode, device, smem_bytes, probe=probe)
         if info["blocks_per_sm"] < 1:
             raise RuntimeError(f"{kernel_name(width)} does not fit an SM with {smem_bytes} bytes "
                                "of shared memory")
@@ -466,12 +503,13 @@ def launch_info(width, mode, smem_bytes, device):
     return dict(_INFO[key])
 
 
-def launched_facts(width, mode, device):
-    """launch_info's facts of the trunk kernel of ``width`` in ``mode`` as
-    the card holds them now, setting nothing: dynamic_smem is the opt-in its
-    last launch set (cudaFuncGetAttributes' maxDynamicSharedSizeBytes), and
-    blocks_per_sm the occupancy at that shared memory."""
-    return _card_facts("flow_persist_attrs", width, mode, device)
+def launched_facts(width, mode, device, probe=None):
+    """launch_info's facts of the trunk kernel of ``width`` in ``mode`` (in
+    ``probe``'s variant) as the card holds them now, setting nothing:
+    dynamic_smem is the opt-in its last launch set (cudaFuncGetAttributes'
+    maxDynamicSharedSizeBytes), and blocks_per_sm the occupancy at that
+    shared memory."""
+    return _card_facts("flow_persist_attrs", width, mode, device, probe=probe)
 
 
 def _expect(name, t, shape, dtype, device):
@@ -548,7 +586,7 @@ def _wide_operands(sw, sl, mode, w_cond, fuse_cond, W):
 
 
 def _flow_stack_cuda(x, enc, sw, s, n_layers, num_stages, state=None, compact=True,
-                     fuse_cond=False, carry_dtype=None, cond=None):
+                     fuse_cond=False, carry_dtype=None, cond=None, probe=None):
     L, B, W = x.shape
     dev = x.device
     bf, f32 = torch.bfloat16, torch.float32
@@ -585,12 +623,12 @@ def _flow_stack_cuda(x, enc, sw, s, n_layers, num_stages, state=None, compact=Tr
     w_tap, w_res = sw["w_tap"][sl], sw["w_res"][sl]
     if W in PERSIST_WIDTHS:
         plan = persist_plan(W, mode, 0 if stream else cond_t.shape[-1])
-        info = launch_info(W, mode, plan.smem_bytes, dev)
+        info = launch_info(W, mode, plan.smem_bytes, dev, probe)
         plan_args = persist_args(plan, L * B, info["blocks_per_sm"] * info["sms"])
     else:
         w_tap, w_res, w_cond = _wide_operands(sw, sl, mode, w_cond, fuse_cond, W)
         plan = wide_plan(W, mode, 0 if stream else cond_t.shape[-1])
-        info = launch_info(W, mode, plan.smem_bytes, dev)
+        info = launch_info(W, mode, plan.smem_bytes, dev, probe)
         plan_args = wide_args(plan, L * B, info["blocks_per_sm"] * info["sms"])
     args = _FlowArgs(
         x=x.data_ptr(), cond=cond_t.data_ptr(), w_tap=w_tap.data_ptr(),
@@ -604,17 +642,20 @@ def _flow_stack_cuda(x, enc, sw, s, n_layers, num_stages, state=None, compact=Tr
         first_layer=s, num_stages=num_stages, cond_mode=COND_MODES.index(mode),
         carry_bf16=int(carry_bf16), **plan_args,
     )
-    lib = _lib()
+    lib = _lib(probe) if probe else _lib()
     launched = (ctypes.c_int * len(KERNEL_NAMES))()
     rc = lib.flow_stack(ctypes.byref(args), launched)
+    # a probe call's launches apart from the serving counts, which no probe call may meet
+    counts = flow_stack.kernel_launches if probe is None else flow_stack.launches_by_probe[probe]
     for name, n in zip(KERNEL_NAMES, launched):
-        flow_stack.kernel_launches[name] += n
+        counts[name] += n
     _check(lib, rc)
-    flow_stack.last_launch = dict(kernel=kernel_name(W), width=W, mode=mode,
+    flow_stack.last_launch = dict(kernel=kernel_name(W), width=W, mode=mode, probe=probe,
                                   tile_rows=plan.tile_rows, **plan_args)
-    flow_stack.launches += 1
-    key = mode_key(mode, W)
-    flow_stack.launches_by_mode[key] = flow_stack.launches_by_mode.get(key, 0) + 1
+    if probe is None:
+        flow_stack.launches += 1
+        key = mode_key(mode, W)
+        flow_stack.launches_by_mode[key] = flow_stack.launches_by_mode.get(key, 0) + 1
     # x, the conditioning, the weights and tmp stay referenced until the
     # launches are enqueued; the caching allocator reuses their memory in
     # stream order only
@@ -622,7 +663,7 @@ def _flow_stack_cuda(x, enc, sw, s, n_layers, num_stages, state=None, compact=Tr
 
 
 def flow_stack(x, enc, sw, s, n_layers, num_stages, state=None, compact=True, *,
-               fuse_cond=False, carry_dtype=None, cond=None):
+               fuse_cond=False, carry_dtype=None, cond=None, probe=None, allow_wrong_output=False):
     """Layers s .. s + n_layers - 1 of one flow's trunk over a whole stream.
 
     x [L, B, W] f32 residual stream (time-major); enc [L, B, DW] the deconv
@@ -639,13 +680,18 @@ def flow_stack(x, enc, sw, s, n_layers, num_stages, state=None, compact=True, *,
     flow_wide_kernel at W 128 and 256 (which read the wide layout that
     compact_weights / noncompact_weights add), and with a state one launch of
     flow_state_kernel; flow_stack.kernel_launches counts them by name where
-    they are enqueued.  CPU tensors run the plain version."""
+    they are enqueued.  CPU tensors run the plain version.
+    probe (PERF ATTRIBUTION ONLY, the output is wrong; see the module's
+    docstring): "no_gate" or "no_slide", with allow_wrong_output=True on
+    every device, as the reference demands."""
+    check_probe(probe, allow_wrong_output)
     if x.device.type == "cuda":
         return _flow_stack_cuda(x, enc, sw, s, n_layers, num_stages, state, compact, fuse_cond,
-                                carry_dtype, cond)
+                                carry_dtype, cond, probe)
     if x.device.type == "cpu":
         return flow_stack_plain(x, enc, sw, s, n_layers, num_stages, state, compact,
-                                fuse_cond=fuse_cond, carry_dtype=carry_dtype, cond=cond)
+                                fuse_cond=fuse_cond, carry_dtype=carry_dtype, cond=cond,
+                                probe=probe, allow_wrong_output=allow_wrong_output)
     raise ValueError(f"unsupported device {x.device}")
 
 
@@ -654,6 +700,8 @@ flow_stack.launches = 0
 flow_stack.kernel_launches = dict.fromkeys(KERNEL_NAMES, 0)
 # by mode_key: the conditioning mode, "_w<width>" appended for widths other than 64
 flow_stack.launches_by_mode = {mode_key(m, w): 0 for w in WIDTHS for m in COND_MODES}
+# a probe call's CUDA launches, by probe and kernel name; a probe call adds to no count above
+flow_stack.launches_by_probe = {probe: dict.fromkeys(KERNEL_NAMES, 0) for probe in PROBES}
 # FlowArgs' launch fields of the last call (persist_args or wide_args), with the
-# kernel, width, mode and tile rows, as flow_stack handed them to the C entry point
+# kernel, width, mode, probe and tile rows, as flow_stack handed them to the C entry point
 flow_stack.last_launch = None
