@@ -22,6 +22,19 @@ kernel in it, its lines of the compiler's resource report and a digest of
 its machine code (ab_turns.library_facts), then whether each kernel's facts
 are equal in the two trees.
 
+The pre-pass cases (--cases prepass_896,peak_896,modes_digest; not run
+unless named) compare the int8 modes' conditioning pre-pass of the two trees
+on an encoding held as the deconv leaves it (channel by channel), random
+from a seed: prepass_896 profiles one W8A8 static generate_cuda call of the
+full-width teacher cut to 1 layer at B = 896 x 16 000 steps (cond_offset 7)
+and counts as the pre-pass every kernel of the call but fastgen_persistent
+(a tree that copies the window time-major first counts that copy too; this
+tree also times quant_enc_kernel alone by CUDA events); peak_896 gives the
+peak device memory above the encoding of that call one-shot and in chunks
+of 2 000; modes_digest hashes the audio of all nine (activation, res/skip)
+modes at 4 layers, B = 64 x 300 steps, one-shot and in chunks of 128, which
+ab_turns compares across the passes (same_output).
+
 --probe times, in this tree alone, the same call (--cases: every mode at
 B = 64 and 512 by default) and its perf probes, generate(probe="cheap_gate")
 and generate(probe="no_ring_write"), in turns, rep by rep (median of 7 after
@@ -35,8 +48,12 @@ import sys
 
 import ab_turns
 
-CASES = ("bf16_64", "static_64", "row_64", "bf16_512", "static_512", "row_512", "static_896")
-PROBE_CASES = CASES[:-1]  # what --probe times when --cases is not given
+TIMED_CASES = ("bf16_64", "static_64", "row_64", "bf16_512", "static_512", "row_512", "static_896")
+PREPASS_CASES = ("prepass_896", "peak_896", "modes_digest")
+CASES = TIMED_CASES + PREPASS_CASES
+DEFAULT_CASES = TIMED_CASES  # what a run times when --cases is not given
+PROBE_CASES = TIMED_CASES[:-1]  # what --probe times when --cases is not given
+PREPASS_B, PREPASS_L, PREPASS_OFFSET = 896, 16000, 7
 
 
 def facts():
@@ -93,13 +110,101 @@ def probe_pass(cases):
     return out
 
 
+def _deconv_like(B, T, DW, seed):
+    """A random bf16 encoding [B, T, DW] held channel by channel (time
+    contiguous), as the deconv stack leaves its output."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((B, DW, T), device="cuda", generator=g).to(torch.bfloat16).transpose(1, 2)
+
+
+def prepass_pass(cs, case):
+    """One pre-pass case (PREPASS_CASES) in the working directory's tree."""
+    import hashlib
+    import time
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from nsynth_wavenet_tpu_torch.models.fastgen import Fastgen
+    from nsynth_wavenet_tpu_torch.ops import fastgen_kernel as fk
+
+    if case == "modes_digest":
+        model, params, _ = cs.full_model("configs/wavenet_mol.json", num_layers=4)
+        fg, amax = Fastgen(model), torch.full((4,), 3.0)
+        enc = _deconv_like(64, 320, model.cfg.deconv_width, seed=3)
+        sha = {}
+        for act in ("bf16", "static", "row"):
+            for rs in ("bf16", "static", "row"):
+                build = {"weight_dtype": "bf16" if act == "bf16" else "int8",
+                         "act_amax": amax if act == "static" else None,
+                         "rs_dtype": "bf16" if rs == "bf16" else "int8", "gate_static": rs == "static"}
+                kw = fk.build_kernel_weights(model.cfg, params, **build)
+                runs = {c: fg.generate_cuda(params, None, seed=5, length=300, cond_offset=11, kw=kw,
+                                            encoding=enc, chunk=c) for c in (None, 128)}
+                sha[f"{act}/{rs}"] = {"one_shot" if c is None else "chunked":
+                                      hashlib.sha256(a.cpu().numpy().tobytes()).hexdigest()[:16]
+                                      for c, a in runs.items()}
+        return {"sha": sha}
+    # the full-width teacher cut to 1 layer, W8A8 static with a fixed abs-max
+    model, params, _ = cs.full_model("configs/wavenet_mol.json", num_layers=1)
+    fg = Fastgen(model)
+    kw = fk.build_kernel_weights(model.cfg, params, weight_dtype="int8",
+                                 act_amax=torch.full((1,), 3.0), gate_static=True)
+    B, L, off = PREPASS_B, PREPASS_L, PREPASS_OFFSET
+    DW = model.cfg.deconv_width
+    enc = _deconv_like(B, L + 16, DW, seed=5)
+    if case == "peak_896":
+        peak = {}
+        for chunk in (None, 2000):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fg.generate_cuda(params, None, seed=1, length=L, cond_offset=off, kw=kw, encoding=enc,
+                             chunk=chunk)
+            torch.cuda.synchronize()
+            peak["one_shot" if chunk is None else "chunked"] = (
+                (torch.cuda.max_memory_allocated() - base) / 1e9)
+        return {"peak_gb": peak}
+    call = lambda: fg.generate_cuda(params, None, seed=1, length=L, cond_offset=off, kw=kw,
+                                    encoding=enc)
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.25)
+        call()
+        torch.cuda.synchronize()
+        time.sleep(0.25)
+    kernels = {}
+    for evt in prof.key_averages():
+        if str(getattr(evt, "device_type", "")).endswith("CUDA"):
+            total = getattr(evt, "self_device_time_total", None)
+            kernels[evt.key[:80]] = (total if total is not None else evt.self_cuda_time_total) / 1e3
+    prepass = {k: ms for k, ms in kernels.items() if "fastgen_persistent" not in k}
+    out = {"ms": sum(prepass.values()), "kernels_ms": prepass,
+           "bound_ms": 1e3 * L * B * (DW * 2 + DW * 3 + 4) / cs.PEAK_HBM_BYTES}
+    win = enc.transpose(0, 1)[off : off + L]
+    out["copy_ms"] = cs.cuda_ms(lambda: win.contiguous(), reps=5)  # the bf16 mode's own pre-pass
+    if hasattr(fk, "enc_prepass"):
+        out["fused_ms"] = cs.cuda_ms(lambda: fk.enc_prepass(win), reps=5)
+    return out
+
+
 def one_pass(full, cases):
     """Time ``cases`` in the tree of the working directory; returns a dict."""
     from nsynth_wavenet_tpu_torch.ops import fastgen_kernel as fk
 
+    if all(c in PREPASS_CASES for c in cases):
+        import chip_smoke as cs
+
+        return {case: prepass_pass(cs, case) for case in cases}
     cs, model, params, kws = _setup()
     out = {}
     for case in cases:
+        if case in PREPASS_CASES:
+            out[case] = prepass_pass(cs, case)
+            continue
         mode, B = case.split("_")[0], int(case.split("_")[1])
         enc = cs.conditioning(model, params, B=B, L=cs.TIMED_STEPS, seed=10 + B)
         kw = kws[mode]
@@ -114,4 +219,4 @@ def one_pass(full, cases):
 
 if __name__ == "__main__":
     sys.exit(ab_turns.main(__doc__, CASES, one_pass, facts, probe=probe_pass,
-                           probe_cases=PROBE_CASES))
+                           probe_cases=PROBE_CASES, default_cases=DEFAULT_CASES))

@@ -20,7 +20,11 @@ B = --batch x --samples (default 32 x 4 s: L = 64 000 rows a batch row), and tim
     them), the bf16 and f32 cond streams, and with a carried state (bf16 and
     f32cond);
   - parallelgen.synthesize_cuda on the same batch, bf16 and f32 students, in
-    steady state: one warm call, then the median of 5 by CUDA events.
+    steady state: one warm call, then the median of 5 by CUDA events;
+  - StudentStreamer.synthesize of the bf16 student in chunks of 1 024 and
+    32 768 samples on fixed base noise (streamer_1024, streamer_32768), the
+    median of 3 after a warm call, with a digest of its audio that ab_turns
+    compares across the passes of both trees (same_output).
 The first pass of this tree also gives, for each flow case, the plain
 version's time, the torch.mm yardstick on the same products and the card's
 bound (chip_smoke.time_flow).
@@ -39,6 +43,7 @@ the full call of the same rep.
 """
 
 import dataclasses
+import hashlib
 import os
 import sys
 
@@ -46,7 +51,8 @@ import ab_turns
 
 FLOW_CASES = ("bf16", "f32cond", "fuse_cond", "stream", "stream_f32", "state", "state_f32cond")
 SYNTH_CASES = ("synth_bf16", "synth_f32")
-CASES = FLOW_CASES + SYNTH_CASES
+STREAMER_CASES = ("streamer_1024", "streamer_32768")
+CASES = FLOW_CASES + SYNTH_CASES + STREAMER_CASES
 PROBE_CASES = ("bf16", "f32cond")  # what --probe times when --cases is not given
 OPTIONS = (("--width", {"type": int, "default": 64, "choices": (32, 64, 128, 256),
                         "help": "the student's width"}),
@@ -172,9 +178,18 @@ def one_pass(full, cases, width=64, batch=32, samples=64000):
         if case in cases:
             out[case] = {"ms": cs.cuda_ms(lambda: parallelgen.synthesize_cuda(
                 model, params, mel, torch.Generator().manual_seed(0)), reps=5)}
+    base_x = pwn.base_noise(torch.Generator().manual_seed(3), mel.shape[0],
+                            pwn.sample_length(mel.shape[1]), "cuda")
+    for case in STREAMER_CASES:
+        if case in cases:
+            streamer = parallelgen.StudentStreamer(pwn, chunk=int(case.split("_")[1]))
+            audio = streamer.synthesize(params, mel, base_x=base_x)
+            out[case] = {"ms": cs.cuda_ms(lambda: streamer.synthesize(params, mel, base_x=base_x),
+                                          reps=3),
+                         "sha": hashlib.sha256(audio.cpu().numpy().tobytes()).hexdigest()[:16]}
     return out
 
 
 if __name__ == "__main__":
     sys.exit(ab_turns.main(__doc__, CASES, one_pass, facts, OPTIONS, probe=probe_pass,
-                           probe_cases=PROBE_CASES))
+                           probe_cases=PROBE_CASES, default_cases=FLOW_CASES + SYNTH_CASES))

@@ -8,12 +8,14 @@ library; a pass runs the script again with ``--pass plain`` (the second:
 returns {case: {"ms": ..., ...}}.  Each pass prints one line
 "AB <tree> <nvidia-smi name, power limit> <json>"; the last line is a JSON
 object with every pass and, per case, this tree's time over the other's (the
-sum of its two passes over the other's two).  ``facts``, where a script
+sum of its two passes over the other's two; cases without a time are left
+out) and, for a case that returns a digest of its output ("sha"), whether
+every pass of both trees gave the same one (same_output).  ``facts``, where a script
 gives it, is run once in each tree (other, then this) by ``--facts``
 instead, and its dict printed on the same kind of line; the last line then
-says, entry by entry, whether the two trees' facts are equal
-(``library_facts`` gives a library's compiler report and a digest of each
-kernel's machine code).  ``probe``, where a script gives it, runs by
+says, entry by entry, whether the two trees' facts are equal, and which
+entries one tree has and the other lacks (``library_facts`` gives a
+library's compiler report and a digest of each kernel's machine code).  ``probe``, where a script gives it, runs by
 ``--probe`` in this tree alone: it times the full call and each perf probe
 of the kernel in turns, rep by rep (``interleaved``), and prints one line
 "PROBE <nvidia-smi name, power limit> <json>".
@@ -127,10 +129,12 @@ def run_pass(tree, mode, cases, forward=()):
     return json.loads(line[-1][line[-1].index("{"):])
 
 
-def main(doc, cases, one_pass, facts=None, options=(), probe=None, probe_cases=None):
+def main(doc, cases, one_pass, facts=None, options=(), probe=None, probe_cases=None,
+         default_cases=None):
     """``options``: the script's own (flag, argparse keywords) pairs; their
     values go to ``one_pass`` (and ``probe``) as keywords and to every pass's
-    process.  ``probe_cases``: the cases --probe times when --cases is not given."""
+    process.  ``probe_cases``: the cases --probe times when --cases is not
+    given; ``default_cases``: those a run times then (default: all)."""
     ap = argparse.ArgumentParser(description=doc.split("\n\n")[0])
     for flag, kw in options:
         ap.add_argument(flag, **kw)
@@ -144,13 +148,16 @@ def main(doc, cases, one_pass, facts=None, options=(), probe=None, probe_cases=N
     ap.add_argument("--pass", dest="one", choices=("plain", "full", "facts"), help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.cases is None:
-        args.cases = ",".join(probe_cases if getattr(args, "probe", False) and probe_cases else cases)
+        args.cases = ",".join(probe_cases if getattr(args, "probe", False) and probe_cases
+                              else default_cases or cases)
     chosen = [c for c in args.cases.split(",") if c]
     opts = {flag[2:]: getattr(args, flag[2:]) for flag, _ in options}
     forward = [str(v) for flag, _ in options for v in (flag, opts[flag[2:]])]
     if not chosen or any(c not in cases for c in chosen):
         ap.error(f"--cases {args.cases}: want some of {', '.join(cases)}")
     if args.one:  # a child process: one pass in the working directory's tree
+        # that tree's package first: the script's own directory leads sys.path
+        sys.path.insert(0, os.getcwd())
         res = facts() if args.one == "facts" else one_pass(args.one == "full", chosen, **opts)
         print(f"AB {os.getcwd()} {smi()} {json.dumps(res)}", flush=True)
         return 0
@@ -165,8 +172,10 @@ def main(doc, cases, one_pass, facts=None, options=(), probe=None, probe_cases=N
         both = [run_pass(tree, "facts", chosen, forward) for tree in (other, here)]
         if None in both:
             return 1
-        print(json.dumps({"facts_equal": {k: both[0].get(k) == both[1].get(k)
-                                          for k in sorted(set(both[0]) | set(both[1]))}}))
+        shared = sorted(set(both[0]) & set(both[1]))
+        print(json.dumps({"facts_equal": {k: both[0][k] == both[1][k] for k in shared},
+                          "only_other": sorted(set(both[0]) - set(both[1])),
+                          "only_this": sorted(set(both[1]) - set(both[0]))}))
         return 0
     passes = []
     for label, tree, mode in (("other", other, "plain"), ("this", here, "full"),
@@ -175,11 +184,14 @@ def main(doc, cases, one_pass, facts=None, options=(), probe=None, probe_cases=N
         if res is None:
             return 1
         passes.append((label, res))
-    ratio = {}
-    for key in passes[0][1]:
-        mine = sum(p[key]["ms"] for lab, p in passes if lab == "this")
-        theirs = sum(p[key]["ms"] for lab, p in passes if lab == "other")
-        ratio[key] = mine / theirs
+    ratio, same = {}, {}
+    for key, first in passes[0][1].items():
+        if "ms" in first:
+            mine = sum(p[key]["ms"] for lab, p in passes if lab == "this")
+            theirs = sum(p[key]["ms"] for lab, p in passes if lab == "other")
+            ratio[key] = mine / theirs
+        if "sha" in first:  # a digest of the case's output: equal in every pass of both trees?
+            same[key] = len({json.dumps(p[key]["sha"], sort_keys=True) for _, p in passes}) == 1
     print(json.dumps({"passes": [{"tree": lab, **p} for lab, p in passes],
-                      "this_over_other": ratio}))
+                      "this_over_other": ratio, "same_output": same}))
     return 0

@@ -13,7 +13,8 @@ them.  Phases, each fatal on failure:
      and for the trained tiny MoL golden;
   4. the kernel's Philox generator against the plain one, and its statistics;
      its time per [256, 1024] call against torch.rand, through the wrapper
-     and on the device alone (a CUDA graph of 100 back-to-back calls);
+     and on the device alone (a CUDA graph of 100 back-to-back calls), and
+     one [65536, 1024] call (256 MiB written) against its byte bound;
   5. the main path end to end at full width, B = 64 and 512, L = 2000:
      numpy wavs -> mel -> deconv on the card -> Fastgen.generate_cuda, sampled;
      kernel launch counts; the phase 2 checks again at B = 64 and 512,
@@ -38,8 +39,8 @@ them.  Phases, each fatal on failure:
      phases 27-28 also requires the call's CUDA launches, counted by kernel
      name where flow_stack enqueues them, to be exactly one trunk launch a
      layer of its width's kernel (flow_persist_kernel at W 32 / 64,
-     flow_wide_kernel at W 128 / 256) and, with a state, one
-     flow_state_kernel a layer;
+     flow_wide_kernel at W 128 / 256), with a state or without (the state
+     copy is the layer's own launch, the kernel's carry twin);
   9. the student path end to end at full width (60 layers in 4 flows), B = 32
      and 8, 4 s of audio: numpy wavs -> mel -> shared deconv on the card ->
      parallelgen.synthesize_cuda; wrapper calls, and CUDA launches by kernel
@@ -107,6 +108,23 @@ res/skip under an int8 ring, the bf16 combine); they follow phase 18:
  25. a golden per-row free run that must track its conditioning;
  26. evaluation.generate_wavenet(int8=True) over two wavs and over one mel-only
      .npy, one-shot and streamed.
+Phases E1 to E3 cover the int8 modes' conditioning pre-pass
+(quant_enc_kernel); they follow phase 26:
+ E1. quant_enc_kernel against its plain version, enc, q_enc and r_enc bit for
+     bit, at B = 64 and 512 on the deconv's own output and at B = 896 on a
+     random encoding in the deconv's layout (channel by channel): windows of
+     700, 700 and a ragged 500 steps from cond_offset 13, a contiguous
+     time-major copy, an f32 window; one launch each;
+ E2. generate_cuda from the encoding as it lies, chunks of 256 equal to the
+     one-shot call bit for bit in W8A8 static and per-row (B = 64, L = 600,
+     cond_offset 17), one pre-pass a call; the peak device memory of a W8A8
+     static call at B = 896, L = 2000, one-shot and in chunks of 500, the
+     chunked one under the one-shot one less the time-major copy of the
+     other 1 500 steps;
+ E3. quant_enc_kernel timed at B = 896 x C = 4000 from the deconv's layout
+     and from a contiguous copy, against its plain version, one
+     Tensor.copy_ of the window (the bf16 mode's pre-pass) and its byte
+     bound.
 Phases 27 to 31 cover the flow kernel's other modes and the f32 student; they
 follow phase 11:
  27. the flow kernel's modes against their plain versions at the full width of
@@ -154,7 +172,24 @@ follow phase 11:
      32 x 4 s, bf16 and f32-cond, beside its plain version, torch.mm, the
      per-layer floor and the bound; one 10-layer bf16 call timed at widths
      32, 64, 128 and 256.
-Phases T1 to T5 train the teacher (training/); they follow phase 31:
+Phases H1 to H3 cover the state copy folded into the trunk launch;
+they follow phase 31:
+ H1. at W 32 / 64 / 128 / 256, B = 8 x 4096 and 3 x 600, in bf16, f32-cond,
+     both cond streams and with bf16 carries: a 10-layer call with a random
+     state launches one trunk kernel a layer (its carry twin) and nothing
+     else; each layer's new history, in the call and in a chain of
+     one-layer calls, equals the last 2d rows of (old history ++ the
+     layer's input) bit for bit (rounded to bf16 under bf16 carries), and
+     the chain's output the call's; each carry twin fits as many blocks an
+     SM as its one-shot kernel (registers and spills printed);
+ H2. the 10-layer bf16 call with a state against the one-shot call, in
+     turns, at W 64 and 256, B = 32 x L = 1024 and 64 000, and the stateful
+     W 64 call at L = 64 000 against its plain version, torch.mm plus one
+     Tensor.copy_ of the history and the bound;
+ H3. StudentStreamer at chunks of 1024 and 32768 (full-depth student,
+     B = 32 x 4 s): 60 trunk launches a chunk, repeatable, within 5e-3 of
+     the one-shot path on the same noise; timed.
+Phases T1 to T5 train the teacher (training/); they follow phase H3:
  T1. one training step on the card against the same step on the CPU:
      configs/wavenet_mol.json cut to 4 layers, f32 compute, TF32 off, dropout
      off, B = 2 x 7680, the same params and batch: the loss, every gradient
@@ -294,9 +329,8 @@ requirements):
  Q3. longform_check, 3 s x 8 utterances in chunks of 4000: Q1's teacher in
      bf16 and W8A8 static, one fastgen_persistent launch a chunk call (after
      one quant_enc_kernel in W8A8 static), ceil(L / chunk) calls; Q2's
-     student through StudentStreamer, flow_persist_kernel and
-     flow_state_kernel launches equal to predicted_launches a flow_stack
-     call, every call of every chunk;
+     student through StudentStreamer, flow_persist_kernel launches equal
+     to predicted_launches a flow_stack call, every call of every chunk;
  Q4. make_golden_ckpt (CE, f32) whose params.npz loads through
      weights.load_npz and whose free run through fastgen_persistent prints
      utils/quality.golden_gate's reading; make_golden_wavs --cuda, four
@@ -1031,6 +1065,7 @@ def w8a8_phases(model, params, kw_bf16, gmodel, gparams, gdir, mels):
     torch.cuda.synchronize()
     fk.generate.launches = 0
     fk.generate.launches_by_mode = {"bf16": 0, "w8a8": 0}
+    fk.generate.kernel_launches = dict.fromkeys(fk.KERNEL_NAMES, 0)
     runs = {}
     for B in MAIN_BATCHES:
         t0 = time.time()
@@ -1040,15 +1075,17 @@ def w8a8_phases(model, params, kw_bf16, gmodel, gparams, gdir, mels):
         runs[B] = (audio, time.time() - t0)
     launches = fk.generate.launches
     by_mode = dict(fk.generate.launches_by_mode)
+    main_kernels = dict(fk.generate.kernel_launches)
     for B, (audio, dt) in runs.items():
         require(tuple(audio.shape) == (B, MAIN_LENGTH), f"W8A8 main path shape {tuple(audio.shape)}")
         require(bool(torch.isfinite(audio).all()) and float(audio.abs().max()) <= 1.0,
                 f"W8A8 main path B={B}: audio not finite in [-1, 1]")
         log(f"W8A8 main path B={B} L={MAIN_LENGTH}: {dt:.3f} s, {1e6 * dt / MAIN_LENGTH:.1f} us/step, "
             f"{B * MAIN_LENGTH / 16000 / dt:.2f} audio-sec/s, audio std {float(audio.std()):.4f}")
-    log(f"W8A8 main path kernel launches: generate {launches}, by mode {by_mode} "
-        f"(one persistent launch a call, after the conditioning pre-pass)")
-    require(launches == len(MAIN_BATCHES) and by_mode == {"bf16": 0, "w8a8": launches},
+    log(f"W8A8 main path kernel launches: generate {launches}, by mode {by_mode}, by kernel "
+        f"{main_kernels} (one persistent launch a call, after the conditioning pre-pass)")
+    require(launches == len(MAIN_BATCHES) and by_mode == {"bf16": 0, "w8a8": launches}
+            and main_kernels == want_ar_launches("static", launches),
             "the W8A8 main path did not go through the int8 kernels alone")
     # streamed against one-shot on one encoding: the kernels are deterministic, but cuDNN's
     # transposed convolution is not bit-stable between calls, so the mel is upsampled once
@@ -1115,6 +1152,7 @@ def w8a8_phases(model, params, kw_bf16, gmodel, gparams, gdir, mels):
         "source": "nsynth_wavenet_tpu_torch/csrc/fastgen_kernel.cu",
         "replaces": "nsynth_wavenet_tpu/ops/fastgen_kernel.py:291",
         "launches": launches,
+        "kernel_launches": main_kernels,
         "max_abs_err": shallow_err,
         "rel_tol": W8A8_REL_TOL,
         "step_pairs_over_share": pair_share,
@@ -1372,6 +1410,120 @@ def row_phases(model, params, kw_bf16, kw_static, amax, gmodel, gparams, gdir, m
     }
 
 
+def prepass_check(label, win):
+    """quant_enc_kernel on the window ``win`` against its plain version on the
+    same card tensors: enc, q_enc and r_enc bit for bit; returns the largest
+    difference of the three."""
+    fk.generate.kernel_launches = dict.fromkeys(fk.KERNEL_NAMES, 0)
+    got = fk.enc_prepass(win)
+    torch.cuda.synchronize()
+    require(fk.generate.kernel_launches == {"fastgen_persistent": 0, "quant_enc_kernel": 1},
+            f"{label}: launches {fk.generate.kernel_launches}, want one quant_enc_kernel")
+    want = fk.enc_prepass_plain(win)
+    err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+    same = all(bool(torch.equal(a, b)) for a, b in zip(got, want))
+    C, B, DW = win.shape
+    log(f"quant_enc_kernel {label} ({fk.enc_layout(win)}, {win.dtype}) C={C} B={B} DW={DW}: "
+        f"enc, q_enc, r_enc equal to the plain version bit for bit: {same} (max|d| {err:.3e})")
+    require(same, f"{label}: quant_enc_kernel differs from its plain version")
+    return err
+
+
+def deconv_like(B, T, DW, seed, dtype=torch.bfloat16):
+    """A random encoding [B, T, DW] held as the deconv stack leaves it: channel
+    by channel (time contiguous), on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((B, DW, T), device="cuda", generator=g).to(dtype).transpose(1, 2)
+
+
+def prepass_phases(model, params, kw_static, amax, mels, main_launches):
+    """Phases E1 to E3: the int8 modes' conditioning pre-pass (quant_enc_kernel)
+    against its plain version, chunked serving from the encoding as it lies,
+    and the pre-pass timed; returns its record."""
+    t_start = time.time()
+    cfg = model.cfg
+    fg = Fastgen(model)
+    DW = cfg.deconv_width
+    # ---- E1. quant_enc_kernel vs plain, bit for bit ----
+    err = 0.0
+    for B in MAIN_BATCHES + (SHIPPED_BATCH,):
+        # the deconv's own output at the main path's batches, a random one at 896
+        enc = (model.deconv_stack(params, mels[B]) if B in mels
+               else deconv_like(B, MAIN_LENGTH + 40, DW, seed=B))
+        tm = enc.transpose(0, 1)
+        off, L, chunk = 13, MAIN_LENGTH - 100, 700  # chunks of 700, 700 and a ragged 500
+        for c0 in range(0, L, chunk):
+            err = max(err, prepass_check(f"B={B} window {off + c0}..{off + min(c0 + chunk, L)}",
+                                         tm[off + c0 : off + min(c0 + chunk, L)]))
+        win = tm[off : off + 300]
+        err = max(err, prepass_check(f"B={B} contiguous copy", win.contiguous()))
+        err = max(err, prepass_check(f"B={B} f32", win.float()))
+        del enc, tm, win
+    # ---- E2. chunked serving from the encoding as it lies ----
+    kw_row = pack(cfg, params, None, weight_dtype="int8")
+    B, L, off = MAIN_BATCHES[0], 600, 17
+    enc = model.deconv_stack(params, mels[B])
+    for label, kw in (("W8A8 static", kw_static), ("W8A8 per-row", kw_row)):
+        mode = fk.kernel_mode(kw)
+        reset_ar_counts()
+        one = fg.generate_cuda(params, None, seed=3, length=L, cond_offset=off, kw=kw, encoding=enc)
+        chunked = fg.generate_cuda(params, None, seed=3, length=L, cond_offset=off, kw=kw,
+                                   encoding=enc, chunk=256)
+        torch.cuda.synchronize()
+        calls, counted = ar_counts()
+        same = bool(torch.equal(one, chunked))
+        log(f"E2 {label} B={B} L={L} cond_offset {off}: chunks of 256 equal to one-shot bit for bit: "
+            f"{same}; launches {counted} in {calls} calls")
+        require(same, f"E2 {label}: chunked audio differs from one-shot")
+        require_ar_launches(f"E2 {label}", calls, counted, 1 + -(-L // 256),
+                            want_ar_launches(mode.act, 1 + -(-L // 256)))
+    # the peak device memory of a call at the shipped batch, one-shot and chunked
+    B, L, chunk = SHIPPED_BATCH, MAIN_LENGTH, 500
+    enc = deconv_like(B, L + 40, DW, seed=7)
+    peaks = {}
+    for ch in (None, chunk):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        audio = fg.generate_cuda(params, None, seed=1, length=L, cond_offset=9, kw=kw_static,
+                                 encoding=enc, chunk=ch)
+        torch.cuda.synchronize()
+        peaks[ch] = torch.cuda.max_memory_allocated() - base
+        require(bool(torch.isfinite(audio).all()), "E2 peak-memory run: audio not finite")
+    held = (L - chunk) * B * DW * 2  # the time-major bf16 copy a chunked call no longer holds
+    log(f"E2 W8A8 static B={B} L={L} peak device memory above the encoding: one-shot "
+        f"{peaks[None] / 2**30:.3f} GiB, chunks of {chunk} {peaks[chunk] / 2**30:.3f} GiB "
+        f"(the time-major bf16 copy of the other {L - chunk} steps alone is {held / 2**30:.3f} GiB)")
+    require(peaks[chunk] < peaks[None] - held, "E2: a chunked call holds more than one chunk")
+    del enc
+    # ---- E3. the pre-pass timed at the shipped batch ----
+    B, C = SHIPPED_BATCH, 4000
+    enc = deconv_like(B, C + 40, DW, seed=11)
+    win = enc.transpose(0, 1)[5 : 5 + C]
+    ms = cuda_ms(lambda: fk.enc_prepass(win), reps=5)
+    rows = win.contiguous()
+    rows_ms = cuda_ms(lambda: fk.enc_prepass(rows), reps=5)
+    del rows
+    plain_ms = cuda_ms(lambda: fk.enc_prepass_plain(win), reps=1)
+    library_ms = cuda_ms(lambda: win.contiguous(), reps=5)  # the bf16 mode's own pre-pass
+    io_bytes = C * B * (DW * 2 + DW * 3 + 4)
+    bound_ms = 1e3 * io_bytes / PEAK_HBM_BYTES
+    log(f"timing quant_enc_kernel B={B} C={C} DW={DW} from the deconv's layout: {ms:.3f} ms "
+        f"({100 * bound_ms / ms:.1f} % of the byte bound {bound_ms:.3f} ms, {io_bytes / 1e9:.3f} GB), "
+        f"from a contiguous time-major copy {rows_ms:.3f} ms, plain {plain_ms:.3f} ms, one "
+        f"Tensor.copy_ of the window (the bf16 mode's pre-pass) {library_ms:.3f} ms")
+    del enc, win
+    torch.cuda.empty_cache()
+    log(f"pre-pass phases E1-E3: {time.time() - t_start:.1f} s")
+    return {"name": "quant_enc_kernel", "route": "cuda",
+            "source": "nsynth_wavenet_tpu_torch/csrc/fastgen_kernel.cu",
+            "replaces": "nsynth_wavenet_tpu/ops/fastgen_kernel.py:451",
+            "launches": main_launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": library_ms,
+            "rows_layout_ms": rows_ms, "shape": {"B": B, "C": C, "DW": DW},
+            "peak_bytes": {"one_shot": peaks[None], "chunked": peaks[chunk]}}
+
+
 def synthetic_wavs(B, n, seed):
     rng = np.random.RandomState(seed)
     t = np.arange(n) / 16000.0
@@ -1551,8 +1703,8 @@ def time_flow(x, enc, sw, nl, num_stages, **kw):
     the same per-layer products, and the card's bound for the call.  kw: the
     mode's flow_stack options.  The yardstick runs the bf16 products (taps,
     with a bf16 encoding its cond product too, res) as bf16 torch.mm, an f32
-    cond product as an f32 torch.mm (TF32 off), and adds a cond stream's
-    columns."""
+    cond product as an f32 torch.mm (TF32 off), adds a cond stream's
+    columns, and with a state one Tensor.copy_ of the history (copy_ms)."""
     L, B, W = x.shape
     rows = L * B
     cond = kw.get("cond")
@@ -1583,6 +1735,12 @@ def time_flow(x, enc, sw, nl, num_stages, **kw):
             torch.mm(g, sw["w_res"][li], out=res)
 
     library_ms = cuda_ms(library)
+    copy_ms = None
+    if kw.get("state") is not None:  # and one Tensor.copy_ of the history's bytes
+        new_state = torch.empty_like(kw["state"])
+        copy_ms = cuda_ms(lambda: new_state.copy_(kw["state"]))
+        library_ms += copy_ms
+        del new_state
     del a, g, pre, res, pre32
     flops = 2 * rows * nl * (k_bf * W + (W // 2) * W)
     flops_f32 = 2 * rows * nl * DW * W if f32_cond else (rows * nl * W if cond is not None else 0)
@@ -1594,7 +1752,7 @@ def time_flow(x, enc, sw, nl, num_stages, **kw):
     t_bytes = io_bytes / PEAK_HBM_BYTES
     # a design with one launch a layer moves l in, the conditioning in and l' out every layer
     layer_bytes = nl * rows * (8 * W + feed.element_size() * (W if cond is not None else DW))
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "copy_ms": copy_ms,
             "bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "ops_ms": 1e3 * t_ops, "bytes_ms": 1e3 * t_bytes, "flops": flops + flops_f32,
@@ -1832,15 +1990,16 @@ def flow_launch_facts(width, mode):
     last = flk.flow_stack.last_launch
     require(last is not None and (last["width"], last["mode"]) == (width, mode),
             f"the last flow kernel launch was {last}, want width {width}, mode {mode}")
-    card = flk.launched_facts(width, mode, "cuda")
-    facts = {"kernel": last["kernel"], "grid": last["grid"], "n_tiles": last["n_tiles"],
+    card = flk.launched_facts(width, mode, "cuda", carry=last["carry"])
+    facts = {"kernel": last["kernel"], "carry": last["carry"], "grid": last["grid"],
+             "n_tiles": last["n_tiles"],
              "blocks_per_sm": card["blocks_per_sm"], "sms": card["sms"],
              "registers": card["registers"], "spill_bytes": card["spill_bytes"],
              "static_smem": card["static_smem"], "dynamic_smem": card["dynamic_smem"],
              "threads": card["threads"], "tile_rows": last["tile_rows"], "stages": last["stages"],
              "slot_bytes": last["slot_bytes"], "enc_cols": last["enc_cols"],
              "wc_resident": bool(last["wc_resident"])}
-    name = f"{last['kernel']}<{width}, {mode}>"
+    name = f"{last['kernel']}<{width}, {mode}>" + (" carry twin" if last["carry"] else "")
     log(f"launch {name}: " + ", ".join(f"{k} {v}" for k, v in facts.items() if k != "kernel"))
     require(facts["dynamic_smem"] == last["smem_bytes"],
             f"{name}: the card holds an opt-in of {facts['dynamic_smem']} bytes, the launch "
@@ -2059,6 +2218,151 @@ def wide_student_phase(wd):
         del x, enc
     del pp
     return out
+
+
+def carry_check(label, x, enc, sw, ns, **kw):
+    """A stateful 10-layer call against the copy rule, bit for bit: each layer
+    i's input comes from a chain of one-layer calls (a row's arithmetic does
+    not depend on the call, so the chain's last output must equal the
+    call's), and the new history of layer i, in the call and in its one-layer
+    call, must be the last 2d rows of (old history ++ that input), rounded to
+    bf16 under bf16 carries.  The call must launch exactly one trunk kernel a
+    layer (its carry twin), nothing else.  Returns the call's state error
+    (0.0 when it holds)."""
+    L, B, W = x.shape
+    g = torch.Generator(device="cuda").manual_seed(L + W)
+    st = 0.1 * torch.randn((flk.state_rows(0, ns, ns), B, W), device="cuda", generator=g)
+    bf16_carry = kw.get("carry_dtype") == torch.bfloat16
+    if bf16_carry:
+        st = st.to(torch.bfloat16).float()
+    (out, new), launched = kernel_launches_of(lambda: flk.flow_stack(x, enc, sw, 0, ns, ns,
+                                                                    state=st, **kw))
+    require_launches(f"{label} with a state", launched, flk.predicted_launches(W, ns, True))
+    require(flk.flow_stack.last_launch["carry"], f"{label}: the stateful call ran no carry twin")
+    xi, off, err = x, 0, 0.0
+    for li in range(ns):
+        d = 2 ** (li % ns)
+        lkw = dict(kw)
+        if kw.get("cond") is not None:
+            lkw["cond"] = kw["cond"][..., li * W : (li + 1) * W].contiguous()
+        o1, n1 = flk.flow_stack(xi, enc, sw, li, 1, ns, state=st[off : off + 2 * d].contiguous(),
+                                **lkw)
+        want = torch.cat([st[off : off + 2 * d], xi], 0)[-2 * d :]
+        if bf16_carry:
+            want = want.to(torch.bfloat16).float()
+        err = max(err, float((new[off : off + 2 * d] - want).abs().max()),
+                  float((n1 - want).abs().max()))
+        xi, off = o1, off + 2 * d
+    torch.cuda.synchronize()
+    chain = bool(torch.equal(xi, out))
+    log(f"carry {label} B={B} L={L}: new state equal to the copy rule bit for bit: {err == 0.0} "
+        f"(max|d| {err:.3e}); one-layer chain equal to the call: {chain}; launches {launched}")
+    require(err == 0.0 and chain, f"carry {label} B={B} L={L}: the new state breaks the copy rule")
+    return err
+
+
+def carry_phases():
+    """Phases H1 to H3: the state copy folded into the trunk launch (the carry
+    twins) at every width and conditioning mode, the stateful call timed
+    against the one-shot call, and StudentStreamer's launches and time a
+    chunk; returns the stateful call's record."""
+    t_start = time.time()
+    bf = torch.bfloat16
+    # ---- H1. the copy rule, bit for bit, every width and mode ----
+    err, facts = 0.0, {}
+    for W in flk.WIDTHS:
+        pwn, params = student_model(width=W)
+        ns = pwn.cfg.num_stages
+        sw = flk.stack_flow_weights(params["flows"][0])
+        cw, nw = flk.compact_weights(sw), flk.noncompact_weights(sw)
+        for B, L in ((8, 4096), (3, 600)):
+            x, enc = flow_inputs(pwn, params, B=B, L=L, seed=70 + W + B)
+            c32 = stream_of(enc, sw, 0, ns)
+            cases = (("bf16", enc.to(bf), cw, {}), ("f32cond", enc.float(), nw, {"compact": False}),
+                     ("stream", None, cw, {"cond": c32.to(bf)}),
+                     ("stream_f32", None, nw, {"cond": c32, "compact": False}),
+                     ("bf16, bf16 carries", enc.to(bf), cw, {"carry_dtype": bf}))
+            for label, e, wts, kw in cases:
+                err = max(err, carry_check(f"W={W} {label}", x, e, wts, ns, **kw))
+                if B == 8 and "carries" not in label:
+                    # the twin against the one-shot kernel at the launch's shared memory:
+                    # the same blocks an SM, so the same persistent grid
+                    mode = flk.flow_stack.last_launch["mode"]
+                    smem = flk.flow_stack.last_launch["smem_bytes"]
+                    f, one = (flk.launch_info(W, mode, smem, "cuda", None, carry)
+                              for carry in (True, False))
+                    facts[flk.mode_key(mode, W)] = f
+                    log(f"launch {flk.kernel_name(W)}<{W}, {mode}> carry twin: registers "
+                        f"{f['registers']} (one-shot {one['registers']}), spills {f['spill_bytes']} B "
+                        f"(one-shot {one['spill_bytes']} B), blocks/SM {f['blocks_per_sm']}")
+                    require(f["blocks_per_sm"] == one["blocks_per_sm"],
+                            f"the carry twin of {flk.kernel_name(W)}<{W}, {mode}> fits fewer blocks")
+            del x, enc, c32
+        del pwn, params, sw, cw, nw
+    # ---- H2. stateful calls against one-shot calls, in turns ----
+    timed = {}
+    for W in (64, 256):
+        pwn, params = student_model(width=W)
+        ns = pwn.cfg.num_stages
+        sw = flk.stack_flow_weights(params["flows"][0])
+        cw = flk.compact_weights(sw)
+        for L in (1024, STUDENT_SAMPLES):
+            x, enc = flow_inputs(pwn, params, B=STUDENT_BATCHES[0], L=L, seed=80 + W)
+            enc = enc.to(bf)
+            st = torch.zeros((flk.state_rows(0, ns, ns), x.shape[1], W), device="cuda")
+            one = lambda: flk.flow_stack(x, enc, cw, 0, ns, ns)
+            carry = lambda: flk.flow_stack(x, enc, cw, 0, ns, ns, state=st)
+            t = {"one_shot": [], "state": []}
+            for name in ("one_shot", "state", "state", "one_shot", "one_shot", "state"):
+                t[name].append(cuda_ms(one if name == "one_shot" else carry, reps=5))
+            ms = {k: float(np.median(v)) for k, v in t.items()}
+            timed[f"W{W}_L{L}"] = ms
+            log(f"timing W={W} B={x.shape[1]} L={L} bf16, {ns} layers, in turns: one-shot "
+                f"{ms['one_shot']:.4f} ms, with a state {ms['state']:.4f} ms "
+                f"({ms['state'] / ms['one_shot']:.4f} of it)")
+            if W == 64 and L == STUDENT_SAMPLES:
+                tm = time_flow(x, enc, cw, ns, ns, state=st)
+                log_flow_timing("bf16 with a carried state", x, ns, tm)
+            del x, enc, st
+        del pwn, params, sw, cw
+    # ---- H3. StudentStreamer: one launch a layer a chunk ----
+    pwn, params = student_model()
+    B = STUDENT_BATCHES[0]
+    mel = stft.melspectrogram(torch.from_numpy(synthetic_wavs(B, STUDENT_SAMPLES, 90)).cuda())
+    L = pwn.sample_length(mel.shape[1])
+    base_x = pwn.base_noise(torch.Generator().manual_seed(3), B, L, "cuda")
+    synth = lambda streamer: streamer.synthesize(params, mel, base_x=base_x)
+    with deterministic_cudnn():  # one encoding bit for bit in every run below
+        one = pwn._clip_quant_scale(parallelgen.feed_forward_cuda(
+            pwn, params, {"mel": mel, "base_x": base_x})["x"])
+    streamer_ms = {}
+    for chunk in (1024, 32768):
+        streamer = parallelgen.StudentStreamer(pwn, chunk=chunk)
+        with deterministic_cudnn():
+            out, launched = kernel_launches_of(lambda: synth(streamer))
+            again = synth(streamer)
+        chunks = -(-L // chunk)
+        want = {k: v * chunks for k, v in flk.predicted_launches(
+            pwn.cfg.width, sum(pwn.cfg.num_iaf_layers), True).items()}
+        require_launches(f"StudentStreamer chunk {chunk}", launched, want)
+        streamer_ms[chunk] = cuda_ms(lambda: synth(streamer), reps=3)
+        sdiff = float((out - one).abs().max())
+        finite, repeat = bool(torch.isfinite(out).all()), bool(torch.equal(out, again))
+        log(f"StudentStreamer B={B} L={L} chunk {chunk}: {chunks} chunks, launches {launched} "
+            f"({sum(launched.values()) // chunks} a chunk), {streamer_ms[chunk]:.2f} ms; finite "
+            f"{finite}, a second run equal bit for bit {repeat}; against the one-shot path on the "
+            f"same noise and encoding max|d| {sdiff:.3e} (limit 5e-3), equal bit for bit: "
+            f"{bool(torch.equal(out, one))}")
+        require(finite and repeat and sdiff <= 5e-3,
+                f"StudentStreamer chunk {chunk}: audio not finite, not repeatable or off the "
+                f"one-shot path")
+    log(f"carry phases H1-H3: {time.time() - t_start:.1f} s")
+    return {"name": "flow_stack_state", "route": "cuda",
+            "source": "nsynth_wavenet_tpu_torch/csrc/flow_kernel.cu",
+            "replaces": "nsynth_wavenet_tpu/ops/flow_kernel.py:333",
+            "launches": sum(launched.values()), "max_abs_err": err, **timing_summary(tm),
+            "copy_ms": tm["copy_ms"], "turns": timed, "streamer_ms": streamer_ms,
+            "carry_launch": facts}
 
 
 def flow_mode_phases():
@@ -4489,7 +4793,8 @@ def flow_probe_phase(check_serving):
                     errs[probe] = max(errs[probe], err)
                     if B_ == 8:
                         mode = flk.flow_stack.last_launch["mode"]
-                        card = flk.launched_facts(wd, mode, "cuda", probe)
+                        card = flk.launched_facts(wd, mode, "cuda", probe,
+                                                  carry=flk.flow_stack.last_launch["carry"])
                         facts[probe][flk.mode_key(mode, wd)] = {
                             k: card[k] for k in ("registers", "spill_bytes", "dynamic_smem",
                                                  "blocks_per_sm")}
@@ -4585,7 +4890,7 @@ def probe_phases():
         err, facts, tm = flow[probe]
         records.append(flow_record(
             f"flow_stack_{probe}", PROBE_REPLACES[probe],
-            sum(n for k, n in flow_launches[probe].items() if k != "flow_state_kernel"), err, tm,
+            sum(flow_launches[probe].values()), err, tm,
             full_ms=flow_full_tm["ms"], kernel_launches=flow_launches[probe], launch=facts))
     return records
 
@@ -4657,6 +4962,13 @@ def main():
     log(f"philox [256,1024] on the device alone (a CUDA graph of {calls} calls, median of 5): "
         f"{philox_dev_us:.2f} us per call, torch.rand {rand_dev_us:.2f} us: the kernel "
         f"{'loses' if philox_dev_us > rand_dev_us else 'does not lose'}")
+    # at a size where the bytes, not the launch, set the bound: 256 MiB written
+    rows = 65536
+    big_ms = cuda_ms(lambda: fk.philox_uniform(7, 11, rows, 1024, 0, device="cuda"), reps=5)
+    big_rand_ms = cuda_ms(lambda: torch.rand((rows, 1024), device="cuda"), reps=5)
+    big_bound_ms = 1e3 * rows * 1024 * 4 / PEAK_HBM_BYTES
+    log(f"philox [{rows},1024] (256 MiB written): {big_ms:.4f} ms, {100 * big_bound_ms / big_ms:.1f} % "
+        f"of its byte bound {big_bound_ms:.4f} ms; torch.rand {big_rand_ms:.4f} ms")
 
     # ---- 5. main path end to end ----
     fg = Fastgen(model)
@@ -4733,12 +5045,16 @@ def main():
     del main_runs
     kw_static, amax, w8a8_record = w8a8_phases(model, params, kw, gmodel, gparams, gdir, mels)
     row_record = row_phases(model, params, kw, kw_static, amax, gmodel, gparams, gdir, mels)
+    prepass_record = prepass_phases(model, params, kw_static, amax, mels,
+                                    w8a8_record["kernel_launches"]["quant_enc_kernel"])
     del kw_static, amax
 
     del model, params, kw, fg, mels, gmodel, gparams
     torch.cuda.empty_cache()
     flow_rec = student_phases()
     mode_records = flow_mode_phases()
+    torch.cuda.empty_cache()
+    carry_record = carry_phases()
     torch.cuda.empty_cache()
     train_tmp = tempfile.TemporaryDirectory()  # T2's and S2's runs, read again by Q4
     trained = training_phases(smi, train_tmp.name)
@@ -4797,7 +5113,8 @@ def main():
                                   "make_golden_wavs": tools["Q4"]["golden_wavs"]["kernel_launches"],
                                   "gather_results": tools["Q4"]["gather"]["ar_kernel_launches"]},
         "quality_seconds": tools["seconds"],
-    }, flow_rec, w8a8_record, row_record, *mode_records, *probe_records]}
+    }, flow_rec, w8a8_record, row_record, prepass_record, *mode_records, carry_record,
+        *probe_records]}
     log(f"timed call: B={MAIN_BATCHES[-1]}, {TIMED_STEPS} steps, full width; "
         f"total {time.time() - T_START:.1f} s")
     print(smi, flush=True)

@@ -162,10 +162,25 @@
 //     beside 64 res sums; setmaxnreg moves registers from the producer
 //     warpgroup to the consumers.  Each chunk's wgmmas are committed and
 //     waited for before its slot is freed.
-//   flow_state_kernel<ROUND>  with a state, one launch per layer: copies the
-//     new history out of (old history ++ input), which is a shifted copy of
-//     the old state where the call is shorter than 2d, rounding to bf16 for
-//     bf16 carries.  Old and new state are different buffers.
+//   The state (the carry twins flow_persist_carry_kernel and
+//     flow_wide_carry_kernel, launched with a state): a layer's new history,
+//     the last 2d time steps of (old history ++ the layer's input), is
+//     written by the layer's own trunk launch: in both kernels the producer
+//     warp, which waits on the ring most of the time, copies its block's
+//     share between ring refills, a round of loads issued as a tile starts
+//     and stored as the next one starts (Carry); what its rounds leave (a
+//     call shorter than the history is long) every warp of the block copies
+//     once its tiles are done.  (Giving the copy to the three idle warps of
+//     flow_wide_kernel's producer warpgroup instead made the stateful call
+//     slower at W 128 / 256 in a development check.)  It replaces flow_state_kernel,
+//     a launch a layer of its own after the trunk: a stateful call launched
+//     2 n_layers kernels, a one-shot call n_layers, and most of those copies
+//     move a few KB to a few MB, so they cost a launch each rather than
+//     their bytes (2 x 2 046 x B x W x 4 B a 10-layer call: 33.5 MB, 10 us
+//     at 3.35 TB/s at B = 32, W = 64).  The twins are the trunk kernels'
+//     bodies (persist_layer, wide_layer) with CARRY set; the one-shot
+//     entry points instantiate them with CARRY clear, where the copy
+//     compiles away.
 // A layer never updates l in place (other blocks still read rows t-d and
 // t-2d of its input): flow_stack alternates between two buffers so that the
 // last layer writes out.  flow_stack counts every launch it enqueues, by
@@ -237,7 +252,7 @@ enum FlowProbe { PROBE_NONE = 0, PROBE_NO_GATE = 1, PROBE_NO_SLIDE = 2 };
 #define KERNEL_PROBE PROBE_NONE
 #endif
 // flow_stack's launched[]: ops/flow_kernel.py KERNEL_NAMES
-enum KernelId { K_PERSIST = 0, K_WIDE = 1, K_STATE = 2 };
+enum KernelId { K_PERSIST = 0, K_WIDE = 1 };
 
 namespace {
 
@@ -250,6 +265,93 @@ __device__ __forceinline__ float clip_gate(float xs, float xt) {
   return __fmul_rn(fminf(fmaxf(xs, 0.0f), 1.0f), fminf(fmaxf(xt, -1.0f), 1.0f));
 }
 
+// With a state, a layer's new history: the last 2 * shift rows (2d time
+// steps of B rows) of (old history ++ the layer's input), f32, rounded to
+// bf16 for bf16 carries.  The trunk launch of the layer writes it (the carry
+// twins of the trunk kernels): neither source is written by that launch
+// (flow_stack alternates the stream buffers, and old and new state are
+// different buffers), so any block may copy any rows at any time.  Block b
+// of the grid copies float4s [b n / grid, (b + 1) n / grid) of the n of the
+// history, in rounds of CARRY_VECS a thread: a round's loads land in
+// registers and are stored by a later call, so that the loads of a round
+// fly while the copying warp does other work.  Loads and stores are
+// streaming (evict first): the copy passes through L2 beside the rows the
+// layer's dilated taps read back from it.
+// The producer warp takes a round a tile between its ring refills; what a
+// block's tiles leave (a call shorter than the history is long, where one
+// warp an SM would take longer than the layer) is copied by its producer
+// and consumer warps together once each is done with its tiles (carry_rest).
+struct CarryArgs {
+  float* new_hist;  // the layer's rows of new_state, or null
+  int round;        // round to bf16 (bf16 carries)
+};
+
+constexpr int CARRY_VECS = 4;  // float4s a thread holds a round
+
+template <int W>
+struct Carry {
+  const float* l_in;
+  const float* hist;
+  float* out;
+  long long n_rows, hist_rows, next, end;
+  bool round;
+  float4 v[CARRY_VECS];
+
+  __device__ __forceinline__ Carry(const float* l_in_, const float* hist_, const CarryArgs& cc,
+                                   long long n_rows_, long long shift)
+      : l_in(l_in_), hist(hist_), out(cc.new_hist), n_rows(n_rows_), hist_rows(2 * shift),
+        round(cc.round != 0) {
+    const long long n = hist_rows * (W / 4);
+    next = n * blockIdx.x / gridDim.x;
+    end = n * (blockIdx.x + 1) / gridDim.x;
+  }
+
+  __device__ __forceinline__ bool more() const { return next < end; }
+
+  // The first `rounds` rounds of 32 threads (lead) or what follows them.
+  __device__ __forceinline__ void split(int rounds, bool lead) {
+    const long long cut = min(end, next + (long long)rounds * 32 * CARRY_VECS);
+    if (lead)
+      end = cut;
+    else
+      next = cut;
+  }
+
+  // float4 i of the new history: row n_rows + i / (W / 4) of (hist ++ l_in)
+  __device__ __forceinline__ float4 fetch(long long i) const {
+    const long long pos = n_rows + i / (W / 4);
+    const float* row = pos < hist_rows ? hist + pos * W : l_in + (pos - hist_rows) * W;
+    return __ldcs(reinterpret_cast<const float4*>(row) + i % (W / 4));
+  }
+
+  // the round from next on: thread t of `threads` loads float4s next + t + i threads
+  __device__ __forceinline__ void load(int t, int threads) {
+#pragma unroll
+    for (int i = 0; i < CARRY_VECS; ++i) {
+      const long long k = next + t + (long long)i * threads;
+      if (k < end) v[i] = fetch(k);
+    }
+  }
+
+  __device__ __forceinline__ void store(int t, int threads) {
+#pragma unroll
+    for (int i = 0; i < CARRY_VECS; ++i) {
+      const long long k = next + t + (long long)i * threads;
+      if (k < end) {
+        float4 x = v[i];
+        if (round) {
+          x.x = bf16_round(x.x);
+          x.y = bf16_round(x.y);
+          x.z = bf16_round(x.z);
+          x.w = bf16_round(x.w);
+        }
+        __stcs(reinterpret_cast<float4*>(out) + k, x);
+      }
+    }
+    next += (long long)threads * CARRY_VECS;
+  }
+};
+
 // ---------------------------------------------------------------------------
 // flow_persist_kernel: W = 32 and 64
 // ---------------------------------------------------------------------------
@@ -261,6 +363,38 @@ constexpr int PT = 32 * (PW + 1);       // threads: the consumers and one produc
 static_assert(PBM * PG == 16 * PW, "one m16 row band a consumer warp");
 
 constexpr int BOX = PBM * 128;         // bytes of a copy box: a tile's rows of 128 B
+
+// What a one-shot instantiation holds in Carry's place: nothing, so that its
+// code is the trunk kernel's alone.
+struct NoCarry {
+  __device__ __forceinline__ NoCarry(const float*, const float*, const CarryArgs&, long long, long long) {}
+  __device__ __forceinline__ void split(int, bool) {}
+  __device__ __forceinline__ void load(int, int) {}
+  __device__ __forceinline__ void store(int, int) {}
+};
+
+template <bool CARRY, int W>
+struct CarryOf {
+  typedef NoCarry type;
+};
+template <int W>
+struct CarryOf<true, W> {
+  typedef Carry<W> type;
+};
+
+// The part of the block's share that its producer warp's rounds (one a tile,
+// `tiles` of them) leave, by the block's PT producer and consumer threads,
+// t this one's index.
+template <int W>
+__device__ __forceinline__ void carry_rest(const float* l_in, const float* hist, const CarryArgs& cc,
+                                           long long n_rows, long long shift, int tiles, int t) {
+  Carry<W> rest(l_in, hist, cc, n_rows, shift);
+  rest.split(tiles, false);
+  while (rest.more()) {
+    rest.load(t, PT);
+    rest.store(t, PT);
+  }
+}
 
 struct PersistParams {
   const float* l_in;
@@ -429,11 +563,15 @@ __device__ __forceinline__ void mma_row_band(float (&acc)[W / 8][4], const unsig
 // The accumulator layout of m16n8k16: a consumer thread (g = lane / 4,
 // t4 = lane % 4) holds, for n-tile j, rows g and g + 8 of its warp's band at
 // columns 8j + 2 t4 and 8j + 2 t4 + 1: acc[j] = {(g, c), (g, c + 1), (g + 8, c), (g + 8, c + 1)}.
-template <int W, int COND, int PROBE>
-__global__ void __launch_bounds__(PT, W <= 32 ? 2 : 1)
-    flow_persist_kernel(const PersistParams p, const __grid_constant__ CUtensorMap map_l,
-                        const __grid_constant__ CUtensorMap map_h,
-                        const __grid_constant__ CUtensorMap map_c) {
+// CARRY (flow_persist_carry_kernel): the producer warp also writes the
+// block's share of the layer's new history (Carry), a round of loads issued
+// as each tile starts and stored as the next one starts, so that they fly
+// while the producer waits on the ring; what its rounds leave, every warp
+// copies once its tiles are done (carry_rest).
+template <int W, int COND, int PROBE, bool CARRY>
+__device__ __forceinline__ void persist_layer(const PersistParams p, const CUtensorMap& map_l,
+                                              const CUtensorMap& map_h, const CUtensorMap& map_c,
+                                              const CarryArgs cc) {
   constexpr int M = W / 2, NT = W / 8;
   constexpr bool F32C = COND == ENC_F32;
   constexpr bool STREAM = COND == STREAM_BF16 || COND == STREAM_F32;
@@ -507,7 +645,13 @@ __global__ void __launch_bounds__(PT, W <= 32 ? 2 : 1)
   if (warp == PW) {
     // ---- the producer: the block's tiles in order, each chunk into the ring
     // of the group whose tile it is ----
+    // a round of the block's share a tile: loaded as the tile starts and
+    // stored as the next one starts, when the loads have long landed
+    typename CarryOf<CARRY, W>::type carry(p.l_in, p.hist, cc, p.n_rows, p.shift);
+    carry.split(my_tiles, true);
     for (int i = 0; i < my_tiles; ++i) {
+      if (i > 0) carry.store(lane, 32);
+      carry.load(lane, 32);
       const int gi = i % PG;
       const long long row0 = ((long long)blockIdx.x + (long long)i * gridDim.x) * PBM;
       for (int c = 0; c < nch; ++c) {
@@ -581,6 +725,8 @@ __global__ void __launch_bounds__(PT, W <= 32 ? 2 : 1)
         mbar_arrive_tx(full, bytes);
       }
     }
+    carry.store(lane, 32);  // the last round
+    if constexpr (CARRY) carry_rest<W>(p.l_in, p.hist, cc, p.n_rows, p.shift, my_tiles, tid);
     return;
   }
 
@@ -785,6 +931,24 @@ __global__ void __launch_bounds__(PT, W <= 32 ? 2 : 1)
       cph ^= 1u;
     }
   }
+  if constexpr (CARRY) carry_rest<W>(p.l_in, p.hist, cc, p.n_rows, p.shift, my_tiles, tid);
+}
+
+template <int W, int COND, int PROBE>
+__global__ void __launch_bounds__(PT, W <= 32 ? 2 : 1)
+    flow_persist_kernel(const PersistParams p, const __grid_constant__ CUtensorMap map_l,
+                        const __grid_constant__ CUtensorMap map_h,
+                        const __grid_constant__ CUtensorMap map_c) {
+  persist_layer<W, COND, PROBE, false>(p, map_l, map_h, map_c, CarryArgs{nullptr, 0});
+}
+
+// the same layer with a state: it also writes the layer's new history
+template <int W, int COND, int PROBE>
+__global__ void __launch_bounds__(PT, W <= 32 ? 2 : 1)
+    flow_persist_carry_kernel(const PersistParams p, const __grid_constant__ CUtensorMap map_l,
+                              const __grid_constant__ CUtensorMap map_h,
+                              const __grid_constant__ CUtensorMap map_c, const CarryArgs cc) {
+  persist_layer<W, COND, PROBE, true>(p, map_l, map_h, map_c, cc);
 }
 
 // ---------------------------------------------------------------------------
@@ -925,14 +1089,14 @@ __device__ __forceinline__ void wgmma_w(float (&d)[W / 2], const unsigned (&a)[4
 // permutation as flow_persist_kernel's, so that the f32 tap loads meet no
 // bank conflict).  Sigmoid column c and tanh column c + W/2 are blocks j
 // and j + W/16 of one thread.
-template <int W, int COND, int PROBE>
-__global__ void __launch_bounds__(WPT, 1)
-    flow_wide_kernel(const WideParams p, const __grid_constant__ CUtensorMap map_l,
-                     const __grid_constant__ CUtensorMap map_h,
-                     const __grid_constant__ CUtensorMap map_c,
-                     const __grid_constant__ CUtensorMap map_w,
-                     const __grid_constant__ CUtensorMap map_wc,
-                     const __grid_constant__ CUtensorMap map_r) {
+//
+// CARRY (flow_wide_carry_kernel): the producer warp also writes the block's
+// share of the layer's new history (Carry), as flow_persist_kernel's does.
+template <int W, int COND, int PROBE, bool CARRY>
+__device__ __forceinline__ void wide_layer(const WideParams p, const CUtensorMap& map_l,
+                                           const CUtensorMap& map_h, const CUtensorMap& map_c,
+                                           const CUtensorMap& map_w, const CUtensorMap& map_wc,
+                                           const CUtensorMap& map_r, const CarryArgs cc) {
   constexpr int M = W / 2, NA = W / 2;  // NA: sums a consumer thread
   constexpr bool TAPS_RES = W == 128;   // w_tap^T resident; at W 256 streamed with its chunk
   constexpr bool F32C = COND == ENC_F32;
@@ -982,7 +1146,13 @@ __global__ void __launch_bounds__(WPT, 1)
         for (int b = 0; b < NTAP; ++b) tma_box(smem + b * WROWS, &map_w, b * WKC, 0, wbar);
     }
     int q = 0;  // the chunk's place in the block's walk
+    // a round of the block's share a tile: loaded as the tile starts and
+    // stored as the next one starts, when the loads have long landed
+    typename CarryOf<CARRY, W>::type carry(p.l_in, p.hist, cc, p.n_rows, p.shift);
+    carry.split(my_tiles, true);
     for (int i = 0; i < my_tiles; ++i) {
+      if (i > 0) carry.store(lane, 32);
+      carry.load(lane, 32);
       const long long row0 = ((long long)blockIdx.x + (long long)i * gridDim.x) * WTR;
       for (int c = 0; c < nch; ++c, ++q) {
         const int s = q % p.stages;
@@ -1048,6 +1218,8 @@ __global__ void __launch_bounds__(WPT, 1)
         mbar_arrive_tx(full, bytes);
       }
     }
+    carry.store(lane, 32);  // the last round
+    if constexpr (CARRY) carry_rest<W>(p.l_in, p.hist, cc, p.n_rows, p.shift, my_tiles, tid);
   } else {
   // ---- the consumers ----
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(WIDE_CONSUMER_REGS));
@@ -1279,31 +1451,37 @@ __global__ void __launch_bounds__(WPT, 1)
       }
     }
   }
+  if constexpr (CARRY) carry_rest<W>(p.l_in, p.hist, cc, p.n_rows, p.shift, my_tiles, tid);
   }
 }
 
-// new_hist = the last hist_rows rows of (hist ++ l_in), rows of wv float4
-// vectors; ROUND rounds every value to bf16 (bf16 carries).
-template <bool ROUND>
-__global__ void flow_state_kernel(const float4* __restrict__ l_in, const float4* __restrict__ hist,
-                                  float4* __restrict__ new_hist, long long n_rows,
-                                  long long hist_rows, int wv) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= hist_rows * wv) return;
-  const long long pos = n_rows + i / wv;  // row in (hist ++ l_in)
-  const int q = (int)(i % wv);
-  float4 v = pos < hist_rows ? hist[pos * wv + q] : l_in[(pos - hist_rows) * wv + q];
-  if (ROUND) {
-    v.x = bf16_round(v.x);
-    v.y = bf16_round(v.y);
-    v.z = bf16_round(v.z);
-    v.w = bf16_round(v.w);
-  }
-  new_hist[i] = v;
+template <int W, int COND, int PROBE>
+__global__ void __launch_bounds__(WPT, 1)
+    flow_wide_kernel(const WideParams p, const __grid_constant__ CUtensorMap map_l,
+                     const __grid_constant__ CUtensorMap map_h,
+                     const __grid_constant__ CUtensorMap map_c,
+                     const __grid_constant__ CUtensorMap map_w,
+                     const __grid_constant__ CUtensorMap map_wc,
+                     const __grid_constant__ CUtensorMap map_r) {
+  wide_layer<W, COND, PROBE, false>(p, map_l, map_h, map_c, map_w, map_wc, map_r, CarryArgs{nullptr, 0});
 }
 
-typedef cudaError_t (*LayerFn)(const FlowArgs&, const float*, const float*, float*, int, long long,
-                               cudaStream_t);
+// the same layer with a state: it also writes the layer's new history
+template <int W, int COND, int PROBE>
+__global__ void __launch_bounds__(WPT, 1)
+    flow_wide_carry_kernel(const WideParams p, const __grid_constant__ CUtensorMap map_l,
+                           const __grid_constant__ CUtensorMap map_h,
+                           const __grid_constant__ CUtensorMap map_c,
+                           const __grid_constant__ CUtensorMap map_w,
+                           const __grid_constant__ CUtensorMap map_wc,
+                           const __grid_constant__ CUtensorMap map_r, const CarryArgs cc) {
+  wide_layer<W, COND, PROBE, true>(p, map_l, map_h, map_c, map_w, map_wc, map_r, cc);
+}
+
+// one layer's launch: (args, input, old history or null, output, new history
+// or null, layer index within the call, d * B, stream)
+typedef cudaError_t (*LayerFn)(const FlowArgs&, const float*, const float*, float*, float*, int,
+                               long long, cudaStream_t);
 
 // the conditioning pointers of layer li: a stream's columns of the layer, or
 // the layer's w_cond
@@ -1355,11 +1533,13 @@ cudaError_t box_map(CUtensorMap* map, const void* base, bool f32, long long rows
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// one layer's launch of the persistent kernel: li is the layer's index within the call
+// one layer's launch of the persistent kernel (its carry twin when new_hist
+// is given): li is the layer's index within the call
 template <int W, int COND>
 cudaError_t launch_persist(const FlowArgs& a, const float* src, const float* hist, float* dst,
-                           int li, long long shift, cudaStream_t st) {
-  auto kernel = flow_persist_kernel<W, COND, KERNEL_PROBE>;
+                           float* new_hist, int li, long long shift, cudaStream_t st) {
+  const void* kernel = new_hist != nullptr ? (const void*)flow_persist_carry_kernel<W, COND, KERNEL_PROBE>
+                                           : (const void*)flow_persist_kernel<W, COND, KERNEL_PROBE>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem_bytes);
   if (err != cudaSuccess) return err;
@@ -1396,7 +1576,11 @@ cudaError_t launch_persist(const FlowArgs& a, const float* src, const float* his
   p.off_bars = a.off_bars;
   p.off_ring = a.off_ring;
   p.off_wchunk = a.off_wchunk;
-  kernel<<<a.grid, PT, a.smem_bytes, st>>>(p, map_l, map_h, map_c);
+  if (new_hist != nullptr)
+    flow_persist_carry_kernel<W, COND, KERNEL_PROBE><<<a.grid, PT, a.smem_bytes, st>>>(
+        p, map_l, map_h, map_c, CarryArgs{new_hist, a.carry_bf16});
+  else
+    flow_persist_kernel<W, COND, KERNEL_PROBE><<<a.grid, PT, a.smem_bytes, st>>>(p, map_l, map_h, map_c);
   return cudaGetLastError();
 }
 
@@ -1406,8 +1590,9 @@ cudaError_t launch_persist(const FlowArgs& a, const float* src, const float* his
 // in the wide column order, w_res^T [W, W/2], a layer after another
 template <int W, int COND>
 cudaError_t launch_wide(const FlowArgs& a, const float* src, const float* hist, float* dst,
-                        int li, long long shift, cudaStream_t st) {
-  auto kernel = flow_wide_kernel<W, COND, KERNEL_PROBE>;
+                        float* new_hist, int li, long long shift, cudaStream_t st) {
+  const void* kernel = new_hist != nullptr ? (const void*)flow_wide_carry_kernel<W, COND, KERNEL_PROBE>
+                                           : (const void*)flow_wide_kernel<W, COND, KERNEL_PROBE>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem_bytes);
   if (err != cudaSuccess) return err;
@@ -1447,7 +1632,12 @@ cudaError_t launch_wide(const FlowArgs& a, const float* src, const float* hist, 
   p.off_bias = a.off_bias;
   p.off_bars = a.off_bars;
   p.off_ring = a.off_ring;
-  kernel<<<a.grid, WPT, a.smem_bytes, st>>>(p, map_l, map_h, map_c, map_w, map_wc, map_r);
+  if (new_hist != nullptr)
+    flow_wide_carry_kernel<W, COND, KERNEL_PROBE><<<a.grid, WPT, a.smem_bytes, st>>>(
+        p, map_l, map_h, map_c, map_w, map_wc, map_r, CarryArgs{new_hist, a.carry_bf16});
+  else
+    flow_wide_kernel<W, COND, KERNEL_PROBE><<<a.grid, WPT, a.smem_bytes, st>>>(
+        p, map_l, map_h, map_c, map_w, map_wc, map_r);
   return cudaGetLastError();
 }
 
@@ -1486,35 +1676,37 @@ LayerFn pick_layer_fn(int W, int cond_mode, int* kernel_id) {
   }
 }
 
+// a trunk kernel of the persistent (PERSIST) or the wide family, or its carry twin
+template <int W, int COND, bool PERSIST>
+const void* trunk_of(bool carry) {
+  if constexpr (PERSIST)
+    return carry ? (const void*)flow_persist_carry_kernel<W, COND, KERNEL_PROBE>
+                 : (const void*)flow_persist_kernel<W, COND, KERNEL_PROBE>;
+  else
+    return carry ? (const void*)flow_wide_carry_kernel<W, COND, KERNEL_PROBE>
+                 : (const void*)flow_wide_kernel<W, COND, KERNEL_PROBE>;
+}
+
 template <int W>
-const void* persist_kernel(int cond_mode) {
+const void* trunk_of_mode(int cond_mode, bool carry) {
+  constexpr bool P = W <= 64;
   switch (cond_mode) {
-    case ENC_BF16: return (const void*)flow_persist_kernel<W, ENC_BF16, KERNEL_PROBE>;
-    case ENC_F32: return (const void*)flow_persist_kernel<W, ENC_F32, KERNEL_PROBE>;
-    case STREAM_BF16: return (const void*)flow_persist_kernel<W, STREAM_BF16, KERNEL_PROBE>;
-    case STREAM_F32: return (const void*)flow_persist_kernel<W, STREAM_F32, KERNEL_PROBE>;
+    case ENC_BF16: return trunk_of<W, ENC_BF16, P>(carry);
+    case ENC_F32: return trunk_of<W, ENC_F32, P>(carry);
+    case STREAM_BF16: return trunk_of<W, STREAM_BF16, P>(carry);
+    case STREAM_F32: return trunk_of<W, STREAM_F32, P>(carry);
     default: return nullptr;
   }
 }
 
-template <int W>
-const void* wide_kernel(int cond_mode) {
-  switch (cond_mode) {
-    case ENC_BF16: return (const void*)flow_wide_kernel<W, ENC_BF16, KERNEL_PROBE>;
-    case ENC_F32: return (const void*)flow_wide_kernel<W, ENC_F32, KERNEL_PROBE>;
-    case STREAM_BF16: return (const void*)flow_wide_kernel<W, STREAM_BF16, KERNEL_PROBE>;
-    case STREAM_F32: return (const void*)flow_wide_kernel<W, STREAM_F32, KERNEL_PROBE>;
-    default: return nullptr;
-  }
-}
-
-// The trunk kernel of a width, as flow_stack picks it.
-const void* trunk_kernel(int W, int cond_mode) {
+// The trunk kernel of a width, as flow_stack picks it (carry: its twin that
+// also writes the new history, launched with a state).
+const void* trunk_kernel(int W, int cond_mode, bool carry) {
   switch (W) {
-    case 32: return persist_kernel<32>(cond_mode);
-    case 64: return persist_kernel<64>(cond_mode);
-    case 128: return wide_kernel<128>(cond_mode);
-    case 256: return wide_kernel<256>(cond_mode);
+    case 32: return trunk_of_mode<32>(cond_mode, carry);
+    case 64: return trunk_of_mode<64>(cond_mode, carry);
+    case 128: return trunk_of_mode<128>(cond_mode, carry);
+    case 256: return trunk_of_mode<256>(cond_mode, carry);
     default: return nullptr;
   }
 }
@@ -1527,8 +1719,9 @@ namespace {
 // registers a thread, local (spill) bytes a thread, static shared bytes, the
 // dynamic shared bytes a block may opt in to, threads a block, and the
 // kernel's dynamic shared memory opt-in as it stands.
-cudaError_t persist_facts(int W, int cond_mode, bool set, int smem_bytes, int device, int* info) {
-  const void* k = trunk_kernel(W, cond_mode);
+cudaError_t persist_facts(int W, int cond_mode, bool carry, bool set, int smem_bytes, int device,
+                          int* info) {
+  const void* k = trunk_kernel(W, cond_mode, carry);
   if (k == nullptr) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err == cudaSuccess && set)
@@ -1558,17 +1751,18 @@ cudaError_t persist_facts(int W, int cond_mode, bool set, int smem_bytes, int de
 }  // namespace
 
 // What the card makes of the trunk kernel of width W (flow_persist_kernel at
-// W 32 and 64, flow_wide_kernel at W 128 and 256) in cond_mode with
-// smem_bytes of dynamic shared memory, opted in to first (persist_facts'
-// info[0..7]).
-extern "C" int flow_persist_info(int W, int cond_mode, int smem_bytes, int device, int* info) {
-  return (int)persist_facts(W, cond_mode, true, smem_bytes, device, info);
+// W 32 and 64, flow_wide_kernel at W 128 and 256; with carry, its carry twin)
+// in cond_mode with smem_bytes of dynamic shared memory, opted in to first
+// (persist_facts' info[0..7]).
+extern "C" int flow_persist_info(int W, int cond_mode, int carry, int smem_bytes, int device,
+                                 int* info) {
+  return (int)persist_facts(W, cond_mode, carry != 0, true, smem_bytes, device, info);
 }
 
 // The same facts as the kernel stands, setting nothing: the dynamic shared
 // memory is the opt-in its last launch set, the occupancy taken at it.
-extern "C" int flow_persist_attrs(int W, int cond_mode, int device, int* info) {
-  return (int)persist_facts(W, cond_mode, false, 0, device, info);
+extern "C" int flow_persist_attrs(int W, int cond_mode, int carry, int device, int* info) {
+  return (int)persist_facts(W, cond_mode, carry != 0, false, 0, device, info);
 }
 
 // Runs the call's layers; launched[KernelId] counts the launches enqueued.
@@ -1599,10 +1793,10 @@ extern "C" int flow_stack(const FlowArgs* args, int* launched) {
   cudaError_t err = cudaSetDevice(a.device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(a.stream);
-  const long long n_rows = (long long)a.L * a.B;
   const float* state = static_cast<const float*>(a.state);
   float* new_state = static_cast<float*>(a.new_state);
-  const int wv = a.W / 4;
+  if (state != nullptr && static_cast<const void*>(state) == static_cast<const void*>(new_state))
+    return (int)cudaErrorInvalidValue;  // the carry twins read the old state while writing the new
 
   const float* src = static_cast<const float*>(a.x);
   size_t off = 0;  // first state row of the layer
@@ -1612,23 +1806,10 @@ extern "C" int flow_stack(const FlowArgs* args, int* launched) {
     // alternate so that the last layer writes out and no layer writes its input
     float* dst = static_cast<float*>((a.n_layers - 1 - li) % 2 == 0 ? a.out : a.tmp);
     const float* hist = state == nullptr ? nullptr : state + off * a.B * a.W;
-    err = layer(a, src, hist, dst, li, shift, st);
+    float* new_hist = new_state == nullptr ? nullptr : new_state + off * a.B * a.W;
+    err = layer(a, src, hist, dst, new_hist, li, shift, st);
     if (err != cudaSuccess) return (int)err;
     ++launched[kid];
-    if (new_state != nullptr) {
-      const long long vecs = 2 * shift * wv;
-      const unsigned blocks = (unsigned)((vecs + 255) / 256);
-      const float4* in4 = reinterpret_cast<const float4*>(src);
-      const float4* hist4 = reinterpret_cast<const float4*>(hist);
-      float4* out4 = reinterpret_cast<float4*>(new_state + off * a.B * a.W);
-      if (a.carry_bf16)
-        flow_state_kernel<true><<<blocks, 256, 0, st>>>(in4, hist4, out4, n_rows, 2 * shift, wv);
-      else
-        flow_state_kernel<false><<<blocks, 256, 0, st>>>(in4, hist4, out4, n_rows, 2 * shift, wv);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return (int)err;
-      ++launched[K_STATE];
-    }
     off += 2 * d;
     src = dst;
   }

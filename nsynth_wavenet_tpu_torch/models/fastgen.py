@@ -261,9 +261,10 @@ class Fastgen:
         gate_static are not read.
         chunk: generate in calls of ``chunk`` samples with the kernel state
         carried, equal to the one-shot call bit for bit in every mode; the
-        working buffers of a call then do not grow with the utterance.  The
-        kernel takes any length, so the last chunk runs at its own length and
-        the encoding is not padded.
+        working buffers of a call, the time-major conditioning included, then
+        do not grow with the utterance (the encoding itself is read where it
+        lies, one window a call).  The kernel takes any length, so the last
+        chunk runs at its own length and the encoding is not padded.
         encoding [B, T, DW]: an already upsampled conditioning to use instead
         of mel.  The kernel is deterministic, so two calls on one encoding
         agree bit for bit, chunked or not; cuDNN's transposed convolution is
@@ -279,14 +280,19 @@ class Fastgen:
         L = enc_len - cond_offset if length is None else length
         if L + cond_offset > enc_len:
             raise ValueError(f"window {cond_offset}+{L} exceeds conditioning length {enc_len}")
-        enc_t = encoding.transpose(0, 1)[cond_offset : cond_offset + L]
-        enc_t = enc_t.to(torch.bfloat16).contiguous()
+        # time-major windows of the encoding as it lies (no copy): each call's
+        # pre-pass (fk.generate) makes its own window's contiguous bf16 copy
+        # and, in the int8 modes, its quantised rows, so that a chunked call
+        # holds one chunk of them, never the whole utterance
+        enc_tm = encoding.transpose(0, 1)
         if chunk is None:
-            return fk.generate(kw, enc_t, seed, greedy=greedy, int8_combine=int8_combine)
+            return fk.generate(kw, enc_tm[cond_offset : cond_offset + L], seed, greedy=greedy,
+                               int8_combine=int8_combine)
         state, pieces = None, []
         for c0 in range(0, L, chunk):
-            audio, state = fk.generate(kw, enc_t[c0 : c0 + chunk], seed, greedy=greedy,
-                                       state=state, return_state=True, int8_combine=int8_combine)
+            win = enc_tm[cond_offset + c0 : cond_offset + min(c0 + chunk, L)]
+            audio, state = fk.generate(kw, win, seed, greedy=greedy, state=state,
+                                       return_state=True, int8_combine=int8_combine)
             pieces.append(audio)
         return torch.cat(pieces, 1)
 

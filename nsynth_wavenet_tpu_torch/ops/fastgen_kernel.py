@@ -391,6 +391,82 @@ def quant_rows_dyn(x):
     return torch.clamp(torch.round(prod), -127, 127).to(torch.int8), r
 
 
+ENC_MAX_WIDTH = 512  # deconv widths quant_enc_kernel takes (csrc/fastgen_kernel.cu QE_MAX_DW)
+
+
+def enc_layout(enc):
+    """How quant_enc_kernel reads an encoding window enc [C, B, DW] (bf16 or
+    f32): "rows" when DW is contiguous (stride 1), each row starting on a
+    16-byte boundary; "channels" when time is contiguous, as the deconv
+    stack leaves its output ([B, T, DW] held channel by channel, so that
+    ``encoding.transpose(0, 1)`` is such a window), each channel's steps
+    16-byte aligned relative to one another.  Raises ValueError on a layout
+    the kernel does not take (on every device, so that the plain version
+    refuses what the kernel refuses): no fallback copy is made."""
+    if enc.dim() != 3 or enc.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the conditioning window must be [C, B, DW] bf16 or f32, got "
+                         f"{enc.dtype} {tuple(enc.shape)}")
+    C, B, DW = enc.shape
+    if DW % 8 or not 8 <= DW <= ENC_MAX_WIDTH:
+        raise ValueError(f"quant_enc_kernel takes a deconv width that is a multiple of 8 up to "
+                         f"{ENC_MAX_WIDTH}, got {DW}")
+    es, (st, sb, sk) = enc.element_size(), enc.stride()
+    addr = enc.data_ptr()
+
+    def whole(stride, n):  # a stride that moves between 16-byte vectors, where it is used
+        return n == 1 or stride * es % 16 == 0
+
+    if sk == 1 and addr % 16 == 0 and whole(st, C) and whole(sb, B):
+        return "rows"
+    if st == 1 and addr % es == 0 and whole(sk, DW) and whole(sb, B):
+        return "channels"
+    raise ValueError(f"quant_enc_kernel takes a window whose rows (stride of DW 1) or channels "
+                     f"(stride of time 1) are 16-byte aligned; got strides {(st, sb, sk)} of "
+                     f"{es}-byte values at an address {addr % 16} bytes past a 16-byte boundary")
+
+
+def enc_prepass_plain(enc):
+    """Plain version of quant_enc_kernel: the window enc [C, B, DW] cast to
+    bf16 and made contiguous (time-major), then quant_rows_dyn row by row.
+    Returns (enc [C, B, DW] bf16, q_enc [C, B, DW] int8, r_enc [C, B] f32)."""
+    enc_c = enc.to(torch.bfloat16).contiguous()
+    C, B, DW = enc_c.shape
+    q, r = quant_rows_dyn(enc_c.reshape(C * B, DW))
+    return enc_c, q.reshape(C, B, DW), r.reshape(C, B)
+
+
+def enc_prepass(enc, probe=""):
+    """The int8 modes' conditioning pre-pass over an encoding window enc
+    [C, B, DW] (bf16 or f32, any layout that enc_layout takes: the
+    time-major view ``encoding.transpose(0, 1)[t0 : t0 + C]`` of the deconv
+    output, or a contiguous time-major tensor).  One launch of
+    quant_enc_kernel on a CUDA tensor (counted in
+    ``generate.kernel_launches``, or with a probe in that probe's
+    ``generate.launches_by_probe``, from that probe's library), the plain
+    version on a CPU one.  Returns (enc [C, B, DW] bf16 contiguous, q_enc
+    [C, B, DW] int8, r_enc [C, B] f32), what generate's kernel reads."""
+    layout = enc_layout(enc)
+    if enc.device.type == "cpu":
+        return enc_prepass_plain(enc)
+    if enc.device.type != "cuda":
+        raise ValueError(f"unsupported device {enc.device}")
+    C, B, DW = enc.shape
+    dev = _indexed(enc.device)
+    enc_c = torch.empty((C, B, DW), dtype=torch.bfloat16, device=dev)
+    q = torch.empty((C, B, DW), dtype=torch.int8, device=dev)
+    r = torch.empty((C, B), device=dev)
+    lib = _lib(probe)
+    launched = (ctypes.c_int * 1)()
+    rc = lib.fastgen_quant_enc(enc.data_ptr(), int(enc.dtype == torch.float32),
+                               int(layout == "channels"), *enc.stride(), C, B, DW,
+                               enc_c.data_ptr(), q.data_ptr(), r.data_ptr(), dev.index,
+                               torch.cuda.current_stream(dev).cuda_stream, launched)
+    counts = generate.launches_by_probe[probe] if probe else generate.kernel_launches
+    counts["quant_enc_kernel"] += launched[0]
+    _check(lib, rc)
+    return enc_c, q, r
+
+
 def quant_static(x, inv):
     """f32 activations with the calibrated multiplier inv = 127/amax -> int8,
     round half to even, clipped symmetrically."""
@@ -796,7 +872,8 @@ class _FastgenArgs(ctypes.Structure):
 
 
 _MODE_CODES = {"bf16": 0, "static": 1, "row": 2}  # ActMode / RsMode in csrc/fastgen_kernel.cuh
-KERNEL_NAMES = ("fastgen_persistent", "quant_enc_kernel")  # fastgen_generate's launched[0], [1]
+# generate's CUDA kernels: fastgen_generate's launched[0], fastgen_quant_enc's launched[0]
+KERNEL_NAMES = ("fastgen_persistent", "quant_enc_kernel")
 
 
 def _lib(probe=""):
@@ -815,6 +892,10 @@ def _lib(probe=""):
             ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
         ]
         lib.philox_uniform.restype = ctypes.c_int
+        lib.fastgen_quant_enc.argtypes = (
+            [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 3
+            + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
+        lib.fastgen_quant_enc.restype = ctypes.c_int
         lib.fastgen_error_string.argtypes = [ctypes.c_int]
         lib.fastgen_error_string.restype = ctypes.c_char_p
         lib._argtypes_set = True
@@ -947,8 +1028,9 @@ def _generate_cuda(kw, enc_t, seed, greedy, tf, collect_out_params, state, retur
         want.update({"w_rs_k4": ((NL, m // 4, N, 4), i8), "s_rs": ((NL, 1, N), f32)})
     for name, (shape, dtype) in want.items():
         _expect(name, kw[name], shape, dtype, dev)
-    enc_t = enc_t.to(bf).contiguous()
-    _expect("enc_t", enc_t, (L, B, DW), bf, dev)
+    if mode.act == "bf16":  # the bf16 mode's own pre-pass: a PyTorch copy of the window
+        enc_c = enc_t.to(bf).contiguous()
+        _expect("enc_t", enc_c, (L, B, DW), bf, dev)
     if tf is not None:
         tf = tf.to(f32).contiguous()
         _expect("tf", tf, (L, B), f32, dev)
@@ -977,9 +1059,6 @@ def _generate_cuda(kw, enc_t, seed, greedy, tf, collect_out_params, state, retur
         "bar": torch.zeros((2,), dtype=torch.int64, device=dev),
         "audio": torch.empty((L, B), device=dev),
     }
-    if mode.act != "bf16":
-        scratch["q_enc"] = torch.empty((L, B, DW), dtype=i8, device=dev)
-        scratch["r_enc"] = torch.empty((L, B), device=dev)
     if mode.act == "static":
         scratch["q_l"] = torch.empty((B, W), dtype=i8, device=dev)
     # per-layer row maxima, one slot per producer column item; rewritten in every step
@@ -989,8 +1068,10 @@ def _generate_cuda(kw, enc_t, seed, greedy, tf, collect_out_params, state, retur
         scratch["gmax"] = torch.zeros((NL, m // GATE_COLS, B), device=dev)
     outp = torch.empty((L, B, out_pad), device=dev) if collect_out_params else None
     weights = {name.removesuffix("_k4"): kw[name].data_ptr() for name in want}
+    if mode.act != "bf16":  # quant_enc_kernel reads the window as it lies
+        enc_c, scratch["q_enc"], scratch["r_enc"] = enc_prepass(enc_t, probe)
     args = _FastgenArgs(
-        **weights, enc=enc_t.data_ptr(), tf=None if tf is None else tf.data_ptr(),
+        **weights, enc=enc_c.data_ptr(), tf=None if tf is None else tf.data_ptr(),
         lbuf=lbuf.data_ptr(), xh=xh.data_ptr(),
         **{name: v.data_ptr() for name, v in scratch.items()},
         out_params=None if outp is None else outp.data_ptr(),
@@ -1004,7 +1085,7 @@ def _generate_cuda(kw, enc_t, seed, greedy, tf, collect_out_params, state, retur
         grid=info["grid"], stage_bytes=sched.stage_bytes, slot_bytes=sched.slot_bytes,
         smem_bytes=sched.smem_bytes, table_words=len(sched.table),
     )
-    launched = (ctypes.c_int * 2)()
+    launched = (ctypes.c_int * 1)()
     rc = lib.fastgen_generate(ctypes.byref(args), launched)
     if probe:  # apart from the serving counts, which no probe call may meet
         counts = generate.launches_by_probe[probe]
@@ -1013,8 +1094,7 @@ def _generate_cuda(kw, enc_t, seed, greedy, tf, collect_out_params, state, retur
         by_mode = generate.launches_by_mode
         by_mode[mode.family] = by_mode.get(mode.family, 0) + 1
         counts = generate.kernel_launches
-    for name, n in zip(KERNEL_NAMES, launched):
-        counts[name] += n
+    counts["fastgen_persistent"] += launched[0]
     generate.last_barrier_count = (scratch["bar"], info["grid"], L)
     _check(lib, rc)
     result = [scratch["audio"].T.contiguous()]
@@ -1034,7 +1114,12 @@ def generate(kw, enc_t, seed, *, greedy=False, tf=None, collect_out_params=False
     (kernel_mode): bf16 or int8 ``w_comb`` (int8 with static scales, or with
     per-row log8 scales when it was packed without act_amax), bf16 or int8
     ``w_rs`` (int8 with the fixed or a per-row gate scale).  enc_t [L, B, DW]
-    upsampled conditioning (already offset-trimmed, cast to bf16); seed: int;
+    upsampled conditioning, already offset-trimmed: a contiguous time-major
+    tensor, or the window ``encoding.transpose(0, 1)[t0 : t0 + L]`` of the
+    deconv's output as it lies.  The bf16 mode copies it to a contiguous bf16
+    tensor (any layout); the int8 modes hand it to enc_prepass, which takes
+    bf16 or f32 in a layout of enc_layout and raises on any other, on every
+    device, with no fallback copy.  seed: int;
     tf [L, B] f32 teacher-forced feedback (the sample fed back after step t)
     or None.  int8_combine "bf16" (read by the per-row activation mode only):
     the four dequantised sums of a layer are combined in bf16, every product
@@ -1058,6 +1143,8 @@ def generate(kw, enc_t, seed, *, greedy=False, tf=None, collect_out_params=False
     kernel's have (nsynth_wavenet_tpu/ops/flow_kernel.py:155-159).
     """
     check_probe(probe, allow_wrong_output)
+    if kernel_mode(kw).act != "bf16":
+        enc_layout(enc_t)
     if enc_t.device.type == "cuda":
         return _generate_cuda(kw, enc_t, seed, greedy, tf, collect_out_params, state, return_state,
                               int8_combine, probe)

@@ -34,8 +34,11 @@ is picked by width alone: ``flow_persist_kernel`` at W 32 and 64 (persistent
 blocks, weights resident in shared memory, an asynchronous ring of row
 chunks, laid out by ``persist_plan``), ``flow_wide_kernel`` at W 128 and 256
 (persistent blocks of two wgmma warpgroups sharing 128-row tiles, laid out by
-``wide_plan``, reading the weights in the layout ``wide_weights`` makes);
-with a state, ``flow_state_kernel`` writes each layer's new history.
+``wide_plan``, reading the weights in the layout ``wide_weights`` makes).
+With a state, each layer's new history is written by that layer's trunk
+launch (the kernel's carry twin, flow_persist_carry_kernel or
+flow_wide_carry_kernel in the source), so a call launches one kernel a layer
+with a state or without.
 
 The reference's perf probes (probe=, :132-138, with its guard :155-159) are
 ported as ``flow_stack(probe=..., allow_wrong_output=True)``, in every width
@@ -71,8 +74,9 @@ MATRICES = ("w_tap", "w_cond", "w_res")
 PROBES = build.PROBES["flow_kernel"]  # flow_stack(probe=): "no_gate", "no_slide"
 WIDTHS = (32, 64, 128, 256)  # the widths csrc/flow_kernel.cu is compiled for
 COND_MODES = ("bf16", "f32cond", "stream", "stream_f32")  # index = CondMode in the source
-# flow_stack's launched[] in the source (KernelId), the keys of flow_stack.kernel_launches
-KERNEL_NAMES = ("flow_persist_kernel", "flow_wide_kernel", "flow_state_kernel")
+# flow_stack's launched[] in the source (KernelId), the keys of flow_stack.kernel_launches;
+# a carry twin (a call with a state) counts as its trunk kernel
+KERNEL_NAMES = ("flow_persist_kernel", "flow_wide_kernel")
 PERSIST_WIDTHS = (32, 64)  # flow_persist_kernel's
 WIDE_WIDTHS = (128, 256)  # flow_wide_kernel's
 
@@ -176,12 +180,11 @@ def kernel_name(width: int) -> str:
 
 
 def predicted_launches(width: int, n_layers: int, with_state: bool) -> dict:
-    """flow_stack.kernel_launches added by one call: a trunk launch a layer and,
-    with a state, a state copy a layer."""
+    """flow_stack.kernel_launches added by one call: a trunk launch a layer,
+    with a state or without (with_state: the layer's launch also writes its
+    new history)."""
     out = dict.fromkeys(KERNEL_NAMES, 0)
     out[kernel_name(width)] = n_layers
-    if with_state:
-        out["flow_state_kernel"] = n_layers
     return out
 
 
@@ -450,8 +453,8 @@ def _lib(probe=None):
     if not getattr(lib, "_argtypes_set", False):
         lib.flow_stack.argtypes = [ctypes.POINTER(_FlowArgs), ctypes.POINTER(ctypes.c_int)]
         lib.flow_stack.restype = ctypes.c_int
-        lib.flow_persist_info.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
-        lib.flow_persist_attrs.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+        lib.flow_persist_info.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+        lib.flow_persist_attrs.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
         lib.flow_persist_info.restype = lib.flow_persist_attrs.restype = ctypes.c_int
         lib.flow_error_string.argtypes = [ctypes.c_int]
         lib.flow_error_string.restype = ctypes.c_char_p
@@ -470,15 +473,16 @@ _FACTS = ("blocks_per_sm", "sms", "registers", "spill_bytes", "static_smem", "sm
           "threads", "dynamic_smem")
 
 
-def _card_facts(fn, width, mode, device, *smem_bytes, probe=None):
-    """fn(width, mode, *smem_bytes, device, info) of the C side (of ``probe``'s
-    library), as a dict."""
+def _card_facts(fn, width, mode, device, *smem_bytes, probe=None, carry=False):
+    """fn(width, mode, carry, *smem_bytes, device, info) of the C side (of
+    ``probe``'s library), as a dict."""
     device = torch.device(device)
     if device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     lib = _lib(probe)
     info = (ctypes.c_int * len(_FACTS))()
-    _check(lib, getattr(lib, fn)(width, COND_MODES.index(mode), *smem_bytes, device.index, info))
+    _check(lib, getattr(lib, fn)(width, COND_MODES.index(mode), int(carry), *smem_bytes,
+                                 device.index, info))
     facts = dict(zip(_FACTS, info))
     if facts["smem_limit"] < SMEM_LIMIT:
         raise RuntimeError(f"the card lets a block opt in to {facts['smem_limit']} bytes of shared "
@@ -486,16 +490,18 @@ def _card_facts(fn, width, mode, device, *smem_bytes, probe=None):
     return facts
 
 
-def launch_info(width, mode, smem_bytes, device, probe=None):
+def launch_info(width, mode, smem_bytes, device, probe=None, carry=False):
     """What the card makes of the trunk kernel of ``width`` (kernel_name) in ``mode``
-    (in ``probe``'s variant) with ``smem_bytes`` of dynamic shared memory
+    (in ``probe``'s variant; with ``carry``, its carry twin, which a call
+    with a state launches) with ``smem_bytes`` of dynamic shared memory
     (opted in to here): {blocks_per_sm, sms, registers, spill_bytes (local
     memory a thread), static_smem, smem_limit (the card's opt-in limit a
     block), threads, dynamic_smem}, read from the occupancy API and
     cudaFuncGetAttributes."""
-    key = (width, mode, smem_bytes, str(device), probe)
+    key = (width, mode, smem_bytes, str(device), probe, carry)
     if key not in _INFO:
-        info = _card_facts("flow_persist_info", width, mode, device, smem_bytes, probe=probe)
+        info = _card_facts("flow_persist_info", width, mode, device, smem_bytes, probe=probe,
+                           carry=carry)
         if info["blocks_per_sm"] < 1:
             raise RuntimeError(f"{kernel_name(width)} does not fit an SM with {smem_bytes} bytes "
                                "of shared memory")
@@ -503,13 +509,14 @@ def launch_info(width, mode, smem_bytes, device, probe=None):
     return dict(_INFO[key])
 
 
-def launched_facts(width, mode, device, probe=None):
+def launched_facts(width, mode, device, probe=None, carry=False):
     """launch_info's facts of the trunk kernel of ``width`` in ``mode`` (in
-    ``probe``'s variant) as the card holds them now, setting nothing:
+    ``probe``'s variant; ``carry``: its carry twin) as the card holds them
+    now, setting nothing:
     dynamic_smem is the opt-in its last launch set (cudaFuncGetAttributes'
     maxDynamicSharedSizeBytes), and blocks_per_sm the occupancy at that
     shared memory."""
-    return _card_facts("flow_persist_attrs", width, mode, device, probe=probe)
+    return _card_facts("flow_persist_attrs", width, mode, device, probe=probe, carry=carry)
 
 
 def _expect(name, t, shape, dtype, device):
@@ -623,12 +630,12 @@ def _flow_stack_cuda(x, enc, sw, s, n_layers, num_stages, state=None, compact=Tr
     w_tap, w_res = sw["w_tap"][sl], sw["w_res"][sl]
     if W in PERSIST_WIDTHS:
         plan = persist_plan(W, mode, 0 if stream else cond_t.shape[-1])
-        info = launch_info(W, mode, plan.smem_bytes, dev, probe)
+        info = launch_info(W, mode, plan.smem_bytes, dev, probe, state is not None)
         plan_args = persist_args(plan, L * B, info["blocks_per_sm"] * info["sms"])
     else:
         w_tap, w_res, w_cond = _wide_operands(sw, sl, mode, w_cond, fuse_cond, W)
         plan = wide_plan(W, mode, 0 if stream else cond_t.shape[-1])
-        info = launch_info(W, mode, plan.smem_bytes, dev, probe)
+        info = launch_info(W, mode, plan.smem_bytes, dev, probe, state is not None)
         plan_args = wide_args(plan, L * B, info["blocks_per_sm"] * info["sms"])
     args = _FlowArgs(
         x=x.data_ptr(), cond=cond_t.data_ptr(), w_tap=w_tap.data_ptr(),
@@ -651,7 +658,7 @@ def _flow_stack_cuda(x, enc, sw, s, n_layers, num_stages, state=None, compact=Tr
         counts[name] += n
     _check(lib, rc)
     flow_stack.last_launch = dict(kernel=kernel_name(W), width=W, mode=mode, probe=probe,
-                                  tile_rows=plan.tile_rows, **plan_args)
+                                  carry=state is not None, tile_rows=plan.tile_rows, **plan_args)
     if probe is None:
         flow_stack.launches += 1
         key = mode_key(mode, W)
@@ -678,8 +685,9 @@ def flow_stack(x, enc, sw, s, n_layers, num_stages, state=None, compact=True, *,
     deconv width that is a multiple of 8), picked by width alone: every layer
     is one launch of flow_persist_kernel at W 32 and 64 and of
     flow_wide_kernel at W 128 and 256 (which read the wide layout that
-    compact_weights / noncompact_weights add), and with a state one launch of
-    flow_state_kernel; flow_stack.kernel_launches counts them by name where
+    compact_weights / noncompact_weights add); with a state the same launch
+    also writes the layer's new history (the kernel's carry twin, counted
+    under its name); flow_stack.kernel_launches counts them by name where
     they are enqueued.  CPU tensors run the plain version.
     probe (PERF ATTRIBUTION ONLY, the output is wrong; see the module's
     docstring): "no_gate" or "no_slide", with allow_wrong_output=True on
