@@ -35,6 +35,19 @@ of 2 000; modes_digest hashes the audio of all nine (activation, res/skip)
 modes at 4 layers, B = 64 x 300 steps, one-shot and in chunks of 128, which
 ab_turns compares across the passes (same_output).
 
+The generator cases (--cases philox_256mib,philox_1mib_graph; not run
+unless named) time philox_uniform on the device alone in turns, rep by rep
+(ab_turns.interleaved, median of 25), per call: a CUDA graph of 10
+[65536, 1024] calls (256 MiB written each; philox_256mib) and one of 100
+[256, 1024] calls (philox_1mib_graph); each also hashes the generator's output at
+[256, 1024], [65536, 1024], [1, 1], [3, 1000] and [7, 4097] under (seed, t,
+draw) (7, 11, 0) and (-1, 2**31 - 1, 1), which ab_turns compares across the
+passes (same_output).
+
+--facts covers the serving library and both probe libraries, so it shows
+whether every fastgen_persistent and quant_enc_kernel instantiation kept
+its resources and machine code.
+
 --probe times, in this tree alone, the same call (--cases: every mode at
 B = 64 and 512 by default) and its perf probes, generate(probe="cheap_gate")
 and generate(probe="no_ring_write"), in turns, rep by rep (median of 7 after
@@ -50,15 +63,18 @@ import ab_turns
 
 TIMED_CASES = ("bf16_64", "static_64", "row_64", "bf16_512", "static_512", "row_512", "static_896")
 PREPASS_CASES = ("prepass_896", "peak_896", "modes_digest")
-CASES = TIMED_CASES + PREPASS_CASES
+PHILOX_CASES = ("philox_256mib", "philox_1mib_graph")
+CASES = TIMED_CASES + PREPASS_CASES + PHILOX_CASES
 DEFAULT_CASES = TIMED_CASES  # what a run times when --cases is not given
 PROBE_CASES = TIMED_CASES[:-1]  # what --probe times when --cases is not given
 PREPASS_B, PREPASS_L, PREPASS_OFFSET = 896, 16000, 7
 
 
 def facts():
-    """ab_turns.library_facts of the generation library of the working directory's tree."""
-    return ab_turns.library_facts("fastgen_kernel")
+    """ab_turns.library_facts of the generation library of the working
+    directory's tree and of its two probe libraries."""
+    return ab_turns.library_facts("fastgen_kernel", "fastgen_kernel_cheap_gate",
+                                  "fastgen_kernel_no_ring_write")
 
 
 def _setup():
@@ -191,17 +207,42 @@ def prepass_pass(cs, case):
     return out
 
 
+def philox_pass(cs, cases):
+    """The generator cases (PHILOX_CASES) of ``cases``, timed together in
+    turns in the working directory's tree, each with a digest of the output."""
+    import hashlib
+
+    from nsynth_wavenet_tpu_torch.ops import fastgen_kernel as fk
+
+    sha = hashlib.sha256()
+    for seed, t, draw in ((7, 11, 0), (-1, 2**31 - 1, 1)):
+        for rows, lanes in ((256, 1024), (65536, 1024), (1, 1), (3, 1000), (7, 4097)):
+            sha.update(fk.philox_uniform(seed, t, rows, lanes, draw, device="cuda").cpu().numpy().tobytes())
+    per = {"philox_256mib": 10, "philox_1mib_graph": 100}  # calls a graph
+    graph_rows = {"philox_256mib": 65536, "philox_1mib_graph": 256}
+    res = ab_turns.interleaved({c: cs.replay_graph(
+        lambda c=c: [fk.philox_uniform(7, 11, graph_rows[c], 1024, 0, device="cuda")
+                     for _ in range(per[c])],
+        1) for c in cases}, reps=25)
+    return {c: {"ms": res[c]["ms"] / per[c], "min_ms": res[c]["min_ms"] / per[c],
+                "sha": sha.hexdigest()[:16]} for c in cases}
+
+
 def one_pass(full, cases):
     """Time ``cases`` in the tree of the working directory; returns a dict."""
     from nsynth_wavenet_tpu_torch.ops import fastgen_kernel as fk
 
-    if all(c in PREPASS_CASES for c in cases):
+    philox = [c for c in cases if c in PHILOX_CASES]
+    if all(c in PREPASS_CASES + PHILOX_CASES for c in cases):
         import chip_smoke as cs
 
-        return {case: prepass_pass(cs, case) for case in cases}
+        out = {case: prepass_pass(cs, case) for case in cases if case in PREPASS_CASES}
+        return {**out, **(philox_pass(cs, philox) if philox else {})}
     cs, model, params, kws = _setup()
-    out = {}
+    out = philox_pass(cs, philox) if philox else {}
     for case in cases:
+        if case in PHILOX_CASES:
+            continue
         if case in PREPASS_CASES:
             out[case] = prepass_pass(cs, case)
             continue

@@ -14,8 +14,8 @@ every pass of both trees gave the same one (same_output).  ``facts``, where a sc
 gives it, is run once in each tree (other, then this) by ``--facts``
 instead, and its dict printed on the same kind of line; the last line then
 says, entry by entry, whether the two trees' facts are equal, and which
-entries one tree has and the other lacks (``library_facts`` gives a
-library's compiler report and a digest of each kernel's machine code).  ``probe``, where a script gives it, runs by
+entries one tree has and the other lacks (``library_facts`` gives
+libraries' compiler reports and a digest of each kernel's machine code).  ``probe``, where a script gives it, runs by
 ``--probe`` in this tree alone: it times the full call and each perf probe
 of the kernel in turns, rep by rep (``interleaved``), and prints one line
 "PROBE <nvidia-smi name, power limit> <json>".
@@ -76,41 +76,45 @@ def _entry(name):
     return re.sub(r"(I(?:Li-?\d+E){2})Li0EE", r"\1E", name)
 
 
-def library_facts(name):
-    """{kernel entry: {"ptxas": its lines of the compiler's resource report
-    (registers, spill bytes, shared memory), "sass": a digest of its machine
-    code and its instruction count}} of the library ``name`` of the working
-    directory's tree, from a fresh build (cuobjdump -sass beside nvcc; the
-    instruction addresses are left out of the digest)."""
+def library_facts(*names):
+    """{"<library>/<kernel entry>": {"ptxas": its lines of the compiler's
+    resource report (registers, spill bytes, shared memory), "sass": a digest
+    of its machine code and its instruction count}} of the libraries
+    ``names`` of the working directory's tree, from a fresh build, one nvcc a
+    library, all at once (cuobjdump -sass beside nvcc; the instruction
+    addresses are left out of the digest)."""
     sys.path.insert(0, os.getcwd())
     from nsynth_wavenet_tpu_torch.kernels import build
 
     build.BUILD_DIR = build.BUILD_DIR / f"facts-{os.getpid()}"
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
     try:
-        path, report = build.build_all([name])[name]
-        cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
-        sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True,
-                              check=True).stdout
+        built = build.build_all(names)
+        sass = {name: subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True,
+                                     text=True, check=True).stdout
+                for name, (path, _) in built.items()}
     finally:
         shutil.rmtree(build.BUILD_DIR, ignore_errors=True)
-    out, entry = {}, None
-    for line in report.splitlines():
-        m = re.search(r"(?:Compiling entry function '|Function properties for )(\w+)", line)
-        if m:
-            entry = _entry(m.group(1))
-        elif entry is not None and re.search(r"registers|spill|smem", line):
-            out.setdefault(entry, {"ptxas": []})["ptxas"].append(line.split(":", 1)[-1].strip())
-    code, entry = {}, None
-    for line in sass.splitlines():
-        m = re.match(r"\s*Function : (\w+)", line)
-        if m:
-            entry = _entry(m.group(1))
-            code[entry] = []
-        elif entry is not None and re.search(r"/\*[0-9a-f]{4,}\*/|/\* 0x[0-9a-f]+ \*/", line):
-            code[entry].append(re.sub(r"/\*[0-9a-f]{4,}\*/", "", line).strip())
-    for entry, lines in code.items():
-        digest = hashlib.sha256("\n".join(lines).encode()).hexdigest()[:16]
-        out.setdefault(entry, {"ptxas": []})["sass"] = f"{digest} ({len(lines)} lines)"
+    out = {}
+    for name, (_, report) in built.items():
+        entry = None
+        for line in report.splitlines():
+            m = re.search(r"(?:Compiling entry function '|Function properties for )(\w+)", line)
+            if m:
+                entry = f"{name}/{_entry(m.group(1))}"
+            elif entry is not None and re.search(r"registers|spill|smem", line):
+                out.setdefault(entry, {"ptxas": []})["ptxas"].append(line.split(":", 1)[-1].strip())
+        code, entry = {}, None
+        for line in sass[name].splitlines():
+            m = re.match(r"\s*Function : (\w+)", line)
+            if m:
+                entry = f"{name}/{_entry(m.group(1))}"
+                code[entry] = []
+            elif entry is not None and re.search(r"/\*[0-9a-f]{4,}\*/|/\* 0x[0-9a-f]+ \*/", line):
+                code[entry].append(re.sub(r"/\*[0-9a-f]{4,}\*/", "", line).strip())
+        for entry, lines in code.items():
+            digest = hashlib.sha256("\n".join(lines).encode()).hexdigest()[:16]
+            out.setdefault(entry, {"ptxas": []})["sass"] = f"{digest} ({len(lines)} lines)"
     return out
 
 

@@ -11,10 +11,13 @@ them.  Phases, each fatal on failure:
      sampled free run replayed through the plain sampler and the plain network;
   3. the same checks for the CE (mu-law, double gate) and Gauss heads at 4 layers,
      and for the trained tiny MoL golden;
-  4. the kernel's Philox generator against the plain one, and its statistics;
-     its time per [256, 1024] call against torch.rand, through the wrapper
-     and on the device alone (a CUDA graph of 100 back-to-back calls), and
-     one [65536, 1024] call (256 MiB written) against its byte bound;
+  4. the kernel's Philox generator against the plain one bit for bit at five
+     shapes under two (seed, t, draw), its statistics and the TPU PRNG
+     check's five gates; its time per [256, 1024] call against torch.rand,
+     through the wrapper and on the device alone (a CUDA graph of 100
+     back-to-back calls), and a [65536, 1024] call (256 MiB written) in turns
+     with torch.rand and a fill, beside its bound (bytes against operations,
+     the SASS's instruction counts printed) and the plain version's time;
   5. the main path end to end at full width, B = 64 and 512, L = 2000:
      numpy wavs -> mel -> deconv on the card -> Fastgen.generate_cuda, sampled;
      kernel launch counts; the phase 2 checks again at B = 64 and 512,
@@ -4895,6 +4898,137 @@ def probe_phases():
     return records
 
 
+# philox_uniform_kernel's work a value, as its restructured rounds need it
+# (csrc/fastgen_kernel.cu): 10 full 32x32->64 products and 4 halves, and the
+# row's round-2 product shared by a unit's 4 values; 15 XORs and the row's
+# shared one, the shift and the two clamps; the conversion and the scale.
+PHILOX_PRODUCTS = 14 + 1 / 4
+PHILOX_LOGIC = 15 + 1 / 4 + 3
+PHILOX_ISSUE = PHILOX_PRODUCTS + PHILOX_LOGIC + 2
+PHILOX_SHAPES = ((256, 1024), (65536, 1024), (1, 1), (3, 1000), (7, 4097))
+
+
+def philox_bound_ms(n):
+    """(bound ms, "bytes" or "operations", bytes ms, operations ms) of n values
+    written by philox_uniform_kernel: 4 bytes a value at the HBM peak against
+    its products and logic at 64 results a clock an SM and its instructions
+    at 128 (the integer rates of compute capability 9.0), on this card's SMs
+    at its clocks.max.sm."""
+    mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                               capture_output=True, text=True, check=True).stdout.split()[0])
+    per_clock = torch.cuda.get_device_properties(0).multi_processor_count * mhz * 1e6
+    ops_ms = 1e3 * n / per_clock * max(PHILOX_PRODUCTS / 64, PHILOX_LOGIC / 64, PHILOX_ISSUE / 128)
+    bytes_ms = 1e3 * 4 * n / PEAK_HBM_BYTES
+    return max(ops_ms, bytes_ms), "operations" if ops_ms > bytes_ms else "bytes", bytes_ms, ops_ms
+
+
+def philox_sass_counts():
+    """philox_uniform_kernel's instructions by opcode in the built serving
+    library (cuobjdump -sass), static counts."""
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(build.library_path("fastgen_kernel"))],
+                          capture_output=True, text=True, check=True).stdout
+    counts, inside = {}, False
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\w+)", line)
+        if m:
+            inside = "philox_uniform_kernel" in m.group(1)
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line) if inside else None
+        if m:
+            counts[m.group(1)] = counts.get(m.group(1), 0) + 1
+    require(counts, "no philox_uniform_kernel in the generation library's machine code")
+    return dict(sorted(counts.items()))
+
+
+def philox_phase():
+    """Phase 4: philox_uniform_kernel bit for bit against philox_uniform_plain
+    on the card at every shape of PHILOX_SHAPES under two (seed, t, draw),
+    the stream's statistics and the TPU PRNG check's five gates
+    (benchmarks/tpu_kernel_parity.py:146-152), and its times: [256, 1024] a
+    host call and in a CUDA graph of 100, [65536, 1024] (256 MiB) in a CUDA
+    graph of 10, in turns with torch.rand and a fill of the same shape, beside
+    its bound and the plain version on the card.  Returns the kernel's record (launches are
+    set from the main path's run)."""
+    import ab_turns
+
+    err = 0.0
+    for seed, t, draw in ((7, 11, 0), (-1, 2**31 - 1, 1)):
+        for rows, lanes in PHILOX_SHAPES:
+            got = fk.philox_uniform(seed, t, rows, lanes, draw, device="cuda")
+            want = fk.philox_uniform_plain(seed, t, rows, lanes, draw, device="cuda")
+            err = max(err, float((got - want).abs().max()))
+            require(got.shape == want.shape and bool(torch.equal(got, want)),
+                    f"kernel Philox differs from the plain version at [{rows}, {lanes}], "
+                    f"seed {seed}, t {t}, draw {draw}")
+    log(f"philox: kernel equal to the plain version bit for bit at {list(PHILOX_SHAPES)} under "
+        f"(seed, t, draw) (7, 11, 0) and (-1, 2**31 - 1, 1)")
+    u = fk.philox_uniform(7, 11, 256, 1024, 0, device="cuda").cpu().numpy().ravel()
+    gates = {  # check_prng's, as they stand
+        "mean~0.5": abs(float(u.mean()) - 0.5) < 0.01,
+        "p25~0.25": abs(float(np.quantile(u, 0.25)) - 0.25) < 0.01,
+        "p75~0.75": abs(float(np.quantile(u, 0.75)) - 0.75) < 0.01,
+        "max>0.99": float(u.max()) > 0.99,
+        "no clip pileup": float((u <= 1e-5).mean()) < 1e-3,
+    }
+    log(f"philox [256,1024]: min {u.min():.3e} max {u.max():.6f} mean {u.mean():.5f} "
+        f"var {u.var():.5f} floor share {(u <= 1e-5).mean():.2e}; check_prng gates {gates}")
+    require(u.min() >= 1e-5 and u.max() <= 1 - 1e-5 and (u <= 1e-5).mean() < 1e-2
+            and u.max() > 0.99 and abs(u.mean() - 0.5) < 0.02 and abs(u.var() - 1 / 12) < 2e-3
+            and all(gates.values()), "Philox uniform statistics")
+
+    calls = 100  # per timed run, so that the events do not time one launch's latency
+    philox_us = 1e3 / calls * cuda_ms(lambda: [fk.philox_uniform(7, 11, 256, 1024, 0, device="cuda")
+                                               for _ in range(calls)])
+    rand_us = 1e3 / calls * cuda_ms(lambda: [torch.rand((256, 1024), device="cuda")
+                                             for _ in range(calls)])
+    log(f"philox [256,1024]: {philox_us:.2f} us per call (wrapper, allocation and launch "
+        f"included), torch.rand {rand_us:.2f} us, bound {1e6 * 256 * 1024 * 4 / PEAK_HBM_BYTES:.3f} us "
+        f"(1 MiB written)")
+    # on the device alone: one CUDA graph of the same back-to-back calls, replayed
+    philox_dev_us = 1e3 / calls * cuda_ms(replay_graph(
+        lambda: [fk.philox_uniform(7, 11, 256, 1024, 0, device="cuda") for _ in range(calls)], 1),
+        reps=5)
+    rand_dev_us = 1e3 / calls * cuda_ms(replay_graph(
+        lambda: [torch.rand((256, 1024), device="cuda") for _ in range(calls)], 1), reps=5)
+    log(f"philox [256,1024] on the device alone (a CUDA graph of {calls} calls, median of 5): "
+        f"{philox_dev_us:.2f} us per call, torch.rand {rand_dev_us:.2f} us: the kernel "
+        f"{'loses' if philox_dev_us > rand_dev_us else 'does not lose'}")
+
+    # at a size where the bytes, not the launch, set the bound: 256 MiB written;
+    # on the device alone (a CUDA graph of 10 calls each), in turns
+    rows, lanes, n = 65536, 1024, 10
+    full = torch.empty((rows, lanes), device="cuda")
+    big = ab_turns.interleaved({
+        "kernel": replay_graph(lambda: [fk.philox_uniform(7, 11, rows, lanes, 0, device="cuda")
+                                        for _ in range(n)], 1),
+        "torch.rand": replay_graph(lambda: [torch.rand((rows, lanes), device="cuda")
+                                            for _ in range(n)], 1),
+        "fill_": replay_graph(lambda: [full.fill_(0.5) for _ in range(n)], 1)}, reps=20)
+    big = {k: {"ms": r["ms"] / n} for k, r in big.items()}
+    plain_ms = cuda_ms(lambda: fk.philox_uniform_plain(7, 11, rows, lanes, 0, device="cuda"), reps=2)
+    del full
+    torch.cuda.empty_cache()
+    bound_ms, bound_by, bytes_ms, ops_ms = philox_bound_ms(rows * lanes)
+    ms = big["kernel"]["ms"]
+    sass = philox_sass_counts()
+    log(f"philox [{rows},{lanes}] (256 MiB written, a CUDA graph of {n} calls, median of 20 in "
+        f"turns): {ms:.4f} ms, "
+        f"{100 * bound_ms / ms:.1f} % of its bound {bound_ms:.4f} ms ({bound_by}; bytes "
+        f"{bytes_ms:.4f} ms, operations {ops_ms:.4f} ms); torch.rand {big['torch.rand']['ms']:.4f} ms, "
+        f"fill_ {big['fill_']['ms']:.4f} ms, plain on the card {plain_ms:.3f} ms")
+    log(f"philox_uniform_kernel SASS, static counts by opcode (one unit of 4 values a trip, "
+        f"the lane words beside it): {sass}")
+    return {"name": "philox_uniform", "route": "cuda",
+            "source": "nsynth_wavenet_tpu_torch/csrc/fastgen_kernel.cu",
+            "replaces": "benchmarks/tpu_kernel_parity.py:141", "launches": None,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": big["torch.rand"]["ms"],
+            "fill_ms": big["fill_"]["ms"], "shape": [rows, lanes],
+            "graph_us_256x1024": philox_dev_us, "rand_graph_us_256x1024": rand_dev_us,
+            "host_us_256x1024": philox_us, "sass_ops": sass}
+
+
 def main():
     if len(sys.argv) > 1 and sys.argv[1] == "--mesh-rank":
         return mesh_rank_main()
@@ -4935,40 +5069,7 @@ def main():
                  conditioning(gmodel, gparams, B=8, L=256, seed=3), seed=7, rel_tol=REL_TOL)
 
     # ---- 4. Philox uniforms from the kernel's generator ----
-    u = fk.philox_uniform(7, 11, 256, 1024, 0, device="cuda")
-    require(bool(torch.equal(u, fk.philox_uniform_plain(7, 11, 256, 1024, 0, device="cuda"))),
-            "kernel Philox differs from the plain version")
-    un = u.cpu().numpy()
-    log(f"philox [256,1024]: min {un.min():.3e} max {un.max():.6f} mean {un.mean():.5f} "
-        f"var {un.var():.5f} floor share {(un <= 1e-5).mean():.2e}")
-    require(un.min() >= 1e-5 and un.max() <= 1 - 1e-5 and (un <= 1e-5).mean() < 1e-2
-            and un.max() > 0.99 and abs(un.mean() - 0.5) < 0.02 and abs(un.var() - 1 / 12) < 2e-3,
-            "Philox uniform statistics")
-
-    calls = 100  # per timed run, so that the events do not time one launch's latency
-    philox_us = 1e3 / calls * cuda_ms(lambda: [fk.philox_uniform(7, 11, 256, 1024, 0, device="cuda")
-                                               for _ in range(calls)])
-    rand_us = 1e3 / calls * cuda_ms(lambda: [torch.rand((256, 1024), device="cuda")
-                                             for _ in range(calls)])
-    log(f"philox [256,1024]: {philox_us:.2f} us per call (wrapper, allocation and launch "
-        f"included), torch.rand {rand_us:.2f} us, bound {1e6 * 256 * 1024 * 4 / PEAK_HBM_BYTES:.3f} us "
-        f"(1 MiB written)")
-    # on the device alone: one CUDA graph of the same back-to-back calls, replayed
-    philox_dev_us = 1e3 / calls * cuda_ms(replay_graph(
-        lambda: [fk.philox_uniform(7, 11, 256, 1024, 0, device="cuda") for _ in range(calls)], 1),
-        reps=5)
-    rand_dev_us = 1e3 / calls * cuda_ms(replay_graph(
-        lambda: [torch.rand((256, 1024), device="cuda") for _ in range(calls)], 1), reps=5)
-    log(f"philox [256,1024] on the device alone (a CUDA graph of {calls} calls, median of 5): "
-        f"{philox_dev_us:.2f} us per call, torch.rand {rand_dev_us:.2f} us: the kernel "
-        f"{'loses' if philox_dev_us > rand_dev_us else 'does not lose'}")
-    # at a size where the bytes, not the launch, set the bound: 256 MiB written
-    rows = 65536
-    big_ms = cuda_ms(lambda: fk.philox_uniform(7, 11, rows, 1024, 0, device="cuda"), reps=5)
-    big_rand_ms = cuda_ms(lambda: torch.rand((rows, 1024), device="cuda"), reps=5)
-    big_bound_ms = 1e3 * rows * 1024 * 4 / PEAK_HBM_BYTES
-    log(f"philox [{rows},1024] (256 MiB written): {big_ms:.4f} ms, {100 * big_bound_ms / big_ms:.1f} % "
-        f"of its byte bound {big_bound_ms:.4f} ms; torch.rand {big_rand_ms:.4f} ms")
+    philox_record = philox_phase()
 
     # ---- 5. main path end to end ----
     fg = Fastgen(model)
@@ -4979,6 +5080,7 @@ def main():
     torch.cuda.synchronize()
     fk.generate.launches = 0
     fk.generate.launches_by_mode = {"bf16": 0, "w8a8": 0}
+    fk.philox_uniform.launches = 0
     main_runs = {}
     for B in MAIN_BATCHES:
         t0 = time.time()
@@ -4987,6 +5089,7 @@ def main():
         dt = time.time() - t0
         main_runs[B] = (audio, dt)
     launches = fk.generate.launches
+    philox_record["launches"] = fk.philox_uniform.launches  # a check kernel: none on the path
     for B, (audio, dt) in main_runs.items():
         require(tuple(audio.shape) == (B, MAIN_LENGTH), f"main path shape {tuple(audio.shape)}")
         require(bool(torch.isfinite(audio).all()) and float(audio.abs().max()) <= 1.0,
@@ -5114,7 +5217,7 @@ def main():
                                   "gather_results": tools["Q4"]["gather"]["ar_kernel_launches"]},
         "quality_seconds": tools["seconds"],
     }, flow_rec, w8a8_record, row_record, prepass_record, *mode_records, carry_record,
-        *probe_records]}
+        *probe_records, philox_record]}
     log(f"timed call: B={MAIN_BATCHES[-1]}, {TIMED_STEPS} steps, full width; "
         f"total {time.time() - T_START:.1f} s")
     print(smi, flush=True)

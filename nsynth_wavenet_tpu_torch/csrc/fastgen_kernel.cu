@@ -1560,12 +1560,157 @@ __global__ void __launch_bounds__(THREADS) barrier_probe_kernel(unsigned long lo
   for (int i = 0; i < iters; ++i) grid_barrier(bar, target);
 }
 
-__global__ void philox_uniform_kernel(float* out, int rows, int lanes, int t, int draw,
-                                      uint32_t k0, uint32_t k1) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < (long long)rows * lanes) {
-    const int r = (int)(i / lanes), c = (int)(i % lanes);
-    out[i] = uniform_from_bits(philox_bits(c, r, t, draw, k0, k1));
+// philox_uniform_kernel: out[row, lane] = uniform_from_bits(philox_bits(lane,
+// row, t, draw, seed)), bit for bit, the generator that fastgen_persistent's
+// sampler draws from.  Replaces the TPU's hardware PRNG check
+// (benchmarks/tpu_kernel_parity.py:141, check_prng), which has no
+// counterpart on this card: this is the port's own stream.
+//
+// What bounds it: each value is one Philox4x32-10 of which word 0 is kept, and
+// 4 bytes written.  Written out, the rounds need 18 32x32->64 products and 19
+// three-input XORs a value; at 64 products and 64 logic results a clock an SM
+// (132 SMs at 1.98 GHz) that is 0.072 / 0.076 ms for [65536, 1024], against
+// 0.0801 ms for its 256 MiB at 3.35 TB/s: the bytes and the integer pipes bind
+// together.  On this card IMAD.WIDE and IMAD.HI issue at about half IMAD's
+// rate (development measurements), so products on the integer pipe alone
+// would take longer than the bytes.  (philox_bits, which the sampler runs,
+// is left as it is.)
+//
+// The design takes work off the integer pipe:
+//  * the round keys come in as parameters (PhiloxArgs, from the host's
+//    philox_round_keys); round 1's product M1 * t, the same for every value,
+//    is folded into three words on the host (PhiloxArgs::row_key, ...);
+//  * through round 3 a word depends on the lane alone or the row alone: round
+//    1's product and round 2's M1 product and round 3's M0 product are the
+//    lane's (4 words a lane kept, made again only when a thread's lanes
+//    change, never on the [rows, 1024] walk), round 2's M0 product is the
+//    row's (one for the thread's 4 values);
+//  * rounds 8-10 make only what word 0 needs: round 10 the high half of one
+//    product and one XOR, round 9 one high and one low half, round 8 one
+//    product and one high half;
+//  leaving 10 full products, 4 halves and 15 XORs a value.
+//  * From round 3 on, a high half comes from the FP64 pipe, idle otherwise
+//    (hi_of): a word a is carried as the double 2^84 + a * 2^32 (low word a,
+//    high word kPhiloxHiWord), and fma_rz(that, M * 2^-32, 2^84 - M * 2^52)
+//    is exactly 2^84 + a * M rounded toward zero onto the 2^32 grid of
+//    [2^84, 2^85): its low word is hi(a * M) and its high word again
+//    kPhiloxHiWord, so the next XOR writes the low word in place.  A low
+//    half is one IMAD.  13 DFMA, 11 IMAD and 15 LOP3 a value.
+//  * A thread takes a unit of 4 neighbouring lanes of a row (4 independent
+//    chains, one 16-byte streaming store) and walks units with a grid stride
+//    from a persistent grid (a few blocks an SM); row and unit lane carry
+//    forward in 32 bits, with one division a thread.  A lane count that 4
+//    does not divide leaves the last unit of a row short: it is stored value
+//    by value and nothing is padded.
+struct PhiloxArgs {
+  float* out;
+  uint32_t lanes, groups;          // lanes a row; units a row, ceil(lanes / 4)
+  uint32_t units;                  // rows * groups (< 2^31)
+  uint32_t step_rows, step_groups; // a grid stride (gridDim.x * PHILOX_THREADS units) as rows and units
+  uint32_t k0[10], k1[10];         // round keys
+  uint32_t row_key;                // round 1: c0 = row ^ hi(M1 t) ^ k0[0]
+  uint32_t t_key;                  // round 2: c0 = hi1 ^ lo(M1 t) ^ k0[1]
+  uint32_t draw_key;               // round 1: c2 = hi(M0 lane) ^ draw ^ k1[0]
+};
+
+constexpr uint32_t kPhiloxM0 = 0xD2511F53u, kPhiloxM1 = 0xCD9E8D57u;
+constexpr int PHILOX_THREADS = 256;  // a block; ops/fastgen_kernel.py PHILOX_THREADS
+constexpr int kPhiloxHiWord = 0x45300000;  // high word of 2^84 + a * 2^32, a < 2^32
+
+__device__ __forceinline__ void mul_wide(uint32_t a, uint32_t m, uint32_t& hi, uint32_t& lo) {
+  const uint64_t p = (uint64_t)m * a;
+  hi = (uint32_t)(p >> 32);
+  lo = (uint32_t)p;
+}
+
+// a word carried as the double 2^84 + a * 2^32, and back
+__device__ __forceinline__ double as_carried(uint32_t a) { return __hiloint2double(kPhiloxHiWord, (int)a); }
+__device__ __forceinline__ uint32_t word_of(double x) { return (uint32_t)__double2loint(x); }
+// x with its word replaced (the high word kept where it lies)
+__device__ __forceinline__ double with_word(double x, uint32_t a) {
+  return __hiloint2double(__double2hiint(x), (int)a);
+}
+
+// the carried hi(a * M) of a carried a, for M = kPhiloxM0 (M1 false) or kPhiloxM1
+template <bool M1>
+__device__ __forceinline__ double hi_of(double a) {
+  constexpr double m = (M1 ? kPhiloxM1 : kPhiloxM0);
+  return __fma_rz(a, m * 0x1p-32, 0x1p84 - m * 0x1p52);
+}
+
+__global__ void __launch_bounds__(PHILOX_THREADS, 1) philox_uniform_kernel(const __grid_constant__ PhiloxArgs a) {
+  uint32_t u = blockIdx.x * PHILOX_THREADS + threadIdx.x;
+  if (u >= a.units) return;
+  const uint32_t step = gridDim.x * PHILOX_THREADS;
+  uint32_t row = u / a.groups, g = u % a.groups;
+  uint32_t have = 0xFFFFFFFFu;  // the unit lane whose words L1-L4 hold
+  uint32_t L1[4], L2[4], L3[4], L4[4];
+  for (; u < a.units; u += step) {
+    if (g != have) {  // lane words: rounds 1-3 as far as the lane alone decides them
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t h, l, h2, l2;
+        mul_wide(4 * g + j, kPhiloxM0, h, l);     // round 1, M0 * lane
+        L1[j] = l ^ a.k1[1];                      // round 2: c2 = hi(M0 c0) ^ c3 ^ k1[1]
+        mul_wide(h ^ a.draw_key, kPhiloxM1, h2, l2);  // round 2, M1 * c2
+        L2[j] = l2 ^ a.k0[2];                     // round 3: c0 = hi(M1 c2) ^ c1 ^ k0[2]
+        mul_wide(h2 ^ a.t_key, kPhiloxM0, h, l);  // round 3, M0 * c0
+        L3[j] = h ^ a.k1[2];                      // round 3: c2 = hi(M0 c0) ^ c3 ^ k1[2]
+        L4[j] = l;                                // round 3: c3
+      }
+      have = g;
+    }
+    uint32_t rh, rl;  // the row's round-2 M0 product
+    mul_wide(row ^ a.row_key, kPhiloxM0, rh, rl);
+    double c0[4], c2[4];  // carried
+    uint32_t c1[4], c3[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {  // round 3
+      const uint32_t c2_2 = rh ^ L1[j];
+      const double h = hi_of<true>(as_carried(c2_2));
+      c0[j] = with_word(h, word_of(h) ^ L2[j]);
+      c1[j] = c2_2 * kPhiloxM1;
+      c2[j] = as_carried(L3[j] ^ rl);
+      c3[j] = L4[j];
+    }
+#pragma unroll
+    for (int r = 3; r < 7; ++r) {  // rounds 4-7 in full
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const double h0 = hi_of<false>(c0[j]), h1 = hi_of<true>(c2[j]);
+        const uint32_t l0 = word_of(c0[j]) * kPhiloxM0, l1 = word_of(c2[j]) * kPhiloxM1;
+        c0[j] = with_word(h1, word_of(h1) ^ c1[j] ^ a.k0[r]);
+        c1[j] = l1;
+        c2[j] = with_word(h0, word_of(h0) ^ c3[j] ^ a.k1[r]);
+        c3[j] = l0;
+      }
+    }
+    float v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const double h0 = hi_of<false>(c0[j]), h1 = hi_of<true>(c2[j]);  // round 8: c1 is not needed
+      const uint32_t l0 = word_of(c0[j]) * kPhiloxM0;
+      const double c0_8 = with_word(h1, word_of(h1) ^ c1[j] ^ a.k0[7]);
+      const uint32_t c2_8 = word_of(h0) ^ c3[j] ^ a.k1[7];
+      const double h = hi_of<false>(c0_8);  // round 9: c2 and c1 alone
+      const double c2_9 = with_word(h, word_of(h) ^ l0 ^ a.k1[8]);
+      const uint32_t c1_9 = c2_8 * kPhiloxM1;
+      v[j] = uniform_from_bits(word_of(hi_of<true>(c2_9)) ^ c1_9 ^ a.k0[9]);  // round 10: word 0
+    }
+    const uint32_t at = row * a.lanes + 4 * g;
+    if ((a.lanes & 3u) == 0) {
+      __stcs(reinterpret_cast<float4*>(a.out + at), make_float4(v[0], v[1], v[2], v[3]));
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (4 * g + j < a.lanes) __stcs(a.out + at + j, v[j]);
+    }
+    g += a.step_groups;  // advance by the grid stride, carrying the unit lane into the row
+    row += a.step_rows;
+    if (g >= a.groups) {
+      g -= a.groups;
+      ++row;
+    }
   }
 }
 
@@ -1691,16 +1836,35 @@ extern "C" int fastgen_barrier_probe(int grid, int iters, void* bar, int device,
   return (int)cudaGetLastError();
 }
 
-extern "C" int philox_uniform(float* out, int rows, int lanes, int t, int draw, long long seed,
+// blocks of philox_uniform_kernel an SM can hold (the persistent grid's factor)
+extern "C" int philox_blocks_per_sm(int device, int* blocks) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, philox_uniform_kernel, PHILOX_THREADS, 0);
+}
+
+// plan: lanes, groups, units, step_rows, step_groups, grid (ops/fastgen_kernel.py philox_plan);
+// keys: the ten round keys (k0, k1) in order (philox_round_keys)
+extern "C" int philox_uniform(float* out, const unsigned* plan, int t, int draw, const unsigned* keys,
                               int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const long long n = (long long)rows * lanes;
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-  philox_uniform_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      out, rows, lanes, t, draw, (uint32_t)((unsigned long long)seed & 0xffffffffull),
-      (uint32_t)((unsigned long long)seed >> 32));
+  PhiloxArgs a;
+  a.out = out;
+  a.lanes = plan[0];
+  a.groups = plan[1];
+  a.units = plan[2];
+  a.step_rows = plan[3];
+  a.step_groups = plan[4];
+  for (int r = 0; r < 10; ++r) {
+    a.k0[r] = keys[2 * r];
+    a.k1[r] = keys[2 * r + 1];
+  }
+  const uint64_t pt = (uint64_t)kPhiloxM1 * (uint32_t)t;  // round 1's product, the same for every value
+  a.row_key = (uint32_t)(pt >> 32) ^ a.k0[0];
+  a.t_key = (uint32_t)pt ^ a.k0[1];
+  a.draw_key = (uint32_t)draw ^ a.k1[0];
+  philox_uniform_kernel<<<plan[5], PHILOX_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -143,7 +143,8 @@ extern "C" {
 int fastgen_generate(const FastgenArgs* args, int* launched);
 int fastgen_grid(int act_mode, int rs_mode, int smem_bytes, int device, int* info);
 int fastgen_barrier_probe(int grid, int iters, void* bar, int device, void* stream);
-int philox_uniform(float* out, int rows, int lanes, int t, int draw, long long seed,
-                   int device, void* stream);
+int philox_blocks_per_sm(int device, int* blocks);
+int philox_uniform(float* out, const unsigned* plan, int t, int draw, const unsigned* keys, int device,
+                   void* stream);
 const char* fastgen_error_string(int code);
 }

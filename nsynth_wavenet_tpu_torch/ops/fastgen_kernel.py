@@ -45,7 +45,10 @@ raises if it cannot), on CPU tensors it runs ``generate_plain``, the plain
 PyTorch version with the same signature and the same arithmetic.  Random
 draws come from a Philox4x32-10 counter generator keyed by (seed, t, batch
 row, lane); ``philox_uniform_plain`` implements it in torch integer ops so
-kernel and plain version draw identical uniforms.
+kernel and plain version draw identical uniforms.  ``philox_uniform`` fills
+a [rows, lanes] tensor from the same stream on the card with
+philox_uniform_kernel (the counterpart of the TPU's PRNG check,
+benchmarks/tpu_kernel_parity.py:141), walked as ``philox_plan`` says.
 
 The reference's perf probes (make_generate_fn probe=, :325-331) are ported
 as ``generate(probe=...)``: "cheap_gate" forms the gate from two clips,
@@ -292,20 +295,87 @@ def philox_uniform_plain(seed: int, t, rows: int, lanes: int, draw: int, device=
     return uniform_from_bits(philox_bits(lane + zero, row + zero, steps + zero, zero + draw, seed))
 
 
+def philox_round_keys(seed: int):
+    """The ten round keys (k0, k1) of Philox4x32-10 under key (seed low word,
+    seed high word), round 1's first: what philox_bits adds as it goes."""
+    k0, k1 = seed & M32, (seed >> 32) & M32
+    return tuple(((k0 + r * _PHILOX_W0) & M32, (k1 + r * _PHILOX_W1) & M32) for r in range(10))
+
+
+PHILOX_THREADS = 256  # a philox_uniform_kernel block (csrc/fastgen_kernel.cu PHILOX_THREADS)
+
+
+def philox_plan(rows: int, lanes: int, sms: int, blocks_per_sm: int):
+    """The walk of philox_uniform_kernel, in the order the C entry takes it.
+    A unit is 4 neighbouring lanes of a row, ``groups`` = ceil(lanes / 4) a
+    row (the last one short when 4 does not divide ``lanes``), ``units`` =
+    rows * groups in all; a grid of at most sms * blocks_per_sm blocks of
+    PHILOX_THREADS threads walks them with a stride of grid * PHILOX_THREADS
+    units, which is ``step_rows`` rows and ``step_groups`` units."""
+    groups = -(-lanes // 4)
+    units = rows * groups
+    grid = max(1, min(-(-units // PHILOX_THREADS), sms * blocks_per_sm))
+    step_rows, step_groups = divmod(grid * PHILOX_THREADS, groups)
+    return {"lanes": lanes, "groups": groups, "units": units, "step_rows": step_rows,
+            "step_groups": step_groups, "grid": grid}
+
+
+_PHILOX_GRID = {}
+
+
+def philox_grid_of(index: int):
+    """(SMs, blocks of philox_uniform_kernel an SM holds) of card ``index``."""
+    if index not in _PHILOX_GRID:
+        lib, blocks = _lib(), ctypes.c_int(0)
+        _check(lib, lib.philox_blocks_per_sm(index, ctypes.byref(blocks)))
+        _PHILOX_GRID[index] = (torch.cuda.get_device_properties(index).multi_processor_count,
+                               blocks.value)
+    return _PHILOX_GRID[index]
+
+
 def philox_uniform(seed: int, t: int, rows: int, lanes: int, draw: int, device="cuda"):
-    """Uniforms from the kernel's own generator: launches the CUDA kernel for a
-    CUDA device, runs philox_uniform_plain for the CPU."""
+    """Uniforms from the kernel's own generator, [rows, lanes] at counter
+    (lane, row, t, draw): launches philox_uniform_kernel for a CUDA device,
+    runs philox_uniform_plain for the CPU.  Refuses, on every device, what the
+    kernel's 32-bit walk and its int arguments cannot take: rows * lanes of
+    2**31 or more, and a t or a draw outside [0, 2**31 - 1]."""
+    if rows * lanes >= 1 << 31:
+        raise ValueError(f"philox_uniform: rows {rows} x lanes {lanes} = {rows * lanes} values; "
+                         f"the kernel takes fewer than 2**31")
+    for name, v in (("t", t), ("draw", draw)):
+        if not 0 <= v < 1 << 31:
+            raise ValueError(f"philox_uniform: {name} = {v} is outside [0, 2**31 - 1]")
     device = torch.device(device)
     if device.type == "cpu":
         return philox_uniform_plain(seed, t, rows, lanes, draw, device)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
     out = torch.empty((rows, lanes), dtype=torch.float32, device=device)
-    lib = _lib()
-    rc = lib.philox_uniform(out.data_ptr(), rows, lanes, t, draw, seed, out.device.index,
-                            torch.cuda.current_stream(out.device).cuda_stream)
-    _check(lib, rc)
+    if out.numel():
+        _philox_launch(out, seed, t, draw, out.device.index)
     return out
+
+
+philox_uniform.launches = 0  # philox_uniform_kernel launches
+
+
+@functools.lru_cache(maxsize=64)
+def _philox_words(rows, lanes, seed, index):
+    """The C entry's plan and key words for a call, as ctypes arrays."""
+    plan = philox_plan(rows, lanes, *philox_grid_of(index))
+    keys = [k for pair in philox_round_keys(seed) for k in pair]
+    return (ctypes.c_uint * len(plan))(*plan.values()), (ctypes.c_uint * len(keys))(*keys)
+
+
+def _philox_launch(out, seed, t, draw, index):
+    """One launch of philox_uniform_kernel that fills ``out``, a contiguous f32
+    [rows, lanes] tensor on card ``index``."""
+    lib = _lib()
+    plan, keys = _philox_words(*out.shape, seed, index)
+    rc = lib.philox_uniform(out.data_ptr(), plan, t, draw, keys, index,
+                            torch.cuda.current_stream(index).cuda_stream)
+    _check(lib, rc)
+    philox_uniform.launches += 1
 
 
 # ---------------------------------------------------------------------------
@@ -888,10 +958,12 @@ def _lib(probe=""):
                                               ctypes.c_int, ctypes.c_void_p]
         lib.fastgen_barrier_probe.restype = ctypes.c_int
         lib.philox_uniform.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint), ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_uint), ctypes.c_int, ctypes.c_void_p,
         ]
         lib.philox_uniform.restype = ctypes.c_int
+        lib.philox_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        lib.philox_blocks_per_sm.restype = ctypes.c_int
         lib.fastgen_quant_enc.argtypes = (
             [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 3
             + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
