@@ -591,9 +591,6 @@ def student_smoke(steps, out_dir, corpus, pairing="gauss", n_utts=24, device="cu
     tracks its own conditioning mel better than the other utterances'.
     Returns the readings, the gates' booleans, 'passed', both run directories
     and the audio."""
-    from nsynth_wavenet_tpu_torch import evaluation
-    from nsynth_wavenet_tpu_torch.models import parallelgen
-    from nsynth_wavenet_tpu_torch.models.parallel_wavenet import ParallelWavenet
     from nsynth_wavenet_tpu_torch.training import runner
 
     os.makedirs(out_dir, exist_ok=True)
@@ -607,16 +604,37 @@ def student_smoke(steps, out_dir, corpus, pairing="gauss", n_utts=24, device="cu
         train_path=ds_dir, config_path=te_cfg_path, log_root=os.path.join(out_dir, "runs"),
         total_batch_size=TEACHER_BATCH, num_steps=steps, ckpt_every_steps=max(steps, 1),
         device=device)
+    return distill_and_gate(te_dir, ds_dir, out_dir, corpus, pairing, steps, device)
 
-    st_cfg = dict(STUDENT_CFG, num_iters=steps)
+
+def distill_and_gate(te_dir, ds_dir, out_dir, corpus, pairing, steps, device="cuda", seed=0,
+                     tag=None, kl_sigma_floor=0.0, compute_dtype=None):
+    """The student half of student_smoke: distil the smoke's student (its
+    config with ``kl_sigma_floor``, and ``compute_dtype`` when given) for
+    ``steps`` steps at ``seed`` from the teacher run directory ``te_dir`` on
+    the dataset ``ds_dir``, synthesize from the held-out mels and apply the
+    gates, printing the JAX tool's report lines.  Its run goes under
+    <out_dir>/runs (<out_dir>/runs_<tag> with a tag: runs started in the
+    same second are named alike), its config json and wavs under out_dir,
+    named by ``tag`` (default the pairing)."""
+    from nsynth_wavenet_tpu_torch import evaluation
+    from nsynth_wavenet_tpu_torch.models import parallelgen
+    from nsynth_wavenet_tpu_torch.models.parallel_wavenet import ParallelWavenet
+    from nsynth_wavenet_tpu_torch.training import runner
+
+    tag = tag or pairing
+    st_cfg = dict(STUDENT_CFG, num_iters=steps, kl_sigma_floor=kl_sigma_floor)
+    if compute_dtype:
+        st_cfg["compute_dtype"] = compute_dtype
     if pairing == "mol":
         st_cfg["loss_type"] = "logistic"
         st_cfg["num_samples"] = 100  # reference MC-KL draw count
-    st_cfg_path = _write_config(os.path.join(out_dir, f"student_{pairing}.json"), st_cfg)
+    st_cfg_path = _write_config(os.path.join(out_dir, f"student_{tag}.json"), st_cfg)
     st_dir, _ = runner.train_parallel_wavenet(
         train_path=ds_dir, teacher_dir=te_dir, config_path=st_cfg_path,
-        log_root=os.path.join(out_dir, "runs"), total_batch_size=STUDENT_BATCH,
-        num_steps=steps, ckpt_every_steps=max(steps, 1), device=device)
+        log_root=os.path.join(out_dir, "runs" if tag == pairing else f"runs_{tag}"),
+        total_batch_size=STUDENT_BATCH, num_steps=steps, ckpt_every_steps=max(steps, 1),
+        seed=seed, device=device)
 
     head, tail = parse_student_log(st_dir)
     lg = student_loss_gate(head, tail, pairing, steps)
@@ -645,7 +663,7 @@ def student_smoke(steps, out_dir, corpus, pairing="gauss", n_utts=24, device="cu
     print(f"student free-run std {amp['std']:.4f} -> {amp['ok']}")
 
     mt = mel_track_metrics(audio, mel, HELD_OUT_SAMPLES, out_dir=out_dir,
-                           wav_prefix="gen_student")
+                           wav_prefix="gen_student" if tag == pairing else f"gen_student_{tag}")
     res["metrics"] = mt
     res["gates"]["track"] = student_tracking_gate(mt, corpus)
     m_corr, mm_corr = mt["corr"]

@@ -34,7 +34,8 @@ def test_port_and_chip_smoke_import_no_jax():
                  "utils.tree", "models.parallel_wavenet", "ops.stft", "utils.quality",
                  "data.native.native", "parallel.mesh", "tools.quality_smoke",
                  "tools.longform_check", "tools.make_golden_ckpt", "tools.make_golden_wavs",
-                 "tools.make_eval_model", "tools.downsample", "tools.gather_results"):
+                 "tools.make_eval_model", "tools.downsample", "tools.gather_results",
+                 "tools.gauss_pairing"):
         assert f"nsynth_wavenet_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
