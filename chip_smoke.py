@@ -10,7 +10,9 @@ them.  Phases, each fatal on failure:
      from a seed, B = 8, L = 256: teacher-forced greedy head outputs, and a
      sampled free run replayed through the plain sampler and the plain network;
   3. the same checks for the CE (mu-law, double gate) and Gauss heads at 4 layers,
-     and for the trained tiny MoL golden;
+     and for the trained tiny MoL golden, at L = 64 (SHALLOW_STEPS, as every
+     4-layer and golden whole run at B = 8 below; the other full-width ones
+     but phase 2's and P1's at L = 128);
   4. the kernel's Philox generator against the plain one bit for bit at five
      shapes under two (seed, t, draw), its statistics and the TPU PRNG
      check's five gates; its time per [256, 1024] call against torch.rand,
@@ -66,14 +68,16 @@ while the teacher is on the card:
  12. Fastgen.calibrate_act_amax on 8 rows x 1 s, int8 packing, and the W8A8
      kernels against their plain version: single steps started from the plain
      version's state, and the checks of phase 2 over whole runs: full-width
-     MoL at B = 8, L = 256 and at B = 64 and 512, L = 48 (there also cut to 4
+     MoL at B = 8, L = 128 on 10 layers (CYCLE_LAYERS: one dilation cycle,
+     1 to 512) and on all 30 at B = 64 and 512, L = 48 (there also cut to 4
      layers, where a tight limit holds); the CE and Gauss heads at 4 layers;
      the trained golden tiny_mol (whose K slices straddle 3W);
  13. W8A8 against bf16 on the card, teacher-forced, golden and full width:
      within 5 % of the bf16 output's scale;
- 14. streaming, both modes, full width: chained chunks of 128 (shorter than the
-     largest 2d, not a divisor of L = 300) equal to the one-shot call bit for
-     bit, greedy and sampled, and the final state against the plain version's;
+ 14. streaming, both modes, on phase 12's 10-layer full-width model: chained
+     chunks of 128 (shorter than the largest 2d, not a divisor of L = 300)
+     equal to the one-shot call bit for bit, greedy and sampled, and the
+     final state against the plain version's;
  15. the W8A8 main path: Fastgen.generate_cuda(weight_dtype="int8", act_amax=...,
      gate_static=True) at B = 64 and 512, L = 2000, sampled; a streamed run
      (chunk 500) at B = 64 equal to the one-shot run on the same encoding;
@@ -88,7 +92,8 @@ activation scales whose codes ride in the ring, per-row gate scales, bf16
 res/skip under an int8 ring, the bf16 combine); they follow phase 18:
  19. int8 packing with nothing calibrated, and the per-row kernels against
      their plain version: single steps from the plain version's state at full
-     width, B = 8, 64 and 512, judged per (step, row) pair, with the share of
+     width, B = 8 (on phase 12's 10 layers), 64 and 512, judged per (step,
+     row) pair, with the share of
      ring payloads and of exponent codes that differ; whole runs for MoL, CE
      and Gauss at 4 layers and for the golden tiny_mol; full depth under the
      gross-fault guard;
@@ -99,8 +104,8 @@ res/skip under an int8 ring, the bf16 combine); they follow phase 18:
  21. the per-row mode against bf16 and against the static mode, teacher-forced,
      on the golden and at 4 layers: within 5 % of scale, bf16 res/skip no
      further from bf16 than 1.5 times the all-int8 distance; full depth printed;
- 22. streaming in the per-row mode at full width: chained chunks of 128 equal to
-     the one-shot call bit for bit, exponent codes included;
+ 22. streaming in the per-row mode as in phase 14: chained chunks of 128 equal
+     to the one-shot call bit for bit, exponent codes included;
  23. the calibration-free main path: Fastgen.generate_cuda(weight_dtype="int8")
      at B = 64 and 512, L = 2000, sampled; a streamed run (chunk 500) at B = 64
      equal to the one-shot run on the same encoding; launch counts by mode;
@@ -199,8 +204,8 @@ Phases T1 to T5 train the teacher (training/); they follow phase H3:
      leaf, the params after Adam and the EMA;
  T2. runner.train_wavenet at full size (configs/wavenet_mol.json unchanged:
      30 layers, bf16, dropout on) on a speech-like corpus the port builds in
-     a temporary directory, B = 4 x 7680, 40 steps, a checkpoint every 20:
-     every loss finite, the checkpoints land; and 40 steps on one fixed batch
+     a temporary directory, B = 4 x 7680, 20 steps, a checkpoint every 10:
+     every loss finite, the checkpoints land; and 20 steps on one fixed batch
      whose last 5 losses average under the first 5;
  T3. resume by logdir bit for bit: a one-record dataset whose record is
      exactly wave_length (every crop the same), the full config cut to 4
@@ -243,7 +248,7 @@ Phases 33 to 38 follow S5:
      random weights from a seed: its encoding on the card against the CPU at
      B = 2 x 1 s in f32 (TF32 off, cuDNN deterministic) and in bf16,
      Fastgen.precompute_conditioning on the card against the CPU, phase 2's
-     kernel checks from that encoding at B = 8, L = 256, a sampled
+     kernel checks from that encoding at B = 8, L = 128, a sampled
      generate_cuda at B = 64, L = 2000 in one fastgen_persistent launch, and
      the resize upsampler timed against the transposed one on the same
      weights, beside its FLOP bound;
@@ -429,6 +434,18 @@ SHIPPED_BATCH = 896  # the JAX package's shipped W8A8 serving batch (BENCH_r05.j
 MAIN_LENGTH = 2000
 TIMED_STEPS = 128
 CHECK_STEPS = 48  # kernel-vs-plain length at the main path's batches
+# whole-run kernel-vs-plain length at B = 8: phase 2's full-width check (and
+# P1's, on its input) runs FULL_RUN_STEPS, the other full-width ones
+# RUN_STEPS, the 4-layer and golden models (dilations up to 16) SHALLOW_STEPS;
+# the streaming checks' final state (STREAM_STEPS) holds the longer
+# dilations' rings.  The int8 modes' checks at B = 8 (single steps, a whole
+# run, streaming) and the bf16 streaming check run at full width on
+# CYCLE_LAYERS layers (one dilation cycle, 1 to 512); at B = 64 and 512 on
+# all 30
+FULL_RUN_STEPS = 256
+RUN_STEPS = 128
+SHALLOW_STEPS = 64
+CYCLE_LAYERS = 10
 # kernel vs plain, head outputs within REL_TOL * max(|plain|, 1): the JAX
 # kernel test's tolerance, held by the 4-layer heads and the trained golden.
 REL_TOL = 5e-3
@@ -521,14 +538,28 @@ def log(msg):
     print(f"[chip_smoke {time.time() - T_START:6.1f}s] {msg}", flush=True)
 
 
+GROUP_SECONDS = {}  # phase group -> seconds, printed on the line before the card's
+_LAP = [T_START]
+
+
+def lap(group, part=None):
+    """Add the seconds since the last lap to ``group`` (logged as ``part``)."""
+    now = time.time()
+    GROUP_SECONDS[group] = GROUP_SECONDS.get(group, 0.0) + now - _LAP[0]
+    log(f"phases {part or group}: {now - _LAP[0]:.1f} s")
+    _LAP[0] = now
+
+
 def require(ok, msg):
     if not ok:
         raise RuntimeError(f"check failed: {msg}")
 
 
-def cuda_ms(fn, reps=3):
-    """Median milliseconds of fn() by CUDA events, after one warm-up call."""
-    fn()
+def cuda_ms(fn, reps=3, warmup=True):
+    """Median milliseconds of fn() by CUDA events, after one warm-up call
+    unless not ``warmup`` (a plain version's seconds-long call)."""
+    if warmup:
+        fn()
     times = []
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -604,7 +635,7 @@ def check_kernel(label, cfg, kw, enc_t, seed, rel_tol, cpu_floor=False, **opts):
     head outputs with the same Philox draws must give the kernel's audio, and
     the plain network fed that audio must give the kernel's head outputs.
     Two independent free runs (kernel and plain each feeding back its own
-    samples) are only logged: a head-output difference far below the
+    samples) are not compared: a head-output difference far below the
     tolerance still moves a sample by more than one of the 65536 bins, so
     they part within a few steps however right the kernel is.
 
@@ -613,7 +644,7 @@ def check_kernel(label, cfg, kw, enc_t, seed, rel_tol, cpu_floor=False, **opts):
     far the two plain runs part: no implementation can be held closer to the
     plain version than that.  opts (int8_combine, probe) go to both versions;
     every probe call must keep the kernel's grid barriers a step."""
-    L, B, _ = enc_t.shape
+    B = enc_t.shape[1]
     # teacher-forced, greedy: the network and head
     err, floor = check_teacher_forced(label, cfg, kw, enc_t, seed, rel_tol, cpu_floor, **opts)
 
@@ -638,11 +669,6 @@ def check_kernel(label, cfg, kw, enc_t, seed, rel_tol, cpu_floor=False, **opts):
     log(f"{label} B={B}: free-run head outputs vs plain fed the same audio max|d| {ferr:.3e} "
         f"(limit {flimit:.3e})")
     require(ferr <= flimit, f"{label} B={B}: free-run head outputs differ")
-    direct = fk.generate_plain(kw, enc_t, seed, **opts)
-    same = (direct - audio_k).abs() <= tol
-    first = int(torch.nonzero(~same.all(0)).min()) if not bool(same.all()) else L
-    log(f"{label} B={B}: independent free runs agree within one bin for {first} steps, "
-        f"{float(same.float().mean()):.4f} of samples (logged only)")
     return err, floor
 
 
@@ -706,7 +732,7 @@ def time_kernel(cfg, kw, enc_t, seed, **opts):
     L, B, DW = enc_t.shape
     mode = fk.kernel_mode(kw)
     ms = cuda_ms(lambda: fk.generate(kw, enc_t, seed, **opts))
-    plain_ms = cuda_ms(lambda: fk.generate_plain(kw, enc_t, seed, **opts), reps=1)
+    plain_ms = cuda_ms(lambda: fk.generate_plain(kw, enc_t, seed, **opts), reps=1, warmup=False)
     W, GW = cfg.width, cfg.gate_width
     w_comb, w_rs = kw["w_comb"], kw["w_rs"]
 
@@ -945,6 +971,14 @@ def check_w8a8_vs_bf16(label, cfg, kw_bf16, kw_w8a8, enc_t, seed, limit=W8A8_VS_
     return err / scale
 
 
+def cycle_model():
+    """configs/wavenet_mol.json cut to CYCLE_LAYERS layers (full width),
+    random weights from a seed, its bf16 kernel weights and the encoding
+    [STREAM_STEPS, 8, DW] of its checks at B = 8."""
+    model, params, kw = full_model("configs/wavenet_mol.json", num_layers=CYCLE_LAYERS)
+    return model, params, kw, conditioning(model, params, B=8, L=STREAM_STEPS, seed=4)
+
+
 def check_streaming(label, cfg, kw, enc_t, seed, rel_tol):
     """Chained chunks of STREAM_CHUNK against the one-shot call, bit for bit,
     greedy and sampled (audio and head outputs), and the chained run's final
@@ -1016,11 +1050,14 @@ def w8a8_phases(model, params, kw_bf16, gmodel, gparams, gdir, mels):
     kw, amax = calibrated_w8a8(model, params, synthetic_wavs(8, 16000, 77))
     log(f"calibrated act_amax on 8 rows x 1 s: min {float(amax.min()):.3f} max {float(amax.max()):.3f}; "
         f"int8 layer weights {(kw['w_comb'].numel() + kw['w_rs'].numel()) / 1e6:.1f} MB")
-    enc8 = conditioning(model, params, B=8, L=256, seed=1)
+    enc8 = conditioning(model, params, B=8, L=RUN_STEPS, seed=1)
+    mc, pc, kwc_bf16, enc_c = cycle_model()
+    kwc, _ = calibrated_w8a8(mc, pc, synthetic_wavs(8, 16000, 77))
+    label_c = f"w8a8 mol full width {CYCLE_LAYERS} layers"
     pair_share, step_err, step_held, _ = check_single_steps(
-        "w8a8 mol full width", cfg, kw, enc8[:96], seed=5, rel_tol=REL_TOL,
+        label_c, mc.cfg, kwc, enc_c[:96], seed=5, rel_tol=REL_TOL,
         rel_tol_max=W8A8_FULL_WIDTH_RUN_TOL)
-    run_err, run_floor = check_kernel("w8a8 mol full width", cfg, kw, enc8, seed=5,
+    run_err, run_floor = check_kernel(label_c, mc.cfg, kwc, enc_c[:RUN_STEPS], seed=5,
                                       rel_tol=W8A8_FULL_WIDTH_RUN_TOL, cpu_floor=True)
     # every batch tile: single steps at full depth, whole runs at full depth (loose) and at 4 layers
     m4, p4, kw4_bf16 = full_model("configs/wavenet_mol.json", num_layers=4)
@@ -1043,11 +1080,11 @@ def w8a8_phases(model, params, kw_bf16, gmodel, gparams, gdir, mels):
         m3, p3, _ = full_model(path, num_layers=4)
         kw3, _ = calibrated_w8a8(m3, p3, synthetic_wavs(4, 4000, 78))
         check_kernel(f"w8a8 {m3.cfg.loss_type} 4 layers", m3.cfg, kw3,
-                     conditioning(m3, p3, B=8, L=256, seed=2), seed=6, rel_tol=W8A8_REL_TOL)
+                     conditioning(m3, p3, B=8, L=SHALLOW_STEPS, seed=2), seed=6, rel_tol=W8A8_REL_TOL)
     gwavs = np.stack([wav_io.read_wav(os.path.join(GOLDEN, f"gen_golden_mol_{i}.wav"))[0][:8000]
                       for i in (0, 1)])
     gkw, gamax = calibrated_w8a8(gmodel, gparams, gwavs)
-    genc = conditioning(gmodel, gparams, B=8, L=256, seed=3)
+    genc = conditioning(gmodel, gparams, B=8, L=SHALLOW_STEPS, seed=3)
     check_single_steps("w8a8 golden tiny_mol", gmodel.cfg, gkw, genc[:48], seed=7, rel_tol=REL_TOL,
                        rel_tol_max=REL_TOL)
     check_kernel("w8a8 golden tiny_mol", gmodel.cfg, gkw, genc, seed=7, rel_tol=REL_TOL)
@@ -1059,9 +1096,10 @@ def w8a8_phases(model, params, kw_bf16, gmodel, gparams, gdir, mels):
                                       limit=W8A8_FULL_WIDTH_RUN_TOL)
 
     # ---- 14. streaming, both modes ----
-    enc_s = conditioning(model, params, B=8, L=STREAM_STEPS, seed=4)
-    check_streaming("bf16 mol full width", cfg, kw_bf16, enc_s, seed=9, rel_tol=FULL_WIDTH_REL_TOL)
-    check_streaming("w8a8 mol full width", cfg, kw, enc_s, seed=9, rel_tol=FULL_WIDTH_REL_TOL)
+    check_streaming(f"bf16 mol full width {CYCLE_LAYERS} layers", mc.cfg, kwc_bf16, enc_c,
+                    seed=9, rel_tol=FULL_WIDTH_REL_TOL)
+    check_streaming(label_c, mc.cfg, kwc, enc_c, seed=9, rel_tol=FULL_WIDTH_REL_TOL)
+    del mc, pc, kwc_bf16, kwc, enc_c
 
     # ---- 15. the W8A8 main path ----
     fg.generate_cuda(params, mels[MAIN_BATCHES[0]], seed=0, length=16, kw=kw)  # warm-up
@@ -1213,11 +1251,14 @@ def row_phases(model, params, kw_bf16, kw_static, amax, gmodel, gparams, gdir, m
     kw = fk.build_kernel_weights(cfg, params, weight_dtype="int8")
     require(tuple(fk.kernel_mode(kw)) == ("row", "row") and "s_act_inv" not in kw,
             "int8 weights without act_amax are not the per-row mode")
-    enc8 = conditioning(model, params, B=8, L=256, seed=1)
+    enc8 = conditioning(model, params, B=8, L=RUN_STEPS, seed=1)
+    mc, pc, _, enc_c = cycle_model()
+    kwc = fk.build_kernel_weights(mc.cfg, pc, weight_dtype="int8")
+    label_c = f"w8a8 row mol full width {CYCLE_LAYERS} layers"
     pair_share, step_err, step_held, code_share = check_single_steps(
-        "w8a8 row mol full width", cfg, kw, enc8[:96], seed=5, rel_tol=REL_TOL,
+        label_c, mc.cfg, kwc, enc_c[:96], seed=5, rel_tol=REL_TOL,
         rel_tol_max=W8A8_FULL_WIDTH_RUN_TOL)
-    run_err, _ = check_kernel("w8a8 row mol full width", cfg, kw, enc8, seed=5,
+    run_err, _ = check_kernel(label_c, mc.cfg, kwc, enc_c[:RUN_STEPS], seed=5,
                               rel_tol=W8A8_FULL_WIDTH_RUN_TOL)
     m4, p4, kw4_bf16 = full_model("configs/wavenet_mol.json", num_layers=4)
     wav4 = torch.from_numpy(synthetic_wavs(8, 16000, 77)).cuda()
@@ -1240,11 +1281,11 @@ def row_phases(model, params, kw_bf16, kw_static, amax, gmodel, gparams, gdir, m
         m3, p3, _ = full_model(path, num_layers=4)
         kw3 = fk.build_kernel_weights(m3.cfg, p3, weight_dtype="int8")
         err, _ = check_kernel(f"w8a8 row {m3.cfg.loss_type} 4 layers", m3.cfg, kw3,
-                              conditioning(m3, p3, B=8, L=256, seed=2), seed=6, rel_tol=W8A8_REL_TOL)
+                              conditioning(m3, p3, B=8, L=SHALLOW_STEPS, seed=2), seed=6, rel_tol=W8A8_REL_TOL)
         shallow_err = max(shallow_err, err)
     del m3, p3, kw3
     gkw = fk.build_kernel_weights(gmodel.cfg, gparams, weight_dtype="int8")
-    genc = conditioning(gmodel, gparams, B=8, L=256, seed=3)
+    genc = conditioning(gmodel, gparams, B=8, L=SHALLOW_STEPS, seed=3)
     check_single_steps("w8a8 row golden tiny_mol", gmodel.cfg, gkw, genc[:48], seed=7,
                        rel_tol=REL_TOL, rel_tol_max=REL_TOL)
     check_kernel("w8a8 row golden tiny_mol", gmodel.cfg, gkw, genc, seed=7, rel_tol=REL_TOL)
@@ -1295,8 +1336,8 @@ def row_phases(model, params, kw_bf16, kw_static, amax, gmodel, gparams, gdir, m
     del m4, p4, kw4, kw4_bf16, gkw_static, gkw_bf16
 
     # ---- 22. streaming in row mode ----
-    enc_s = conditioning(model, params, B=8, L=STREAM_STEPS, seed=4)
-    check_streaming("w8a8 row mol full width", cfg, kw, enc_s, seed=9, rel_tol=FULL_WIDTH_REL_TOL)
+    check_streaming(label_c, mc.cfg, kwc, enc_c, seed=9, rel_tol=FULL_WIDTH_REL_TOL)
+    del mc, pc, kwc, enc_c
 
     # ---- 23. the slice's main path: calibration-free W8A8 ----
     fg.generate_cuda(params, mels[MAIN_BATCHES[0]], seed=0, length=16, weight_dtype="int8")  # warm-up
@@ -1716,7 +1757,8 @@ def time_flow(x, enc, sw, nl, num_stages, **kw):
     DW = feed.shape[-1] if cond is None else 0
     k_bf = 3 * W + (0 if f32_cond else DW)
     ms = cuda_ms(lambda: flk.flow_stack(x, enc, sw, 0, nl, num_stages, **kw))
-    plain_ms = cuda_ms(lambda: flk.flow_stack_plain(x, enc, sw, 0, nl, num_stages, **kw), reps=1)
+    plain_ms = cuda_ms(lambda: flk.flow_stack_plain(x, enc, sw, 0, nl, num_stages, **kw), reps=1,
+                       warmup=False)
     a = torch.randn((rows, k_bf), device="cuda", dtype=torch.bfloat16)
     g = torch.randn((rows, W // 2), device="cuda", dtype=torch.bfloat16)
     w_comb = sw["w_tap"][:nl].reshape(nl, 3 * W, W).to(torch.bfloat16)
@@ -2689,7 +2731,7 @@ def flow_mode_phases():
 TRAIN_LOSS_REL_TOL = 1e-5
 TRAIN_GRAD_REL_TOL = 1e-2
 TRAIN_UPDATE_REL_TOL = 1e-1
-TRAIN_STEPS = 40  # T2, and the fixed-batch run
+TRAIN_STEPS = 20  # T2, and the fixed-batch run
 TIMED_TRAIN_STEPS = 10  # T5, after 2 warm-up steps
 
 
@@ -2998,7 +3040,6 @@ def training_phases(card, tmp):
     (Q4 reads T2's and S2's); card: nvidia-smi's name and power limit,
     printed beside the timings.  Returns the phases' results and the flow
     kernel's launches on S4's path."""
-    t0 = time.time()
     out = {"T1": t1_card_vs_cpu()}
     run_dir, state, out["T2"] = t2_full_training(tmp)
     out["T2"]["gather"] = runner_gather(run_dir)
@@ -3008,8 +3049,7 @@ def training_phases(card, tmp):
     torch.cuda.empty_cache()
     out["T3"] = t3_resume(tmp)
     out["T5"] = t5_timing(card)
-    log(f"training phases T1-T5: {time.time() - t0:.1f} s")
-    t0 = time.time()
+    lap("T", "T1-T5")
     out["S1"] = s1_card_vs_cpu()
     s_run, s_state, out["S2"] = s2_full_distillation(tmp, run_dir)
     out["S2"]["gather"] = runner_gather(s_run)
@@ -3019,7 +3059,7 @@ def training_phases(card, tmp):
     torch.cuda.empty_cache()
     out["S3"] = s3_resume(tmp, run_dir)
     out["S5"] = s5_timing(card, run_dir)
-    log(f"distillation phases S1-S5: {time.time() - t0:.1f} s")
+    lap("S", "S1-S5")
     return out
 
 
@@ -3503,7 +3543,7 @@ def resize_teacher_phase(card):
                                           RESIZE_F32_REL_TOL) for name, g, c in conds)
     del cpu_params
     out["kernel_err"], _ = check_kernel("33 resize mol full width", cfg, kw,
-                                        conditioning(model, params, B=8, L=256, seed=34), seed=5,
+                                        conditioning(model, params, B=8, L=RUN_STEPS, seed=34), seed=5,
                                         rel_tol=FULL_WIDTH_REL_TOL)
 
     B = RESIZE_TEACHER_BATCH
@@ -4445,11 +4485,11 @@ def m3_seq_two_ranks():
 
 # The tools' own sizes, their training cut to Q_STEPS steps (a loss line
 # every Q_LOG_EVERY) and the teacher's held-out clips to Q_HELD_OUT samples,
-# so that Q1-Q4 fit in about two minutes.  At this step count the quality
+# so that Q1-Q4 fit in about a minute.  At this step count the quality
 # gates are readings, not requirements.
-Q_STEPS = 300
+Q_STEPS = 100
 Q_LOG_EVERY = 10
-Q_HELD_OUT = 4000
+Q_HELD_OUT = 2000
 Q_GOLDEN_SAMPLES = 2000
 Q_LONGFORM_SECONDS = 3
 Q_LONGFORM_CHUNK = 4000
@@ -4717,7 +4757,7 @@ def ar_probe_phase(model, params, kw):
     full-width teacher-forced error, {check: error}, timing, launch facts)}."""
     cfg = model.cfg
     out = {}
-    enc8 = conditioning(model, params, B=8, L=256, seed=1)  # phase 2's input and limit
+    enc8 = conditioning(model, params, B=8, L=FULL_RUN_STEPS, seed=1)  # phase 2's input and limit
     enc_t = conditioning(model, params, B=MAIN_BATCHES[-1], L=TIMED_STEPS,
                          seed=10 + MAIN_BATCHES[-1])  # phase 5's timed input
     _, out_pad = fk.head_layout(cfg)
@@ -4744,7 +4784,7 @@ def ar_probe_phase(model, params, kw):
     gmodel, gparams, _ = golden_model()
     for label, m, p, wavs, seed in (("mol 4 layers", m4, p4, synthetic_wavs(8, 16000, 77), 2),
                                     ("golden tiny_mol", gmodel, gparams, gwavs, 3)):
-        enc = conditioning(m, p, B=8, L=256, seed=seed)
+        enc = conditioning(m, p, B=8, L=SHALLOW_STEPS, seed=seed)
         kw_static, amax = calibrated_w8a8(m, p, wavs)
         kws = {"bf16": fk.build_kernel_weights(m.cfg, p), "w8a8": kw_static,
                "w8a8 row": fk.build_kernel_weights(m.cfg, p, weight_dtype="int8")}
@@ -5044,18 +5084,18 @@ def main():
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
-    t0 = time.time()
+    lap("start", "start (imports, nvidia-smi)")
     for name, (path, report) in build.build_all().items():
         log(f"built {name} -> {os.path.relpath(path, REPO)}")
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {line.strip()}")
-    log(f"kernel build {time.time() - t0:.1f} s")
+    lap("build", "kernel build")
 
     # ---- 2. full-width MoL kernel vs plain ----
     model, params, kw = full_model("configs/wavenet_mol.json")
     cfg = model.cfg
-    enc_t = conditioning(model, params, B=8, L=256, seed=1)
+    enc_t = conditioning(model, params, B=8, L=FULL_RUN_STEPS, seed=1)
     full_err, full_floor = check_kernel("mol full width", cfg, kw, enc_t, seed=5,
                                         rel_tol=FULL_WIDTH_REL_TOL, cpu_floor=True)
 
@@ -5063,10 +5103,10 @@ def main():
     for path in ("configs/wavenet_ce.json", "configs/wavenet_gauss.json"):
         m3, p3, kw3 = full_model(path, num_layers=4)
         check_kernel(f"{m3.cfg.loss_type} 4 layers", m3.cfg, kw3,
-                     conditioning(m3, p3, B=8, L=256, seed=2), seed=6, rel_tol=REL_TOL)
+                     conditioning(m3, p3, B=8, L=SHALLOW_STEPS, seed=2), seed=6, rel_tol=REL_TOL)
     gmodel, gparams, gdir = golden_model()
     check_kernel("golden tiny_mol", gmodel.cfg, fk.build_kernel_weights(gmodel.cfg, gparams),
-                 conditioning(gmodel, gparams, B=8, L=256, seed=3), seed=7, rel_tol=REL_TOL)
+                 conditioning(gmodel, gparams, B=8, L=SHALLOW_STEPS, seed=3), seed=7, rel_tol=REL_TOL)
 
     # ---- 4. Philox uniforms from the kernel's generator ----
     philox_record = philox_phase()
@@ -5144,21 +5184,27 @@ def main():
 
     # ---- 32. the f32 teacher's eval path under PyTorch's default TF32 settings ----
     tf32_phase(gdir)
+    lap("1-26", "2-7, 32")
 
     del main_runs
     kw_static, amax, w8a8_record = w8a8_phases(model, params, kw, gmodel, gparams, gdir, mels)
+    lap("1-26", "12-18")
     row_record = row_phases(model, params, kw, kw_static, amax, gmodel, gparams, gdir, mels)
+    lap("1-26", "19-26")
     prepass_record = prepass_phases(model, params, kw_static, amax, mels,
                                     w8a8_record["kernel_launches"]["quant_enc_kernel"])
     del kw_static, amax
 
     del model, params, kw, fg, mels, gmodel, gparams
     torch.cuda.empty_cache()
+    lap("E", "E1-E3")
     flow_rec = student_phases()
+    lap("1-26", "8-11")
     mode_records = flow_mode_phases()
     torch.cuda.empty_cache()
     carry_record = carry_phases()
     torch.cuda.empty_cache()
+    lap("27-31 / H", "27-31, H1-H3")
     train_tmp = tempfile.TemporaryDirectory()  # T2's and S2's runs, read again by Q4
     trained = training_phases(smi, train_tmp.name)
     flow_rec["launches_distill_serve"] = trained["S4"]["kernel_launches"]["flow_persist_kernel"]
@@ -5168,18 +5214,22 @@ def main():
     flow_rec["launches_from_wav"] = leftover["36"]["student_launches"]
     flow_rec["launches_gate"] = leftover["37"]["student"]["kernel_launches"]["flow_persist_kernel"]
     torch.cuda.empty_cache()
+    lap("33-38")
     m1 = m1_nccl_world_one()
     m2 = m2_gloo_two_ranks()
     m3 = m3_seq_two_ranks()
     flow_rec["launches_sharded_gloo_per_rank"] = [
         r["launches"]["flow_persist_kernel"] for r in m2["ranks"]]
     torch.cuda.empty_cache()
+    lap("M", "M1-M3")
     tools = quality_phases(smi, trained)
     train_tmp.cleanup()
     flow_rec["launches_longform_student"] = tools["Q3"]["student"]["kernel_launches"]
     flow_rec["launches_gather_results"] = tools["Q4"]["gather"]["flow_kernel_launches"]
     torch.cuda.empty_cache()
+    lap("Q", "Q1-Q4")
     probe_records = probe_phases()
+    lap("P", "P1-P3")
 
     big = timings[MAIN_BATCHES[-1]]
     record = {"kernels": [{
@@ -5220,6 +5270,8 @@ def main():
         *probe_records, philox_record]}
     log(f"timed call: B={MAIN_BATCHES[-1]}, {TIMED_STEPS} steps, full width; "
         f"total {time.time() - T_START:.1f} s")
+    print("phase group seconds " + json.dumps({k: round(v, 1) for k, v in GROUP_SECONDS.items()}),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -2,6 +2,10 @@
 Gauss teacher is, how the smoke's student distils from a given teacher, and
 the port's side of a distillation trajectory on shared inputs.
 
+Every command takes --corpus speech|speech_84d3f9e (default speech): the
+smoke's speech-like corpus, or the earlier one of the JAX package's passing
+Gauss run (tools/speech_corpus_84d3f9e.py); its dataset and held-out clips.
+
     python -m nsynth_wavenet_tpu_torch.tools.gauss_pairing sigma --teacher DIR
         the teacher's predicted sigma_p on the smoke's held-out speech clips,
         teacher-forced on their first wave_length samples: p01 / p10 /
@@ -22,7 +26,13 @@ the port's side of a distillation trajectory on shared inputs.
         --teacher_dtype bfloat16 runs that teacher in the smoke's own
         compute dtype, --student_dtype float32 the student in f32 (the
         smoke's is bf16).  A floor above 0 or an f32 student is a reading
-        only: the smoke's config keeps kl_sigma_floor 0 and bf16.
+        only: the smoke's config keeps kl_sigma_floor 0 and bf16.  On the
+        card the distilled student then also serves the same held-out mels
+        through parallelgen.synthesize_cuda (the flow kernel), on the same
+        noise: its amplitude and tracking readings beside the plain
+        path's, and the flow kernel's launches (a reading, not a gate).  A
+        kernel that does not build or launch ends the command with an
+        error; on the CPU the reading is absent and the report says so.
     python -m nsynth_wavenet_tpu_torch.tools.gauss_pairing seed_run \\
             [--seed S] [--steps N] [--segment K]
         the smoke's Gauss teacher trained from scratch at seed S in segments
@@ -91,10 +101,11 @@ def load_teacher(teacher, device="cuda"):
     return runner.load_teacher(path, device)
 
 
-def held_out_batch(wave_length):
-    """The smoke's held-out speech clips cut to their first wave_length
-    samples and the mel frames that cover them: (wav, mel) as f32 numpy."""
-    wavs = qs.held_out_wavs("speech")
+def held_out_batch(wave_length, corpus="speech"):
+    """The smoke's held-out clips of a speech-like corpus cut to their first
+    wave_length samples and the mel frames that cover them: (wav, mel) as
+    f32 numpy."""
+    wavs = qs.held_out_wavs(corpus)
     mel = stft_ops.melspectrogram_np(wavs)
     return (np.ascontiguousarray(wavs[:, :wave_length], np.float32),
             np.ascontiguousarray(mel[:, : wave_length // 200 + 1], np.float32))
@@ -110,7 +121,7 @@ def sigma_stats(sigma) -> dict:
 
 
 @torch.no_grad()
-def teacher_sigma(model, params, device="cuda"):
+def teacher_sigma(model, params, device="cuda", corpus="speech"):
     """The teacher's sigma_p [N, wave_length] on held_out_batch, teacher-forced
     (no dropout), as a float64 numpy array."""
     from nsynth_wavenet_tpu_torch.models.wavenet import no_tf32
@@ -118,7 +129,7 @@ def teacher_sigma(model, params, device="cuda"):
 
     if model.cfg.loss_type != "gauss":
         raise ValueError(f"a Gauss teacher is needed, not {model.cfg.loss_type!r}")
-    wav, mel = held_out_batch(model.cfg.wave_length)
+    wav, mel = held_out_batch(model.cfg.wave_length, corpus)
     wav, mel = torch.from_numpy(wav).to(device), torch.from_numpy(mel).to(device)
     with no_tf32():
         ff, _ = model.feed_forward_train(
@@ -127,9 +138,9 @@ def teacher_sigma(model, params, device="cuda"):
     return sigma.cpu().numpy().astype(np.float64)
 
 
-def read_sigma(teacher, device="cuda") -> dict:
+def read_sigma(teacher, device="cuda", corpus="speech") -> dict:
     model, params = load_teacher(teacher, device)
-    return sigma_stats(teacher_sigma(model, params, device))
+    return sigma_stats(teacher_sigma(model, params, device, corpus))
 
 
 # ---- a teacher run directory from weights ------------------------------------------
@@ -275,16 +286,52 @@ def _student_series(run_dir):
     return series
 
 
+def _ds_dir(work, corpus):
+    return os.path.join(work, "ds" if corpus == "speech" else f"ds_{corpus}")
+
+
+def kernel_reading(run_dir, mel, plain_audio, corpus, device):
+    """The distilled student of ``run_dir`` served through
+    parallelgen.synthesize_cuda on the held-out mels ``mel`` with the plain
+    synthesis's generator (STUDENT_SEED): std, tracking (mel corr, msd, MCD
+    matched vs mismatched, the smoke's tracking gate as a reading), its
+    largest distance from ``plain_audio`` and the flow kernels' CUDA
+    launches by name.  None off the card (the kernel runs only there)."""
+    from nsynth_wavenet_tpu_torch import evaluation
+    from nsynth_wavenet_tpu_torch.models import parallelgen
+    from nsynth_wavenet_tpu_torch.models.parallel_wavenet import ParallelWavenet
+    from nsynth_wavenet_tpu_torch.ops import flow_kernel as flk
+
+    if torch.device(device).type != "cuda":
+        return None
+    cfg, params = evaluation.load_eval_model(run_dir, device=device)
+    before = dict(flk.flow_stack.kernel_launches)
+    audio = parallelgen.synthesize_cuda(
+        ParallelWavenet(cfg), params, torch.from_numpy(mel).to(device),
+        torch.Generator().manual_seed(qs.STUDENT_SEED)).cpu().numpy()
+    launches = {k: n - before.get(k, 0) for k, n in flk.flow_stack.kernel_launches.items()
+                if n - before.get(k, 0)}
+    if not launches:
+        raise RuntimeError("synthesize_cuda launched no flow kernel on the card")
+    mt = qs.mel_track_metrics(audio, mel, qs.HELD_OUT_SAMPLES)
+    return {"std": qs.student_amp_gate(audio)["std"], "corr": mt["corr"], "msd": mt["msd"],
+            "mcd": mt["mcd"], "track": bool(qs.student_tracking_gate(mt, corpus)),
+            "max_abs_diff_vs_plain": float(np.abs(audio - plain_audio).max()),
+            "kernel_launches": launches}
+
+
 def cmd_distill(args):
-    """Distil the smoke's student from --teacher and gate it; writes
+    """Distil the smoke's student from --teacher and gate it, then serve it
+    through the flow kernel on the card (kernel_reading); writes
     <out_dir>/distill_<tag>.json.  Returns 0 when every gate passes."""
     tag = (f"seed{args.seed}_floor{args.floor:g}"
            + (f"_{args.teacher_dtype}_teacher" if args.teacher_dtype else "")
-           + (f"_{args.student_dtype}_student" if args.student_dtype else ""))
+           + (f"_{args.student_dtype}_student" if args.student_dtype else "")
+           + (f"_{args.corpus}" if args.corpus != "speech" else ""))
     work = args.work_dir
-    ds_dir = os.path.join(work, "ds")
+    ds_dir = _ds_dir(work, args.corpus)
     if not os.path.exists(os.path.join(ds_dir, "index.json")):
-        qs.make_speech_corpus(ds_dir)
+        qs.make_speech_corpus(ds_dir, corpus=args.corpus)
     teacher = _resolve(args.teacher)
     te_dir = teacher
     if args.teacher_dtype and not is_weights_dir(teacher):
@@ -292,27 +339,43 @@ def cmd_distill(args):
     if is_weights_dir(teacher):
         te_dir = teacher_run_from_weights(teacher, os.path.join(work, f"teacher_{tag}"),
                                           args.device, args.teacher_dtype or None)
-    te_sigma = read_sigma(te_dir, args.device)
+    te_sigma = read_sigma(te_dir, args.device, args.corpus)
     print("teacher sigma", json.dumps(te_sigma), flush=True)
     t0 = time.time()
-    res = qs.distill_and_gate(te_dir, ds_dir, work, "speech", "gauss", args.steps, args.device,
-                              seed=args.seed, tag=tag, kl_sigma_floor=args.floor,
+    res = qs.distill_and_gate(te_dir, ds_dir, work, args.corpus, "gauss", args.steps,
+                              args.device, seed=args.seed, tag=tag, kl_sigma_floor=args.floor,
                               compute_dtype=args.student_dtype or None)
+    seconds = time.time() - t0
     (l0, kl0, pw0, _), (l1, kl1, pw1, _) = res["log_head"], res["log_tail"]
-    report = {"teacher": args.teacher, "teacher_dtype": args.teacher_dtype or "as stored",
+    os.makedirs(args.out_dir, exist_ok=True)
+    _copy_logs(res["run_dir"], args.out_dir, f"student_{tag}")
+    kernel = kernel_reading(res["run_dir"], res["mel"], res["audio"], args.corpus, args.device)
+    if kernel is None:
+        print("flow kernel reading: absent (no CUDA device; the kernel runs only on the card)",
+              flush=True)
+    else:
+        mc, mmc = kernel["corr"]
+        print(f"flow kernel (synthesize_cuda): std {kernel['std']:.4f} (plain {res['std']:.4f}); "
+              f"mel corr matched {mc:.3f} vs mismatched {mmc:.3f} (plain "
+              f"{res['metrics']['corr'][0]:.3f} vs {res['metrics']['corr'][1]:.3f}); msd "
+              f"{kernel['msd'][0]:.3f} vs {kernel['msd'][1]:.3f}; mcd {kernel['mcd'][0]:.1f} vs "
+              f"{kernel['mcd'][1]:.1f} dB; tracking {kernel['track']}; launches "
+              f"{kernel['kernel_launches']}; max |kernel - plain| "
+              f"{kernel['max_abs_diff_vs_plain']:.4g}", flush=True)
+    report = {"corpus": args.corpus, "teacher": args.teacher,
+              "teacher_dtype": args.teacher_dtype or "as stored",
               "student_dtype": args.student_dtype or "as the smoke's",
               "teacher_sigma": te_sigma, "seed": args.seed, "steps": args.steps,
-              "floor": args.floor, "seconds": time.time() - t0,
+              "floor": args.floor, "seconds": seconds,
               "kl": [kl0, kl1], "power": [pw0, pw1], "loss": [l0, l1],
               "std": res["std"], "corr": res["metrics"]["corr"], "msd": res["metrics"]["msd"],
               "mcd": res["metrics"]["mcd"], "gates": {k: bool(v) for k, v in
                                                       res["gates"].items()},
               "passed": bool(res["passed"]), "run_dir": res["run_dir"],
+              "flow_kernel": kernel if kernel is not None else "absent: not on a CUDA device",
               "series": _student_series(res["run_dir"])}
     if torch.device(args.device).type == "cuda":
         report["card"] = _card_line()
-    os.makedirs(args.out_dir, exist_ok=True)
-    _copy_logs(res["run_dir"], args.out_dir, f"student_{tag}")
     _write_json(os.path.join(args.out_dir, f"distill_{tag}.json"), report)
     print("distill", tag, json.dumps({k: v for k, v in report.items() if k != "series"}),
           flush=True)
@@ -325,8 +388,8 @@ def cmd_seed_run(args):
     from nsynth_wavenet_tpu_torch.training import runner
 
     work = args.work_dir
-    ds_dir = os.path.join(work, "ds")
-    qs.make_speech_corpus(ds_dir)
+    ds_dir = _ds_dir(work, args.corpus)
+    qs.make_speech_corpus(ds_dir, corpus=args.corpus)
     cfg_path = qs._write_config(os.path.join(work, "teacher_gauss.json"),
                                 dict(qs.GAUSS_TEACHER_CFG, num_iters=args.steps))
     t0 = time.time()
@@ -339,13 +402,14 @@ def cmd_seed_run(args):
                                          num_steps=target, ckpt_every_steps=args.segment,
                                          seed=args.seed, device=args.device, **kw)
         readings.append(dict(step=target, seconds=time.time() - t0,
-                             **read_sigma(te_dir, args.device)))
+                             **read_sigma(te_dir, args.device, args.corpus)))
         print("teacher", json.dumps(readings[-1]), flush=True)
         if target == args.steps:
             break
     os.makedirs(args.out_dir, exist_ok=True)
     _copy_logs(te_dir, args.out_dir, "teacher")
-    report = {"seed": args.seed, "steps": args.steps, "teacher_dir": te_dir,
+    report = {"corpus": args.corpus, "seed": args.seed, "steps": args.steps,
+              "teacher_dir": te_dir,
               "teacher_sigma": readings, "seconds": time.time() - t0}
     if torch.device(args.device).type == "cuda":
         report["card"] = _card_line()
@@ -355,8 +419,8 @@ def cmd_seed_run(args):
 
 
 def cmd_sigma(args):
-    r = read_sigma(args.teacher, args.device)
-    print(json.dumps(dict(teacher=args.teacher, **r)))
+    r = read_sigma(args.teacher, args.device, args.corpus)
+    print(json.dumps(dict(teacher=args.teacher, corpus=args.corpus, **r)))
     return 0
 
 
@@ -370,6 +434,7 @@ def cli(argv=None):
         p.add_argument("--out_dir", default=os.path.join(tempfile.gettempdir(), "gauss_pairing"))
         p.add_argument("--seed", type=int, default=0)
         p.add_argument("--steps", type=int, default=30000)
+        p.add_argument("--corpus", default="speech", choices=list(qs.SPEECH_CORPORA))
         if name in ("sigma", "distill"):
             p.add_argument("--teacher", default="golden")
         if name == "distill":

@@ -3,7 +3,7 @@ package's tools/quality_smoke.py): train a small teacher on synthetic audio
 with the port's runner, synthesize from held-out mels, and check that the
 generated audio's spectral content follows the conditioning.
 
-Two corpora (--corpus):
+The corpora (--corpus):
 
 * ``tones`` (default): stationary harmonic tones.  Pass criteria: (1)
   training loss far below uniform, (2) held-out teacher-forced loss far below
@@ -19,6 +19,11 @@ Two corpora (--corpus):
   markedly lower with the MATCHED mel than with a shuffled one (cond gap),
   and free-running audio must correlate with its own conditioning mel more
   than with the other utterances' mels.
+
+* ``speech_84d3f9e`` (the functions only; gauss_pairing --corpus): the
+  earlier, plainer pseudo-speech corpus and held-out clips of the JAX
+  package's passing Gauss student smoke (tools/speech_corpus_84d3f9e.py),
+  under the ``speech`` gates.
 
 The main free run goes through the plain ``Fastgen.generate`` (the JAX tool's
 runs through XLA's ``generate``); ``--compare_cuda`` (the JAX tool's
@@ -60,6 +65,7 @@ from nsynth_wavenet_tpu_torch.data import dataset as data_lib
 from nsynth_wavenet_tpu_torch.data import synthetic
 from nsynth_wavenet_tpu_torch.data import wav_io
 from nsynth_wavenet_tpu_torch.ops import stft as stft_ops
+from nsynth_wavenet_tpu_torch.tools import speech_corpus_84d3f9e
 from nsynth_wavenet_tpu_torch.utils import quality
 from nsynth_wavenet_tpu_torch.utils import tree as tree_lib
 
@@ -123,6 +129,9 @@ HELD_OUT_SEED = 1234  # disjoint from the training corpus's seed
 N_HELD_OUT = 4
 HELD_OUT_SAMPLES = SR  # 1 s held-out clips
 STUDENT_SEED = 7  # the one-shot synthesis's noise
+# speech-like corpora (the conditioning-usage gates), by name: the generator
+# module of the training corpus and of the held-out clips
+SPEECH_CORPORA = {"speech": synthetic, "speech_84d3f9e": speech_corpus_84d3f9e}
 # (label, generate_cuda weight_dtype, calibrated static scales) of --compare_cuda
 CUDA_MODES = (("cuda-bf16", "bf16", False),
               ("cuda-int8", "int8", False),
@@ -156,19 +165,22 @@ def make_corpus(out_dir, sr=SR, seed=0):
     return data_lib.build_dataset_from_arrays(waves, ids, out_dir), pitches
 
 
-def make_speech_corpus(out_dir, seed=0, n_utts=24):
-    waves, ids = synthetic.make_speechlike_corpus(n_utts=n_utts, duration=2.0, seed=seed)
+def make_speech_corpus(out_dir, seed=0, n_utts=24, corpus="speech"):
+    """The dataset of ``n_utts`` two-second utterances of a SPEECH_CORPORA
+    corpus from ``seed``."""
+    waves, ids = SPEECH_CORPORA[corpus].make_speechlike_corpus(n_utts=n_utts, duration=2.0,
+                                                               seed=seed)
     return data_lib.build_dataset_from_arrays(waves, ids, out_dir)
 
 
 def held_out_wavs(corpus):
     """The held-out clips [N_HELD_OUT, HELD_OUT_SAMPLES] of main and
-    main_student: speech-like utterances from HELD_OUT_SEED, or one clean
-    tone a pitch."""
-    if corpus == "speech":
+    main_student: speech-like utterances of the corpus from HELD_OUT_SEED,
+    or one clean tone a pitch."""
+    if corpus in SPEECH_CORPORA:
         rng = np.random.default_rng(HELD_OUT_SEED)
-        return np.stack([synthetic.make_speechlike_utterance(rng, SR, HELD_OUT_SAMPLES / SR)
-                         for _ in range(N_HELD_OUT)])
+        return np.stack([SPEECH_CORPORA[corpus].make_speechlike_utterance(
+            rng, SR, HELD_OUT_SAMPLES / SR) for _ in range(N_HELD_OUT)])
     t = np.arange(HELD_OUT_SAMPLES) / SR
     return np.stack(
         [
@@ -283,7 +295,7 @@ def loss_gate(losses, head, corpus):
         # pseudo-speech is a harder distribution (noise bursts are near the
         # entropy ceiling); thresholds calibrated per corpus, both far below
         # the uniform 5.55 nats
-        thresh = 4.0 if corpus == "speech" else 2.5
+        thresh = 4.0 if corpus in SPEECH_CORPORA else 2.5
         ok = final is not None and final < thresh
     else:
         ok = final is not None and final < losses[0] - 1.0
@@ -294,7 +306,7 @@ def tf_gate(tf_loss, final_loss, head, corpus):
     """Criterion 2: held-out teacher-forced prediction, absolute for CE,
     no-blowup vs the training loss for the continuous heads."""
     if head == "ce":
-        ok = tf_loss < (4.5 if corpus == "speech" else 3.0)
+        ok = tf_loss < (4.5 if corpus in SPEECH_CORPORA else 3.0)
     else:
         ok = final_loss is not None and tf_loss < final_loss + 0.5
     return {"tf_loss": tf_loss, "ok": ok}
@@ -396,7 +408,7 @@ def student_tracking_gate(mt, corpus):
     MCD; correlation alone can miss spectral artifacts); on tones a mel corr
     over 0.4."""
     m_corr, mm_corr = mt["corr"]
-    if corpus == "speech":
+    if corpus in SPEECH_CORPORA:
         spec_ok = (mt["msd"][0] < mt["msd"][1]) and (mt["mcd"][0] < mt["mcd"][1])
         return m_corr > mm_corr + 0.05 and spec_ok
     return m_corr > 0.4
@@ -412,8 +424,8 @@ def _write_config(path, cfg):
 
 
 def _build_corpus(ds_dir, corpus, n_utts):
-    if corpus == "speech":
-        make_speech_corpus(ds_dir, n_utts=n_utts)
+    if corpus in SPEECH_CORPORA:
+        make_speech_corpus(ds_dir, n_utts=n_utts, corpus=corpus)
     else:
         make_corpus(ds_dir)
 
@@ -501,7 +513,7 @@ def teacher_smoke(steps, out_dir, corpus="tones", head="ce", n_utts=24, compare_
     res["tf_loss"], res["gates"]["tf"] = tf_loss, tg["ok"]
     print(f"held-out teacher-forced loss {tf_loss:.3f} -> {tg['ok']}")
 
-    if corpus == "speech":
+    if corpus in SPEECH_CORPORA:
         cg = cond_gate(tf_loss, tf_mis, head)
         mt = mel_track_metrics(audio, mel, n, out_dir=out_dir, wav_prefix="gen_speech")
         res.update(tf_mis=tf_mis, cond_gap=cg["cond_gap"], metrics=mt)
@@ -667,7 +679,7 @@ def distill_and_gate(te_dir, ds_dir, out_dir, corpus, pairing, steps, device="cu
     res["metrics"] = mt
     res["gates"]["track"] = student_tracking_gate(mt, corpus)
     m_corr, mm_corr = mt["corr"]
-    if corpus == "speech":
+    if corpus in SPEECH_CORPORA:
         print(f"student mel corr matched {m_corr:.3f} vs mismatched {mm_corr:.3f}; "
               f"msd {mt['msd'][0]:.3f} vs {mt['msd'][1]:.3f}; "
               f"mcd {mt['mcd'][0]:.1f} vs {mt['mcd'][1]:.1f} dB "
