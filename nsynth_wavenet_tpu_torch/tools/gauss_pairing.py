@@ -37,13 +37,30 @@ Gauss run (tools/speech_corpus_84d3f9e.py); its dataset and held-out clips.
             [--seed S] [--steps N] [--segment K]
         the smoke's Gauss teacher trained from scratch at seed S in segments
         of K steps (resumes of one run), its sigma read after each; its
-        run directory is a --teacher for ``distill``.
+        run directory is a --teacher for ``distill``, and its EMA is written
+        as a golden directory (export_teacher) under <out_dir>/teacher_ema.
+    python -m nsynth_wavenet_tpu_torch.tools.gauss_pairing trajectory \
+            --out FILE.npz [--steps 10000] [--every 1000] [--twin LEAF]
+        the port's side of the shared run on 84d3f9e's corpus: the committed
+        teacher and init of tests/golden/port_gauss_84d3f9e (--twin: every
+        element of one leaf of TWIN_LEAVES one ulp up), the corpus's crops in
+        the runner's order and step_draws(1, step, ...), the smoke's student
+        config; every step's metrics and the params / EMA every --every
+        steps to FILE.npz (save_trajectory).  The JAX side and ``compare``
+        are tools/gauss_pairing_84d3f9e_readings.py.
+    python -m nsynth_wavenet_tpu_torch.tools.gauss_pairing tpu_precision \
+            [--seed S] [--steps N]
+        ``seed_run`` and then ``distill`` from its teacher at seed S, both
+        under tpu_precision.tpu_default_precision() (the STFTs' and the mel
+        product's f32 contractions on bf16-rounded operands, as a TPU
+        computes them); reports under <out_dir>/tpu_seed<S>.
 
 ``port_trajectory`` is the port's side of a distillation on shared inputs
 (crop_pairs, step_draws): tools/gauss_pairing_readings.py runs it beside the
 JAX package's step on the same teacher, student init, crops and draws.
 
-Every command runs on the card unless --device cpu.  Checkpoints and
+Every command runs on the card unless --device cpu, and refuses a card that
+is not there.  Checkpoints and
 datasets go under --work_dir (a new temporary directory by default), the
 reports (report.json, each run's train.log and metrics.jsonl) under
 --out_dir."""
@@ -66,8 +83,16 @@ from nsynth_wavenet_tpu_torch import weights
 from nsynth_wavenet_tpu_torch.ops import stft as stft_ops
 from nsynth_wavenet_tpu_torch.tools import quality_smoke as qs
 
-GOLDEN_GAUSS = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "tests", "golden", "tiny_gauss")
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+GOLDEN_GAUSS = os.path.join(REPO, "tests", "golden", "tiny_gauss")
+# the committed seed-1 teacher of 84d3f9e's corpus and the shared run's student init
+PORT_84D3F9E = os.path.join(REPO, "tests", "golden", "port_gauss_84d3f9e")
+INIT_NPZ = "init_seed1.npz"
+SHARED_SEED = 1
+WINDOW = 1000  # the shared run's window of steps
+# the leaves of the port's twins: one ulp up on every element of one of them
+TWIN_LEAVES = ("['flows'][0]['layers'][0]['dilated']['w']", "['flows'][0]['start_conv']['w']",
+               "['flows'][1]['out2_scale']['w']")
 FLOOR = 0.02  # the share-below reading's sigma
 QUANTILES = (("p01", 0.01), ("p10", 0.1), ("median", 0.5), ("p90", 0.9))
 # the per-step metrics a trajectory keeps (the Gauss student's loss dict)
@@ -243,11 +268,114 @@ def port_trajectory(te_cfg, te_params, st_cfg, st_init, crops, steps, draw_seed,
     return {k: np.asarray(v, np.float64) for k, v in rows.items()}, snaps
 
 
+
 def window_means(rows, window=100) -> dict:
     """{metric: [mean of each window of ``window`` steps]} (the last window
     may be shorter)."""
     return {k: [float(np.mean(v[i: i + window])) for i in range(0, len(v), window)]
             for k, v in rows.items()}
+
+
+# ---- the shared run on 84d3f9e's corpus -------------------------------------------
+
+
+def _sorted_tree(tree):
+    """Dicts with their keys sorted, as JAX's pytrees hold them."""
+    if isinstance(tree, dict):
+        return {k: _sorted_tree(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return [_sorted_tree(v) for v in tree]
+    return tree
+
+
+def is_flow_deconv(key) -> bool:
+    """A leaf of a flow's deconv stack (a copy of the teacher's at the start)."""
+    return key.startswith("['flows']") and "['deconv']" in key
+
+
+def load_shared_init(te_params, directory=PORT_84D3F9E, device="cpu"):
+    """The shared run's student at step 0: the leaves of ``directory``'s
+    init_seed1.npz (JAX's smoke-student init at seed 1, every leaf but the
+    flows' deconv stacks) with the teacher's deconv transplanted into each
+    flow (transplant_teacher_deconv), as the port's tree on ``device``."""
+    from nsynth_wavenet_tpu_torch.models.parallel_wavenet import transplant_teacher_deconv
+
+    with np.load(os.path.join(directory, INIT_NPZ)) as z:
+        flat = {k: z[k] for k in z.files}
+    tree = weights.from_jax_params(weights.unflatten(flat), device)
+    return _sorted_tree(transplant_teacher_deconv(tree, te_params))
+
+
+def ulp_twin(params, leaf):
+    """params with every element of ``leaf`` (a key path) moved one f32 ulp
+    up; the other leaves shared."""
+    flat = weights.flatten(params)
+    if leaf not in flat:
+        raise KeyError(f"no leaf {leaf!r}")
+    flat[leaf] = torch.nextafter(flat[leaf], torch.full_like(flat[leaf], float("inf")))
+    return weights.unflatten(flat)
+
+
+def save_trajectory(path, rows, snaps, init, **meta):
+    """rows {metric: [steps]}, snaps {tag: {key: array}} and the init's
+    leaves as one npz: metric/<k>, snap/<tag>/<key>, meta (json).  The flows'
+    deconv leaves are left out of every snapshot (is_flow_deconv; nine tenths
+    of the bytes)."""
+    out = {f"metric/{k}": np.asarray(v) for k, v in rows.items()}
+    for tag, flat in dict(snaps, init=init).items():
+        out.update({f"snap/{tag}/{k}": np.asarray(v) for k, v in flat.items()
+                    if not is_flow_deconv(k)})
+    out["meta"] = np.asarray(json.dumps(meta))
+    np.savez(path, **out)
+
+
+def load_trajectory(path):
+    """(rows, snaps, meta) of a save_trajectory file."""
+    rows, snaps = {}, {}
+    with np.load(path) as z:
+        for name in z.files:
+            if name.startswith("metric/"):
+                rows[name[7:]] = z[name]
+            elif name.startswith("snap/"):
+                tag, key = name[5:].split("/", 1)
+                snaps.setdefault(tag, {})[key] = z[name]
+        meta = json.loads(str(z["meta"]))
+    return rows, snaps, meta
+
+
+def kl_ratio(kl, window=WINDOW, last=10) -> float:
+    """r: the mean KL over window ``last`` (steps 9 001-10 000 at the
+    defaults) over the mean over the first window (steps 1-1 000)."""
+    kl = np.asarray(kl, np.float64)
+    if len(kl) < last * window:
+        raise ValueError(f"{len(kl)} steps: r needs {last * window}")
+    return float(kl[(last - 1) * window: last * window].mean() / kl[:window].mean())
+
+
+def kl_rise(kl, window=WINDOW, start=5, last=10) -> float:
+    """The mean of the window means from step start * window + 1 to
+    last * window over the first window's mean."""
+    w = window_means({"kl": np.asarray(kl, np.float64)[: last * window]}, window)["kl"]
+    return float(np.mean(w[start:last]) / w[0])
+
+
+def band_rule(jax_kl, port_kls, widen=0.1, window=WINDOW) -> dict:
+    """The decision rule of the shared run (PERF.md §6), on JAX's KL
+    series and the port runs' (the port and its twins):
+    * 'no_fault': JAX's r inside [min port r - widen, max port r + widen]
+      and JAX's rise (kl_rise) at least the least of the port runs';
+    * 'port_fault': JAX's r outside that band;
+    * 'open': otherwise (r inside the band, JAX rising less)."""
+    r_jax = kl_ratio(jax_kl, window)
+    r_port = [kl_ratio(k, window) for k in port_kls]
+    band = [min(r_port) - widen, max(r_port) + widen]
+    rise_jax = kl_rise(jax_kl, window)
+    rise_port = [kl_rise(k, window) for k in port_kls]
+    inside = band[0] <= r_jax <= band[1]
+    verdict = ("port_fault" if not inside
+               else "no_fault" if rise_jax >= min(rise_port) else "open")
+    return {"r_jax": r_jax, "r_port": r_port, "band": band, "rise_jax": rise_jax,
+            "rise_port": rise_port, "verdict": verdict}
 
 
 # ---- the CLI ----------------------------------------------------------------------
@@ -382,6 +510,28 @@ def cmd_distill(args):
     return 0 if report["passed"] else 1
 
 
+def export_teacher(te_dir, out_dir, report, device="cuda"):
+    """Write the EMA of ``te_dir``'s latest checkpoint as a golden directory
+    (make_golden_ckpt's int8 storage and meta.json layout): params.npz and a
+    meta.json naming its config, corpus, seed, steps, card and the sigma
+    quantiles of the stored (round-tripped) weights (report: cmd_seed_run's).
+    Returns out_dir."""
+    from nsynth_wavenet_tpu_torch.tools import make_golden_ckpt
+    from nsynth_wavenet_tpu_torch.training import runner
+
+    _, ema = runner.load_teacher(te_dir, device)
+    stored, _ = make_golden_ckpt.round_trip(ema)
+    with open(runner.find_config_json(te_dir)) as f:
+        cfg = json.load(f)
+    meta = {"config": cfg, "head": cfg["loss_type"], "train_steps": report["steps"],
+            "corpus": report["corpus"], "seed": report["seed"], "card": report.get("card", "cpu")}
+    make_golden_ckpt.write_golden(out_dir, stored, meta)
+    sigma = read_sigma(out_dir, device, report["corpus"])
+    meta["teacher_sigma"] = {k: v for k, v in sigma.items() if k != "log_sigma_mean"}
+    _write_json(os.path.join(out_dir, "meta.json"), meta)
+    return out_dir
+
+
 def cmd_seed_run(args):
     """Train the smoke's Gauss teacher in segments, reading its sigma after
     each; writes <out_dir>/report.json."""
@@ -413,9 +563,68 @@ def cmd_seed_run(args):
               "teacher_sigma": readings, "seconds": time.time() - t0}
     if torch.device(args.device).type == "cuda":
         report["card"] = _card_line()
+    export_teacher(te_dir, os.path.join(args.out_dir, "teacher_ema"), report, args.device)
     _write_json(os.path.join(args.out_dir, "report.json"), report)
     print("report", json.dumps(report), flush=True)
     return 0
+
+
+def shared_configs(teacher=PORT_84D3F9E):
+    """The shared run's configs: the committed teacher's (meta.json) and the
+    smoke's student (quality_smoke.STUDENT_CFG: bf16, kl_sigma_floor 0)."""
+    with open(os.path.join(teacher, "meta.json")) as f:
+        te_dict = json.load(f)["config"]
+    return (config_lib.wavenet_config_from_dict(te_dict),
+            config_lib.pwn_config_from_dict(dict(qs.STUDENT_CFG)))
+
+
+def cmd_trajectory(args):
+    """The port's side of the shared run: the committed teacher and init
+    (with --twin, one leaf moved one ulp), the crops of the corpus's dataset
+    in the runner's order and step_draws(--seed, step); writes --out."""
+    ds_dir = _ds_dir(args.work_dir, args.corpus)
+    if not os.path.exists(os.path.join(ds_dir, "index.json")):
+        qs.make_speech_corpus(ds_dir, corpus=args.corpus)
+    te_cfg, st_cfg = shared_configs(args.teacher)
+    te_params = weights.load_npz(os.path.join(args.teacher, "params.npz"), device=args.device)
+    init = load_shared_init(te_params, args.teacher, args.device)
+    if args.twin:
+        init = ulp_twin(init, args.twin)
+    init_flat = {k: v.copy() for k, v in weights.flatten(weights.to_jax_params(init)).items()}
+    crops = crop_pairs(ds_dir, qs.STUDENT_BATCH, st_cfg.wave_length, args.seed)
+    t0 = time.time()
+    try:
+        rows, snaps = port_trajectory(te_cfg, te_params, st_cfg, init, crops, args.steps,
+                                      args.seed, args.every, args.device)
+    finally:
+        crops.close()
+    meta = {"side": "port", "device": args.device, "seed": args.seed, "steps": args.steps,
+            "twin": args.twin, "corpus": args.corpus, "seconds": time.time() - t0,
+            "torch": torch.__version__, "threads": torch.get_num_threads()}
+    if torch.device(args.device).type == "cuda":
+        meta["card"] = _card_line()
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    save_trajectory(args.out, rows, snaps, init_flat, **meta)
+    w = window_means(rows, WINDOW)
+    print("trajectory", json.dumps(dict(meta, out=args.out, kl_windows=w["kl_loss"],
+                                        power_windows=w["power_loss"])), flush=True)
+    return 0
+
+
+def cmd_tpu_precision(args):
+    """The smoke's teacher (seed_run) and then its student (distill) at
+    --seed, both under tpu_precision.tpu_default_precision(); the reports go
+    under <out_dir>/tpu_seed<S>."""
+    from nsynth_wavenet_tpu_torch.tools.tpu_precision import tpu_default_precision
+
+    out_dir = os.path.join(args.out_dir, f"tpu_seed{args.seed}")
+    sub = dict(vars(args), out_dir=out_dir)
+    with tpu_default_precision():
+        cmd_seed_run(argparse.Namespace(**sub))
+        with open(os.path.join(out_dir, "report.json")) as f:
+            te_dir = json.load(f)["teacher_dir"]
+        return cmd_distill(argparse.Namespace(**dict(sub, teacher=te_dir, floor=0.0,
+                                                     teacher_dtype="", student_dtype="")))
 
 
 def cmd_sigma(args):
@@ -427,27 +636,35 @@ def cmd_sigma(args):
 def cli(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
-    for name in ("sigma", "distill", "seed_run"):
+    for name in ("sigma", "distill", "seed_run", "trajectory", "tpu_precision"):
+        shared = name == "trajectory"
         p = sub.add_parser(name)
         p.add_argument("--device", default="cuda")
         p.add_argument("--work_dir", default="")
         p.add_argument("--out_dir", default=os.path.join(tempfile.gettempdir(), "gauss_pairing"))
-        p.add_argument("--seed", type=int, default=0)
-        p.add_argument("--steps", type=int, default=30000)
-        p.add_argument("--corpus", default="speech", choices=list(qs.SPEECH_CORPORA))
+        p.add_argument("--seed", type=int, default=SHARED_SEED if shared else 0)
+        p.add_argument("--steps", type=int, default=10 * WINDOW if shared else 30000)
+        p.add_argument("--corpus", default="speech_84d3f9e" if shared else "speech",
+                       choices=list(qs.SPEECH_CORPORA))
         if name in ("sigma", "distill"):
             p.add_argument("--teacher", default="golden")
         if name == "distill":
             p.add_argument("--floor", type=float, default=0.0)
             p.add_argument("--teacher_dtype", default="", choices=["", "float32", "bfloat16"])
             p.add_argument("--student_dtype", default="", choices=["", "float32", "bfloat16"])
-        if name == "seed_run":
+        if name in ("seed_run", "tpu_precision"):
             p.add_argument("--segment", type=int, default=5000)
+        if shared:
+            p.add_argument("--teacher", default=PORT_84D3F9E)
+            p.add_argument("--twin", default="", choices=("",) + TWIN_LEAVES)
+            p.add_argument("--every", type=int, default=WINDOW)
+            p.add_argument("--out", required=True)
     args = ap.parse_args(argv)
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         sys.exit("no CUDA device; pass --device cpu for the CPU")
     args.work_dir = args.work_dir or tempfile.mkdtemp(prefix="gauss_pairing_")
-    return {"sigma": cmd_sigma, "distill": cmd_distill, "seed_run": cmd_seed_run}[args.cmd](args)
+    return {"sigma": cmd_sigma, "distill": cmd_distill, "seed_run": cmd_seed_run,
+            "trajectory": cmd_trajectory, "tpu_precision": cmd_tpu_precision}[args.cmd](args)
 
 
 if __name__ == "__main__":

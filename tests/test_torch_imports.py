@@ -35,7 +35,7 @@ def test_port_and_chip_smoke_import_no_jax():
                  "data.native.native", "parallel.mesh", "tools.quality_smoke",
                  "tools.longform_check", "tools.make_golden_ckpt", "tools.make_golden_wavs",
                  "tools.make_eval_model", "tools.downsample", "tools.gather_results",
-                 "tools.gauss_pairing", "tools.speech_corpus_84d3f9e"):
+                 "tools.gauss_pairing", "tools.speech_corpus_84d3f9e", "tools.tpu_precision"):
         assert f"nsynth_wavenet_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
